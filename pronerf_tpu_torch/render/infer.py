@@ -1,0 +1,203 @@
+"""Inference / eval entry points on the eager PyTorch renderer.
+
+- the per-pose neighbors are the nearest num_neighbor reference views,
+  deterministically;
+- bounds are near=0, far=1 in NDC; density corrections always applied;
+- ``use_trt`` (kept for surface parity with the reference's script) selects
+  the bf16 fast path;
+- metrics: PSNR (always), SSIM, and LPIPS when the optional package exists.
+
+Counterpart of ``pronerf_tpu/render/infer.py``. Not ported yet: the LLFF /
+COLMAP data branch, the checkpoint reader (the training slice brings the
+port's own checkpoints), ``export`` and the ``render-path`` video verb.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import shutil
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from pronerf_tpu_torch.config import Config, enforce_flag_contract
+from pronerf_tpu_torch.models.pronerf import RenderStatics, init_pronerf_params
+from pronerf_tpu_torch.render.raygen import prepare_scene
+from pronerf_tpu_torch.render.renderer import render_path
+from pronerf_tpu_torch.utils.tensors import resolve_device
+
+
+def setup_expdir(cfg: Config) -> Path:
+    """Create ``basedir/expname`` and record the arguments there."""
+    expdir = Path(cfg.basedir) / cfg.expname
+    expdir.mkdir(parents=True, exist_ok=True)
+    with open(expdir / "args.txt", "w") as fh:
+        for f in sorted(dataclasses.fields(cfg), key=lambda f: f.name):
+            fh.write(f"{f.name} = {getattr(cfg, f.name)}\n")
+    if cfg.config and Path(cfg.config).exists():
+        shutil.copy(cfg.config, expdir / "config.txt")
+    return expdir
+
+
+def load_inference_data(cfg: Config):
+    """The synthetic stand-in scene (``datadir = synthetic[:WxHxV]``).
+
+    Also enforces the flag contract (every inference entry point loads data
+    first, so rejected/vestigial flags are reported before any work)."""
+    enforce_flag_contract(cfg)
+    if not cfg.datadir.startswith("synthetic"):
+        raise NotImplementedError(
+            f"datadir={cfg.datadir!r}: the LLFF / COLMAP loaders are not "
+            "ported to pronerf_tpu_torch yet (the data slice); use "
+            "datadir='synthetic' or 'synthetic:WxHxV'"
+        )
+    from pronerf_tpu_torch.utils.synthetic import (
+        make_consistent_scene,
+        parse_synthetic_spec,
+    )
+
+    sc = make_consistent_scene(seed=cfg.seed,
+                               **parse_synthetic_spec(cfg.datadir))
+    images = sc["images"]
+    H, W, focal = sc["hwf"]
+    poses = sc["poses"]
+    i_test = np.arange(len(images))[:: cfg.llffhold]
+    i_train = np.array([i for i in range(len(images)) if i not in i_test])
+    i_ref = i_train[: cfg.num_neighbor]
+    return {
+        "images": images, "poses": poses, "i_test": i_test,
+        "i_ref": i_ref, "H": H, "W": W, "focal": focal, "K": sc["K"],
+        "render_poses": poses[i_train][:6],
+    }
+
+
+def _infer_statics(cfg: Config, use_bf16: bool) -> RenderStatics:
+    use_kernels = cfg.use_pallas and cfg.netarch == "nerf"
+    return RenderStatics.infer(
+        compute_dtype="bfloat16" if use_bf16 else cfg.compute_dtype,
+        use_kernels=use_kernels,
+        quant=cfg.quant if use_kernels else "none",
+        # -1 (auto) resolves to off: the windowed gather is not ported
+        gather_tiles=max(cfg.gather_tiles, 0),
+        gather_bf16=cfg.gather_bf16,
+        gather_split=cfg.gather_split,
+        gather_transposed=cfg.gather_transposed,
+        transposed=cfg.transposed,
+        netarch=cfg.netarch,
+        N_samples=cfg.N_samples,
+        N_point_ray_enc=cfg.N_point_ray_enc,
+        num_neighbor=cfg.num_neighbor,
+        multires=cfg.multires,
+        multires_views=cfg.multires_views,
+        white_bkgd=cfg.white_bkgd,
+    )
+
+
+def _init_params(cfg: Config, generator: torch.Generator, device):
+    return init_pronerf_params(
+        generator,
+        netarch=cfg.netarch,
+        netdepth=cfg.netdepth,
+        netwidth=cfg.netwidth,
+        mmnetdepth=cfg.mmnetdepth,
+        mmnetwidth=cfg.mmnetwidth,
+        N_samples=cfg.N_samples,
+        N_point_ray_enc=cfg.N_point_ray_enc,
+        num_neighbor=cfg.num_neighbor,
+        multires=cfg.multires,
+        multires_views=cfg.multires_views,
+        device=device,
+    )
+
+
+def _load_params(cfg: Config, expdir, device):
+    ckpts = sorted(Path(expdir).glob("*.ckpt"))
+    if cfg.ft_path or ckpts:
+        raise NotImplementedError(
+            f"checkpoint {cfg.ft_path or ckpts[-1]}: the checkpoint reader "
+            "is not ported to pronerf_tpu_torch yet (the training slice "
+            "brings the port's own format); weights cross from the JAX "
+            "package through convert.params_from_numpy"
+        )
+    print("WARNING: no checkpoint found; rendering with random weights")
+    return _init_params(cfg, torch.Generator().manual_seed(cfg.seed), device)
+
+
+def run_inference(cfg: Config, timing_reps: int = 0, device="cuda"):
+    """``infer`` / ``eval``: render the held-out test poses, report metrics.
+
+    Runs on the card by default and raises without one; ``device='cpu'``
+    runs the plain versions."""
+    device = resolve_device(device)
+    data = load_inference_data(cfg)
+    expdir = setup_expdir(cfg)
+    params = _load_params(cfg, expdir, device)
+
+    if cfg.warp_interp == "nearest":
+        raise NotImplementedError(
+            "warp_interp='nearest' is not ported to pronerf_tpu_torch yet"
+        )
+    scene = prepare_scene(
+        data["images"][data["i_ref"]], data["poses"][data["i_ref"]], data["K"],
+        pack_corners="u8", device=device,
+    )
+    statics = _infer_statics(cfg, use_bf16=cfg.use_trt)
+
+    i_test = data["i_test"]
+    if cfg.max_images is not None:
+        i_test = i_test[: cfg.max_images]
+    savedir = expdir / "renderonly_test"
+    result = render_path(
+        data["poses"][i_test], params, scene, statics,
+        data["H"], data["W"], data["K"],
+        gt_imgs=data["images"][i_test] if cfg.render_factor == 0 else None,
+        savedir=savedir,
+        tile_rays=cfg.tile_rays, timing_reps=timing_reps,
+        render_factor=cfg.render_factor, device=device,
+    )
+
+    # SSIM / LPIPS on top of render_path's PSNR report
+    from pronerf_tpu_torch.ops.metrics import img2ssim, rgb_lpips
+
+    ssims, lpipss = [], []
+    for k, idx in enumerate(i_test if cfg.render_factor == 0 else []):
+        gt = np.asarray(data["images"][idx])
+        pred = result["rgbs1"][k]
+        ssims.append(img2ssim(pred, gt))
+        lp = rgb_lpips(gt, pred)
+        if lp is not None:
+            lpipss.append(lp)
+    if ssims:
+        print(f"Mean Test SSIM {float(np.mean(ssims))}")
+    if lpipss:
+        print(f"Mean Test LPIPS {float(np.mean(lpipss))}")
+    result["ssims"] = ssims
+    result["lpips"] = lpipss
+
+    # Analytic MACs report (surface parity with the reference's print:
+    # per-net sampler+refine MACs and ``Total flops:`` = 2x their sum).
+    from pronerf_tpu_torch.utils.profiling import pipeline_macs
+
+    rf = max(1, cfg.render_factor)
+    macs = pipeline_macs(
+        data["H"] // rf, data["W"] // rf,
+        N_samples=cfg.N_samples, N_point_ray_enc=cfg.N_point_ray_enc,
+        num_neighbor=cfg.num_neighbor, netwidth=cfg.netwidth,
+        mmnetwidth=cfg.mmnetwidth, mmnetdepth=cfg.mmnetdepth,
+    )
+    print("min_max_ray_net", macs["sampler"])
+    print("refine_net", macs["refine"])
+    print("Total flops:", 2 * (macs["sampler"] + macs["refine"]))
+    print(f"(full pipeline incl. NeRF: "
+          f"{2 * sum(macs.values()) / 1e9:.2f} GFLOPs/frame)")
+    result["macs"] = macs
+
+    if result["times_ms"]:
+        ms = float(np.median(result["times_ms"]))
+        where = (torch.cuda.get_device_name(device)
+                 if device.type == "cuda" else "cpu")
+        print(f"Median render ms/frame on {where}: {ms:.3f} "
+              f"({data['H'] * data['W'] / rf / rf / ms * 1e3 / 1e6:.2f} "
+              f"Mrays/s)")
+    return result

@@ -1,0 +1,186 @@
+"""Full-frame rendering over fixed-size ray tiles, in eager PyTorch.
+
+- a frame is H*W rays cut into tiles of ``tile_rays`` (the last one may be
+  short: the kernels mask a ragged edge themselves, so nothing is padded); a
+  Python loop over the tiles keeps peak memory flat;
+- everything per-pose (ray generation, neighbor selection) happens inside
+  the one ``render_frame`` call, under ``torch.no_grad()``;
+- ``compute_dtype='bfloat16'`` runs the three MLPs with bf16 operands and
+  f32 accumulation;
+- the kernel panels are packed once, when the renderer first sees a set of
+  parameters, not once a frame.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from pronerf_tpu_torch.kernels.packing import pack_serving_params
+from pronerf_tpu_torch.models.pronerf import RenderStatics, render_rays
+from pronerf_tpu_torch.render.raygen import rays_for_pose
+from pronerf_tpu_torch.utils.tensors import as_f32, resolve_device
+
+_FRAME_KEYS = ("rgb1", "rgb0", "depth", "mm_rgb", "depth0")
+
+
+def make_frame_renderer(
+    statics: RenderStatics,
+    H: int,
+    W: int,
+    K,
+    tile_rays: int = 8192,
+    device="cuda",
+):
+    """Build a ``(params, scene, c2w) -> frame dict`` renderer.
+
+    ``tile_rays=0`` (or >= H*W) selects the SERVING configuration: the whole
+    frame as one tile, so each kernel is launched once a frame. The default
+    device is the card; without one the call raises (pass ``device='cpu'``
+    to run the plain versions).
+
+    Returns tensors on ``device``: rgb1, rgb0, mm_rgb [H, W, 3]; depth,
+    depth0 [H, W].
+    """
+    device = resolve_device(device)
+    K = np.asarray(K)
+    if not tile_rays or tile_rays >= H * W:
+        tile_rays = H * W
+    packed_for = {}
+
+    @torch.no_grad()
+    def render_frame(params, scene, c2w):
+        # pack once per parameter set, outside the tile loop
+        if packed_for.get("source") is not params:
+            packed_for["source"] = params
+            packed_for["packed"] = pack_serving_params(params, statics)
+        packed = packed_for["packed"]
+        c2w = as_f32(c2w, device)
+        rays = rays_for_pose(H, W, K, c2w, device)
+        controls = {"target_t": c2w[:3, 3]}
+        outs = []
+        for lo in range(0, H * W, tile_rays):
+            tile = {k: v[lo:lo + tile_rays] for k, v in rays.items()}
+            out = render_rays(packed, tile, scene, controls, statics)
+            outs.append({k: out[k] for k in _FRAME_KEYS})
+        flat = {
+            k: outs[0][k] if len(outs) == 1
+            else torch.cat([o[k] for o in outs], dim=0)
+            for k in _FRAME_KEYS
+        }
+        return {
+            "rgb1": flat["rgb1"].reshape(H, W, 3),
+            "rgb0": flat["rgb0"].reshape(H, W, 3),
+            "depth": flat["depth"].reshape(H, W),
+            "mm_rgb": flat["mm_rgb"].reshape(H, W, 3),
+            "depth0": flat["depth0"].reshape(H, W),
+        }
+
+    return render_frame
+
+
+def _timed_ms(fn, device) -> float:
+    """One call of ``fn`` in ms: CUDA events around it on the card, the host
+    clock on the CPU."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize(device)
+        return start.elapsed_time(end)
+    import time
+
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def render_path(
+    render_poses,
+    params,
+    scene,
+    statics: RenderStatics,
+    H: int,
+    W: int,
+    K,
+    gt_imgs=None,
+    savedir: Optional[str] = None,
+    tile_rays: int = 8192,
+    timing_reps: int = 0,
+    render_factor: int = 0,
+    device="cuda",
+):
+    """Render a pose list; save PNGs and report PSNR: per-pose PNG dumps
+    with ``{i:03d}.png`` / ``rgb0_`` / ``depth_`` / ``gt_`` prefixes and mean
+    test PSNR for both the NeRF output (rgb1) and the refine-net output
+    (rgb0).
+
+    ``timing_reps > 0`` re-renders each pose that many times and prints
+    ``Render path time:`` per rep, timed by CUDA events around the frame
+    after a synchronise (the first render of each pose is the warm-up).
+    """
+    from pronerf_tpu_torch.ops.metrics import to8b
+    from pronerf_tpu_torch.utils.png import write_png
+
+    device = resolve_device(device)
+    if render_factor != 0:
+        H, W = H // render_factor, W // render_factor
+        K = np.asarray(K) / render_factor
+        K = np.concatenate([K[:2], [[0, 0, 1]]], 0)
+
+    renderer = make_frame_renderer(statics, H, W, K, tile_rays, device)
+    rgbs0, rgbs1, depths, psnrs, psnrs0, times_ms = [], [], [], [], [], []
+
+    for i, c2w in enumerate(np.asarray(render_poses)):
+        c2w = c2w[:3, :4]
+        out = renderer(params, scene, c2w)
+        for _ in range(timing_reps):
+            ms = _timed_ms(lambda: renderer(params, scene, c2w), device)
+            times_ms.append(ms)
+            print(f"Render path time: {ms:.3f}")
+        rgb1 = out["rgb1"].cpu().numpy()
+        rgb0 = out["rgb0"].cpu().numpy()
+        depth = out["depth"].cpu().numpy()
+        rgbs1.append(rgb1)
+        rgbs0.append(rgb0)
+        depths.append(depth)
+
+        if gt_imgs is not None and render_factor == 0:
+            gt = np.asarray(gt_imgs[i])
+            psnrs.append(float(-10.0 * np.log10(np.mean((rgb1 - gt) ** 2))))
+            psnrs0.append(float(-10.0 * np.log10(np.mean((rgb0 - gt) ** 2))))
+
+        if savedir is not None:
+            savedir = Path(savedir)
+            savedir.mkdir(parents=True, exist_ok=True)
+            write_png(savedir / f"{i:03d}.png", to8b(rgb1))
+            write_png(savedir / f"rgb0_{i:03d}.png", to8b(rgb0))
+            write_png(
+                savedir / f"depth_{i:03d}.png",
+                to8b(depth / max(depth.max(), 1e-8)),
+            )
+            if gt_imgs is not None:
+                write_png(savedir / f"gt_{i:03d}.png",
+                          to8b(np.asarray(gt_imgs[i])))
+
+    result = {
+        "rgbs0": np.stack(rgbs0) if rgbs0 else None,
+        "rgbs1": np.stack(rgbs1) if rgbs1 else None,
+        "depths": np.stack(depths) if depths else None,
+        "psnrs": psnrs,
+        "psnrs0": psnrs0,
+        "times_ms": times_ms,
+    }
+    if psnrs:
+        print(psnrs)
+        print(f"Mean Test PSNR {float(np.mean(psnrs))}")
+    if psnrs0:
+        print(psnrs0)
+        print(f"Mean Test PSNR {float(np.mean(psnrs0))}")
+    return result

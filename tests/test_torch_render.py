@@ -1,0 +1,291 @@
+"""The slice as a whole: the port's ``render_rays``, frame renderer and
+serving entry point against the JAX package, on the CPU.
+
+Fixture: ``make_scene(n_views=5, H=16, W=20)``, the scene of the JAX
+package's own kernel tests. Weights come from the JAX initialiser through
+``convert.params_from_numpy``; rays are made once (by the JAX ray generator)
+and handed to both as numpy. The port's kernels run as their plain versions
+(CPU tensors), the JAX kernels in interpret mode.
+
+The main comparisons render a HELD-OUT pose (pose 1 from source views
+0, 2, 3, 4), as served frames are. With the target pose among the source
+views, every sample of a ray projects exactly onto a pixel centre of that
+view; a last-bit difference in the projection then moves border pixels
+across the out-of-bounds test and zeroes a colour. One test keeps that
+fixture, for the keys the JAX test checks on it.
+
+Tolerances. f32: ``atol 5e-5``, ``depth 5e-4`` (the JAX test's bounds for
+its own kernel path against its plain path), ``disp 1e-3`` as the JAX
+composite test. bf16 against JAX bf16: ``0.02`` on colours and depths (the
+JAX test's bound between its two bf16 paths), ``0.05`` on sigma logits;
+``disp`` = 1 / (depth / acc) is compared relative to its size, on at least
+98% of the rays (the reason stands at the comparison).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from pronerf_tpu.models import RenderStatics as JStatics
+from pronerf_tpu.models import init_pronerf_params as j_init
+from pronerf_tpu.models import render_rays as j_render_rays
+from pronerf_tpu.render import prepare_scene as j_prepare_scene
+from pronerf_tpu.render.raygen import rays_for_pose as j_rays_for_pose
+from pronerf_tpu.render.renderer import make_frame_renderer as j_make_renderer
+from pronerf_tpu.utils.synthetic import make_scene
+from pronerf_tpu_torch import convert
+from pronerf_tpu_torch.models.pronerf import RenderStatics, render_rays
+from pronerf_tpu_torch.render.raygen import rays_for_pose
+from pronerf_tpu_torch.render.renderer import make_frame_renderer
+
+# The suite runs several workers side by side; two threads a worker keep
+# PyTorch's CPU kernels from crowding the other workers' tests.
+torch.set_num_threads(2)
+
+KEYS = ("rgb0", "rgb1", "depth", "disp", "acc", "weights", "mm_rgb",
+        "depth0", "sigma")
+H, W = 16, 20
+
+
+class Fixture:
+    def __init__(self, ref):
+        sc = make_scene(n_views=5, H=H, W=W, seed=0)
+        self.sc, self.pose = sc, sc["poses"][1]
+        self.jscene = j_prepare_scene(sc["images"][ref], sc["poses"][ref],
+                                      sc["K"])
+        self.jparams = j_init(jax.random.PRNGKey(0))
+        self.jrays = j_rays_for_pose(H, W, sc["K"], self.pose)
+        self.jcontrols = {"rng": jax.random.PRNGKey(0),
+                          "target_t": jnp.asarray(self.pose[:3, 3])}
+        self.params = convert.params_from_numpy(
+            jax.tree_util.tree_map(np.asarray, self.jparams))
+        self.scene = convert.scene_from_numpy(
+            sc["images"][ref], sc["poses"][ref], sc["K"])
+        self.rays = {k: torch.from_numpy(np.array(v))
+                     for k, v in self.jrays.items()}
+        self.controls = {"target_t": torch.from_numpy(self.pose[:3, 3].copy())}
+
+    def both(self, compute_dtype=None, use_kernels=False, **kw):
+        want = j_render_rays(
+            self.jparams, self.jrays, self.jscene, self.jcontrols,
+            JStatics.infer(compute_dtype=compute_dtype, use_pallas=use_kernels,
+                           pallas_block_rays=128, **kw))
+        with torch.no_grad():
+            got = render_rays(
+                self.params, self.rays, self.scene, self.controls,
+                RenderStatics.infer(compute_dtype=compute_dtype,
+                                    use_kernels=use_kernels, **kw))
+        assert set(got) == set(want) == set(KEYS)
+        return ({k: v.numpy() for k, v in got.items()},
+                {k: np.asarray(v, np.float32) for k, v in want.items()})
+
+
+@pytest.fixture(scope="module")
+def held_out():
+    return Fixture(ref=[0, 2, 3, 4])
+
+
+PATHS = [(False, False), (True, False), (True, True)]
+
+
+@pytest.mark.parametrize("use_kernels,fuse_composite", PATHS)
+def test_render_rays_f32_all_keys(held_out, use_kernels, fuse_composite):
+    got, want = held_out.both(None, use_kernels, fuse_composite=fuse_composite)
+    for k in KEYS:
+        assert got[k].shape == want[k].shape, k
+        atol = {"depth": 5e-4, "disp": 1e-3}.get(k, 5e-5)
+        np.testing.assert_allclose(got[k], want[k], atol=atol, err_msg=k)
+
+
+@pytest.mark.parametrize("use_kernels,fuse_composite", PATHS)
+def test_render_rays_bf16_all_keys(held_out, use_kernels, fuse_composite):
+    got, want = held_out.both("bfloat16", use_kernels,
+                              fuse_composite=fuse_composite)
+    for k in KEYS:
+        assert got[k].shape == want[k].shape and got[k].dtype == np.float32, k
+        if k == "disp":
+            # With freshly initialised nets a ray is almost transparent
+            # (acc ~ 1e-5), and disp = acc / depth is the ratio of two sums
+            # of a few such weights. Where bf16 noise moves one sample's
+            # relu(mm_mul) across zero the ratio jumps, so single rays (one
+            # of 320 here) may leave the bound: at least 98% must hold it.
+            rel = np.abs(got[k] - want[k]) / np.abs(want[k])
+            assert np.all(np.isfinite(got[k])) and np.mean(rel <= 0.05) >= 0.98
+        else:
+            np.testing.assert_allclose(
+                got[k], want[k], atol=0.05 if k == "sigma" else 0.02,
+                err_msg=k)
+
+
+def test_render_rays_paths_agree_within_the_port(held_out):
+    """Kernel path (plain versions) against the kernel-free path, and the two
+    composite forms, f32: the query points built per (s, c) row equal those
+    built from the [n, S, 3] offsets."""
+    outs = {}
+    with torch.no_grad():
+        for use_kernels, fuse in PATHS:
+            outs[use_kernels, fuse] = render_rays(
+                held_out.params, held_out.rays, held_out.scene,
+                held_out.controls,
+                RenderStatics.infer(use_kernels=use_kernels,
+                                    fuse_composite=fuse))
+    base = outs[False, False]
+    for key in ((True, False), (True, True)):
+        for k in KEYS:
+            atol = {"depth": 5e-4, "disp": 1e-3}.get(k, 5e-5)
+            np.testing.assert_allclose(outs[key][k].numpy(), base[k].numpy(),
+                                       atol=atol, err_msg=f"{key} {k}")
+    z_mean = base["depth0"].numpy()
+    assert z_mean.shape == (H * W,) and np.all((z_mean > 0) & (z_mean < 1))
+
+
+def test_render_rays_on_the_jax_tests_own_fixture():
+    """Target pose among the five source views, as in the JAX package's
+    tests, on the keys those tests check."""
+    fx = Fixture(ref=[0, 1, 2, 3, 4])
+    got, want = fx.both(None, True)
+    for k, atol in (("rgb1", 5e-5), ("depth", 5e-4), ("weights", 5e-5)):
+        np.testing.assert_allclose(got[k], want[k], atol=atol, err_msg=k)
+
+
+def test_unported_branches_raise_by_name():
+    fx_statics = RenderStatics.infer()
+    for kw, word in ((dict(quant="int8"), "int8"),
+                     (dict(transposed=True), "transposed"),
+                     (dict(gather_tiles=4), "windowed"),
+                     (dict(netarch="donerf"), "donerf")):
+        with pytest.raises(NotImplementedError, match=word):
+            render_rays({}, {}, {}, {}, dataclasses.replace(fx_statics, **kw))
+    for factory in (RenderStatics.stage1_nerf, RenderStatics.stage1_sampler,
+                    RenderStatics.stage2):
+        with pytest.raises(NotImplementedError, match="training"):
+            render_rays({}, {}, {}, {}, factory())
+
+
+def test_render_statics_twin_has_the_same_fields_and_defaults():
+    j = {f.name: f.default for f in dataclasses.fields(JStatics)}
+    t = {f.name: f.default for f in dataclasses.fields(RenderStatics)}
+    assert j.pop("use_pallas") == t.pop("use_kernels")
+    assert j == t
+    ji, ti = JStatics.infer(), RenderStatics.infer()
+    for name in t:
+        assert getattr(ji, name) == getattr(ti, name), name
+    hash(RenderStatics.infer(compute_dtype="bfloat16", use_kernels=True))
+
+
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_frame_renderer_whole_frame_tiled_and_jax(held_out, compute_dtype):
+    """Whole frame in one tile, tiles of 96 rays (ragged: 320 = 3 * 96 + 32)
+    and the JAX renderer give the same frame."""
+    fx = held_out
+    use_kernels = compute_dtype is not None
+    statics = RenderStatics.infer(compute_dtype=compute_dtype,
+                                  use_kernels=use_kernels)
+    whole = make_frame_renderer(statics, H, W, fx.sc["K"], 0, device="cpu")(
+        fx.params, fx.scene, fx.pose)
+    tiled = make_frame_renderer(statics, H, W, fx.sc["K"], 96, device="cpu")(
+        fx.params, fx.scene, fx.pose)
+    want = j_make_renderer(
+        JStatics.infer(compute_dtype=compute_dtype, use_pallas=use_kernels,
+                       pallas_block_rays=128),
+        H, W, fx.sc["K"], tile_rays=0)(fx.jparams, fx.jscene,
+                                       jnp.asarray(fx.pose))
+    assert set(whole) == set(want)
+    atol = 5e-5 if compute_dtype is None else 0.02
+    for k, v in whole.items():
+        assert v.shape == want[k].shape == ((H, W, 3) if v.dim() == 3 else (H, W))
+        # a tile is rendered by the same code on fewer rows: same values
+        np.testing.assert_allclose(tiled[k].numpy(), v.numpy(), atol=1e-6,
+                                   err_msg=k)
+        np.testing.assert_allclose(
+            v.numpy(), np.asarray(want[k], np.float32),
+            atol=5e-4 if (k == "depth" and compute_dtype is None) else atol,
+            err_msg=k)
+
+
+def test_rays_for_pose_matches_jax(held_out):
+    rays = rays_for_pose(H, W, held_out.sc["K"], held_out.pose, device="cpu")
+    assert set(rays) == set(held_out.jrays)
+    for k, v in rays.items():
+        np.testing.assert_allclose(v.numpy(), np.asarray(held_out.jrays[k]),
+                                   atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_run_inference_synthetic_on_cpu(tmp_path, capsys, use_kernels):
+    from pronerf_tpu_torch.config import Config
+    from pronerf_tpu_torch.render.infer import run_inference
+
+    cfg = Config.from_file(
+        "configs/llff/fern/fern_trt.txt", datadir="synthetic:24x18x9",
+        use_trt=True, tile_rays=0, use_pallas=use_kernels,
+        basedir=str(tmp_path), ft_path="")
+    result = run_inference(cfg, timing_reps=1, device="cpu")
+    out = capsys.readouterr().out
+    assert "rendering with random weights" in out and "Total flops:" in out
+    assert result["rgbs1"].shape == (2, 18, 24, 3)
+    assert len(result["psnrs"]) == 2 and np.all(np.isfinite(result["psnrs"]))
+    assert np.all(np.isfinite(result["ssims"])) and len(result["times_ms"]) == 2
+    assert np.all(np.isfinite(result["rgbs1"]))
+    saved = sorted(p.name for p in
+                   (tmp_path / cfg.expname / "renderonly_test").iterdir())
+    assert saved[:2] == ["000.png", "001.png"] and "gt_001.png" in saved
+    png = (tmp_path / cfg.expname / "renderonly_test" / "000.png").read_bytes()
+    assert png[:8] == b"\x89PNG\r\n\x1a\n"
+    with pytest.raises(NotImplementedError, match="LLFF"):
+        run_inference(cfg.replace(datadir="data/nerf_llff_data/fern"),
+                      device="cpu")
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        run_inference(cfg.replace(ft_path="logs/370000.tar"), device="cpu")
+
+
+@pytest.mark.parametrize("name", ["fern_epi.txt", "fern_refine.txt",
+                                  "fern_trt.txt"])
+def test_own_config_copy_parses_the_release_configs_like_jax(name, capsys):
+    from pronerf_tpu import config as j_config
+    from pronerf_tpu_torch import config as t_config
+
+    path = f"configs/llff/fern/{name}"
+    got = t_config.Config.from_file(path, use_trt=True, tile_rays=None)
+    want = j_config.Config.from_file(path, use_trt=True, tile_rays=None)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.tile_rays == 8192 and got.use_trt is True
+    assert t_config.Config.field_names() == j_config.Config.field_names()
+    assert len(t_config.enforce_flag_contract(got)) == len(
+        j_config.enforce_flag_contract(want))
+    with pytest.raises(NotImplementedError):
+        t_config.enforce_flag_contract(got.replace(render_only=True))
+    with pytest.raises(KeyError):
+        t_config._coerce(t_config.Config, "no_such_key", "1")
+
+
+def test_own_synthetic_copy_makes_the_same_scenes():
+    from pronerf_tpu.utils import synthetic as j_syn
+    from pronerf_tpu_torch.utils import synthetic as t_syn
+
+    assert t_syn.parse_synthetic_spec("synthetic:504x378x17") == \
+        j_syn.parse_synthetic_spec("synthetic:504x378x17")
+    assert t_syn.parse_synthetic_spec("synthetic") == \
+        j_syn.parse_synthetic_spec("synthetic")
+    for make_t, make_j in ((t_syn.make_scene, j_syn.make_scene),
+                           (t_syn.make_consistent_scene,
+                            j_syn.make_consistent_scene)):
+        a = make_t(n_views=3, H=10, W=12, seed=5)
+        b = make_j(n_views=3, H=10, W=12, seed=5)
+        assert a["hwf"] == b["hwf"]
+        for k in ("images", "poses", "K", "bds"):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_pipeline_macs_copy_matches_jax():
+    from pronerf_tpu.utils.profiling import pipeline_macs as j_macs
+    from pronerf_tpu_torch.utils.profiling import pipeline_macs as t_macs
+
+    assert t_macs(378, 504) == j_macs(378, 504)
+    assert t_macs(20, 30, num_neighbor=2, N_samples=4) == \
+        j_macs(20, 30, num_neighbor=2, N_samples=4)
