@@ -65,6 +65,14 @@ struct PF32 {
   static __device__ __forceinline__ float f(T v) { return v; }
 };
 
+// A weight-blob value through the read-only path: the compiler may then keep
+// one load for all the rows of a column instead of reloading after every
+// store.
+template <class T>
+__device__ __forceinline__ T ro(const T* p) {
+  return __ldg(p);
+}
+
 // round(a + b) in the pack dtype
 template <class P>
 __device__ __forceinline__ typename P::T add(typename P::T a,
@@ -109,12 +117,13 @@ __device__ __forceinline__ void ldmatrix_a(uint32_t (&a)[4],
 }
 
 // A warp computes MT*16 rays by NT*8 outputs starting at (m0, n0) and hands
-// every element, still an f32 accumulator, to epi(ray, out, acc).
-template <int MT, int NT, class Epi>
+// the f32 accumulators, as the pairs (out, out + 1) of a ray that a lane
+// holds, to sink(ray, out, acc0, acc1).
+template <int MT, int NT, class Sink>
 __device__ __forceinline__ void warp_tile_bf16(const __nv_bfloat16* in,
                                                int ld, int K,
                                                const __nv_bfloat16* Wg,
-                                               int m0, int n0, Epi& epi) {
+                                               int m0, int n0, Sink& sink) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   float acc[MT][NT][4];
@@ -147,20 +156,18 @@ __device__ __forceinline__ void warp_tile_bf16(const __nv_bfloat16* in,
 #pragma unroll
     for (int ni = 0; ni < NT; ++ni) {
       const int r = m0 + mi * 16 + g, n = n0 + ni * 8 + 2 * t;
-      epi(r, n, acc[mi][ni][0]);
-      epi(r, n + 1, acc[mi][ni][1]);
-      epi(r + 8, n, acc[mi][ni][2]);
-      epi(r + 8, n + 1, acc[mi][ni][3]);
+      sink(r, n, acc[mi][ni][0], acc[mi][ni][1]);
+      sink(r + 8, n, acc[mi][ni][2], acc[mi][ni][3]);
     }
 }
 
 // Nout is 256, 128, or a small multiple of 8 (a head). Wide layers: each
 // warp takes 64 rays by Nout/8-per-warp outputs, so an A tile is reused for
 // NT products and a B pair for four.
-template <class P, class Epi>
+template <class P, class Sink>
 __device__ __forceinline__ void dense_bf16(const __nv_bfloat16* in, int ld,
                                            int K, const __nv_bfloat16* Wg,
-                                           int Nout, Epi& epi) {
+                                           int Nout, Sink& epi) {
   constexpr int WM = P::TILE / 64;  // warps along rays
   const int warp = threadIdx.x >> 5;
   const int wm = warp % WM, wn = warp / WM;  // 8 warps along outputs
@@ -209,16 +216,44 @@ __device__ __forceinline__ void dense_f32(const float* in, int ld, int K,
   }
 }
 
-// One layer: every (ray, out) accumulator of  in[TILE, K] x Wg[Nout, K]^T
-// goes to epi. The caller synchronises the block afterwards.
-template <class P, class Epi>
-__device__ __forceinline__ void dense(const typename P::T* in, int ld, int K,
-                                      const typename P::T* Wg, int Nout,
-                                      Epi epi) {
+// One layer, C = in[TILE, K] x Wg[Nout, K]^T. fn(ray, out, acc) turns an f32
+// accumulator into the value of the pack dtype to keep (round, bias,
+// activation), and the value goes to dst[ray * ld_dst + out] in shared
+// memory; the bf16 path stores a lane's (out, out + 1) pair as one word. The
+// caller synchronises the block afterwards.
+template <class P, class Fn>
+__device__ __forceinline__ void dense_store(const typename P::T* in, int ld,
+                                            int K, const typename P::T* Wg,
+                                            int Nout, typename P::T* dst,
+                                            int ld_dst, Fn fn) {
   if constexpr (P::kTensorCore) {
-    dense_bf16<P>(in, ld, K, Wg, Nout, epi);
+    auto sink = [&](int r, int n, float a0, float a1) {
+      __nv_bfloat162 v;
+      v.x = fn(r, n, a0);
+      v.y = fn(r, n + 1, a1);
+      *reinterpret_cast<__nv_bfloat162*>(dst + r * ld_dst + n) = v;
+    };
+    dense_bf16<P>(in, ld, K, Wg, Nout, sink);
   } else {
-    dense_f32<P>(in, ld, K, Wg, Nout, epi);
+    auto sink = [&](int r, int n, float a) { dst[r * ld_dst + n] = fn(r, n, a); };
+    dense_f32<P>(in, ld, K, Wg, Nout, sink);
+  }
+}
+
+// The same product for a head: fn(ray, out, acc) is called for every element
+// and stores what it wants where it wants.
+template <class P, class Fn>
+__device__ __forceinline__ void dense_each(const typename P::T* in, int ld,
+                                           int K, const typename P::T* Wg,
+                                           int Nout, Fn fn) {
+  if constexpr (P::kTensorCore) {
+    auto sink = [&](int r, int n, float a0, float a1) {
+      fn(r, n, a0);
+      fn(r, n + 1, a1);
+    };
+    dense_bf16<P>(in, ld, K, Wg, Nout, sink);
+  } else {
+    dense_f32<P>(in, ld, K, Wg, Nout, fn);
   }
 }
 

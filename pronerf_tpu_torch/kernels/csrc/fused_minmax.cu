@@ -57,15 +57,15 @@ minmax_kernel(const void* __restrict__ x, int x_is_bf16,
   const T* b = w + (size_t)kW * Kpad;
   T* cur = bufA;
   T* nxt = bufB;
-  dense<P>(xs, ldx, Kpad, w, kW, [&](int r, int n, float acc) {
-    cur[r * LD + n] = elu<P>(add<P>(P::rnd(acc), b[n]));
+  dense_store<P>(xs, ldx, Kpad, w, kW, cur, LD, [&](int, int n, float acc) {
+    return elu<P>(add<P>(P::rnd(acc), ro(b + n)));
   });
   __syncthreads();
   w = b + kW;
   for (int i = 1; i < depth; ++i) {
     b = w + (size_t)kW * kW;
-    dense<P>(cur, LD, kW, w, kW, [&](int r, int n, float acc) {
-      nxt[r * LD + n] = elu<P>(add<P>(P::rnd(acc), b[n]));
+    dense_store<P>(cur, LD, kW, w, kW, nxt, LD, [&](int, int n, float acc) {
+      return elu<P>(add<P>(P::rnd(acc), ro(b + n)));
     });
     __syncthreads();
     T* tmp = cur;
@@ -74,11 +74,11 @@ minmax_kernel(const void* __restrict__ x, int x_is_bf16,
     w = b + kW;
   }
   b = w + (size_t)out_pad * kW;
-  dense<P>(cur, LD, kW, w, out_pad, [&](int r, int n, float acc) {
+  dense_each<P>(cur, LD, kW, w, out_pad, [&](int r, int n, float acc) {
     const int ray = base + r;
     if (ray < N)
       out[ray * out_stride_ray + n * out_stride_col] =
-          P::f(add<P>(P::rnd(acc), b[n]));
+          P::f(add<P>(P::rnd(acc), ro(b + n)));
   });
 }
 

@@ -106,8 +106,8 @@ __global__ void __launch_bounds__(P::THREADS) nerf_kernel(NerfArgs a) {
   // out = relu(round(in . w^T) + bias), the plain hidden layer
   auto hidden = [&](const T* in, int ld, int K, const T* wp, const T* bp,
                     T* out) {
-    dense<P>(in, ld, K, wp, kW, [&](int r, int n, float acc) {
-      out[r * LD + n] = relu<P>(add<P>(P::rnd(acc), bp[n]));
+    dense_store<P>(in, ld, K, wp, kW, out, LD, [&](int, int n, float acc) {
+      return relu<P>(add<P>(P::rnd(acc), ro(bp + n)));
     });
     __syncthreads();
   };
@@ -141,14 +141,14 @@ __global__ void __launch_bounds__(P::THREADS) nerf_kernel(NerfArgs a) {
            w + B::w1 + 3 * B::lay + B::sq, bufA);
 
     // layer 5: two separately rounded dots, added, then the bias
-    dense<P>(pe, LDPE, kPE, w + B::w5p, kW, [&](int r, int n, float acc) {
-      bufB[r * LD + n] = P::rnd(acc);
-    });
+    dense_store<P>(pe, LDPE, kPE, w + B::w5p, kW, bufB, LD,
+                   [&](int, int, float acc) { return P::rnd(acc); });
     __syncthreads();
-    dense<P>(bufA, LD, kW, w + B::w5h, kW, [&](int r, int n, float acc) {
-      const T both = add<P>(bufB[r * LD + n], P::rnd(acc));
-      bufB[r * LD + n] = relu<P>(add<P>(both, w[B::b5 + n]));
-    });
+    dense_store<P>(bufA, LD, kW, w + B::w5h, kW, bufB, LD,
+                   [&](int r, int n, float acc) {
+                     const T both = add<P>(bufB[r * LD + n], P::rnd(acc));
+                     return relu<P>(add<P>(both, ro(w + B::b5 + n)));
+                   });
     __syncthreads();
 
     hidden(bufB, LD, kW, w + B::w6, w + B::w6 + B::sq, bufA);
@@ -156,23 +156,30 @@ __global__ void __launch_bounds__(P::THREADS) nerf_kernel(NerfArgs a) {
 
     // heads on h = bufB: sigma (row 0 of 8) and the feature layer
     float* rs = res + s * 4;
-    dense<P>(bufB, LD, kW, w + B::w_alpha, 8, [&](int r, int n, float acc) {
-      if (n == 0)
-        rs[r * S * 4 + 3] = P::f(add<P>(P::rnd(acc), w[B::b_alpha]));
-    });
-    dense<P>(bufB, LD, kW, w + B::w_feat, kW, [&](int r, int n, float acc) {
-      bufA[r * LD + n] = add<P>(P::rnd(acc), w[B::b_feat + n]);
-    });
+    dense_each<P>(bufB, LD, kW, w + B::w_alpha, 8,
+                  [&](int r, int n, float acc) {
+                    if (n == 0)
+                      rs[r * S * 4 + 3] =
+                          P::f(add<P>(P::rnd(acc), ro(w + B::b_alpha)));
+                  });
+    dense_store<P>(bufB, LD, kW, w + B::w_feat, kW, bufA, LD,
+                   [&](int, int n, float acc) {
+                     return add<P>(P::rnd(acc), ro(w + B::b_feat + n));
+                   });
     __syncthreads();
     // view branch: relu(round(round(dot + vcon) + bv)), 128 wide, into bufB
-    dense<P>(bufA, LD, kW, w + B::wvf, kWH, [&](int r, int n, float acc) {
-      const T withv = add<P>(P::rnd(acc), vc[r * LDVC + n]);
-      bufB[r * LD + n] = relu<P>(add<P>(withv, w[B::bv + n]));
-    });
+    dense_store<P>(bufA, LD, kW, w + B::wvf, kWH, bufB, LD,
+                   [&](int r, int n, float acc) {
+                     const T withv = add<P>(P::rnd(acc), vc[r * LDVC + n]);
+                     return relu<P>(add<P>(withv, ro(w + B::bv + n)));
+                   });
     __syncthreads();
-    dense<P>(bufB, LD, kWH, w + B::w_rgb, 8, [&](int r, int n, float acc) {
-      if (n < 3) rs[r * S * 4 + n] = P::f(add<P>(P::rnd(acc), w[B::b_rgb + n]));
-    });
+    dense_each<P>(bufB, LD, kWH, w + B::w_rgb, 8,
+                  [&](int r, int n, float acc) {
+                    if (n < 3)
+                      rs[r * S * 4 + n] =
+                          P::f(add<P>(P::rnd(acc), ro(w + B::b_rgb + n)));
+                  });
     __syncthreads();
   }
 
