@@ -28,7 +28,7 @@ non-zero and no result line is printed.
 ``--only build|kernels|frame`` runs a subset while developing, ``--rays N``
 shrinks the kernel phase, ``--profile`` adds a ``profile`` line (device time
 by kernel name over a few frames), ``--define NAME=VALUE`` builds an A/B
-variant of the kernels (``PN_TILE_BF16``, ``PN_K_UNROLL``; see
+variant of the kernels (``PN_TILE_BF16``, ``PN_K_UNROLL``, ``PN_MIN_BLOCKS``; see
 ``csrc/common.cuh``).
 """
 
@@ -494,7 +494,7 @@ def main(argv=None):
     ap.add_argument("--define", action="append", default=[],
                     metavar="NAME=VALUE",
                     help="A/B: pass -DNAME=VALUE to nvcc (PN_TILE_BF16=128, "
-                         "PN_K_UNROLL=2)")
+                         "PN_K_UNROLL=2, PN_MIN_BLOCKS=1)")
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel name for the "
                          "fused-composite frame (torch.profiler)")

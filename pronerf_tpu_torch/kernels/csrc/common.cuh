@@ -5,12 +5,25 @@
 // Layout. A thread block owns TILE consecutive rays. Activations live in
 // shared memory RAY-MAJOR, [TILE][features + pad], in the pack dtype; the
 // weights stay in device memory as the packed panels w_t [out, in]
-// (in = K, padded with zero columns to a multiple of 16) and are read
+// (in = K, padded with zero columns to a multiple of 32) and are read
 // through L1/L2. A layer is  C[ray, out] = sum_k H[ray, k] * W[out, k],
 // so with `mma.sync.m16n8k16` (A row-major, B "col") both operands are read
 // as pairs that are contiguous in k: A from shared memory with `ldmatrix`,
 // B straight from the panel. The f32 accumulators stay in registers and the
 // epilogue (round, bias, activation) runs on them before anything is stored.
+//
+// B loads and the k permutation (bf16). A lane reads 16 contiguous bytes of
+// its panel row, k = 8t .. 8t+7 of a 32-wide chunk (t = lane % 4), with one
+// load: four k-pairs, which are the B fragments of two `mma`s. (Reading the
+// pairs an `mma` nominally wants, k = 2t, 2t+1 and 2t+8, 2t+9, takes four
+// loads that each touch 8 cache lines.) A sum over k does not care about the
+// order of k as long as A and B agree, so the activations are STORED with k
+// permuted inside each chunk of 32: feature 8t + 2q + e sits at column
+// 8q + 2t + e (`PBf16::col`). Then a plain `ldmatrix` of columns [0, 16) and
+// [16, 32) of the chunk delivers exactly the A fragments that match the
+// lane's k-pairs q = 0, 1 and q = 2, 3. Everything that writes or reads an
+// operand buffer by feature index goes through `P::col`; for f32 it is the
+// identity.
 //
 // Rounding. Every dot is rounded to the pack dtype before anything else is
 // added; additions of biases and addends are done in f32 on the rounded
@@ -22,11 +35,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Two build-time knobs for A/B runs (chip_smoke.py --define NAME=VALUE).
+// Build-time knobs for A/B runs (chip_smoke.py --define NAME=VALUE); the
+// defaults are what was fastest on an H100 (PERF.md has the runs).
 // PN_TILE_BF16: rays per block of the bf16 kernels, 64 (two blocks per SM)
-// or 128 (one). PN_K_UNROLL: unroll factor forced on the k-loop below; left
-// undefined, the compiler chooses. Measured on an H100, neither 128 nor a
-// forced unroll was faster than the defaults (PERF.md).
+// or 128 (one). PN_MIN_BLOCKS: blocks per SM the bf16 kernels' registers are
+// capped for (default 128 / tile). PN_K_UNROLL: unroll factor forced on the
+// k-loop below; left undefined, the compiler chooses.
 #ifndef PN_TILE_BF16
 #define PN_TILE_BF16 64
 #endif
@@ -47,12 +61,25 @@ struct PBf16 {
   static constexpr bool kTensorCore = true;
   static constexpr int TILE = PN_TILE_BF16;       // rays per block
   static constexpr int THREADS = (TILE / 64) * 256;  // one warp per 64x32 slab
+  // Blocks per SM the register allocation must leave room for. Two blocks
+  // of 64 rays hide each other's barriers and load latency; the cap of 128
+  // registers this implies costs a few spilled words and is far cheaper than
+  // losing the second block.
+#ifdef PN_MIN_BLOCKS
+  static constexpr int MIN_BLOCKS = PN_MIN_BLOCKS;
+#else
+  static constexpr int MIN_BLOCKS = 128 / TILE;
+#endif
   static constexpr int PAD = 8;                   // elements; keeps ldmatrix
                                                   // rows on distinct banks
   static __device__ __forceinline__ T rnd(float v) {
     return __float2bfloat16_rn(v);
   }
   static __device__ __forceinline__ float f(T v) { return __bfloat162float(v); }
+  // column of feature n in an operand buffer (see the head of this file)
+  static __device__ __forceinline__ int col(int n) {
+    return (n & ~31) | ((n & 6) << 2) | ((n >> 2) & 6) | (n & 1);
+  }
 };
 
 struct PF32 {
@@ -60,9 +87,11 @@ struct PF32 {
   static constexpr bool kTensorCore = false;
   static constexpr int TILE = 32;
   static constexpr int THREADS = 256;
+  static constexpr int MIN_BLOCKS = 1;
   static constexpr int PAD = 4;  // keeps rows 16-byte aligned for float4
   static __device__ __forceinline__ T rnd(float v) { return v; }
   static __device__ __forceinline__ float f(T v) { return v; }
+  static __device__ __forceinline__ int col(int n) { return n; }
 };
 
 // A weight-blob value through the read-only path: the compiler may then keep
@@ -135,20 +164,25 @@ __device__ __forceinline__ void warp_tile_bf16(const __nv_bfloat16* in,
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
 
   const __nv_bfloat16* arow = in + (m0 + (lane & 15)) * ld + (lane >> 4) * 8;
-  const __nv_bfloat16* brow = Wg + (size_t)(n0 + g) * K + 2 * t;
+  const __nv_bfloat16* brow = Wg + (size_t)(n0 + g) * K + 8 * t;
   PN_UNROLL_K
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t a[MT][4];
+  for (int kc = 0; kc < K; kc += 32) {
+    uint4 bv[NT];  // k-pairs q = 0..3 of this lane, for every n-tile
 #pragma unroll
-    for (int mi = 0; mi < MT; ++mi) ldmatrix_a(a[mi], arow + mi * 16 * ld + k0);
+    for (int ni = 0; ni < NT; ++ni)
+      bv[ni] = __ldg(reinterpret_cast<const uint4*>(brow + (size_t)ni * 8 * K + kc));
 #pragma unroll
-    for (int ni = 0; ni < NT; ++ni) {
-      const __nv_bfloat16* q = brow + (size_t)ni * 8 * K + k0;
-      uint32_t b[2];
-      b[0] = __ldg(reinterpret_cast<const unsigned int*>(q));
-      b[1] = __ldg(reinterpret_cast<const unsigned int*>(q + 8));
+    for (int h = 0; h < 2; ++h) {
+      uint32_t a[MT][4];
 #pragma unroll
-      for (int mi = 0; mi < MT; ++mi) mma_16x8x16(acc[mi][ni], a[mi], b);
+      for (int mi = 0; mi < MT; ++mi)
+        ldmatrix_a(a[mi], arow + mi * 16 * ld + kc + 16 * h);
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        const uint32_t b[2] = {h ? bv[ni].z : bv[ni].x, h ? bv[ni].w : bv[ni].y};
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) mma_16x8x16(acc[mi][ni], a[mi], b);
+      }
     }
   }
 #pragma unroll
@@ -218,8 +252,9 @@ __device__ __forceinline__ void dense_f32(const float* in, int ld, int K,
 
 // One layer, C = in[TILE, K] x Wg[Nout, K]^T. fn(ray, out, acc) turns an f32
 // accumulator into the value of the pack dtype to keep (round, bias,
-// activation), and the value goes to dst[ray * ld_dst + out] in shared
-// memory; the bf16 path stores a lane's (out, out + 1) pair as one word. The
+// activation), and the value goes to dst[ray * ld_dst + P::col(out)], an
+// operand buffer in shared memory; the bf16 path stores a lane's
+// (out, out + 1) pair, which stays adjacent under `col`, as one word. The
 // caller synchronises the block afterwards.
 template <class P, class Fn>
 __device__ __forceinline__ void dense_store(const typename P::T* in, int ld,
@@ -231,11 +266,11 @@ __device__ __forceinline__ void dense_store(const typename P::T* in, int ld,
       __nv_bfloat162 v;
       v.x = fn(r, n, a0);
       v.y = fn(r, n + 1, a1);
-      *reinterpret_cast<__nv_bfloat162*>(dst + r * ld_dst + n) = v;
+      *reinterpret_cast<__nv_bfloat162*>(dst + r * ld_dst + P::col(n)) = v;
     };
     dense_bf16<P>(in, ld, K, Wg, Nout, sink);
   } else {
-    auto sink = [&](int r, int n, float a) { dst[r * ld_dst + n] = fn(r, n, a); };
+    auto sink = [&](int r, int n, float a) { dst[r * ld_dst + n] = fn(r, n, a); };  // col is the identity
     dense_f32<P>(in, ld, K, Wg, Nout, sink);
   }
 }

@@ -11,19 +11,20 @@
 // memory-bound is writing each layer's [N, 256] activation back to device
 // memory, so the design keeps the whole chain of a 64-ray tile in shared
 // memory (two ping-pong buffers) and only x and the head cross the bus. The
-// ragged last tile is masked here, not padded by the caller.
+// ragged last tile is masked here, not padded by the caller. The products
+// and the way weight fragments are fetched are common.cuh's.
 //
 // Weights arrive as one contiguous blob in the pack dtype:
 //   [w0 256 x Kpad | b0 256 | (w_i 256x256 | b_i 256) x (depth-1)
 //    | wout out_pad x 256 | bout out_pad]
-// with Kpad = C rounded up to a multiple of 16 (zero columns).
+// with Kpad = C rounded up to a multiple of 32 (zero columns).
 
 #include "common.cuh"
 
 namespace pn {
 
 template <class P>
-__global__ void __launch_bounds__(P::THREADS)
+__global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS)
 minmax_kernel(const void* __restrict__ x, int x_is_bf16,
               const typename P::T* __restrict__ blob, float* __restrict__ out,
               int N, int C, int Kpad, int depth, int out_pad,
@@ -49,7 +50,7 @@ minmax_kernel(const void* __restrict__ x, int x_is_bf16,
                           reinterpret_cast<const __nv_bfloat16*>(x)[at])
                     : reinterpret_cast<const float*>(x)[at];
     }
-    xs[r * ldx + c] = P::rnd(v);
+    xs[r * ldx + P::col(c)] = P::rnd(v);
   }
   __syncthreads();
 
@@ -86,7 +87,7 @@ template <class P>
 int run_minmax(const void* x, int x_is_bf16, const void* blob, float* out,
                int N, int C, int depth, int out_pad, long long sr,
                long long sc, cudaStream_t stream) {
-  const int Kpad = (C + 15) / 16 * 16;
+  const int Kpad = (C + 31) / 32 * 32;
   const size_t smem =
       sizeof(typename P::T) *
       ((size_t)2 * P::TILE * (kW + P::PAD) + (size_t)P::TILE * (Kpad + P::PAD));
@@ -106,7 +107,7 @@ extern "C" int pn_fused_minmax(const void* x, int x_is_bf16, const void* blob,
                                long long out_stride_ray,
                                long long out_stride_col, int pack_bf16,
                                void* stream) {
-  const int Kpad = (C + 15) / 16 * 16;
+  const int Kpad = (C + 31) / 32 * 32;
   const long long want = (long long)pn::kW * Kpad + pn::kW +
                          (long long)(depth - 1) * (pn::kW * pn::kW + pn::kW) +
                          (long long)out_pad * pn::kW + out_pad;

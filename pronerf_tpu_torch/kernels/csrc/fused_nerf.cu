@@ -18,11 +18,16 @@
 // composited by one thread per ray with the transmittance in a register
 // (composite), in which case raw never reaches device memory.
 //
+// What limits it in practice is not the tensor cores but how each warp
+// fetches its weight fragments through L1: common.cuh reads them as 16-byte
+// loads against activations stored with a permuted k order, and keeps two
+// blocks resident per SM.
+//
 // The frequency panel bx_t is 2^k by construction (one non-zero per row), so
 // `bx_t . x` rounded to the pack dtype is exactly ldexp(x, k); the wrapper
 // checks the panel before it drops it from the blob.
 //
-// Weight blob, pack dtype, in this order (w_t [out, K], K padded to 16):
+// Weight blob, pack dtype, in this order (w_t [out, K], K a multiple of 32):
 //   w0p 256x64 b0 | w1..w4 256x256 + b | w5p 256x64 w5h 256x256 b5 |
 //   w6 b6 w7 b7 | w_alpha 8x256 b_alpha 8 | w_feat 256x256 b_feat 256 |
 //   wvf 128x256 bv 128 | w_rgb 8x128 b_rgb 8
@@ -81,7 +86,7 @@ constexpr size_t nerf_smem(int S) {
 }
 
 template <class P, bool COMPOSITE>
-__global__ void __launch_bounds__(P::THREADS) nerf_kernel(NerfArgs a) {
+__global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS) nerf_kernel(NerfArgs a) {
   using T = typename P::T;
   using B = NerfBlob;
   constexpr int TILE = P::TILE, LD = kW + P::PAD, LDPE = kPE + P::PAD,
@@ -119,16 +124,16 @@ __global__ void __launch_bounds__(P::THREADS) nerf_kernel(NerfArgs a) {
       const T x =
           P::rnd(ray < N ? a.pts[(size_t)(3 * s + c) * N + ray] : 0.0f);
       T* row = pe + r * LDPE;
-      row[c] = x;
+      row[P::col(c)] = x;
       const float xf = P::f(x);
 #pragma unroll
       for (int k = 0; k < kL; ++k) {
         float sn, cs;
         sincosf(ldexpf(xf, k), &sn, &cs);
-        row[3 + 3 * k + c] = P::rnd(sn);
-        row[3 + 3 * kL + 3 * k + c] = P::rnd(cs);
+        row[P::col(3 + 3 * k + c)] = P::rnd(sn);
+        row[P::col(3 + 3 * kL + 3 * k + c)] = P::rnd(cs);
       }
-      if (c == 0) row[kPE - 1] = P::rnd(0.0f);
+      if (c == 0) row[P::col(kPE - 1)] = P::rnd(0.0f);
     }
     __syncthreads();
 
@@ -146,7 +151,8 @@ __global__ void __launch_bounds__(P::THREADS) nerf_kernel(NerfArgs a) {
     __syncthreads();
     dense_store<P>(bufA, LD, kW, w + B::w5h, kW, bufB, LD,
                    [&](int r, int n, float acc) {
-                     const T both = add<P>(bufB[r * LD + n], P::rnd(acc));
+                     const T both =
+                         add<P>(bufB[r * LD + P::col(n)], P::rnd(acc));
                      return relu<P>(add<P>(both, ro(w + B::b5 + n)));
                    });
     __syncthreads();

@@ -32,8 +32,8 @@ def _pad8(n: int) -> int:
     return -(-n // 8) * 8
 
 
-def _pad16(n: int) -> int:
-    return -(-n // 16) * 16
+def _pad32(n: int) -> int:
+    return -(-n // 32) * 32
 
 
 def pack_minmax_params(net, reps: int, dtype=torch.bfloat16, c_rep: int = 6,
@@ -136,7 +136,7 @@ def _blob(packed):
     if blob is None:
         depth = _depth(packed)
         w0 = packed["w0_t"]
-        kpad = _pad16(w0.shape[1])
+        kpad = _pad32(w0.shape[1])
         w0p = w0.new_zeros(W, kpad)
         w0p[:, : w0.shape[1]] = w0
         parts = [w0p, packed["b0"]]

@@ -316,7 +316,7 @@ def test_wrappers_reject_wrong_shapes_before_dispatch():
 def test_blob_layout_matches_the_kernel_sources():
     """The contiguous weight buffers the CUDA kernels read: sizes as the
     ``.cu`` files compute them, PE panels padded to K = 64 with a zero
-    column, first MinMax layer padded to a multiple of 16."""
+    column, first MinMax layer padded to a multiple of 32."""
     _, net = nerf_nets()
     packed = t_fn.pack_nerf_params(net, torch.bfloat16)
     blob = t_fn._blob(packed)
@@ -335,8 +335,8 @@ def test_blob_layout_matches_the_kernel_sources():
     _, mm, reps, _, _ = minmax_nets("refine")
     pm = t_fm.pack_minmax_params(mm, reps, torch.float32)
     bm = t_fm._blob(pm)
-    assert bm.numel() == W * 112 + W + 5 * (sq + W) + 40 * W + 40
-    first = bm[: W * 112].reshape(W, 112)
+    assert bm.numel() == W * 128 + W + 5 * (sq + W) + 40 * W + 40
+    first = bm[: W * 128].reshape(W, 128)
     assert torch.equal(first[:, :102], pm["w0_t"]) and not first[:, 102:].any()
 
 
