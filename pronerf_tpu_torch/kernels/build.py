@@ -30,12 +30,6 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-# Extra ``-D`` definitions for an A/B build (for example
-# ``("-DPN_TILE_BF16=128",)``, the bf16 kernels' rays per block). They are
-# part of the library's hash, so two settings never share a file. Set before
-# the first launch.
-EXTRA_DEFINES: tuple = ()
-
 _loaded: dict = {}
 
 
@@ -65,7 +59,7 @@ def _digest() -> str:
         if p.suffix in (".cu", ".cuh"):
             h.update(p.name.encode())
             h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + tuple(EXTRA_DEFINES)).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:12]
 
 
@@ -74,7 +68,7 @@ def lib_path(name: str) -> Path:
 
 
 def _command(name: str, out: Path, verbose: bool) -> list:
-    cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_DEFINES]
+    cmd = [_nvcc(), *NVCC_FLAGS]
     if verbose:
         cmd += ["-Xptxas", "-v"]
     return cmd + ["-o", str(out), str(CSRC / f"{name}.cu")]

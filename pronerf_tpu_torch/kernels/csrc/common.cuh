@@ -35,23 +35,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Build-time knobs for A/B runs (chip_smoke.py --define NAME=VALUE); the
-// defaults are what was fastest on an H100 (PERF.md has the runs).
-// PN_TILE_BF16: rays per block of the bf16 kernels, 64 (two blocks per SM)
-// or 128 (one). PN_MIN_BLOCKS: blocks per SM the bf16 kernels' registers are
-// capped for (default 128 / tile). PN_K_UNROLL: unroll factor forced on the
-// k-loop below; left undefined, the compiler chooses.
-#ifndef PN_TILE_BF16
-#define PN_TILE_BF16 64
-#endif
-#ifdef PN_K_UNROLL
-#define PN_PRAGMA(x) _Pragma(#x)
-#define PN_UNROLL(n) PN_PRAGMA(unroll n)  // n is expanded before PN_PRAGMA
-#define PN_UNROLL_K PN_UNROLL(PN_K_UNROLL)
-#else
-#define PN_UNROLL_K
-#endif
-
 namespace pn {
 
 constexpr int kW = 256;  // hidden width of all three nets
@@ -59,17 +42,13 @@ constexpr int kW = 256;  // hidden width of all three nets
 struct PBf16 {
   using T = __nv_bfloat16;
   static constexpr bool kTensorCore = true;
-  static constexpr int TILE = PN_TILE_BF16;       // rays per block
-  static constexpr int THREADS = (TILE / 64) * 256;  // one warp per 64x32 slab
+  static constexpr int TILE = 64;      // rays per block
+  static constexpr int THREADS = 256;  // 8 warps, each 64 rays x 32 outputs
   // Blocks per SM the register allocation must leave room for. Two blocks
   // of 64 rays hide each other's barriers and load latency; the cap of 128
   // registers this implies costs a few spilled words and is far cheaper than
   // losing the second block.
-#ifdef PN_MIN_BLOCKS
-  static constexpr int MIN_BLOCKS = PN_MIN_BLOCKS;
-#else
-  static constexpr int MIN_BLOCKS = 128 / TILE;
-#endif
+  static constexpr int MIN_BLOCKS = 2;
   static constexpr int PAD = 8;                   // elements; keeps ldmatrix
                                                   // rows on distinct banks
   static __device__ __forceinline__ T rnd(float v) {
@@ -165,7 +144,6 @@ __device__ __forceinline__ void warp_tile_bf16(const __nv_bfloat16* in,
 
   const __nv_bfloat16* arow = in + (m0 + (lane & 15)) * ld + (lane >> 4) * 8;
   const __nv_bfloat16* brow = Wg + (size_t)(n0 + g) * K + 8 * t;
-  PN_UNROLL_K
   for (int kc = 0; kc < K; kc += 32) {
     uint4 bv[NT];  // k-pairs q = 0..3 of this lane, for every n-tile
 #pragma unroll
@@ -202,13 +180,12 @@ template <class P, class Sink>
 __device__ __forceinline__ void dense_bf16(const __nv_bfloat16* in, int ld,
                                            int K, const __nv_bfloat16* Wg,
                                            int Nout, Sink& epi) {
-  constexpr int WM = P::TILE / 64;  // warps along rays
+  static_assert(P::TILE == 64 && P::THREADS == 256, "8 warps of 64 rays");
   const int warp = threadIdx.x >> 5;
-  const int wm = warp % WM, wn = warp / WM;  // 8 warps along outputs
   if (Nout == 256) {
-    warp_tile_bf16<4, 4>(in, ld, K, Wg, wm * 64, wn * 32, epi);
+    warp_tile_bf16<4, 4>(in, ld, K, Wg, 0, warp * 32, epi);
   } else if (Nout == 128) {
-    warp_tile_bf16<4, 2>(in, ld, K, Wg, wm * 64, wn * 16, epi);
+    warp_tile_bf16<4, 2>(in, ld, K, Wg, 0, warp * 16, epi);
   } else {
     const int items = (P::TILE / 16) * (Nout / 8);
     for (int it = warp; it < items; it += P::THREADS / 32)

@@ -214,7 +214,12 @@ def fused_minmax_t(packed, x_t, transpose_out: bool = True):
     if err != 0:
         raise RuntimeError(f"fused_minmax kernel launch failed: error {err}")
     fused_minmax_t.launches += 1
+    fused_minmax_t.launches_by_width[C] = (
+        fused_minmax_t.launches_by_width.get(C, 0) + 1)
     return out
 
 
+# Launches of the kernel: all of them, and by input width C (the sampler and
+# the refine net go through this one wrapper and differ in C).
 fused_minmax_t.launches = 0
+fused_minmax_t.launches_by_width = {}

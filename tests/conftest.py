@@ -19,11 +19,3 @@ if "xla_force_host_platform_device_count" not in _flags:
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-
-
-def pytest_configure(config):
-    config.addinivalue_line(
-        "markers",
-        "gpu: needs an NVIDIA GPU and nvcc (the CUDA kernels of "
-        "pronerf_tpu_torch); skipped where there is none",
-    )

@@ -121,8 +121,10 @@ def test_fused_minmax_against_jax_kernel(which, perm, dtype, n):
         jnp.asarray(x_t), rays_per_block=32, interpret=True)
     packed = t_fm.pack_minmax_params(net, reps, tdt, rest_row_perm=row_perm)
     before = t_fm.fused_minmax_t.launches
+    by_width = dict(t_fm.fused_minmax_t.launches_by_width)
     got = t_fm.fused_minmax_t(packed, T(x_t))
     assert t_fm.fused_minmax_t.launches == before  # CPU: the plain version
+    assert t_fm.fused_minmax_t.launches_by_width == by_width
     assert got.dtype == torch.float32 and got.shape == (n, -(-out_w // 8) * 8)
     atol = 2e-5 if dtype == "f32" else BF16_LOGITS
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol)
@@ -355,27 +357,3 @@ def test_modules_import_and_build_nothing_without_a_compiler():
             build.Path("/usr/local/cuda/bin/nvcc").exists()):
         with pytest.raises(RuntimeError, match="nvcc"):
             build._nvcc()
-
-
-@pytest.mark.gpu
-def test_cuda_kernels_against_plain_versions_on_the_card():
-    """Needs an NVIDIA GPU and nvcc (it builds the kernels):
-    ``python -m pytest tests/test_torch_kernels.py -m gpu``."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
-    dev = torch.device("cuda")
-    _, net = nerf_nets()
-    net = net.to(dev)
-    inp = nerf_inputs(1000, seed=7)
-    with torch.no_grad():
-        for tdt, atol in ((torch.float32, 2e-4), (torch.bfloat16, BF16_LOGITS)):
-            packed = t_fn.pack_nerf_params(net, tdt)
-            pts = T(inp["pts24_t"]).to(dev)
-            vcon = view_contribution(
-                net, t_posenc(T(inp["dirs"]).to(dev), 4), tdt).contiguous()
-            before = t_fn.fused_nerf_raw_t.launches
-            got = t_fn.fused_nerf_raw_t(packed, pts, vcon)
-            assert t_fn.fused_nerf_raw_t.launches == before + 1
-            want = t_fn.fused_nerf_raw_plain(packed, pts, vcon)
-            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                                       atol=atol)
