@@ -8,20 +8,30 @@ falls back to the CPU. Phases, each printing one JSON line:
 1. ``device``   card name and power limit (nvidia-smi), torch/CUDA versions;
 2. ``build``    compiles ``pronerf_tpu_torch/kernels/csrc/*.cu`` (one nvcc per
                 source, started together);
-3. ``kernels``  every fused kernel, in bf16 and in f32, at the width and ray
-                count of a 504x378 frame, on inputs made from a numpy seed:
-                held against its plain PyTorch version on the same inputs
-                (the plain version runs in chunks of rays, for memory), on a
-                ragged ray count too, and timed with CUDA events;
-4. ``frame``    the serving path end to end: ``run_inference`` on the
-                synthetic 504x378 scene with 17 views, release widths, bf16,
-                whole frame in one tile, fused kernels on; then the same
-                frame with the composite fused into the NeRF kernel; then a
-                tile of the frame's own rays, all nine outputs of both forms,
-                against the port's kernel-free bf16 path, each output relative
-                to its size. Launch counters (the MinMax one by input width,
-                so sampler and refine are counted apart) are zeroed before and
-                read after each drive.
+3. ``kernels``  every fused kernel, in bf16 and in f32 (the int8 NeRF
+                kernel in int8), at the width and ray count of a 504x378
+                frame, on inputs made from a numpy seed: held against its
+                plain PyTorch version on the same inputs (the plain version
+                runs in chunks of rays, for memory), on a ragged ray count
+                too, and timed with CUDA events. The MinMax kernel also with
+                ``transpose_out=False`` and, for the refine shape, with the
+                transposed graph's permuted pack; the int8 kernel also
+                against the bf16 kernel;
+4. ``frame``    the serving path end to end, three times through
+                ``run_inference`` on the synthetic 504x378 scene with 17
+                views, release widths, bf16, whole frame in one tile, fused
+                kernels on: the default graph (raw kernel + composite op),
+                ``quant = int8``, and ``transposed = True``; then the default
+                graph's frame with the composite fused into the NeRF kernel;
+                then a tile of the frame's own rays, all nine outputs, each
+                relative to its size: the composite forms against each other,
+                the kernel path against the port's kernel-free bf16 path and
+                against the plain versions (the same code on CPU tensors),
+                the int8 path against the bf16 kernel path and against its
+                plain versions, the transposed graph against the row-major
+                one. Launch counters (the MinMax one by input width, so
+                sampler and refine are counted apart, and its untransposed
+                form apart again) are zeroed before and read after each drive.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line with
 the roofline bound of each kernel beside its measured time, and last
@@ -29,8 +39,9 @@ the roofline bound of each kernel beside its measured time, and last
 non-zero and no result line is printed.
 
 ``--only build|kernels|frame`` runs a subset while developing, ``--rays N``
-shrinks the kernel phase, ``--profile`` adds a ``profile`` line (device time
-by kernel name over a few frames).
+shrinks the kernel phase, ``--profile`` adds ``profile`` lines (device time
+by kernel name over a few frames of the fused-composite, the int8 and the
+transposed frame).
 """
 
 from __future__ import annotations
@@ -57,7 +68,7 @@ RAGGED = 16384 - 37    # not a multiple of any kernel tile
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet).
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 # Tolerances, kernel against plain version on the card, same inputs.
 # f32: both sides do the same arithmetic and differ at most in the order of
@@ -73,7 +84,25 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {
     "float32": {"head": 2e-4, "raw": 2e-4, "comp": 2e-4, "disp_rel": 2e-3},
     "bfloat16": {"head": 0.02, "raw": 0.02, "comp": 0.005, "disp_rel": 0.05},
+    # The int8 kernel cannot equal its plain version to the bit: sincosf and
+    # torch.sin differ in the last place, which moves a bf16 PE value by a
+    # step, and the two K = 63 products sum in f32 in another order; either
+    # can push a layer-0 or layer-5 sum across a .5 requantisation boundary
+    # and flip a code by one step, which later layers carry on. Everything
+    # after a given set of codes is exact integer arithmetic. So two
+    # measures: the share of raw elements that differ by more than the last
+    # bits of an f32 (1e-5 of the spread), and the largest difference over
+    # std(plain raw). Both bounds are several times tighter than the distance
+    # between the int8 and the bf16 chain (max 0.25 std + 0.02, mean 0.02 std
+    # + 0.002, the JAX package's test bounds, also held here), so they tell a
+    # wrong kernel (a swapped panel, a wrong k permutation) from a right one.
+    # Measured on an H100 at 190,512 rays: 0.043% of the elements differ,
+    # by 0.008 std at most.
+    "int8": {"share": 0.005, "max_over_std": 0.05, "last_bits": 1e-5},
 }
+# measures listed in a row's errs/tols that are not absolute errors of the
+# kernel against its plain version
+NOT_ABS = ("_rel", "_share", "_vs_bf16")
 # bf16 renders of the same rays against each other, per output key: the
 # largest difference over the largest size of the reference. Relative, because
 # with seeded random weights the rays are near-transparent (rgb1, acc and
@@ -95,10 +124,25 @@ TOL = {
 # and the ray's sigma with them, so a small share of elements may differ by
 # more than the bound (measured on an H100: 0.03% of sigma, largest 0.2 of its
 # size; every other key within 0.008 everywhere).
+# QUANT_REL: the int8 frame against the bf16 kernel frame, same graph up to
+# the NeRF kernel. The JAX package's test holds PSNR(rgb1) above 32 dB and
+# depth within 0.05, which near-transparent rays pass with a zero output, so
+# every key is also held relative to its size (a zero output is off by 1).
+# TRANSPOSED_*: the transposed graph against the row-major one: the JAX
+# test's bulk and tail bounds for bf16 (99th percentile of the difference
+# under 0.02, under 1% of elements over 0.05), and the relative bound of
+# PLAIN_REL / PLAIN_SHARE, since the two graphs differ as two machines do:
+# the refine product sums its rows in a permuted order and the projection is
+# written out, so isolated rays land on the other side of a bf16 or an
+# out-of-bounds boundary.
 FORMS_REL = 1e-4
 PATHS_REL = 0.02
 PLAIN_REL = 0.05
 PLAIN_SHARE = 0.005
+QUANT_REL = 0.1
+QUANT_PSNR_DB = 32.0
+QUANT_DEPTH = 0.05
+TRANSPOSED_BULK, TRANSPOSED_TAIL, TRANSPOSED_TAIL_SHARE = 0.02, 0.05, 0.01
 NINE_KEYS = ("rgb0", "rgb1", "depth", "disp", "acc", "weights", "mm_rgb",
              "depth0", "sigma")
 
@@ -150,6 +194,7 @@ def minmax_case(net, reps, C, n_rays, dtype, device, seed):
     """One MinMax kernel case: (kernel_fn, plain_fn, compare, MACs, bytes
     moved when every input is read once and every output written once)."""
     from pronerf_tpu_torch.kernels import fused_minmax as fm
+    from pronerf_tpu_torch.models.pronerf_t import refine_rest_row_perm
 
     packed = fm.pack_minmax_params(net, reps, dtype)
     rng = np.random.default_rng(seed)
@@ -170,7 +215,29 @@ def minmax_case(net, reps, C, n_rays, dtype, device, seed):
         ])
 
     def compare(tol):
-        return {"head": (max_err(kernel(), plain()), tol["head"])}
+        k, pl = kernel(), plain()
+        k_t = fm.fused_minmax_t(packed, x_t, transpose_out=False)
+        errs = {
+            "head": (max_err(k, pl), tol["head"]),
+            # the untransposed form: the same values, element for element
+            "untransposed": (max_err(k_t, k.T), 0.0),
+        }
+        if C > 6:
+            # the transposed graph's pack: first-layer rows permuted, and
+            # the input rows with them
+            perm = refine_rest_row_perm(4, 8)
+            packed_p = fm.pack_minmax_params(net, reps, dtype,
+                                             rest_row_perm=perm)
+            x_p = torch.cat([x_t[:6], x_t[6:][torch.as_tensor(
+                perm, device=device)]]).contiguous()
+            k_p = fm.fused_minmax_t(packed_p, x_p, transpose_out=False)
+            pl_p = torch.cat([
+                fm.fused_minmax_plain(
+                    packed_p, x_p[:, i:i + CHUNK].contiguous())
+                for i in range(0, n_rays, CHUNK)
+            ])
+            errs["permuted"] = (max_err(k_p.T, pl_p), tol["head"])
+        return errs
 
     out_pad = packed["wout_t"].shape[0]
     n_out = net.out.weight.shape[0]  # the head the function needs, unpadded
@@ -268,6 +335,56 @@ def nerf_case(kind, net, n_rays, dtype, device, seed, S=8):
     return kernel, plain, compare, macs, nbytes
 
 
+def nerf_q_case(net, n_rays, device, seed, S=8):
+    """The int8 NeRF kernel: against its plain version (two measures, see
+    TOL["int8"]) and against the bf16 kernel on the same inputs."""
+    from pronerf_tpu_torch.kernels import fused_nerf as fn
+    from pronerf_tpu_torch.kernels import fused_nerf_q as fq
+    from pronerf_tpu_torch.models.pronerf import view_contribution
+    from pronerf_tpu_torch.ops.encoding import positional_encoding
+
+    packed = fq.pack_nerf_params_int8(net)
+    packed_bf16 = fn.pack_nerf_params(net, torch.bfloat16)
+    inp = nerf_inputs(n_rays, device, seed, S)
+    vcon_t = view_contribution(
+        net, positional_encoding(inp["dirs"], 4), torch.bfloat16).contiguous()
+    pts = inp["pts24_t"]
+
+    def kernel():
+        return fq.fused_nerf_raw_tq(packed, pts, vcon_t, S)
+
+    def plain():
+        return torch.cat([
+            fq.fused_nerf_raw_q_plain(
+                packed, pts[:, i:i + CHUNK].contiguous(),
+                vcon_t[:, i:i + CHUNK].contiguous(), S)
+            for i in range(0, n_rays, CHUNK)
+        ])
+
+    def compare(tol):
+        k, pl = kernel(), plain()
+        if not bool(torch.isfinite(k).all()):
+            raise SystemExit("fused_nerf_raw_tq: output is not finite")
+        std = float(pl.std())
+        diff = (k - pl).abs()
+        bf = fn.fused_nerf_raw_t(packed_bf16, pts, vcon_t, S)
+        gap, bstd = (k - bf).abs(), float(bf.std())
+        return {
+            "raw": (float(diff.max()), tol["max_over_std"] * std),
+            "differing_share": (
+                float((diff > tol["last_bits"] * std).float().mean()),
+                tol["share"]),
+            "max_vs_bf16": (float(gap.max()), 0.25 * bstd + 0.02),
+            "mean_vs_bf16": (float(gap.mean()), 0.02 * bstd + 0.002),
+        }
+
+    work = {"int8": n_rays * S * (8 * 256 * 256 + 256 * 128 + 256 + 128 * 3),
+            "bfloat16": n_rays * S * 2 * 63 * 256}
+    nbytes = ((pts.numel() + vcon_t.numel()) * 4 + n_rays * S * 4 * 4
+              + fq._blob(packed).numel())
+    return kernel, plain, compare, work, nbytes
+
+
 KERNELS = (
     # name, source, the TPU kernel it replaces
     ("fused_minmax_t[sampler]", "pronerf_tpu_torch/kernels/csrc/fused_minmax.cu",
@@ -278,7 +395,12 @@ KERNELS = (
      "pronerf_tpu/kernels/fused_nerf.py:196"),
     ("fused_nerf_composite_t", "pronerf_tpu_torch/kernels/csrc/fused_nerf.cu",
      "pronerf_tpu/kernels/fused_nerf.py:302"),
+    ("fused_nerf_raw_tq", "pronerf_tpu_torch/kernels/csrc/fused_nerf_q.cu",
+     "pronerf_tpu/kernels/fused_nerf_q.py:351"),
 )
+# the instantiations each kernel has; the first is the one its main path runs
+DTYPES = {"fused_nerf_raw_tq": ("int8",)}
+BOTH = ("bfloat16", "float32")
 
 
 def make_case(name, nets, n_rays, dtype, device, seed):
@@ -288,19 +410,23 @@ def make_case(name, nets, n_rays, dtype, device, seed):
     if name == "fused_minmax_t[refine]":
         return minmax_case(nets["refine"], 8, 102, n_rays, dtype, device,
                            seed)
+    if name == "fused_nerf_raw_tq":
+        return nerf_q_case(nets["nerf"], n_rays, device, seed)
     kind = "raw" if name == "fused_nerf_raw_t" else "comp"
     return nerf_case(kind, nets["nerf"], n_rays, dtype, device, seed)
 
 
 def wrappers():
-    """The three kernel wrappers, each carrying its ``launches`` count."""
+    """The four kernel wrappers, each carrying its ``launches`` count."""
     from pronerf_tpu_torch.kernels import fused_minmax as fm
     from pronerf_tpu_torch.kernels import fused_nerf as fn
+    from pronerf_tpu_torch.kernels import fused_nerf_q as fq
 
     return {
         "fused_minmax_t": fm.fused_minmax_t,
         "fused_nerf_raw_t": fn.fused_nerf_raw_t,
         "fused_nerf_composite_t": fn.fused_nerf_composite_t,
+        "fused_nerf_raw_tq": fq.fused_nerf_raw_tq,
     }
 
 
@@ -313,8 +439,8 @@ def phase_kernels(device, n_rays):
     nets = make_nets(0, device)
     rows = []
     for name, source, replaces in KERNELS:
-        for dtype in (torch.bfloat16, torch.float32):
-            dname = str(dtype).split(".")[-1]
+        for dname in DTYPES.get(name, BOTH):
+            dtype = getattr(torch, dname)
             tol = TOL[dname]
             before = counter(name).launches
             # the ragged count first: a short run that also checks the mask
@@ -322,23 +448,28 @@ def phase_kernels(device, n_rays):
                 name, nets, RAGGED if n_rays > RAGGED else n_rays - 37,
                 dtype, device, seed=1)
             errs = {f"ragged_{k}": v for k, v in compare_r(tol).items()}
-            kernel, plain, compare, macs, nbytes = make_case(
+            kernel, plain, compare, work, nbytes = make_case(
                 name, nets, n_rays, dtype, device, seed=2)
             errs.update(compare(tol))
             torch.cuda.synchronize()
             ms = cuda_ms(kernel, 5)
             plain_ms = cuda_ms(plain, 2)
-            bound_ops = 2 * macs / PEAK_FLOPS[dname] * 1e3
+            if not isinstance(work, dict):  # multiply-adds, by operand type
+                work = {dname: work}
+            bound_ops = sum(2 * macs / PEAK_FLOPS[d] * 1e3
+                            for d, macs in work.items())
             bound_bytes = nbytes / PEAK_BYTES_S * 1e3
             row = {
                 "name": name, "dtype": dname, "route": "cuda",
                 "source": source, "replaces": replaces, "rays": n_rays,
-                # disp is compared relative to its size and is listed in
+                # measures that are not absolute errors against the plain
+                # version (disp relative to its size, the int8 kernel's
+                # share and its distance to the bf16 kernel) are listed in
                 # errs/tols only
                 "max_abs_err": max(e for k, (e, _) in errs.items()
-                                   if not k.endswith("_rel")),
+                                   if not k.endswith(NOT_ABS)),
                 "tol": max(t for k, (_, t) in errs.items()
-                           if not k.endswith("_rel")),
+                           if not k.endswith(NOT_ABS)),
                 "errs": {k: e for k, (e, _) in errs.items()},
                 "tols": {k: t for k, (_, t) in errs.items()},
                 "ms": ms, "plain_ms": plain_ms,
@@ -362,26 +493,44 @@ def phase_kernels(device, n_rays):
 # ------------------------------------------------------- frame phase ------
 
 MINMAX_WIDTH = {"fused_minmax_t[sampler]": 6, "fused_minmax_t[refine]": 102}
+UNTRANSPOSED = "fused_minmax_t[transpose_out=False]"
 
 
 def reset_counters():
-    for w in wrappers().values():
-        w.launches = 0
-    wrappers()["fused_minmax_t"].launches_by_width.clear()
+    w = wrappers()
+    for fn in w.values():
+        fn.launches = 0
+    w["fused_minmax_t"].launches_by_width.clear()
+    w["fused_minmax_t"].launches_untransposed.clear()
 
 
 def read_counters():
     """Launches since the last reset, by the names of ``KERNELS``: the two
-    MinMax shapes from the wrapper's count by input width."""
+    MinMax shapes from the wrapper's count by input width, and its launches
+    with ``transpose_out=False`` (both shapes together) under their own
+    name."""
     w = wrappers()
     by_width = w["fused_minmax_t"].launches_by_width
     counts = {name: by_width.get(c, 0) for name, c in MINMAX_WIDTH.items()}
     if sum(by_width.values()) != w["fused_minmax_t"].launches:
         raise SystemExit(f"fused_minmax_t counted {w['fused_minmax_t'].launches}"
                          f" launches, by width {by_width}")
-    for name in ("fused_nerf_raw_t", "fused_nerf_composite_t"):
+    for name in ("fused_nerf_raw_t", "fused_nerf_composite_t",
+                 "fused_nerf_raw_tq"):
         counts[name] = w[name].launches
+    counts[UNTRANSPOSED] = sum(
+        w["fused_minmax_t"].launches_untransposed.values())
     return counts
+
+
+def expect_counts(what, counts, **want):
+    """Fail unless the counters read ``want`` (kernels not named: 0)."""
+    full = dict.fromkeys(counts, 0) | {
+        {"sampler": "fused_minmax_t[sampler]",
+         "refine": "fused_minmax_t[refine]",
+         "untransposed": UNTRANSPOSED}.get(k, k): v for k, v in want.items()}
+    if counts != full:
+        raise SystemExit(f"{what}: launch counters {counts}, expected {full}")
 
 
 def rel_errs(got, ref, bound, keys=NINE_KEYS):
@@ -414,6 +563,24 @@ def hold(what, rows, bound, share=0.0):
     if bad:
         raise SystemExit(f"{what}: over {bound} of the reference's size on "
                          f"more than {share:.2%} of elements: {bad}")
+
+
+def bulk_and_tail(what, got, ref,
+                  keys=("rgb1", "rgb0", "mm_rgb", "depth", "acc", "depth0")):
+    """The transposed graph's bounds against the row-major one: the 99th
+    percentile of the difference and the share over the tail bound."""
+    rows = {}
+    for k in keys:
+        d = (got[k].float() - ref[k].float()).abs().flatten()
+        rows[k] = {"p99": float(torch.quantile(d, 0.99)),
+                   "share_over_tail": float(
+                       (d > TRANSPOSED_TAIL).float().mean())}
+    bad = {k: v for k, v in rows.items()
+           if not (v["p99"] < TRANSPOSED_BULK
+                   and v["share_over_tail"] < TRANSPOSED_TAIL_SHARE)}
+    if bad:
+        raise SystemExit(f"{what}: {bad}")
+    return rows
 
 
 def all_finite(result_arrays):
@@ -449,10 +616,40 @@ def profile_frames(render, frames):
     }
 
 
+def serve(what, cfg, reps):
+    """One drive of the serving entry point: counters zeroed just before,
+    read just after; the frames must be finite and of the frame's shape."""
+    from pronerf_tpu_torch.render import infer
+
+    reset_counters()
+    t0 = time.perf_counter()
+    result = infer.run_inference(cfg, timing_reps=reps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counters()
+    n_poses = len(result["rgbs1"])
+    all_finite({k: result[k] for k in ("rgbs1", "rgbs0", "depths")})
+    if result["rgbs1"].shape != (n_poses, H, W_IMG, 3):
+        raise SystemExit(f"{what}: frame shape {result['rgbs1'].shape}")
+    if not all(np.isfinite(result["psnrs"])):
+        raise SystemExit(f"{what}: PSNRs {result['psnrs']}")
+    return {"result": result, "counts": counts, "wall_s": wall,
+            "frames": n_poses * (1 + reps), "poses": n_poses,
+            "ms_per_frame": statistics.median(result["times_ms"])}
+
+
+def first_frame(drive, device):
+    """The whole frame of the first pose, as run_inference returned it."""
+    return {k: torch.from_numpy(drive["result"][r][0]).to(device)
+            for k, r in (("rgb1", "rgbs1"), ("rgb0", "rgbs0"),
+                         ("depth", "depths"))}
+
+
 @torch.no_grad()
 def phase_frame(device, profile=False):
     from pronerf_tpu_torch.config import Config
     from pronerf_tpu_torch.models.pronerf import render_rays
+    from pronerf_tpu_torch.models.pronerf_t import render_rays_t
     from pronerf_tpu_torch.render import infer
     from pronerf_tpu_torch.render.raygen import prepare_scene, rays_for_pose
     from pronerf_tpu_torch.render.renderer import make_frame_renderer
@@ -464,28 +661,23 @@ def phase_frame(device, profile=False):
             datadir=f"synthetic:{W_IMG}x{H}x{N_VIEWS}", use_trt=True,
             tile_rays=0, use_pallas=True, basedir=tmp, ft_path="",
         )
-        # ---- the server answers a few requests: raw kernel + composite op
-        reset_counters()
-        t0 = time.perf_counter()
-        result = infer.run_inference(cfg, timing_reps=reps)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = read_counters()
-        n_poses = len(result["rgbs1"])
-        frames = n_poses * (1 + reps)
-        all_finite({k: result[k] for k in ("rgbs1", "rgbs0", "depths")})
-        if result["rgbs1"].shape != (n_poses, H, W_IMG, 3):
-            raise SystemExit(f"frame shape {result['rgbs1'].shape}")
-        want = {"fused_minmax_t[sampler]": frames,
-                "fused_minmax_t[refine]": frames,
-                "fused_nerf_raw_t": frames, "fused_nerf_composite_t": 0}
-        if counts != want:
-            raise SystemExit(f"launch counters {counts}, expected {want}")
-        if not all(np.isfinite(result["psnrs"])):
-            raise SystemExit(f"PSNRs {result['psnrs']}")
-        ms_raw = statistics.median(result["times_ms"])
+        # ---- the server answers a few requests, three ways: raw kernel +
+        # composite op; the int8 NeRF kernel; the transposed graph
+        main = serve("default graph", cfg, reps)
+        expect_counts("default graph", main["counts"], sampler=main["frames"],
+                      refine=main["frames"], fused_nerf_raw_t=main["frames"])
+        quant = serve("quant=int8", cfg.replace(quant="int8"), reps)
+        expect_counts("quant=int8", quant["counts"], sampler=quant["frames"],
+                      refine=quant["frames"],
+                      fused_nerf_raw_tq=quant["frames"])
+        trans = serve("transposed=True", cfg.replace(transposed=True), reps)
+        expect_counts("transposed=True", trans["counts"],
+                      sampler=trans["frames"], refine=trans["frames"],
+                      untransposed=2 * trans["frames"],
+                      fused_nerf_composite_t=trans["frames"])
 
-        # ---- the same frame with the composite fused into the kernel
+        # ---- the default graph's frame with the composite fused into the
+        # kernel
         data = infer.load_inference_data(cfg)
         params = infer._load_params(cfg, infer.setup_expdir(cfg), device)
         scene = prepare_scene(
@@ -493,6 +685,8 @@ def phase_frame(device, profile=False):
             data["K"], pack_corners="u8", device=device)
         statics = infer._infer_statics(cfg, use_bf16=True)
         fused = dataclasses.replace(statics, fuse_composite=True)
+        statics_q = dataclasses.replace(statics, quant="int8")
+        statics_t = dataclasses.replace(statics, transposed=True)
         c2w = data["poses"][data["i_test"][0]][:3, :4]
         renderer = make_frame_renderer(fused, H, W_IMG, data["K"], 0,
                                        device=device)
@@ -501,17 +695,30 @@ def phase_frame(device, profile=False):
         torch.cuda.synchronize()
         counts_f = read_counters()
         all_finite(out_f)
-        want_f = {"fused_minmax_t[sampler]": 1, "fused_minmax_t[refine]": 1,
-                  "fused_nerf_raw_t": 0, "fused_nerf_composite_t": 1}
-        if counts_f != want_f:
-            raise SystemExit(f"launch counters {counts_f}, expected {want_f}")
+        expect_counts("fused composite", counts_f, sampler=1, refine=1,
+                      fused_nerf_composite_t=1)
         ms_fused = cuda_ms(lambda: renderer(params, scene, c2w), reps)
-        # the whole frame of the first pose, as run_inference returned it
-        frame_raw = {k: torch.from_numpy(result[r][0]).to(device)
-                     for k, r in (("rgb1", "rgbs1"), ("rgb0", "rgbs0"),
-                                  ("depth", "depths"))}
+        frame_raw = first_frame(main, device)
         forms_frame = rel_errs(out_f, frame_raw, FORMS_REL, tuple(frame_raw))
         hold("composite forms, whole frame", forms_frame, FORMS_REL)
+
+        # ---- whole frames of the new paths against the default graph's:
+        # the JAX package's int8 bounds, the transposed graph's bulk and tail
+        frame_q = first_frame(quant, device)
+        frame_t = first_frame(trans, device)
+        mse = float(((frame_q["rgb1"].double() - frame_raw["rgb1"].double())
+                     ** 2).mean())
+        quant_frame = {
+            "psnr_rgb1_db": -10.0 * float(np.log10(max(mse, 1e-12))),
+            "depth_max_abs": max_err(frame_q["depth"], frame_raw["depth"]),
+        }
+        if not (quant_frame["psnr_rgb1_db"] > QUANT_PSNR_DB
+                and quant_frame["depth_max_abs"] <= QUANT_DEPTH):
+            raise SystemExit(
+                f"int8 frame against the bf16 frame: {quant_frame}")
+        trans_frame = bulk_and_tail(
+            "transposed frame against the row-major frame", frame_t, out_f,
+            tuple(frame_t))
 
         # ---- a tile of the frame's rays, all nine outputs: both composite
         # forms against each other and against the kernel-free bf16 path
@@ -533,47 +740,107 @@ def phase_frame(device, profile=False):
         for form, rows in paths.items():
             hold(f"kernel path ({form}) against kernel-free bf16 path", rows,
                  PATHS_REL)
+        # the int8 path against the bf16 kernel path, and the transposed
+        # graph against the row-major one (both end in the fused composite)
+        from pronerf_tpu_torch.kernels.fused_nerf_q import (
+            pack_nerf_params_int8,
+        )
+
+        params_q = dict(params,
+                        nerf_packed_q=pack_nerf_params_int8(params["nerf"]))
+        with_q = render_rays(params_q, tile, scene, controls, statics_q)
+        quant_tile = rel_errs(with_q, with_k, QUANT_REL)
+        hold("int8 path against the bf16 kernel path", quant_tile, QUANT_REL,
+             PLAIN_SHARE)
+        with_t = render_rays_t(params, tile, scene, controls, statics_t)
+        trans_tile = rel_errs(with_t, with_kf, PLAIN_REL)
+        hold("transposed graph against the row-major graph", trans_tile,
+             PLAIN_REL, PLAIN_SHARE)
+        bulk_and_tail("transposed graph against the row-major graph, tile",
+                      with_t, with_kf)
         # ... and against the same code on CPU tensors, where every wrapper
         # takes its plain version: the kernels at the inputs the frame gives
-        # them, sigma included
+        # them, sigma included. The int8 panels are carried over, so the
+        # comparison is of the kernels, not of two calibrations.
         cpu = torch.device("cpu")
-        on_cpu = render_rays(
-            {k: copy.deepcopy(m).to(cpu) for k, m in params.items()},
-            {k: v.to(cpu) for k, v in tile.items()},
-            prepare_scene(
-                data["images"][data["i_ref"]], data["poses"][data["i_ref"]],
-                data["K"], pack_corners="u8", device=cpu),
-            {k: v.to(cpu) for k, v in controls.items()}, statics)
-        on_cpu = {k: v.to(device) for k, v in on_cpu.items()}
-        plain = {"raw": rel_errs(with_k, on_cpu, PLAIN_REL),
-                 "fused": rel_errs(with_kf, on_cpu, PLAIN_REL)}
+        params_cpu = {k: copy.deepcopy(m).to(cpu) for k, m in params.items()}
+        params_cpu_q = dict(params_cpu, nerf_packed_q={
+            k: v.to(cpu) for k, v in params_q["nerf_packed_q"].items()
+            if not k.startswith("_")})
+        tile_cpu = {k: v.to(cpu) for k, v in tile.items()}
+        scene_cpu = prepare_scene(
+            data["images"][data["i_ref"]], data["poses"][data["i_ref"]],
+            data["K"], pack_corners="u8", device=cpu)
+        controls_cpu = {k: v.to(cpu) for k, v in controls.items()}
+
+        def on_cpu(fn, prm, st):
+            out = fn(prm, tile_cpu, scene_cpu, controls_cpu, st)
+            return {k: v.to(device) for k, v in out.items()}
+
+        cpu_k = on_cpu(render_rays, params_cpu, statics)
+        plain = {
+            "raw": rel_errs(with_k, cpu_k, PLAIN_REL),
+            "fused": rel_errs(with_kf, cpu_k, PLAIN_REL),
+            "int8": rel_errs(
+                with_q, on_cpu(render_rays, params_cpu_q, statics_q),
+                PLAIN_REL),
+            "transposed": rel_errs(
+                with_t, on_cpu(render_rays_t, params_cpu, statics_t),
+                PLAIN_REL),
+        }
         for form, rows in plain.items():
             hold(f"kernel path ({form}) against the plain versions on the "
                  "CPU", rows, PLAIN_REL, PLAIN_SHARE)
 
         if profile:
-            say({"profile": profile_frames(
+            say({"profile": {"path": "fused composite"} | profile_frames(
                 lambda: renderer(params, scene, c2w), 3)})
+            for path, st in (("quant=int8", statics_q),
+                             ("transposed=True", statics_t)):
+                render = make_frame_renderer(st, H, W_IMG, data["K"], 0,
+                                             device=device)
+                say({"profile": {"path": path} | profile_frames(
+                    lambda: render(params, scene, c2w), 3)})
 
     say({
         "frame": {
-            "H": H, "W": W_IMG, "views": N_VIEWS, "poses": n_poses,
-            "frames_rendered": frames, "ms_per_frame": ms_raw,
+            "H": H, "W": W_IMG, "views": N_VIEWS, "poses": main["poses"],
+            "frames_rendered": main["frames"],
+            "ms_per_frame": main["ms_per_frame"],
             "ms_per_frame_fused_composite": ms_fused,
-            "run_inference_wall_s": wall, "psnr": result["psnrs"],
-            "launches": counts, "launches_fused_composite": counts_f,
+            "ms_per_frame_int8": quant["ms_per_frame"],
+            "ms_per_frame_transposed": trans["ms_per_frame"],
+            "run_inference_wall_s": {
+                "default": main["wall_s"], "int8": quant["wall_s"],
+                "transposed": trans["wall_s"]},
+            "psnr": main["result"]["psnrs"],
+            "launches": main["counts"], "launches_fused_composite": counts_f,
+            "launches_int8": quant["counts"],
+            "launches_transposed": trans["counts"],
             "composite_forms_frame": forms_frame,
             "composite_forms_tile": forms_tile, "forms_rel_tol": FORMS_REL,
             "kernel_vs_kernel_free_bf16_tile": paths,
             "paths_rel_tol": PATHS_REL,
+            "int8_vs_bf16_frame": quant_frame,
+            "int8_vs_bf16_tile": quant_tile, "quant_rel_tol": QUANT_REL,
+            "transposed_vs_row_major_frame": trans_frame,
+            "transposed_vs_row_major_tile": trans_tile,
             "kernel_vs_plain_versions_on_cpu_tile": plain,
             "plain_rel_tol": PLAIN_REL, "plain_share": PLAIN_SHARE,
         }
     })
-    # launches on the main-path drive; the composite kernel's main path is the
-    # fuse_composite frame
-    return counts | {
-        "fused_nerf_composite_t": counts_f["fused_nerf_composite_t"]}
+    # launches on each kernel's main-path drive: the default graph's for the
+    # MinMax shapes and the raw kernel, the fuse_composite frame for the
+    # composite kernel, the int8 drive for the int8 kernel, the transposed
+    # drive for the MinMax kernel's untransposed form
+    return {
+        "fused_minmax_t[sampler]": main["counts"]["fused_minmax_t[sampler]"],
+        "fused_minmax_t[refine]": main["counts"]["fused_minmax_t[refine]"],
+        "fused_nerf_raw_t": main["counts"]["fused_nerf_raw_t"],
+        "fused_nerf_composite_t": counts_f["fused_nerf_composite_t"],
+        "fused_nerf_raw_tq": quant["counts"]["fused_nerf_raw_tq"],
+        UNTRANSPOSED: trans["counts"][UNTRANSPOSED],
+    }
 
 
 # ---------------------------------------------------------------- main ----
@@ -585,7 +852,8 @@ def main(argv=None):
     ap.add_argument("--verbose-build", action="store_true")
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel name for the "
-                         "fused-composite frame (torch.profiler)")
+                         "fused-composite, the int8 and the transposed "
+                         "frame (torch.profiler)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -617,8 +885,8 @@ def main(argv=None):
     print(smi, flush=True)
     contract = []
     for r in rows:
-        if r["dtype"] != "bfloat16":
-            continue  # the main path runs the bf16 instantiation
+        if r["dtype"] != DTYPES.get(r["name"], BOTH)[0]:
+            continue  # the instantiation the main path runs
         contract.append({
             k: r[k] for k in ("name", "route", "source", "replaces",
                               "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -626,6 +894,8 @@ def main(argv=None):
         } | {"launches": launches.get(r["name"], 0)})
     if args.only is None:
         idle = [c["name"] for c in contract if c["launches"] < 1]
+        if launches.get(UNTRANSPOSED, 0) < 1:
+            idle.append(UNTRANSPOSED)
         if idle:
             raise SystemExit(f"kernels never launched on the main path: {idle}")
     say({"kernels": contract})

@@ -83,6 +83,34 @@ def params_from_numpy(tree, device="cpu"):
     }
 
 
+def ranges_from_numpy(ranges, device="cpu"):
+    """The JAX package's int8 calibration ranges (``calibrate_nerf_ranges``:
+    name -> (min [C], max [C]), numpy leaves) as float32 tensors, for
+    ``kernels.fused_nerf_q.pack_nerf_params_int8(net, ranges=...)``."""
+    return {
+        name: tuple(
+            torch.from_numpy(np.array(a, np.float32)).to(device) for a in pair
+        )
+        for name, pair in ranges.items()
+    }
+
+
+def packed_q_from_numpy(packed, device="cpu"):
+    """The JAX package's int8 pack (``pack_nerf_params_int8``, numpy leaves)
+    as the port's: int8 panels stay int8, float32 columns float32, and the
+    PE panels (bfloat16 there, which numpy holds as an extension type) cross
+    through float32, which holds every bfloat16 value exactly."""
+    out = {}
+    for name, a in packed.items():
+        a = np.asarray(a)
+        if a.dtype in (np.int8, np.float32):
+            out[name] = torch.from_numpy(a.copy()).to(device)
+        else:
+            out[name] = torch.from_numpy(a.astype(np.float32)).to(
+                device=device, dtype=torch.bfloat16)
+    return out
+
+
 def scene_from_numpy(images, poses, K, pack_corners="u8", device="cpu"):
     """The port's scene bundle from the arrays the JAX package's
     ``prepare_scene`` takes: images [T, H, W, 3], poses [T, 3, 4], K [3, 3]."""

@@ -25,6 +25,12 @@
 // operand buffer by feature index goes through `P::col`; for f32 it is the
 // identity.
 //
+// int8 (`fused_nerf_q.cu`). The same scheme with `mma.sync.m16n8k32` on int8
+// codes: operand buffers are [TILE][features + 16] bytes, a chunk is 64 codes
+// wide, a lane's 16-byte load of its panel row (k = 16t .. 16t+15) feeds two
+// `mma`s, and `col_s8` is the matching permutation. `ldmatrix ... b16` moves
+// the codes two to a b16, which is exactly the A fragment m16n8k32 wants.
+//
 // Rounding. Every dot is rounded to the pack dtype before anything else is
 // added; additions of biases and addends are done in f32 on the rounded
 // values and rounded again. That is what `_mm(...) + b` means for bf16
@@ -112,11 +118,11 @@ __device__ __forceinline__ void mma_16x8x16(float (&c)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// One 16x16 A tile (rows = rays, cols = k) from shared memory. Lane l hands
-// in the address of row l % 16 at column offset (l / 16) * 8; the four 8x8
-// matrices arrive in the register order mma.m16n8k16 wants for A.
-__device__ __forceinline__ void ldmatrix_a(uint32_t (&a)[4],
-                                           const __nv_bfloat16* p) {
+// One 16-row by 32-byte A tile (rows = rays, cols = k: 16 bf16 values or 32
+// int8 codes) from shared memory. Lane l hands in the address of row l % 16
+// at byte offset (l / 16) * 16; the four 8x8 b16 matrices arrive in the
+// register order mma.m16n8k16 (bf16) and mma.m16n8k32 (int8) want for A.
+__device__ __forceinline__ void ldmatrix_a(uint32_t (&a)[4], const void* p) {
   uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -124,24 +130,32 @@ __device__ __forceinline__ void ldmatrix_a(uint32_t (&a)[4],
       : "r"(addr));
 }
 
-// A warp computes MT*16 rays by NT*8 outputs starting at (m0, n0) and hands
-// the f32 accumulators, as the pairs (out, out + 1) of a ray that a lane
-// holds, to sink(ray, out, acc0, acc1).
-template <int MT, int NT, class Sink>
-__device__ __forceinline__ void warp_tile_bf16(const __nv_bfloat16* in,
-                                               int ld, int K,
-                                               const __nv_bfloat16* Wg,
-                                               int m0, int n0, Sink& sink) {
+// The pairs (out, out + 1) of a ray that a lane holds after a warp tile at
+// (m0, n0), handed to sink(ray, out, acc0, acc1) as floats.
+template <int MT, int NT, class Acc, class Sink>
+__device__ __forceinline__ void warp_emit(const Acc (&acc)[MT][NT][4], int m0,
+                                          int n0, Sink& sink) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  float acc[MT][NT][4];
 #pragma unroll
   for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
+    for (int ni = 0; ni < NT; ++ni) {
+      const int r = m0 + mi * 16 + g, n = n0 + ni * 8 + 2 * t;
+      sink(r, n, (float)acc[mi][ni][0], (float)acc[mi][ni][1]);
+      sink(r + 8, n, (float)acc[mi][ni][2], (float)acc[mi][ni][3]);
+    }
+}
 
+// A warp adds MT*16 rays by NT*8 outputs of in[ray, k] . Wg[out, k], starting
+// at (m0, n0), onto the f32 accumulators it holds.
+template <int MT, int NT>
+__device__ __forceinline__ void warp_acc_bf16(const __nv_bfloat16* in, int ld,
+                                              int K, const __nv_bfloat16* Wg,
+                                              int m0, int n0,
+                                              float (&acc)[MT][NT][4]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const __nv_bfloat16* arow = in + (m0 + (lane & 15)) * ld + (lane >> 4) * 8;
   const __nv_bfloat16* brow = Wg + (size_t)(n0 + g) * K + 8 * t;
   for (int kc = 0; kc < K; kc += 32) {
@@ -163,14 +177,17 @@ __device__ __forceinline__ void warp_tile_bf16(const __nv_bfloat16* in,
       }
     }
   }
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni) {
-      const int r = m0 + mi * 16 + g, n = n0 + ni * 8 + 2 * t;
-      sink(r, n, acc[mi][ni][0], acc[mi][ni][1]);
-      sink(r + 8, n, acc[mi][ni][2], acc[mi][ni][3]);
-    }
+}
+
+// The whole product of a warp tile, its f32 sums handed to `sink`.
+template <int MT, int NT, class Sink>
+__device__ __forceinline__ void warp_tile_bf16(const __nv_bfloat16* in,
+                                               int ld, int K,
+                                               const __nv_bfloat16* Wg,
+                                               int m0, int n0, Sink& sink) {
+  float acc[MT][NT][4] = {};
+  warp_acc_bf16<MT, NT>(in, ld, K, Wg, m0, n0, acc);
+  warp_emit<MT, NT>(acc, m0, n0, sink);
 }
 
 // Nout is 256, 128, or a small multiple of 8 (a head). Wide layers: each
@@ -191,6 +208,90 @@ __device__ __forceinline__ void dense_bf16(const __nv_bfloat16* in, int ld,
     for (int it = warp; it < items; it += P::THREADS / 32)
       warp_tile_bf16<1, 1>(in, ld, K, Wg, (it % (P::TILE / 16)) * 16,
                            (it / (P::TILE / 16)) * 8, epi);
+  }
+}
+
+// ------------------------------------------------------------ int8 / mma --
+
+constexpr int kPadS8 = 16;  // bytes; keeps ldmatrix rows on distinct banks
+
+// Column of feature n in an int8 operand buffer: inside a chunk of 64,
+// feature 16t + 8h + 4j + e sits at byte 32h + 16j + 4t + e, so that a
+// lane's 16 contiguous panel bytes (k = 16t .. 16t+15) are, word by word,
+// the B fragments (k-quads 4t and 16 + 4t) of the chunk's two `mma`s.
+__device__ __forceinline__ int col_s8(int n) {
+  return (n & ~63) | ((n & 8) << 2) | ((n & 4) << 2) | ((n >> 2) & 12) |
+         (n & 3);
+}
+
+__device__ __forceinline__ void mma_16x8x32_s8(int (&c)[4],
+                                               const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The int8 twin of warp_acc_bf16: K a multiple of 64, `ld` in bytes, summed
+// exactly in int32.
+template <int MT, int NT>
+__device__ __forceinline__ void warp_acc_s8(const int8_t* in, int ld, int K,
+                                            const int8_t* Wg, int m0, int n0,
+                                            int (&acc)[MT][NT][4]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int8_t* arow = in + (m0 + (lane & 15)) * ld + (lane >> 4) * 16;
+  const int8_t* brow = Wg + (size_t)(n0 + g) * K + 16 * t;
+  for (int kc = 0; kc < K; kc += 64) {
+    uint4 bv[NT];  // k-quads q = 0..3 of this lane, for every n-tile
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+      bv[ni] = __ldg(reinterpret_cast<const uint4*>(brow + (size_t)ni * 8 * K + kc));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+        ldmatrix_a(a[mi], arow + mi * 16 * ld + kc + 32 * h);
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        const uint32_t b[2] = {h ? bv[ni].z : bv[ni].x, h ? bv[ni].w : bv[ni].y};
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) mma_16x8x32_s8(acc[mi][ni], a[mi], b);
+      }
+    }
+  }
+}
+
+// The whole product of a warp tile. The sums go to `sink` as floats:
+// |acc| <= 256 * 127 * 127 < 2^24, so the conversion is exact.
+template <int MT, int NT, class Sink>
+__device__ __forceinline__ void warp_tile_s8(const int8_t* in, int ld, int K,
+                                             const int8_t* Wg, int m0, int n0,
+                                             Sink& sink) {
+  int acc[MT][NT][4] = {};
+  warp_acc_s8<MT, NT>(in, ld, K, Wg, m0, n0, acc);
+  warp_emit<MT, NT>(acc, m0, n0, sink);
+}
+
+// Same split of a layer over the block's 8 warps as dense_bf16.
+template <class P, class Sink>
+__device__ __forceinline__ void dense_s8(const int8_t* in, int ld, int K,
+                                         const int8_t* Wg, int Nout,
+                                         Sink& epi) {
+  static_assert(P::TILE == 64 && P::THREADS == 256, "8 warps of 64 rays");
+  const int warp = threadIdx.x >> 5;
+  if (Nout == 256) {
+    warp_tile_s8<4, 4>(in, ld, K, Wg, 0, warp * 32, epi);
+  } else if (Nout == 128) {
+    warp_tile_s8<4, 2>(in, ld, K, Wg, 0, warp * 16, epi);
+  } else {
+    const int items = (P::TILE / 16) * (Nout / 8);
+    for (int it = warp; it < items; it += P::THREADS / 32)
+      warp_tile_s8<1, 1>(in, ld, K, Wg, (it % (P::TILE / 16)) * 16,
+                         (it / (P::TILE / 16)) * 8, epi);
   }
 }
 

@@ -216,10 +216,16 @@ def fused_minmax_t(packed, x_t, transpose_out: bool = True):
     fused_minmax_t.launches += 1
     fused_minmax_t.launches_by_width[C] = (
         fused_minmax_t.launches_by_width.get(C, 0) + 1)
+    if not transpose_out:
+        fused_minmax_t.launches_untransposed[C] = (
+            fused_minmax_t.launches_untransposed.get(C, 0) + 1)
     return out
 
 
 # Launches of the kernel: all of them, and by input width C (the sampler and
-# the refine net go through this one wrapper and differ in C).
+# the refine net go through this one wrapper and differ in C); those with
+# ``transpose_out=False`` (the transposed serving graph's form) are also
+# counted apart, by width too.
 fused_minmax_t.launches = 0
 fused_minmax_t.launches_by_width = {}
+fused_minmax_t.launches_untransposed = {}

@@ -40,7 +40,12 @@ from pronerf_tpu_torch.ops.sampling import (
     ndc_to_3d_depth,
     sort_with_payloads,
 )
-from pronerf_tpu_torch.ops.warp import epipolar_colors_shared, mean_fill_invalid
+from pronerf_tpu_torch.ops.warp import (
+    epipolar_colors_shared,
+    is_u8_pack,
+    mean_fill_invalid,
+    mean_fill_invalid_sct,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +56,8 @@ class RenderStatics:
     epsilon that differs between stages is explicit. The fields are those of
     the JAX package's ``RenderStatics``, with ``use_kernels`` in the place of
     ``use_pallas``; fields that select paths not ported yet are carried as
-    data and checked by ``render_rays``.
+    data and checked by ``render_rays``. ``transposed`` is read by the frame
+    renderer, which then takes ``models.pronerf_t.render_rays_t``.
     """
 
     N_samples: int = 8
@@ -90,11 +96,15 @@ class RenderStatics:
                            # bf16 as they are gathered. -1 auto (= on when
                            # the fused MinMax kernels serve), 0 off, 1 force
     gather_split: bool = False   # not ported
-    gather_transposed: int = -1  # not ported (1 raises)
+    gather_transposed: int = -1  # emit the epipolar colors directly in the
+                                 # kernels' transposed layout: -1 auto
+                                 # (= off), 0 off, 1 force
     train_gather: int = -1       # training-path warp choice (not ported)
     netarch: str = "nerf"     # radiance-field family; 'donerf' not ported
-    transposed: bool = False  # fully transposed serving graph (not ported)
-    quant: str = "none"       # 'int8' serving kernel (not ported)
+    transposed: bool = False  # fully transposed serving graph
+                              # (models/pronerf_t.py)
+    quant: str = "none"       # 'int8': run the fused NeRF kernel with int8
+                              # products (kernels/fused_nerf_q.py)
 
     # -- factories reproducing the behavior matrix ------------------------
     @staticmethod
@@ -219,10 +229,9 @@ def _check_ported(statics: RenderStatics):
                      "noise / stop_sampler_grad): the training slice")
     if statics.netarch != "nerf":
         later.append("netarch='donerf': the off-main-path serving variants")
-    if statics.quant != "none":
-        later.append("quant='int8' (fused_nerf_raw_tq): the int8 kernel slice")
-    if statics.transposed or statics.gather_transposed == 1:
-        later.append("the transposed serving graph / transposed gather emit")
+    if statics.quant not in ("none", "int8"):
+        raise ValueError(
+            f"quant must be 'none' or 'int8', got {statics.quant!r}")
     if statics.gather_tiles > 0 or statics.gather_split \
             or statics.train_gather == 1:
         later.append("the windowed / split / per-view gathers")
@@ -315,16 +324,39 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
             or (statics.gather_bf16 == -1 and mm_kernel))
         else None
     )
+    # Transposed emit: produce the fused kernels' rays-minor layout directly
+    # at the gather instead of transposing epi_flat below.
+    t_emit = (
+        mm_kernel and is_u8_pack(scene["images"])
+        and not statics.gather_split and statics.gather_transposed == 1
+    )
     with torch.no_grad():
-        colors = epipolar_colors_shared(
-            scene["images"], scene["fused_mats"], scene["K"], nearest,
-            rays["or_o"], rays["or_d"], z3d, out_dtype=gdt,
-        )  # [N, V, S, 3]
-        colors = mean_fill_invalid(colors)
-    if statics.epi_layout == "svc":
-        epi_flat = colors.transpose(1, 2).reshape(n_rays, -1)
+        if t_emit:
+            epi_v = epipolar_colors_shared(
+                scene["images"], scene["fused_mats"], scene["K"], nearest,
+                rays["or_o"], rays["or_d"], z3d, out_dtype=gdt,
+                transposed_out=True,
+            )  # [V, S*3, N]
+            n_views = epi_v.shape[0]
+            epi_v = mean_fill_invalid_sct(epi_v.reshape(n_views, S, 3, n_rays))
+        else:
+            colors = epipolar_colors_shared(
+                scene["images"], scene["fused_mats"], scene["K"], nearest,
+                rays["or_o"], rays["or_d"], z3d, out_dtype=gdt,
+            )  # [N, V, S, 3]
+            colors = mean_fill_invalid(colors)
+    if t_emit:
+        epi_flat = None
+        if statics.epi_layout == "svc":
+            epi_t = epi_v.transpose(0, 1).reshape(-1, n_rays)
+        else:
+            epi_t = epi_v.reshape(-1, n_rays)  # [V*S*3, N]
     else:
-        epi_flat = colors.reshape(n_rays, -1)  # [N, V*S*3]
+        epi_t = None
+        if statics.epi_layout == "svc":
+            epi_flat = colors.transpose(1, 2).reshape(n_rays, -1)
+        else:
+            epi_flat = colors.reshape(n_rays, -1)  # [N, V*S*3]
 
     # 4. Refine net on [Pluecker(candidates) || warped colors]. Same
     # collinearity fold as the sampler: the 8 candidate points share one
@@ -335,7 +367,7 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
             packed_r = pack_minmax_params(params["refine"], S, cdt)
         # one dtype for the concat, so a bf16 gather stays bf16 (the kernel
         # casts its input to bf16 on entry either way)
-        epi_rows_t = epi_flat.T
+        epi_rows_t = epi_t if epi_t is not None else epi_flat.T
         refine_out = fused_minmax_t(
             packed_r,
             torch.cat([sig_t.to(epi_rows_t.dtype), epi_rows_t], dim=0),
@@ -389,10 +421,23 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
             and not statics.explore and not statics.clamp_raw
             and statics.use_mm
         )
-        packed = params.get("nerf_packed")
-        if packed is None:
-            packed = pack_nerf_params(params["nerf"], kdt)
-        if fuse_comp:
+        if statics.quant == "int8":
+            # the int8 serving path (opt-in); compositing stays in
+            # ops.composite, never inside the kernel
+            from pronerf_tpu_torch.kernels.fused_nerf_q import (
+                fused_nerf_raw_tq,
+                pack_nerf_params_int8,
+            )
+
+            packed_q = params.get("nerf_packed_q")
+            if packed_q is None:
+                packed_q = pack_nerf_params_int8(params["nerf"])
+            raw = fused_nerf_raw_tq(
+                packed_q, pts24_t, vcon_t.contiguous(), n_samples=S)
+        elif fuse_comp:
+            packed = params.get("nerf_packed")
+            if packed is None:
+                packed = pack_nerf_params(params["nerf"], kdt)
             comp = fused_nerf_composite_t(
                 packed, pts24_t, vcon_t,
                 z_vals.T.float().contiguous(),
@@ -403,6 +448,9 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
             )
             sigma_out = comp["sigma"]
         else:
+            packed = params.get("nerf_packed")
+            if packed is None:
+                packed = pack_nerf_params(params["nerf"], kdt)
             raw = fused_nerf_raw_t(packed, pts24_t, vcon_t, n_samples=S)
     else:
         query_pts = ray_points(ndc_o, ndc_d, z_vals)

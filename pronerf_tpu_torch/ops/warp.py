@@ -9,9 +9,11 @@ source views and fetch bilinearly-interpolated colors.
 - the geometry is full float32: the small products are written as multiplies
   and sums, so no TF32 or bf16 path can touch them.
 
-This is the deterministic shared-view path of the JAX module
-(``epipolar_colors_shared``, row-major output). Its windowed, split,
-transposed-emit, per-view and nearest-neighbor forms are not ported yet.
+This is the deterministic shared-view path of the JAX module: the row-major
+gather ``epipolar_colors_shared``, its transposed emit (``transposed_out``)
+and the fully transposed ``epipolar_colors_shared_t`` of the transposed
+serving graph, each with its mean fill. The windowed, split, per-view and
+nearest-neighbor forms are not ported yet.
 """
 
 from __future__ import annotations
@@ -111,6 +113,11 @@ def build_corner_stack_u8(images):
     return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
 
 
+def is_u8_pack(images) -> bool:
+    """True for an int32 [T, H, W, 3] :func:`build_corner_stack_u8` array."""
+    return images.dim() == 4 and images.dtype == torch.int32
+
+
 def _pixel_coords(xn, yn, H: int, W: int):
     inb = (xn >= -1.0) & (xn <= 1.0) & (yn >= -1.0) & (yn <= 1.0)
     u = torch.clamp((xn + 1.0) * 0.5 * (W - 1), 0.0, W - 1)
@@ -183,8 +190,28 @@ def bilinear_sample(images, view_idx, xn, yn):
                  gather(y1, x1), wx[..., None], wy[..., None], inb)
 
 
+def _lerp_t_block(table, idx, wx, wy, hit, out_dtype):
+    """One view's u8-pack bilinear sample emitted as the TRANSPOSED block
+    ``[S*3, n]`` the fused kernels consume. Per element the same
+    scale-then-lerp arithmetic as :func:`bilinear_sample_packed_u8`, so the
+    values are equal bit for bit; rows are ordered (s, c) = s * 3 + c,
+    matching ``epi_layout='vsc'`` per-view rows.
+
+    table [P, 3] int32 words, idx [n, S] rows of it, wx/wy/hit [n, S]."""
+    n, S = idx.shape
+    rows = table[idx]  # [n, S, 3] words
+
+    def lane(shift):
+        return ((rows >> shift) & 0xFF).to(torch.float32) * (1.0 / 255.0)
+
+    out = _lerp(lane(0), lane(8), lane(16), lane(24),
+                wx[..., None], wy[..., None], hit)
+    blk = out.reshape(n, S * 3).T
+    return blk if out_dtype is None else blk.to(out_dtype)
+
+
 def epipolar_colors_shared(images, fused_mats, K, view_ids, rays_o, rays_d,
-                           z3d, out_dtype=None):
+                           z3d, out_dtype=None, transposed_out: bool = False):
     """Epipolar colors when ALL rays share the same source views (the
     deterministic eval/inference selection).
 
@@ -201,15 +228,29 @@ def epipolar_colors_shared(images, fused_mats, K, view_ids, rays_o, rays_d,
         (``torch.bfloat16`` where the fused kernels consume them: they cast
         their input anyway, so valid colors are unchanged and only the
         mean-fill of invalid ones then runs in bf16).
+      transposed_out: emit the kernel-consumable transposed layout
+        [V, S*3, N] directly (u8 pack only; see :func:`_lerp_t_block`).
+        The values are those of the default form, bit for bit.
 
-    Returns: colors [N, V, S, 3] (zeros where the projection left the image).
+    Returns: colors [N, V, S, 3] (zeros where the projection left the
+    image), or [V, S*3, N] when ``transposed_out``.
     """
     T, H, W, C = images.shape
+    if transposed_out and not is_u8_pack(images):
+        raise ValueError("transposed_out needs the int32 u8 corner pack")
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z3d[..., None]  # [N, S, 3]
     outs = []
     for v in range(int(view_ids.shape[0])):
         vid = view_ids[v]
         xn, yn = project_points(pts, fused_mats[vid], K, H, W)  # [N, S]
+        if transposed_out:
+            inb, x0, y0, wx, wy = _pixel_coords(xn, yn, H, W)
+            outs.append(_lerp_t_block(
+                images.reshape(T * H * W, 3),
+                vid.to(torch.int64) * (H * W) + y0 * W + x0, wx, wy, inb,
+                out_dtype,
+            ))
+            continue
         vidx = vid.expand(xn.shape)
         if images.dtype == torch.int32:
             c = bilinear_sample_packed_u8(images, vidx, xn, yn)
@@ -218,7 +259,93 @@ def epipolar_colors_shared(images, fused_mats, K, view_ids, rays_o, rays_d,
         else:
             c = bilinear_sample(images, vidx, xn, yn)
         outs.append(c if out_dtype is None else c.to(out_dtype))
-    return torch.stack(outs, dim=1)
+    return torch.stack(outs, dim=0 if transposed_out else 1)
+
+
+def epipolar_colors_shared_t(images, fused_mats, K, view_ids, or_o_t, or_d_t,
+                             z3d_t, n_tiles: int = 0, window_rows: int = 0):
+    """Shared-view epipolar colors in the TRANSPOSED serving layout: every
+    array keeps rays on the minor axis, projections and lerp weights as
+    [S, N] panels, colours as [3, S, N] per view.
+
+    Same projections and the same u8 bilinear unpack order as
+    :func:`epipolar_colors_shared`: given equal projections the colours are
+    equal bit for bit. The projection is written out as scalar multiplies
+    and sums in f32, left to right.
+
+    Args:
+      images: int32 [T, H, W, 3] :func:`build_corner_stack_u8` pack
+        (required).
+      view_ids: [V] integer source-view ids shared by every ray.
+      or_o_t, or_d_t: [3, N] original camera-space rays, transposed.
+      z3d_t: [S, N] 3D depths, transposed.
+      n_tiles / window_rows: the windowed form (source-row windows per ray
+        tile) is not ported yet; ``n_tiles > 0`` raises.
+
+    Returns: colors_t [V, 3, S, N] float32; reshape to [V*3*S, N] for the
+    (v, c, s)-ordered refine-input rows (the refine net's first-layer rows
+    are permuted to match at pack time:
+    ``pack_minmax_params(rest_row_perm=...)``).
+    """
+    if n_tiles and n_tiles > 0:
+        raise NotImplementedError(
+            "the windowed transposed gather (n_tiles > 0) is not ported to "
+            "pronerf_tpu_torch yet"
+        )
+    if not is_u8_pack(images):
+        raise ValueError("epipolar_colors_shared_t needs the int32 u8 "
+                         "corner pack [T, H, W, 3]")
+    T, H, W, _ = images.shape
+    table = images.reshape(T * H * W, 3)
+    # [3, S, N] world points: row (c, s) = o_c + d_c * z_s
+    pts = or_o_t[:, None, :] + or_d_t[:, None, :] * z3d_t[None, :, :]
+    outs = []
+    for v in range(int(view_ids.shape[0])):
+        vid = view_ids[v]
+        M = fused_mats[vid]  # [3, 4]
+        p = [
+            M[i, 0] * pts[0] + M[i, 1] * pts[1] + M[i, 2] * pts[2] + M[i, 3]
+            for i in range(3)
+        ]  # each [S, N]
+        z = torch.abs(p[2]) + 1e-8
+        u_pix = K[0, 0] * p[0] / z + K[0, 2]
+        v_pix = K[1, 1] * p[1] / z + K[1, 2]
+        xn = 2.0 * u_pix / (W - 1) - 1.0
+        yn = 2.0 * v_pix / (H - 1) - 1.0
+        inb, x0, y0, wx, wy = _pixel_coords(xn, yn, H, W)
+        rows = table[vid.to(torch.int64) * (H * W) + y0 * W + x0]  # [S, N, 3]
+        rows_t = rows.permute(2, 0, 1)  # [3, S, N] words
+
+        def lane(shift):
+            return ((rows_t >> shift) & 0xFF).to(torch.float32) * (1.0 / 255.0)
+
+        # the scale-then-lerp order of bilinear_sample_packed_u8
+        c00, c01, c10, c11 = lane(0), lane(8), lane(16), lane(24)
+        top = c00 * (1.0 - wx[None]) + c01 * wx[None]
+        bot = c10 * (1.0 - wx[None]) + c11 * wx[None]
+        out = top * (1.0 - wy[None]) + bot * wy[None]
+        outs.append(out * inb[None].to(out.dtype))
+    return torch.stack(outs, dim=0)  # [V, 3, S, N]
+
+
+def _mean_fill(colors, channel_dim: int, view_dim: int, eps: float):
+    valid = (colors.sum(dim=channel_dim, keepdim=True) > 0).to(colors.dtype)
+    mean = (valid * colors).sum(dim=view_dim, keepdim=True) / (
+        valid.sum(dim=view_dim, keepdim=True) + eps
+    )
+    return colors * valid + mean * (1.0 - valid)
+
+
+def mean_fill_invalid_t(colors_t, eps: float = 1e-6):
+    """Transposed twin of :func:`mean_fill_invalid`: colors_t [V, 3, S, N],
+    validity = channel sum > 0 per (view, sample, ray)."""
+    return _mean_fill(colors_t, 1, 0, eps)
+
+
+def mean_fill_invalid_sct(colors_t, eps: float = 1e-6):
+    """(s, c)-row twin of :func:`mean_fill_invalid_t` for the transposed
+    gather emit: colors_t [V, S, 3, N]."""
+    return _mean_fill(colors_t, 2, 0, eps)
 
 
 def mean_fill_invalid(colors, eps: float = 1e-6):
@@ -231,8 +358,4 @@ def mean_fill_invalid(colors, eps: float = 1e-6):
 
     Returns: [N, V, S, 3].
     """
-    valid = (colors.sum(dim=-1, keepdim=True) > 0).to(colors.dtype)
-    mean = (valid * colors).sum(dim=1, keepdim=True) / (
-        valid.sum(dim=1, keepdim=True) + eps
-    )
-    return colors * valid + mean * (1.0 - valid)
+    return _mean_fill(colors, -1, 1, eps)

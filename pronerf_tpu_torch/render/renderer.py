@@ -42,6 +42,10 @@ def make_frame_renderer(
     device is the card; without one the call raises (pass ``device='cpu'``
     to run the plain versions).
 
+    With ``statics.transposed`` the tiles go through the transposed serving
+    graph (``models.pronerf_t.render_rays_t``) where it implements the
+    statics exactly (``transposed_eligible``), else through ``render_rays``.
+
     Returns tensors on ``device``: rgb1, rgb0, mm_rgb [H, W, 3]; depth,
     depth0 [H, W].
     """
@@ -61,10 +65,19 @@ def make_frame_renderer(
         c2w = as_f32(c2w, device)
         rays = rays_for_pose(H, W, K, c2w, device)
         controls = {"target_t": c2w[:3, 3]}
+        rr_fn = render_rays
+        if statics.transposed:
+            from pronerf_tpu_torch.models.pronerf_t import (
+                render_rays_t,
+                transposed_eligible,
+            )
+
+            if transposed_eligible(statics, scene["images"]):
+                rr_fn = render_rays_t
         outs = []
         for lo in range(0, H * W, tile_rays):
             tile = {k: v[lo:lo + tile_rays] for k, v in rays.items()}
-            out = render_rays(packed, tile, scene, controls, statics)
+            out = rr_fn(packed, tile, scene, controls, statics)
             outs.append({k: out[k] for k in _FRAME_KEYS})
         flat = {
             k: outs[0][k] if len(outs) == 1

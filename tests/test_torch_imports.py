@@ -23,8 +23,9 @@ def port_modules():
 def test_port_has_the_expected_modules():
     mods = port_modules()
     for want in ("config", "convert", "ops.warp", "ops.composite",
-                 "models.mlp", "models.pronerf", "kernels.build",
-                 "kernels.fused_minmax", "kernels.fused_nerf",
+                 "models.mlp", "models.pronerf", "models.pronerf_t",
+                 "kernels.build", "kernels.fused_minmax",
+                 "kernels.fused_nerf", "kernels.fused_nerf_q",
                  "kernels.packing", "render.raygen", "render.renderer",
                  "render.infer", "utils.synthetic", "utils.profiling"):
         assert f"pronerf_tpu_torch.{want}" in mods

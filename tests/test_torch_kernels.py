@@ -351,7 +351,7 @@ def test_modules_import_and_build_nothing_without_a_compiler():
     from pronerf_tpu_torch.kernels import build
 
     assert "triton" not in sys.modules
-    assert build.sources() == ["fused_minmax", "fused_nerf"]
+    assert build.sources() == ["fused_minmax", "fused_nerf", "fused_nerf_q"]
     assert build.lib_path("fused_nerf").parent.name == "_build"
     if shutil.which("nvcc") is None and not (
             build.Path("/usr/local/cuda/bin/nvcc").exists()):

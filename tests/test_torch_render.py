@@ -155,12 +155,17 @@ def test_render_rays_on_the_jax_tests_own_fixture():
 
 def test_unported_branches_raise_by_name():
     fx_statics = RenderStatics.infer()
-    for kw, word in ((dict(quant="int8"), "int8"),
-                     (dict(transposed=True), "transposed"),
-                     (dict(gather_tiles=4), "windowed"),
+    for kw, word in ((dict(gather_tiles=4), "windowed"),
+                     (dict(gather_tiles=4, gather_transposed=1), "windowed"),
                      (dict(netarch="donerf"), "donerf")):
         with pytest.raises(NotImplementedError, match=word):
             render_rays({}, {}, {}, {}, dataclasses.replace(fx_statics, **kw))
+    # the windowed form of the transposed graph's own gather
+    from pronerf_tpu_torch.ops.warp import epipolar_colors_shared_t
+
+    with pytest.raises(NotImplementedError, match="windowed"):
+        epipolar_colors_shared_t(None, None, None, None, None, None, None,
+                                 n_tiles=4, window_rows=8)
     for factory in (RenderStatics.stage1_nerf, RenderStatics.stage1_sampler,
                     RenderStatics.stage2):
         with pytest.raises(NotImplementedError, match="training"):
