@@ -65,6 +65,7 @@ H, W_IMG, N_VIEWS = 378, 504, 17
 FRAME_RAYS = H * W_IMG
 CHUNK = 16384          # rays per call of a plain version
 RAGGED = 16384 - 37    # not a multiple of any kernel tile
+TINY = 100             # bf16/f32 NeRF kernels: one ragged tile, one block
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet).
 PEAK_BYTES_S = 3.35e12
@@ -401,6 +402,7 @@ KERNELS = (
 # the instantiations each kernel has; the first is the one its main path runs
 DTYPES = {"fused_nerf_raw_tq": ("int8",)}
 BOTH = ("bfloat16", "float32")
+TINY_TOO = ("fused_nerf_raw_t", "fused_nerf_composite_t")
 
 
 def make_case(name, nets, n_rays, dtype, device, seed):
@@ -448,6 +450,10 @@ def phase_kernels(device, n_rays):
                 name, nets, RAGGED if n_rays > RAGGED else n_rays - 37,
                 dtype, device, seed=1)
             errs = {f"ragged_{k}": v for k, v in compare_r(tol).items()}
+            if name in TINY_TOO and n_rays > TINY:
+                _, _, compare_t, _, _ = make_case(
+                    name, nets, TINY, dtype, device, seed=3)
+                errs |= {f"tiny_{k}": v for k, v in compare_t(tol).items()}
             kernel, plain, compare, work, nbytes = make_case(
                 name, nets, n_rays, dtype, device, seed=2)
             errs.update(compare(tol))

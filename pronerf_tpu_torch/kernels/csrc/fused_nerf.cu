@@ -10,7 +10,7 @@
 // bf16 and stay in L2. Written layer by layer with a library, each [P, 256]
 // activation would cross device memory twice and the chain would be
 // memory-bound; here a block owns a tile of rays, loops over the ray's S
-// samples itself, and keeps every activation of the chain in shared memory.
+// samples itself, and keeps every activation of the chain on the SM.
 // The TPU kernel walks a (ray-block, sample) grid in order and revisits its
 // output block to carry the transmittance; blocks on a GPU run in no order,
 // so the sample loop is inside the block: the S raw results of a tile are
@@ -18,21 +18,57 @@
 // composited by one thread per ray with the transmittance in a register
 // (composite), in which case raw never reaches device memory.
 //
-// What limits it in practice is not the tensor cores but how each warp
-// fetches its weight fragments through L1: common.cuh reads them as 16-byte
-// loads against activations stored with a permuted k order, and keeps two
-// blocks resident per SM.
+// Two kernels share that frame.
+//
+// bf16 (`nerf_wg_kernel`, the serving path). What stands between the chain
+// and the tensor-core rate is operand traffic: the weights have to reach
+// every SM once per 128 rays and sample (1.18 MB a pass, from L2), and the
+// activations change every layer. The design:
+//  * products are `wgmma` m64nNk16: a warpgroup owns 64 rays and all 256
+//    outputs of a layer, f32 sums in 128 registers a thread;
+//  * activations never leave the registers: rounded, biased, clamped and
+//    packed in pairs, the accumulators of one layer are the A fragments of
+//    the next (hopper.cuh), so a hidden layer has no shared-memory round trip
+//    and no block-wide barrier;
+//  * weights stream through a ring of 32 KB stages in shared memory, filled
+//    by bulk asynchronous copies that complete on mbarriers. The wrapper lays
+//    the blob out as the stage images themselves (k-slabs of 64, 128-byte
+//    swizzle, in the order the chain consumes them), so a stage is one
+//    contiguous copy. One producer thread runs ahead of the consumers across
+//    layer, sample and tile boundaries; a stage is released by every consumer
+//    warp after the wait that covers its last read;
+//  * a block is two consumer warpgroups (128 rays a weight pass) and one
+//    producer warpgroup, one block per SM, persistent: it walks tiles
+//    blockIdx.x, + gridDim.x, ...; `setmaxnreg` moves the producer's registers
+//    to the consumers;
+//  * the blocks of a cluster share every stage: each block fetches its 1/C of
+//    the stage and multicasts it to all, which divides the L2 traffic by C;
+//  * layer 5 needs two separately rounded sums per output, and two 128-wide
+//    accumulators do not fit: it runs as two halves of 128 outputs, the PE
+//    product of a half rounded and packed before the h product of that half;
+//  * the PE rows ([x | sin | cos | 0], A of layer 0 and of layer 5's PE
+//    product) are written to shared memory by the warpgroup itself, swizzled,
+//    and read through a descriptor; the two heads and the biases stay in
+//    shared memory for the block's life; `vcon` is kept per tile in the
+//    order of the view layer's accumulator fragments.
+//
+// f32 (`nerf_kernel<PF32>`, the exactness check, not on the serving path):
+// plain FMA loops through common.cuh, activations in shared memory.
 //
 // The frequency panel bx_t is 2^k by construction (one non-zero per row), so
 // `bx_t . x` rounded to the pack dtype is exactly ldexp(x, k); the wrapper
 // checks the panel before it drops it from the blob.
 //
-// Weight blob, pack dtype, in this order (w_t [out, K], K a multiple of 32):
+// Weight blob, f32, in this order (w_t [out, K], K a multiple of 32):
 //   w0p 256x64 b0 | w1..w4 256x256 + b | w5p 256x64 w5h 256x256 b5 |
 //   w6 b6 w7 b7 | w_alpha 8x256 b_alpha 8 | w_feat 256x256 b_feat 256 |
 //   wvf 128x256 bv 128 | w_rgb 8x128 b_rgb 8
+// Weight blob, bf16: 37 ring stages (WgBlob::stage_off), then the head
+// slabs (w_alpha 4 x [8 x 64], w_rgb 2 x [8 x 64]), then the biases
+// b0..b7 b_feat bv b_alpha b_rgb; see `_blob` in ../fused_nerf.py.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace pn {
 
@@ -40,7 +76,7 @@ constexpr int kWH = 128;   // view branch width
 constexpr int kL = 10;     // position octaves
 constexpr int kPE = 64;    // 3 + 2 * 3 * kL = 63, padded
 
-struct NerfBlob {
+struct NerfBlob {  // the f32 blob, in elements
   static constexpr long long sq = (long long)kW * kW;
   static constexpr long long w0p = 0, b0 = w0p + kW * kPE;
   static constexpr long long w1 = b0 + kW;            // w_i at w1 + (i-1)*lay
@@ -75,6 +111,57 @@ struct NerfArgs {
   float* sigma;        // [N, S]
   int white_bkgd;
 };
+
+__device__ __forceinline__ float as_f32(float v) { return v; }
+__device__ __forceinline__ float as_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// The streaming composite of one ray over its S raw results q [S][4]
+// (rgb logits, sigma); all f32, transmittance in a register.
+template <class T>
+__device__ __forceinline__ void composite_ray(const NerfArgs& a, int ray,
+                                              const T* q) {
+  const int N = a.N, S = a.S;
+  const float dn = a.dnorm[ray];
+  float trans = 1.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, dsum = 0.0f,
+        asum = 0.0f;
+  float zs = a.z[ray];
+  for (int s = 0; s < S; ++s, q += 4) {
+    const float znext = s + 1 < S ? a.z[(size_t)(s + 1) * N + ray] : 0.0f;
+    const float dist = (s + 1 < S ? znext - zs : 1e10f) * dn;
+    const float sig = as_f32(q[3]);
+    float alpha =
+        1.0f -
+        expf(-fmaxf(sig + a.mm_add[(size_t)s * N + ray], 0.0f) * dist);
+    alpha *= fmaxf(a.mm_mul[(size_t)s * N + ray], 0.0f);
+    const float wgt = alpha * trans;
+    c0 += wgt * (1.0f / (1.0f + expf(-as_f32(q[0]))));
+    c1 += wgt * (1.0f / (1.0f + expf(-as_f32(q[1]))));
+    c2 += wgt * (1.0f / (1.0f + expf(-as_f32(q[2]))));
+    dsum += wgt * zs;
+    asum += wgt;
+    trans *= 1.0f - alpha + 1e-10f;
+    a.weights[(size_t)ray * S + s] = wgt;
+    a.sigma[(size_t)ray * S + s] = sig;
+    zs = znext;
+  }
+  const float ratio = dsum / asum;
+  // max(1e-10, NaN) is NaN in the reference; fmaxf would drop it
+  a.disp[ray] = 1.0f / (ratio != ratio ? ratio : fmaxf(1e-10f, ratio));
+  if (a.white_bkgd) {
+    c0 += 1.0f - asum;
+    c1 += 1.0f - asum;
+    c2 += 1.0f - asum;
+  }
+  a.rgb[(size_t)ray * 3 + 0] = c0;
+  a.rgb[(size_t)ray * 3 + 1] = c1;
+  a.rgb[(size_t)ray * 3 + 2] = c2;
+  a.depth[ray] = dsum;
+  a.acc[ray] = asum;
+}
+
+// ------------------------------------------------------------------ f32 --
 
 template <class P>
 constexpr size_t nerf_smem(int S) {
@@ -197,47 +284,473 @@ __global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS) nerf_kernel(NerfArg
     for (int idx = threadIdx.x; idx < live * S; idx += P::THREADS)
       dst[idx] = src[idx];
   } else {
-    // one thread per ray; all f32, transmittance in a register
-    for (int r = threadIdx.x; r < live; r += P::THREADS) {
-      const int ray = base + r;
-      const float dn = a.dnorm[ray];
-      float trans = 1.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, dsum = 0.0f,
-            asum = 0.0f;
-      float zs = a.z[ray];
-      for (int s = 0; s < S; ++s) {
-        const float* q = res + (r * S + s) * 4;
-        const float znext = s + 1 < S ? a.z[(size_t)(s + 1) * N + ray] : 0.0f;
-        const float dist = (s + 1 < S ? znext - zs : 1e10f) * dn;
-        const float sig = q[3];
-        float alpha =
-            1.0f - expf(-fmaxf(sig + a.mm_add[(size_t)s * N + ray], 0.0f) *
-                        dist);
-        alpha *= fmaxf(a.mm_mul[(size_t)s * N + ray], 0.0f);
-        const float wgt = alpha * trans;
-        c0 += wgt * (1.0f / (1.0f + expf(-q[0])));
-        c1 += wgt * (1.0f / (1.0f + expf(-q[1])));
-        c2 += wgt * (1.0f / (1.0f + expf(-q[2])));
-        dsum += wgt * zs;
-        asum += wgt;
-        trans *= 1.0f - alpha + 1e-10f;
-        a.weights[(size_t)ray * S + s] = wgt;
-        a.sigma[(size_t)ray * S + s] = sig;
-        zs = znext;
-      }
-      const float ratio = dsum / asum;
-      // max(1e-10, NaN) is NaN in the reference; fmaxf would drop it
-      a.disp[ray] = 1.0f / (ratio != ratio ? ratio : fmaxf(1e-10f, ratio));
-      if (a.white_bkgd) {
-        c0 += 1.0f - asum;
-        c1 += 1.0f - asum;
-        c2 += 1.0f - asum;
-      }
-      a.rgb[(size_t)ray * 3 + 0] = c0;
-      a.rgb[(size_t)ray * 3 + 1] = c1;
-      a.rgb[(size_t)ray * 3 + 2] = c2;
-      a.depth[ray] = dsum;
-      a.acc[ray] = asum;
+    // one thread per ray
+    for (int r = threadIdx.x; r < live; r += P::THREADS)
+      composite_ray(a, base + r, res + r * S * 4);
+  }
+}
+
+// ----------------------------------------------------------------- bf16 --
+
+constexpr int kCluster = 1;        // blocks that share every weight stage
+constexpr int kWgRays = 64;        // rays of one consumer warpgroup
+constexpr int kWgTile = 2 * kWgRays;   // rays of a block per weight pass
+constexpr int kWgThreads = 384;    // two consumer warpgroups + the producer
+constexpr int kMaxStages = 4;
+
+struct WgBlob {  // the bf16 blob, in bytes
+  static constexpr int kStageBytes = 32768;
+  static constexpr int kStagesPerSample = 37;
+  // stages 17 and 20 (the PE slab of each half of layer 5) are 16 KB
+  __host__ __device__ static constexpr int stage_bytes(int i) {
+    return i == 17 || i == 20 ? kStageBytes / 2 : kStageBytes;
+  }
+  __host__ __device__ static constexpr int stage_off(int i) {
+    return i * kStageBytes - (i > 17 ? kStageBytes / 2 : 0) -
+           (i > 20 ? kStageBytes / 2 : 0);
+  }
+  static constexpr int kRingBytes = 36 * kStageBytes;
+  static constexpr int kAlphaBytes = 4 * 1024, kRgbBytes = 2 * 1024;
+  static constexpr int kHeadBytes = kAlphaBytes + kRgbBytes;
+  static constexpr int heads = kRingBytes, biases = heads + kHeadBytes;
+  // bias offsets, in elements: b0..b7, b_feat, bv, b_alpha, b_rgb
+  static constexpr int b_feat = 8 * kW, bv = b_feat + kW, b_alpha = bv + kWH,
+                       b_rgb = b_alpha + 8, kBiases = b_rgb + 8;
+  static constexpr long long kBlobElems = (biases + 2 * kBiases) / 2;
+};
+static_assert(WgBlob::stage_off(WgBlob::kStagesPerSample) ==
+                  WgBlob::kRingBytes, "the stages tile the ring region");
+
+// Shared memory of the bf16 kernel, from a 1,024-byte boundary.
+struct WgSmem {
+  static constexpr int pe = 0;                          // 2 x [64][64] bf16
+  static constexpr int heads = pe + 2 * 8192;           // as in the blob
+  static constexpr int bias = heads + WgBlob::kHeadBytes;   // f32
+  static constexpr int vfrag = bias + 10240;            // 2 x 128 x 32 words
+  static constexpr int bars = vfrag + 2 * 128 * 32 * 4;
+  static constexpr int res = bars + 128;                // 2 x [64][S][4] bf16
+  __host__ __device__ static constexpr int ring(int S) {
+    return (res + kWgTile * S * 8 + 1023) & ~1023;
+  }
+  static constexpr int kLimit = 232448 - 1024;  // room to align the base
+  __host__ __device__ static constexpr int stages(int S) {
+    const int n = (kLimit - ring(S)) / WgBlob::kStageBytes;
+    return n > kMaxStages ? kMaxStages : n;
+  }
+  __host__ __device__ static constexpr int bytes(int S) {
+    return 1024 + ring(S) + stages(S) * WgBlob::kStageBytes;
+  }
+};
+static_assert(WgBlob::kBiases * 4 <= 10240, "bias region");
+
+// The consumer's view of the weight ring.
+struct WgRing {
+  uint32_t full, empty, buf;   // shared addresses of barriers and stage 0
+  uint32_t stages, slot, phase;
+  // Wait for the current stage; returns its shared address.
+  __device__ __forceinline__ uint32_t wait() const {
+    hp::mbar_wait(full + 8 * slot, phase);
+    return buf + slot * WgBlob::kStageBytes;
+  }
+  // Move to the next stage; returns the slot left behind.
+  __device__ __forceinline__ uint32_t advance() {
+    const uint32_t left = slot;
+    if (++slot == stages) {
+      slot = 0;
+      phase ^= 1;
     }
+    return left;
+  }
+  // This warp has finished reading slot `sl`: tell the producer of every
+  // block that copies into it.
+  __device__ __forceinline__ void release(uint32_t sl) const {
+    if ((threadIdx.x & 31) == 0) {
+      if constexpr (kCluster == 1) {
+        hp::mbar_arrive(empty + 8 * sl);
+      } else {
+#pragma unroll
+        for (int c = 0; c < kCluster; ++c)
+          hp::mbar_arrive_cluster(empty + 8 * sl, c);
+      }
+    }
+  }
+};
+
+// acc[64, 256] = A . W^T for a 256-wide panel of K = 256 that arrives as four
+// stages; A from the 64 registers `a`. Stage k is released once the products
+// of stage k + 1 are queued behind it, so the tensor cores always have work.
+__device__ __forceinline__ void wg_dense256(float (&acc)[128],
+                                            uint32_t (&a)[64], WgRing& ring) {
+  uint32_t prev = 0;
+  hp::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const uint64_t d = hp::desc_k128(ring.wait());
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int j = 4 * (4 * ks + kk);
+      hp::wgmma_m64n256k16_rs(acc, a[j], a[j + 1], a[j + 2], a[j + 3],
+                              d + kk * hp::kDescKStep, ks | kk);
+    }
+    hp::wgmma_commit();
+    if (ks > 0) {
+      hp::wgmma_wait<1>();
+      ring.release(prev);
+    }
+    prev = ring.advance();
+  }
+  hp::wgmma_wait<0>();
+  ring.release(prev);
+  hp::keep<128>(acc);
+  hp::keep<64>(a);
+}
+
+// acc[64, 128] = A . W^T for a 128-wide panel of K = 256 that arrives as two
+// stages of two k-slabs [128 x 64] each; the sums take the first 64
+// accumulators.
+__device__ __forceinline__ void wg_dense128(float (&acc)[128],
+                                            uint32_t (&a)[64], WgRing& ring) {
+  uint32_t prev = 0;
+  hp::wgmma_fence();
+#pragma unroll
+  for (int st = 0; st < 2; ++st) {
+    const uint32_t stage = ring.wait();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int j = 4 * (8 * st + kk);
+      const uint64_t d = hp::desc_k128(stage + (kk / 4) * (kWH * 128)) +
+                         (kk % 4) * hp::kDescKStep;
+      hp::wgmma_m64n128k16_rs(acc, a[j], a[j + 1], a[j + 2], a[j + 3], d,
+                              st | kk);
+    }
+    hp::wgmma_commit();
+    if (st > 0) {
+      hp::wgmma_wait<1>();
+      ring.release(prev);
+    }
+    prev = ring.advance();
+  }
+  hp::wgmma_wait<0>();
+  ring.release(prev);
+  hp::keep<64>(acc);
+  hp::keep<64>(a);
+}
+
+// round(v + bias) for the pair of columns a register holds, from the packed
+// rounded dots `dots`; RELU clamps.
+template <bool RELU>
+__device__ __forceinline__ uint32_t wg_add_pair(uint32_t dots, float2 b) {
+  return hp::pack_bf16x2<RELU>(hp::bf16_lo(dots) + b.x, hp::bf16_hi(dots) + b.y);
+}
+// the same with another packed addend in the place of the bias
+__device__ __forceinline__ uint32_t wg_add_pair(uint32_t dots, uint32_t v) {
+  return hp::pack_bf16x2(hp::bf16_lo(dots) + hp::bf16_lo(v),
+                         hp::bf16_hi(dots) + hp::bf16_hi(v));
+}
+
+// The epilogue of a hidden layer: out = [relu](round(round(acc) + bias)),
+// accumulator pair p -> A register p (hopper.cuh). `bias` points at this
+// thread's first column pair (f32, shared memory); n-tile j is 8 j further.
+template <int NACC, bool RELU>
+__device__ __forceinline__ void wg_epilogue(const float (&acc)[NACC],
+                                            uint32_t* a, const float* bias) {
+#pragma unroll
+  for (int p = 0; p < NACC / 2; ++p) {
+    const float2 b = *reinterpret_cast<const float2*>(bias + 8 * (p / 2));
+    a[p] = wg_add_pair<RELU>(hp::pack_bf16x2(acc[2 * p], acc[2 * p + 1]), b);
+  }
+}
+
+template <bool COMPOSITE>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kWgThreads, 1)
+    nerf_wg_kernel(const __grid_constant__ NerfArgs a) {
+  using B = WgBlob;
+  using M = WgSmem;
+  extern __shared__ unsigned char smem_raw[];
+  // the same offset in every block of a cluster, which multicast relies on
+  const uint32_t pad = (1024 - (hp::smem_u32(smem_raw) & 1023)) & 1023;
+  unsigned char* sm = smem_raw + pad;
+  const uint32_t sm32 = hp::smem_u32(sm);
+
+  const int N = a.N, S = a.S;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const uint32_t n_stages = M::stages(S);
+  const uint32_t full = sm32 + M::bars, empty = full + 8 * kMaxStages,
+                 head_bar = empty + 8 * kMaxStages;
+  const uint32_t ring_buf = sm32 + M::ring(S);
+  const unsigned char* blob = static_cast<const unsigned char*>(a.blob);
+  const uint32_t rank = kCluster > 1 ? hp::cluster_rank() : 0;
+  const int n_tiles = (N + kWgTile - 1) / kWgTile;
+  // Every block of a cluster makes the same number of passes over the
+  // weights (they share each stage); a block whose tile lies past the end
+  // computes on zeros and stores nothing.
+  const int first = blockIdx.x - rank;
+
+  if (tid == 0) {
+    for (int i = 0; i < kMaxStages; ++i) {
+      hp::mbar_init(full + 8 * i, 1);
+      hp::mbar_init(empty + 8 * i, 8 * kCluster);  // consumer warps
+    }
+    hp::mbar_init(head_bar, 1);
+    hp::mbar_fence_init();
+  }
+  hp::cluster_sync();
+
+  if (wg == 2) {
+    // ------------------------------------------------------- producer --
+    hp::setmaxnreg_dec<40>();
+    if (tid == 2 * 128) {
+      hp::mbar_arrive_expect_tx(head_bar, B::kHeadBytes);
+      hp::bulk_g2s(sm32 + M::heads, blob + B::heads, B::kHeadBytes, head_bar);
+      uint32_t slot = 0, phase = 0;
+      for (int t0 = first; t0 < n_tiles; t0 += gridDim.x)
+        for (int s = 0; s < S; ++s)
+          for (int i = 0; i < B::kStagesPerSample; ++i) {
+            hp::mbar_wait(empty + 8 * slot, phase ^ 1);
+            const uint32_t bytes = B::stage_bytes(i);
+            hp::mbar_arrive_expect_tx(full + 8 * slot, bytes);
+            const uint32_t dst = ring_buf + slot * B::kStageBytes;
+            const unsigned char* src = blob + B::stage_off(i);
+            if constexpr (kCluster == 1) {
+              hp::bulk_g2s(dst, src, bytes, full + 8 * slot);
+            } else {
+              const uint32_t part = bytes / kCluster;
+              hp::bulk_g2s_multicast(dst + rank * part, src + rank * part,
+                                     part, full + 8 * slot,
+                                     (uint16_t)((1u << kCluster) - 1));
+            }
+            if (++slot == n_stages) {
+              slot = 0;
+              phase ^= 1;
+            }
+          }
+    }
+    // a block stays until no other block of its cluster can still write
+    // into it or signal it
+    if constexpr (kCluster > 1) hp::cluster_sync();
+  } else {
+    // ------------------------------------------------------ consumers --
+    hp::setmaxnreg_inc<232>();
+    const int wt = tid & 127, warp = wt >> 5, lane = wt & 31;
+    const int g = lane >> 2, q = lane & 3;
+    const int row0 = 16 * warp + g;   // this thread's rows: row0, row0 + 8
+    const int wg_bar = 1 + wg;        // named barrier of this warpgroup
+
+    float* biasf = reinterpret_cast<float*>(sm + M::bias);
+    uint32_t* vfrag = reinterpret_cast<uint32_t*>(sm + M::vfrag) + wg * 4096 + wt;
+    unsigned char* pe = sm + M::pe + wg * 8192;
+    __nv_bfloat16* res = reinterpret_cast<__nv_bfloat16*>(sm + M::res) +
+                         (size_t)wg * kWgRays * S * 4;
+    const uint64_t pe_desc = hp::desc_k128(sm32 + M::pe + wg * 8192);
+    const uint64_t alpha_desc = hp::desc_k128(sm32 + M::heads);
+    const uint64_t rgb_desc = hp::desc_k128(sm32 + M::heads + B::kAlphaBytes);
+    const float* bias_q = biasf + 2 * q;   // this thread's first column pair
+
+    // the biases, once for the block's life, as f32
+    {
+      const __nv_bfloat16* bsrc =
+          reinterpret_cast<const __nv_bfloat16*>(blob + B::biases);
+      for (int i = tid; i < B::kBiases; i += 256)
+        biasf[i] = __bfloat162float(bsrc[i]);
+    }
+    hp::mbar_wait(head_bar, 0);
+    hp::named_barrier(3, 256);
+
+    WgRing ring = {full, empty, ring_buf, n_stages, 0, 0};
+    float acc[128];
+    uint32_t h[64];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+
+    for (int t0 = first; t0 < n_tiles; t0 += gridDim.x) {
+      const int base = (t0 + (int)rank) * kWgTile + wg * kWgRays;
+      const int live = min(kWgRays, max(N - base, 0));
+
+      // vcon of this thread's rows and columns in the view layer, rounded,
+      // in the order of that layer's accumulator pairs
+#pragma unroll 4
+      for (int p = 0; p < 32; ++p) {
+        const int r = row0 + 8 * (p & 1), c = 8 * (p >> 1) + 2 * q;
+        const bool ok = r < live;
+        const float v0 = ok ? a.vcon[(size_t)c * N + base + r] : 0.0f;
+        const float v1 = ok ? a.vcon[(size_t)(c + 1) * N + base + r] : 0.0f;
+        vfrag[p * 128] = hp::pack_bf16x2(v0, v1);
+      }
+
+      for (int s = 0; s < S; ++s) {
+        // every warp is past its reads of the previous PE rows and results
+        hp::named_barrier(wg_bar, 128);
+        // positional encoding rows [x(3) | sin(30) | cos(30) | 0], swizzled
+        for (int idx = wt; idx < kWgRays * 3; idx += 128) {
+          const int r = idx % kWgRays, c = idx / kWgRays;
+          const __nv_bfloat16 x = __float2bfloat16_rn(
+              r < live ? a.pts[(size_t)(3 * s + c) * N + base + r] : 0.0f);
+          unsigned char* row = pe + r * 128;
+          auto put = [&](int col, __nv_bfloat16 v) {
+            *reinterpret_cast<__nv_bfloat16*>(
+                row + ((((col >> 3) ^ (r & 7)) << 4) | ((col & 7) << 1))) = v;
+          };
+          put(c, x);
+          const float xf = __bfloat162float(x);
+#pragma unroll
+          for (int k = 0; k < kL; ++k) {
+            float sn, cs;
+            sincosf(ldexpf(xf, k), &sn, &cs);
+            put(3 + 3 * k + c, __float2bfloat16_rn(sn));
+            put(3 + 3 * kL + 3 * k + c, __float2bfloat16_rn(cs));
+          }
+          if (c == 0) put(kPE - 1, __float2bfloat16_rn(0.0f));
+        }
+        hp::fence_proxy_async();
+        hp::named_barrier(wg_bar, 128);
+
+        // layer 0: PE rows from shared memory, one stage
+        {
+          hp::wgmma_fence();
+          const uint64_t d = hp::desc_k128(ring.wait());
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            hp::wgmma_m64n256k16_ss(acc, pe_desc + kk * hp::kDescKStep,
+                                    d + kk * hp::kDescKStep, kk);
+          hp::wgmma_commit();
+          hp::wgmma_wait<0>();
+          ring.release(ring.advance());
+          hp::keep<128>(acc);
+          wg_epilogue<128, true>(acc, h, bias_q);
+        }
+        // layers 1..4
+#pragma unroll 1
+        for (int l = 1; l <= 4; ++l) {
+          wg_dense256(acc, h, ring);
+          wg_epilogue<128, true>(acc, h, bias_q + l * kW);
+        }
+        // layer 5, two halves of 128 outputs: the PE product of the half,
+        // rounded and packed; then the h product; added, biased, clamped.
+        // h4 is read by both halves, so h5 is built beside it.
+        {
+          uint32_t h5[64];
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            uint32_t pdot[32];
+            hp::wgmma_fence();
+            const uint64_t d = hp::desc_k128(ring.wait());
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              hp::wgmma_m64n128k16_ss(acc, pe_desc + kk * hp::kDescKStep,
+                                      d + kk * hp::kDescKStep, kk);
+            hp::wgmma_commit();
+            hp::wgmma_wait<0>();
+            ring.release(ring.advance());
+            hp::keep<64>(acc);
+#pragma unroll
+            for (int p = 0; p < 32; ++p)
+              pdot[p] = hp::pack_bf16x2(acc[2 * p], acc[2 * p + 1]);
+            wg_dense128(acc, h, ring);
+#pragma unroll
+            for (int p = 0; p < 32; ++p) {
+              const float2 b = *reinterpret_cast<const float2*>(
+                  bias_q + 5 * kW + hf * kWH + 8 * (p / 2));
+              const uint32_t both = wg_add_pair(
+                  pdot[p], hp::pack_bf16x2(acc[2 * p], acc[2 * p + 1]));
+              h5[32 * hf + p] = wg_add_pair<true>(both, b);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 64; ++i) h[i] = h5[i];
+        }
+        // layers 6, 7
+#pragma unroll 1
+        for (int l = 6; l <= 7; ++l) {
+          wg_dense256(acc, h, ring);
+          wg_epilogue<128, true>(acc, h, bias_q + l * kW);
+        }
+
+        __nv_bfloat16* rs = res + s * 4;   // [ray][S][4]
+        // sigma head (column 0 of 8, resident) and the feature layer, on h7
+        {
+          float sig[4] = {};
+          hp::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 16; ++kk) {
+            const int j = 4 * kk;
+            hp::wgmma_m64n8k16_rs(
+                sig, h[j], h[j + 1], h[j + 2], h[j + 3],
+                alpha_desc + (kk / 4) * (1024 >> 4) + (kk % 4) * hp::kDescKStep,
+                kk);
+          }
+          hp::wgmma_commit();
+          wg_dense256(acc, h, ring);   // its last wait covers the head too
+          hp::keep<4>(sig);
+          if (q == 0) {
+            const float ba = biasf[B::b_alpha];
+            rs[(size_t)row0 * S * 4 + 3] = __float2bfloat16_rn(
+                __bfloat162float(__float2bfloat16_rn(sig[0])) + ba);
+            rs[(size_t)(row0 + 8) * S * 4 + 3] = __float2bfloat16_rn(
+                __bfloat162float(__float2bfloat16_rn(sig[2])) + ba);
+          }
+          wg_epilogue<128, false>(acc, h, bias_q + B::b_feat);
+        }
+        // view branch: relu(round(round(dot + vcon) + bv)), 128 wide
+        {
+          wg_dense128(acc, h, ring);
+#pragma unroll
+          for (int p = 0; p < 32; ++p) {
+            const float2 b = *reinterpret_cast<const float2*>(
+                bias_q + B::bv + 8 * (p / 2));
+            const uint32_t withv = wg_add_pair(
+                hp::pack_bf16x2(acc[2 * p], acc[2 * p + 1]), vfrag[p * 128]);
+            h[p] = wg_add_pair<true>(withv, b);
+          }
+        }
+        // rgb head (columns 0..2 of 8, resident) on the 128 view features
+        {
+          float rgb[4] = {};
+          hp::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk) {
+            const int j = 4 * kk;
+            hp::wgmma_m64n8k16_rs(
+                rgb, h[j], h[j + 1], h[j + 2], h[j + 3],
+                rgb_desc + (kk / 4) * (1024 >> 4) + (kk % 4) * hp::kDescKStep,
+                kk);
+          }
+          hp::wgmma_commit();
+          hp::wgmma_wait<0>();
+          hp::keep<4>(rgb);
+          hp::keep<32>(h);
+          if (q < 2) {   // q = 0: columns 0, 1; q = 1: column 2
+            const float b0 = biasf[B::b_rgb + 2 * q];
+            auto head = [](float d, float b) {
+              return __float2bfloat16_rn(
+                  __bfloat162float(__float2bfloat16_rn(d)) + b);
+            };
+            rs[(size_t)row0 * S * 4 + 2 * q] = head(rgb[0], b0);
+            rs[(size_t)(row0 + 8) * S * 4 + 2 * q] = head(rgb[2], b0);
+            if (q == 0) {
+              const float b1 = biasf[B::b_rgb + 1];
+              rs[(size_t)row0 * S * 4 + 1] = head(rgb[1], b1);
+              rs[(size_t)(row0 + 8) * S * 4 + 1] = head(rgb[3], b1);
+            }
+          }
+        }
+      }
+
+      hp::named_barrier(wg_bar, 128);
+      if constexpr (!COMPOSITE) {
+        // the warpgroup's [live, S, 4] results are one contiguous chunk
+        float4* dst = reinterpret_cast<float4*>(a.raw + (size_t)base * S * 4);
+        const uint2* src = reinterpret_cast<const uint2*>(res);
+        for (int idx = wt; idx < live * S; idx += 128) {
+          const uint2 v = src[idx];
+          dst[idx] = make_float4(hp::bf16_lo(v.x), hp::bf16_hi(v.x),
+                                 hp::bf16_lo(v.y), hp::bf16_hi(v.y));
+        }
+      } else {
+        // one thread per ray
+        if (wt < live) composite_ray(a, base + wt, res + (size_t)wt * S * 4);
+      }
+    }
+    if constexpr (kCluster > 1) hp::cluster_sync();
   }
 }
 
@@ -248,8 +761,29 @@ int run_nerf(const NerfArgs& a, cudaStream_t stream) {
                 nerf_smem<P>(a.S), stream, a);
 }
 
-inline bool nerf_args_ok(int N, int S, long long blob_elems) {
-  return N > 0 && S > 0 && S <= 64 && blob_elems == NerfBlob::total;
+// One persistent block per SM (a whole number of clusters), at most one per
+// tile.
+template <bool COMPOSITE>
+int run_nerf_wg(const NerfArgs& a, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (a.N + kWgTile - 1) / kWgTile;
+  int blocks = sms < tiles ? sms : tiles;
+  blocks = (blocks + kCluster - 1) / kCluster * kCluster;
+  if (blocks > sms) blocks = sms / kCluster * kCluster;
+  return launch(nerf_wg_kernel<COMPOSITE>, blocks, kWgThreads,
+                WgSmem::bytes(a.S), stream, a);
+}
+
+// bf16: S is bounded by the shared memory that the results of a tile take
+// beside at least three weight stages.
+inline bool nerf_args_ok(int N, int S, long long blob_elems, int pack_bf16) {
+  if (N <= 0 || S <= 0 || S > 64) return false;
+  if (!pack_bf16) return blob_elems == NerfBlob::total;
+  return blob_elems == WgBlob::kBlobElems && WgSmem::stages(S) >= 3;
 }
 
 }  // namespace pn
@@ -260,7 +794,7 @@ extern "C" int pn_fused_nerf_raw(const float* pts24_t, const float* vcon_t,
                                  const void* blob, long long blob_elems,
                                  float* raw, int N, int S, int pack_bf16,
                                  void* stream) {
-  if (!pn::nerf_args_ok(N, S, blob_elems)) return -1;
+  if (!pn::nerf_args_ok(N, S, blob_elems, pack_bf16)) return -1;
   pn::NerfArgs a = {};
   a.pts = pts24_t;
   a.vcon = vcon_t;
@@ -269,7 +803,7 @@ extern "C" int pn_fused_nerf_raw(const float* pts24_t, const float* vcon_t,
   a.S = S;
   a.raw = raw;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return pack_bf16 ? pn::run_nerf<pn::PBf16, false>(a, s)
+  return pack_bf16 ? pn::run_nerf_wg<false>(a, s)
                    : pn::run_nerf<pn::PF32, false>(a, s);
 }
 
@@ -279,7 +813,7 @@ extern "C" int pn_fused_nerf_composite(
     const void* blob, long long blob_elems, float* rgb, float* depth,
     float* disp, float* acc, float* weights, float* sigma, int N, int S,
     int white_bkgd, int pack_bf16, void* stream) {
-  if (!pn::nerf_args_ok(N, S, blob_elems)) return -1;
+  if (!pn::nerf_args_ok(N, S, blob_elems, pack_bf16)) return -1;
   pn::NerfArgs a = {};
   a.pts = pts24_t;
   a.vcon = vcon_t;
@@ -298,6 +832,6 @@ extern "C" int pn_fused_nerf_composite(
   a.sigma = sigma;
   a.white_bkgd = white_bkgd;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return pack_bf16 ? pn::run_nerf<pn::PBf16, true>(a, s)
+  return pack_bf16 ? pn::run_nerf_wg<true>(a, s)
                    : pn::run_nerf<pn::PF32, true>(a, s);
 }

@@ -219,7 +219,7 @@ def fused_nerf_composite_plain(packed, pts24_t, vcon_t, z_t, mm_add_t,
 
 
 _BLOB_KEY = "_kernel_blob"
-# (panel, K of the panel as the kernel reads it) in the blob's order
+# The f32 blob: (panel, K of the panel as the kernel reads it), in order.
 _BLOB_ORDER = (
     ("w0p_t", PE_PAD), ("b0", 1),
     ("w1_t", W), ("b1", 1), ("w2_t", W), ("b2", 1),
@@ -230,10 +230,77 @@ _BLOB_ORDER = (
     ("wvf_t", W), ("bv", 1), ("w_rgb_t", W_HALF), ("b_rgb", 1),
 )
 
+# The bf16 blob is the sequence of shared-memory images the kernel copies in
+# bulk. A SLAB is rows [row0, row0 + rows) of a panel w_t [out, K] at k in
+# [64 ks, 64 ks + 64): ``rows x 128`` bytes, the 16-byte chunk c of row r
+# stored at chunk c ^ (r % 8) (the 128-byte swizzle ``wgmma`` reads). A STAGE
+# is one bulk copy: one or two slabs, 16 or 32 KB. The ring stages come in
+# the order the chain consumes them, the same for every sample; layer 5 comes
+# as two halves of 128 outputs (PE slab, then the four h slabs two to a
+# stage), the view layer as its four slabs two to a stage. After the ring:
+# the two heads (read in place for the block's life), then the biases.
+SLAB_K = 64
+SLAB_ROW_BYTES = 128
+STAGE_BYTES = 32768
+
+
+def _slabs(panel, rows=W, row0=0, per_stage=1, n=W // SLAB_K):
+    stages = [[(panel, row0, rows, ks + i) for i in range(per_stage)]
+              for ks in range(0, n, per_stage)]
+    return stages
+
+
+def _ring_stages():
+    ring = _slabs("w0p_t", n=1)
+    for i in (1, 2, 3, 4):
+        ring += _slabs(f"w{i}_t")
+    for half in (0, 1):
+        ring += _slabs("w5p_t", W_HALF, half * W_HALF, n=1)
+        ring += _slabs("w5h_t", W_HALF, half * W_HALF, per_stage=2)
+    for name in ("w6_t", "w7_t", "w_feat_t"):
+        ring += _slabs(name)
+    ring += _slabs("wvf_t", W_HALF, per_stage=2)
+    return tuple(tuple(st) for st in ring)
+
+
+RING_STAGES = _ring_stages()
+HEAD_SLABS = tuple(
+    [("w_alpha_t", 0, 8, ks) for ks in range(W // SLAB_K)]
+    + [("w_rgb_t", 0, 8, ks) for ks in range(W_HALF // SLAB_K)]
+)
+BIAS_ORDER = ("b0", "b1", "b2", "b3", "b4", "b5", "b6", "b7", "b_feat", "bv",
+              "b_alpha", "b_rgb")
+
+
+def stage_table():
+    """(byte offset in the blob, bytes) of every ring stage, in order."""
+    table, off = [], 0
+    for stage in RING_STAGES:
+        nbytes = sum(rows * SLAB_ROW_BYTES for _, _, rows, _ in stage)
+        table.append((off, nbytes))
+        off += nbytes
+    return table
+
+
+def _slab_image(a, row0, rows, ks):
+    """The swizzled image of one slab of panel ``a`` (K padded with zero
+    columns to a multiple of 64), flat."""
+    k = -(-a.shape[1] // SLAB_K) * SLAB_K
+    if a.shape[1] != k:
+        padded = a.new_zeros(a.shape[0], k)
+        padded[:, : a.shape[1]] = a
+        a = padded
+    chunks = a[row0:row0 + rows, ks * SLAB_K:(ks + 1) * SLAB_K].reshape(
+        rows, 8, 8)
+    r = torch.arange(rows, device=a.device)
+    src = torch.arange(8, device=a.device)[None, :] ^ (r % 8)[:, None]
+    return chunks[r[:, None], src].reshape(-1)
+
 
 def _blob(packed):
     """The panels as the one contiguous buffer the kernels read (see the
-    head of ``csrc/fused_nerf.cu``), built once and kept in ``packed``. The
+    head of ``csrc/fused_nerf.cu``), built once and kept in ``packed``: for
+    bf16 the stage images above, for f32 the panels in ``_BLOB_ORDER``. The
     kernels compute ``bx_t . x`` as ``ldexp(x, k)``, so the panel must be the
     frequency matrix; that is checked here."""
     blob = packed.get(_BLOB_KEY)
@@ -243,13 +310,19 @@ def _blob(packed):
         if not torch.equal(bx, want):
             raise ValueError("bx_t is not the power-of-two frequency matrix")
         parts = []
-        for name, k in _BLOB_ORDER:
-            a = packed[name]
-            if a.shape[1] != k:
-                padded = a.new_zeros(a.shape[0], k)
-                padded[:, : a.shape[1]] = a
-                a = padded
-            parts.append(a.reshape(-1))
+        if bx.dtype == torch.bfloat16:
+            for stage in RING_STAGES + (HEAD_SLABS,):
+                for name, row0, rows, ks in stage:
+                    parts.append(_slab_image(packed[name], row0, rows, ks))
+            parts += [packed[name].reshape(-1) for name in BIAS_ORDER]
+        else:
+            for name, k in _BLOB_ORDER:
+                a = packed[name]
+                if a.shape[1] != k:
+                    padded = a.new_zeros(a.shape[0], k)
+                    padded[:, : a.shape[1]] = a
+                    a = padded
+                parts.append(a.reshape(-1))
         blob = torch.cat(parts).contiguous()
         packed[_BLOB_KEY] = blob
     return blob
