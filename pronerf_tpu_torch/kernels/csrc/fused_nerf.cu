@@ -376,39 +376,11 @@ struct WgRing {
   }
 };
 
-// acc[64, 256] = A . W^T for a 256-wide panel of K = 256 that arrives as four
-// stages; A from the 64 registers `a`. Stage k is released once the products
-// of stage k + 1 are queued behind it, so the tensor cores always have work.
-__device__ __forceinline__ void wg_dense256(float (&acc)[128],
-                                            uint32_t (&a)[64], WgRing& ring) {
-  uint32_t prev = 0;
-  hp::wgmma_fence();
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const uint64_t d = hp::desc_k128(ring.wait());
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int j = 4 * (4 * ks + kk);
-      hp::wgmma_m64n256k16_rs(acc, a[j], a[j + 1], a[j + 2], a[j + 3],
-                              d + kk * hp::kDescKStep, ks | kk);
-    }
-    hp::wgmma_commit();
-    if (ks > 0) {
-      hp::wgmma_wait<1>();
-      ring.release(prev);
-    }
-    prev = ring.advance();
-  }
-  hp::wgmma_wait<0>();
-  ring.release(prev);
-  hp::keep<128>(acc);
-  hp::keep<64>(a);
-}
-
-// acc[64, 128] = A . W^T for a 128-wide panel of K = 256 that arrives as two
-// stages of two k-slabs [128 x 64] each; the sums take the first 64
-// accumulators.
-__device__ __forceinline__ void wg_dense128(float (&acc)[128],
+// acc[64, 128] = A . W^T for 128 rows of a panel of K = 256, which arrive as
+// two stages of two k-slabs [128 x 64] each; A from the 64 registers `a`.
+// Stage 0 is released once the products of stage 1 are queued behind it, so
+// the tensor cores always have work.
+__device__ __forceinline__ void wg_dense128(float (&acc)[64],
                                             uint32_t (&a)[64], WgRing& ring) {
   uint32_t prev = 0;
   hp::wgmma_fence();
@@ -432,8 +404,23 @@ __device__ __forceinline__ void wg_dense128(float (&acc)[128],
   }
   hp::wgmma_wait<0>();
   ring.release(prev);
-  hp::keep<64>(acc);
-  hp::keep<64>(a);
+  hp::keep(acc);
+  hp::keep(a);
+}
+
+// acc[64, 128] = PE . W^T for a [128 x 64] slab at `slab` (shared address).
+__device__ __forceinline__ void wg_dense128_pe(float (&acc)[64],
+                                               uint64_t pe_desc,
+                                               uint32_t slab) {
+  hp::wgmma_fence();
+  const uint64_t d = hp::desc_k128(slab);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hp::wgmma_m64n128k16_ss(acc, pe_desc + kk * hp::kDescKStep,
+                            d + kk * hp::kDescKStep, kk);
+  hp::wgmma_commit();
+  hp::wgmma_wait<0>();
+  hp::keep(acc);
 }
 
 // round(v + bias) for the pair of columns a register holds, from the packed
@@ -448,17 +435,34 @@ __device__ __forceinline__ uint32_t wg_add_pair(uint32_t dots, uint32_t v) {
                          hp::bf16_hi(dots) + hp::bf16_hi(v));
 }
 
-// The epilogue of a hidden layer: out = [relu](round(round(acc) + bias)),
-// accumulator pair p -> A register p (hopper.cuh). `bias` points at this
-// thread's first column pair (f32, shared memory); n-tile j is 8 j further.
-template <int NACC, bool RELU>
-__device__ __forceinline__ void wg_epilogue(const float (&acc)[NACC],
+// The epilogue of 128 outputs of a layer: out = [relu](round(round(acc) +
+// bias)), accumulator pair p -> A register p (hopper.cuh). `bias` points at
+// this thread's first column pair of the 128 (f32, shared memory); n-tile j
+// is 8 j further.
+template <bool RELU>
+__device__ __forceinline__ void wg_epilogue(const float (&acc)[64],
                                             uint32_t* a, const float* bias) {
 #pragma unroll
-  for (int p = 0; p < NACC / 2; ++p) {
+  for (int p = 0; p < 32; ++p) {
     const float2 b = *reinterpret_cast<const float2*>(bias + 8 * (p / 2));
     a[p] = wg_add_pair<RELU>(hp::pack_bf16x2(acc[2 * p], acc[2 * p + 1]), b);
   }
+}
+
+// One 256-wide layer of K = 256 on h, in place: two halves of 128 outputs
+// (see the head of this file), each four k-slabs in two stages. h is read by
+// both halves, so the first half's outputs wait beside it.
+template <bool RELU>
+__device__ __forceinline__ void wg_layer256(float (&acc)[64],
+                                            uint32_t (&h)[64], WgRing& ring,
+                                            const float* bias) {
+  uint32_t lo[32];
+  wg_dense128(acc, h, ring);
+  wg_epilogue<RELU>(acc, lo, bias);
+  wg_dense128(acc, h, ring);
+  wg_epilogue<RELU>(acc, h + 32, bias + kWH);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) h[i] = lo[i];
 }
 
 template <bool COMPOSITE>
@@ -498,7 +502,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kWgThreads, 1
 
   if (wg == 2) {
     // ------------------------------------------------------- producer --
-    hp::setmaxnreg_dec<40>();
+    hp::setmaxnreg_dec<24>();
     if (tid == 2 * 128) {
       hp::mbar_arrive_expect_tx(head_bar, B::kHeadBytes);
       hp::bulk_g2s(sm32 + M::heads, blob + B::heads, B::kHeadBytes, head_bar);
@@ -527,10 +531,13 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kWgThreads, 1
     }
     // a block stays until no other block of its cluster can still write
     // into it or signal it
-    if constexpr (kCluster > 1) hp::cluster_sync();
+    if constexpr (kCluster > 1) {
+      __syncwarp();
+      hp::cluster_sync();
+    }
   } else {
     // ------------------------------------------------------ consumers --
-    hp::setmaxnreg_inc<232>();
+    hp::setmaxnreg_inc<240>();
     const int wt = tid & 127, warp = wt >> 5, lane = wt & 31;
     const int g = lane >> 2, q = lane & 3;
     const int row0 = 16 * warp + g;   // this thread's rows: row0, row0 + 8
@@ -557,10 +564,10 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kWgThreads, 1
     hp::named_barrier(3, 256);
 
     WgRing ring = {full, empty, ring_buf, n_stages, 0, 0};
-    float acc[128];
+    float acc[64];
     uint32_t h[64];
 #pragma unroll
-    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
 
     for (int t0 = first; t0 < n_tiles; t0 += gridDim.x) {
       const int base = (t0 + (int)rank) * kWgTile + wg * kWgRays;
@@ -604,66 +611,50 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kWgThreads, 1
         hp::fence_proxy_async();
         hp::named_barrier(wg_bar, 128);
 
-        // layer 0: PE rows from shared memory, one stage
+        // layer 0: PE rows from shared memory; one stage holds both halves
         {
-          hp::wgmma_fence();
-          const uint64_t d = hp::desc_k128(ring.wait());
+          const uint32_t stage = ring.wait();
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            hp::wgmma_m64n256k16_ss(acc, pe_desc + kk * hp::kDescKStep,
-                                    d + kk * hp::kDescKStep, kk);
-          hp::wgmma_commit();
-          hp::wgmma_wait<0>();
+          for (int hf = 0; hf < 2; ++hf) {
+            wg_dense128_pe(acc, pe_desc, stage + hf * (kWH * 128));
+            wg_epilogue<true>(acc, h + 32 * hf, bias_q + hf * kWH);
+          }
           ring.release(ring.advance());
-          hp::keep<128>(acc);
-          wg_epilogue<128, true>(acc, h, bias_q);
         }
         // layers 1..4
 #pragma unroll 1
-        for (int l = 1; l <= 4; ++l) {
-          wg_dense256(acc, h, ring);
-          wg_epilogue<128, true>(acc, h, bias_q + l * kW);
-        }
-        // layer 5, two halves of 128 outputs: the PE product of the half,
-        // rounded and packed; then the h product; added, biased, clamped.
-        // h4 is read by both halves, so h5 is built beside it.
+        for (int l = 1; l <= 4; ++l)
+          wg_layer256<true>(acc, h, ring, bias_q + l * kW);
+        // layer 5, per half: the PE product, rounded and packed; then the h
+        // product; added, biased, clamped
         {
-          uint32_t h5[64];
+          uint32_t lo[32];
 #pragma unroll
           for (int hf = 0; hf < 2; ++hf) {
             uint32_t pdot[32];
-            hp::wgmma_fence();
-            const uint64_t d = hp::desc_k128(ring.wait());
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk)
-              hp::wgmma_m64n128k16_ss(acc, pe_desc + kk * hp::kDescKStep,
-                                      d + kk * hp::kDescKStep, kk);
-            hp::wgmma_commit();
-            hp::wgmma_wait<0>();
+            wg_dense128_pe(acc, pe_desc, ring.wait());
             ring.release(ring.advance());
-            hp::keep<64>(acc);
 #pragma unroll
             for (int p = 0; p < 32; ++p)
               pdot[p] = hp::pack_bf16x2(acc[2 * p], acc[2 * p + 1]);
             wg_dense128(acc, h, ring);
+            uint32_t* out = hf ? h + 32 : lo;
 #pragma unroll
             for (int p = 0; p < 32; ++p) {
               const float2 b = *reinterpret_cast<const float2*>(
                   bias_q + 5 * kW + hf * kWH + 8 * (p / 2));
               const uint32_t both = wg_add_pair(
                   pdot[p], hp::pack_bf16x2(acc[2 * p], acc[2 * p + 1]));
-              h5[32 * hf + p] = wg_add_pair<true>(both, b);
+              out[p] = wg_add_pair<true>(both, b);
             }
           }
 #pragma unroll
-          for (int i = 0; i < 64; ++i) h[i] = h5[i];
+          for (int i = 0; i < 32; ++i) h[i] = lo[i];
         }
         // layers 6, 7
 #pragma unroll 1
-        for (int l = 6; l <= 7; ++l) {
-          wg_dense256(acc, h, ring);
-          wg_epilogue<128, true>(acc, h, bias_q + l * kW);
-        }
+        for (int l = 6; l <= 7; ++l)
+          wg_layer256<true>(acc, h, ring, bias_q + l * kW);
 
         __nv_bfloat16* rs = res + s * 4;   // [ray][S][4]
         // sigma head (column 0 of 8, resident) and the feature layer, on h7
@@ -679,8 +670,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kWgThreads, 1
                 kk);
           }
           hp::wgmma_commit();
-          wg_dense256(acc, h, ring);   // its last wait covers the head too
-          hp::keep<4>(sig);
+          hp::wgmma_wait<0>();
+          hp::keep(sig);
           if (q == 0) {
             const float ba = biasf[B::b_alpha];
             rs[(size_t)row0 * S * 4 + 3] = __float2bfloat16_rn(
@@ -688,7 +679,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kWgThreads, 1
             rs[(size_t)(row0 + 8) * S * 4 + 3] = __float2bfloat16_rn(
                 __bfloat162float(__float2bfloat16_rn(sig[2])) + ba);
           }
-          wg_epilogue<128, false>(acc, h, bias_q + B::b_feat);
+          wg_layer256<false>(acc, h, ring, bias_q + B::b_feat);
         }
         // view branch: relu(round(round(dot + vcon) + bv)), 128 wide
         {
@@ -716,8 +707,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kWgThreads, 1
           }
           hp::wgmma_commit();
           hp::wgmma_wait<0>();
-          hp::keep<4>(rgb);
-          hp::keep<32>(h);
+          hp::keep(rgb);
+          hp::keep(h);
           if (q < 2) {   // q = 0: columns 0, 1; q = 1: column 2
             const float b0 = biasf[B::b_rgb + 2 * q];
             auto head = [](float d, float b) {
@@ -761,21 +752,35 @@ int run_nerf(const NerfArgs& a, cudaStream_t stream) {
                 nerf_smem<P>(a.S), stream, a);
 }
 
-// One persistent block per SM (a whole number of clusters), at most one per
-// tile.
+// One persistent block per SM, as many whole clusters as the card can hold
+// at once, at most one block per tile.
 template <bool COMPOSITE>
 int run_nerf_wg(const NerfArgs& a, cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  auto kernel = nerf_wg_kernel<COMPOSITE>;
+  const size_t smem = WgSmem::bytes(a.S);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(kWgThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
   const int tiles = (a.N + kWgTile - 1) / kWgTile;
-  int blocks = sms < tiles ? sms : tiles;
-  blocks = (blocks + kCluster - 1) / kCluster * kCluster;
-  if (blocks > sms) blocks = sms / kCluster * kCluster;
-  return launch(nerf_wg_kernel<COMPOSITE>, blocks, kWgThreads,
-                WgSmem::bytes(a.S), stream, a);
+  const int wanted = (tiles + kCluster - 1) / kCluster;
+  const int blocks = (wanted < clusters ? wanted : clusters) * kCluster;
+  kernel<<<blocks, kWgThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // bf16: S is bounded by the shared memory that the results of a tile take

@@ -235,9 +235,11 @@ _BLOB_ORDER = (
 # [64 ks, 64 ks + 64): ``rows x 128`` bytes, the 16-byte chunk c of row r
 # stored at chunk c ^ (r % 8) (the 128-byte swizzle ``wgmma`` reads). A STAGE
 # is one bulk copy: one or two slabs, 16 or 32 KB. The ring stages come in
-# the order the chain consumes them, the same for every sample; layer 5 comes
-# as two halves of 128 outputs (PE slab, then the four h slabs two to a
-# stage), the view layer as its four slabs two to a stage. After the ring:
+# the order the chain consumes them, the same for every sample. The kernel
+# computes a 256-wide layer as two halves of 128 outputs, so a [256, 256]
+# panel comes as outputs 0..127 (four slabs, two to a stage), then outputs
+# 128..255; layer 5 has the PE slab of a half before its h slabs; the view
+# layer is one such half; layer 0 is one stage of 256 rows. After the ring:
 # the two heads (read in place for the block's life), then the biases.
 SLAB_K = 64
 SLAB_ROW_BYTES = 128
@@ -245,20 +247,26 @@ STAGE_BYTES = 32768
 
 
 def _slabs(panel, rows=W, row0=0, per_stage=1, n=W // SLAB_K):
-    stages = [[(panel, row0, rows, ks + i) for i in range(per_stage)]
-              for ks in range(0, n, per_stage)]
-    return stages
+    return [[(panel, row0, rows, ks + i) for i in range(per_stage)]
+            for ks in range(0, n, per_stage)]
+
+
+def _halves(panel):
+    """A [256, 256] panel as the kernel takes it: outputs 0..127 over all of
+    k (four slabs [128 x 64], two to a stage), then outputs 128..255."""
+    return [st for half in (0, 1)
+            for st in _slabs(panel, W_HALF, half * W_HALF, per_stage=2)]
 
 
 def _ring_stages():
     ring = _slabs("w0p_t", n=1)
     for i in (1, 2, 3, 4):
-        ring += _slabs(f"w{i}_t")
+        ring += _halves(f"w{i}_t")
     for half in (0, 1):
         ring += _slabs("w5p_t", W_HALF, half * W_HALF, n=1)
         ring += _slabs("w5h_t", W_HALF, half * W_HALF, per_stage=2)
     for name in ("w6_t", "w7_t", "w_feat_t"):
-        ring += _slabs(name)
+        ring += _halves(name)
     ring += _slabs("wvf_t", W_HALF, per_stage=2)
     return tuple(tuple(st) for st in ring)
 
