@@ -292,11 +292,12 @@ __global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS) nerf_kernel(NerfArg
 
 // ----------------------------------------------------------------- bf16 --
 
-constexpr int kCluster = 1;        // blocks that share every weight stage
 constexpr int kWgRays = 64;        // rays of one consumer warpgroup
 constexpr int kWgTile = 2 * kWgRays;   // rays of a block per weight pass
 constexpr int kWgThreads = 384;    // two consumer warpgroups + the producer
 constexpr int kMaxStages = 4;
+constexpr int kHelpers = 96;       // threads of the producer warpgroup's
+                                   // warps 1..3
 
 struct WgBlob {  // the bf16 blob, in bytes
   static constexpr int kStageBytes = 32768;
@@ -321,18 +322,31 @@ struct WgBlob {  // the bf16 blob, in bytes
 static_assert(WgBlob::stage_off(WgBlob::kStagesPerSample) ==
                   WgBlob::kRingBytes, "the stages tile the ring region");
 
-// Shared memory of the bf16 kernel, from a 1,024-byte boundary.
+// Shared memory of the bf16 kernel, from a 1,024-byte boundary. The PE rows
+// have two buffers (the next sample's are written while this one's are read),
+// the results of a tile have two where that leaves room for four weight
+// stages (S <= 8), else one.
 struct WgSmem {
-  static constexpr int pe = 0;                          // 2 x [64][64] bf16
-  static constexpr int heads = pe + 2 * 8192;           // as in the blob
+  static constexpr int kPeBytes = kWgRays * kPE * 2;    // one warpgroup's rows
+  static constexpr int pe = 0;                          // [2][2 wg][64][64]
+  static constexpr int heads = pe + 4 * kPeBytes;       // as in the blob
   static constexpr int bias = heads + WgBlob::kHeadBytes;   // f32
   static constexpr int vfrag = bias + 10240;            // 2 x 128 x 32 words
   static constexpr int bars = vfrag + 2 * 128 * 32 * 4;
-  static constexpr int res = bars + 128;                // 2 x [64][S][4] bf16
-  __host__ __device__ static constexpr int ring(int S) {
-    return (res + kWgTile * S * 8 + 1023) & ~1023;
-  }
+  static constexpr int res = bars + 256;                // n x [128][S][4] bf16
   static constexpr int kLimit = 232448 - 1024;  // room to align the base
+  __host__ __device__ static constexpr int res_bytes(int S) {
+    return kWgTile * S * 8;
+  }
+  __host__ __device__ static constexpr int ring_at(int S, int n_res) {
+    return (res + n_res * res_bytes(S) + 1023) & ~1023;
+  }
+  __host__ __device__ static constexpr int n_res(int S) {
+    return ring_at(S, 2) + kMaxStages * WgBlob::kStageBytes <= kLimit ? 2 : 1;
+  }
+  __host__ __device__ static constexpr int ring(int S) {
+    return ring_at(S, n_res(S));
+  }
   __host__ __device__ static constexpr int stages(int S) {
     const int n = (kLimit - ring(S)) / WgBlob::kStageBytes;
     return n > kMaxStages ? kMaxStages : n;
@@ -342,6 +356,22 @@ struct WgSmem {
   }
 };
 static_assert(WgBlob::kBiases * 4 <= 10240, "bias region");
+static_assert(WgSmem::n_res(8) == 2 && WgSmem::stages(8) == 4 &&
+                  WgSmem::stages(49) == 3 && WgSmem::stages(64) == 2,
+              "what fits");
+
+// A barrier that alternates between `n` buffers: use k waits on (and fills)
+// buffer k % n, in the phase of parity (k / n) % 2.
+struct WgTurns {
+  uint32_t bars, n, at, phase;   // shared address of barrier 0
+  __device__ __forceinline__ uint32_t bar() const { return bars + 8 * at; }
+  __device__ __forceinline__ void next() {
+    if (++at == n) {
+      at = 0;
+      phase ^= 1;
+    }
+  }
+};
 
 // The consumer's view of the weight ring.
 struct WgRing {
@@ -361,20 +391,23 @@ struct WgRing {
     }
     return left;
   }
-  // This warp has finished reading slot `sl`: tell the producer of every
-  // block that copies into it.
+  // This warp has finished reading slot `sl`.
   __device__ __forceinline__ void release(uint32_t sl) const {
-    if ((threadIdx.x & 31) == 0) {
-      if constexpr (kCluster == 1) {
-        hp::mbar_arrive(empty + 8 * sl);
-      } else {
-#pragma unroll
-        for (int c = 0; c < kCluster; ++c)
-          hp::mbar_arrive_cluster(empty + 8 * sl, c);
-      }
-    }
+    if ((threadIdx.x & 31) == 0) hp::mbar_arrive(empty + 8 * sl);
   }
 };
+
+// The two consumer warpgroups take turns at the tensor cores: a warpgroup
+// waits for its turn, queues one block of products, and hands the turn over
+// before it waits for them. Its epilogue then runs while the other
+// warpgroup's products execute. Named barriers 4 and 5; warpgroup 1 gives
+// warpgroup 0 the first turn.
+__device__ __forceinline__ void wg_turn_wait() {
+  hp::named_barrier(4 + (threadIdx.x >> 7), 256);
+}
+__device__ __forceinline__ void wg_turn_pass() {
+  hp::named_barrier_arrive(5 - (threadIdx.x >> 7), 256);
+}
 
 // acc[64, 128] = A . W^T for 128 rows of a panel of K = 256, which arrive as
 // two stages of two k-slabs [128 x 64] each; A from the 64 registers `a`.
@@ -383,6 +416,7 @@ struct WgRing {
 __device__ __forceinline__ void wg_dense128(float (&acc)[64],
                                             uint32_t (&a)[64], WgRing& ring) {
   uint32_t prev = 0;
+  wg_turn_wait();
   hp::wgmma_fence();
 #pragma unroll
   for (int st = 0; st < 2; ++st) {
@@ -397,6 +431,7 @@ __device__ __forceinline__ void wg_dense128(float (&acc)[64],
     }
     hp::wgmma_commit();
     if (st > 0) {
+      wg_turn_pass();
       hp::wgmma_wait<1>();
       ring.release(prev);
     }
@@ -412,6 +447,7 @@ __device__ __forceinline__ void wg_dense128(float (&acc)[64],
 __device__ __forceinline__ void wg_dense128_pe(float (&acc)[64],
                                                uint64_t pe_desc,
                                                uint32_t slab) {
+  wg_turn_wait();
   hp::wgmma_fence();
   const uint64_t d = hp::desc_k128(slab);
 #pragma unroll
@@ -419,6 +455,7 @@ __device__ __forceinline__ void wg_dense128_pe(float (&acc)[64],
     hp::wgmma_m64n128k16_ss(acc, pe_desc + kk * hp::kDescKStep,
                             d + kk * hp::kDescKStep, kk);
   hp::wgmma_commit();
+  wg_turn_pass();
   hp::wgmma_wait<0>();
   hp::keep(acc);
 }
@@ -465,90 +502,155 @@ __device__ __forceinline__ void wg_layer256(float (&acc)[64],
   for (int i = 0; i < 32; ++i) h[i] = lo[i];
 }
 
+// The PE rows [x(3) | sin(30) | cos(30) | 0] of sample s of 128 rays from
+// `base`, swizzled, written by the helper threads (`t` of kHelpers) into the
+// two warpgroups' buffers at `pe` (shared memory; warpgroup w at + w *
+// kPeBytes).
+__device__ __forceinline__ void wg_write_pe(const NerfArgs& a, int base, int s,
+                                            unsigned char* pe, int t) {
+  for (int idx = t; idx < kWgTile * 3; idx += kHelpers) {
+    const int r = idx % kWgTile, c = idx / kWgTile;
+    const __nv_bfloat16 x = __float2bfloat16_rn(
+        base + r < a.N ? a.pts[(size_t)(3 * s + c) * a.N + base + r] : 0.0f);
+    unsigned char* row = pe + r * 128;   // 64 rows of 128 bytes a warpgroup
+    auto put = [&](int col, __nv_bfloat16 v) {
+      *reinterpret_cast<__nv_bfloat16*>(
+          row + ((((col >> 3) ^ (r & 7)) << 4) | ((col & 7) << 1))) = v;
+    };
+    put(c, x);
+    const float xf = __bfloat162float(x);
+#pragma unroll
+    for (int k = 0; k < kL; ++k) {
+      float sn, cs;
+      sincosf(ldexpf(xf, k), &sn, &cs);
+      put(3 + 3 * k + c, __float2bfloat16_rn(sn));
+      put(3 + 3 * kL + 3 * k + c, __float2bfloat16_rn(cs));
+    }
+    if (c == 0) put(kPE - 1, __float2bfloat16_rn(0.0f));
+  }
+}
+
 template <bool COMPOSITE>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kWgThreads, 1)
+__global__ void __launch_bounds__(kWgThreads, 1)
     nerf_wg_kernel(const __grid_constant__ NerfArgs a) {
   using B = WgBlob;
   using M = WgSmem;
   extern __shared__ unsigned char smem_raw[];
-  // the same offset in every block of a cluster, which multicast relies on
   const uint32_t pad = (1024 - (hp::smem_u32(smem_raw) & 1023)) & 1023;
   unsigned char* sm = smem_raw + pad;
   const uint32_t sm32 = hp::smem_u32(sm);
 
   const int N = a.N, S = a.S;
   const int tid = threadIdx.x, wg = tid >> 7;
-  const uint32_t n_stages = M::stages(S);
+  const uint32_t n_stages = M::stages(S), n_res = M::n_res(S);
+  // mbarriers: the weight ring, the heads, the PE rows, the results
   const uint32_t full = sm32 + M::bars, empty = full + 8 * kMaxStages,
-                 head_bar = empty + 8 * kMaxStages;
+                 head_bar = empty + 8 * kMaxStages, pe_full = head_bar + 8,
+                 pe_empty = pe_full + 16, res_full = pe_empty + 16,
+                 res_empty = res_full + 16;
   const uint32_t ring_buf = sm32 + M::ring(S);
   const unsigned char* blob = static_cast<const unsigned char*>(a.blob);
-  const uint32_t rank = kCluster > 1 ? hp::cluster_rank() : 0;
   const int n_tiles = (N + kWgTile - 1) / kWgTile;
-  // Every block of a cluster makes the same number of passes over the
-  // weights (they share each stage); a block whose tile lies past the end
-  // computes on zeros and stores nothing.
-  const int first = blockIdx.x - rank;
 
   if (tid == 0) {
     for (int i = 0; i < kMaxStages; ++i) {
       hp::mbar_init(full + 8 * i, 1);
-      hp::mbar_init(empty + 8 * i, 8 * kCluster);  // consumer warps
+      hp::mbar_init(empty + 8 * i, 8);   // consumer warps
     }
     hp::mbar_init(head_bar, 1);
+    for (int i = 0; i < 2; ++i) {
+      hp::mbar_init(pe_full + 8 * i, 3);     // helper warps
+      hp::mbar_init(pe_empty + 8 * i, 8);    // consumer warps
+      hp::mbar_init(res_full + 8 * i, 8);    // consumer warps
+      hp::mbar_init(res_empty + 8 * i, 3);   // helper warps
+    }
     hp::mbar_fence_init();
   }
-  hp::cluster_sync();
+  __syncthreads();
 
   if (wg == 2) {
-    // ------------------------------------------------------- producer --
-    hp::setmaxnreg_dec<24>();
-    if (tid == 2 * 128) {
-      hp::mbar_arrive_expect_tx(head_bar, B::kHeadBytes);
-      hp::bulk_g2s(sm32 + M::heads, blob + B::heads, B::kHeadBytes, head_bar);
-      uint32_t slot = 0, phase = 0;
-      for (int t0 = first; t0 < n_tiles; t0 += gridDim.x)
-        for (int s = 0; s < S; ++s)
-          for (int i = 0; i < B::kStagesPerSample; ++i) {
-            hp::mbar_wait(empty + 8 * slot, phase ^ 1);
-            const uint32_t bytes = B::stage_bytes(i);
-            hp::mbar_arrive_expect_tx(full + 8 * slot, bytes);
-            const uint32_t dst = ring_buf + slot * B::kStageBytes;
-            const unsigned char* src = blob + B::stage_off(i);
-            if constexpr (kCluster == 1) {
-              hp::bulk_g2s(dst, src, bytes, full + 8 * slot);
-            } else {
-              const uint32_t part = bytes / kCluster;
-              hp::bulk_g2s_multicast(dst + rank * part, src + rank * part,
-                                     part, full + 8 * slot,
-                                     (uint16_t)((1u << kCluster) - 1));
+    // ---------------------------------------------------- helper warps --
+    hp::setmaxnreg_dec<72>();
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    if (warp == 0) {
+      // the weights: one thread keeps the ring full
+      if (lane == 0) {
+        hp::mbar_arrive_expect_tx(head_bar, B::kHeadBytes);
+        hp::bulk_g2s(sm32 + M::heads, blob + B::heads, B::kHeadBytes,
+                     head_bar);
+        uint32_t slot = 0, phase = 0;
+        for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
+          for (int s = 0; s < S; ++s)
+            for (int i = 0; i < B::kStagesPerSample; ++i) {
+              hp::mbar_wait(empty + 8 * slot, phase ^ 1);
+              const uint32_t bytes = B::stage_bytes(i);
+              hp::mbar_arrive_expect_tx(full + 8 * slot, bytes);
+              hp::bulk_g2s(ring_buf + slot * B::kStageBytes,
+                           blob + B::stage_off(i), bytes, full + 8 * slot);
+              if (++slot == n_stages) {
+                slot = 0;
+                phase ^= 1;
+              }
             }
-            if (++slot == n_stages) {
-              slot = 0;
-              phase ^= 1;
-            }
+      }
+    } else {
+      // Three warps do what is not a product. They write the PE rows, up to
+      // two samples ahead of the consumers, and they store (raw) or
+      // composite the tile the consumers have just finished, while those
+      // work on the next one: after the second sample's rows, when both PE
+      // buffers are full and there is nothing else to do.
+      const int t = tid - (kWgThreads - kHelpers);
+      WgTurns pt = {pe_empty, 2, 0, 0}, rt = {res_full, n_res, 0, 0};
+      auto output = [&](int tile) {
+        hp::mbar_wait(rt.bar(), rt.phase);
+        const int base = tile * kWgTile;
+        const int live = min(kWgTile, N - base);
+        const __nv_bfloat16* res = reinterpret_cast<const __nv_bfloat16*>(
+            sm + M::res + rt.at * M::res_bytes(S));
+        if constexpr (!COMPOSITE) {
+          // the tile's [live, S, 4] results are one contiguous chunk
+          float4* dst =
+              reinterpret_cast<float4*>(a.raw + (size_t)base * S * 4);
+          const uint2* src = reinterpret_cast<const uint2*>(res);
+          for (int idx = t; idx < live * S; idx += kHelpers) {
+            const uint2 v = src[idx];
+            dst[idx] = make_float4(hp::bf16_lo(v.x), hp::bf16_hi(v.x),
+                                   hp::bf16_lo(v.y), hp::bf16_hi(v.y));
           }
-    }
-    // a block stays until no other block of its cluster can still write
-    // into it or signal it
-    if constexpr (kCluster > 1) {
-      __syncwarp();
-      hp::cluster_sync();
+        } else {
+          // one thread per ray
+          for (int r = t; r < live; r += kHelpers)
+            composite_ray(a, base + r, res + (size_t)r * S * 4);
+        }
+        __syncwarp();
+        if (lane == 0) hp::mbar_arrive(res_empty + 8 * rt.at);
+        rt.next();
+      };
+      int finished = -1;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        for (int s = 0; s < S; ++s) {
+          hp::mbar_wait(pt.bar(), pt.phase ^ 1);
+          wg_write_pe(a, tile * kWgTile, s,
+                      sm + M::pe + pt.at * 2 * M::kPeBytes, t);
+          hp::fence_proxy_async();
+          __syncwarp();
+          if (lane == 0) hp::mbar_arrive(pe_full + 8 * pt.at);
+          pt.next();
+          if (s == min(1, S - 1) && finished >= 0) output(finished);
+        }
+        finished = tile;
+      }
+      if (finished >= 0) output(finished);
     }
   } else {
     // ------------------------------------------------------ consumers --
-    hp::setmaxnreg_inc<240>();
+    hp::setmaxnreg_inc<216>();
     const int wt = tid & 127, warp = wt >> 5, lane = wt & 31;
     const int g = lane >> 2, q = lane & 3;
     const int row0 = 16 * warp + g;   // this thread's rows: row0, row0 + 8
-    const int wg_bar = 1 + wg;        // named barrier of this warpgroup
 
     float* biasf = reinterpret_cast<float*>(sm + M::bias);
     uint32_t* vfrag = reinterpret_cast<uint32_t*>(sm + M::vfrag) + wg * 4096 + wt;
-    unsigned char* pe = sm + M::pe + wg * 8192;
-    __nv_bfloat16* res = reinterpret_cast<__nv_bfloat16*>(sm + M::res) +
-                         (size_t)wg * kWgRays * S * 4;
-    const uint64_t pe_desc = hp::desc_k128(sm32 + M::pe + wg * 8192);
     const uint64_t alpha_desc = hp::desc_k128(sm32 + M::heads);
     const uint64_t rgb_desc = hp::desc_k128(sm32 + M::heads + B::kAlphaBytes);
     const float* bias_q = biasf + 2 * q;   // this thread's first column pair
@@ -562,15 +664,17 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kWgThreads, 1
     }
     hp::mbar_wait(head_bar, 0);
     hp::named_barrier(3, 256);
+    if (wg == 1) wg_turn_pass();
 
     WgRing ring = {full, empty, ring_buf, n_stages, 0, 0};
+    WgTurns pt = {pe_full, 2, 0, 0}, rt = {res_empty, n_res, 0, 0};
     float acc[64];
     uint32_t h[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
 
-    for (int t0 = first; t0 < n_tiles; t0 += gridDim.x) {
-      const int base = (t0 + (int)rank) * kWgTile + wg * kWgRays;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int base = tile * kWgTile + wg * kWgRays;
       const int live = min(kWgRays, max(N - base, 0));
 
       // vcon of this thread's rows and columns in the view layer, rounded,
@@ -583,33 +687,19 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kWgThreads, 1
         const float v1 = ok ? a.vcon[(size_t)(c + 1) * N + base + r] : 0.0f;
         vfrag[p * 128] = hp::pack_bf16x2(v0, v1);
       }
+      // the results buffer of this tile, once its last tile has left it
+      hp::mbar_wait(rt.bar(), rt.phase ^ 1);
+      // A point where the compiler sees the whole warpgroup together: without
+      // one in the loop it issues every product serialized (ptxas C7520).
+      hp::named_barrier(1 + wg, 128);
+      __nv_bfloat16* res =
+          reinterpret_cast<__nv_bfloat16*>(sm + M::res + rt.at * M::res_bytes(S)) +
+          (size_t)wg * kWgRays * S * 4;
 
       for (int s = 0; s < S; ++s) {
-        // every warp is past its reads of the previous PE rows and results
-        hp::named_barrier(wg_bar, 128);
-        // positional encoding rows [x(3) | sin(30) | cos(30) | 0], swizzled
-        for (int idx = wt; idx < kWgRays * 3; idx += 128) {
-          const int r = idx % kWgRays, c = idx / kWgRays;
-          const __nv_bfloat16 x = __float2bfloat16_rn(
-              r < live ? a.pts[(size_t)(3 * s + c) * N + base + r] : 0.0f);
-          unsigned char* row = pe + r * 128;
-          auto put = [&](int col, __nv_bfloat16 v) {
-            *reinterpret_cast<__nv_bfloat16*>(
-                row + ((((col >> 3) ^ (r & 7)) << 4) | ((col & 7) << 1))) = v;
-          };
-          put(c, x);
-          const float xf = __bfloat162float(x);
-#pragma unroll
-          for (int k = 0; k < kL; ++k) {
-            float sn, cs;
-            sincosf(ldexpf(xf, k), &sn, &cs);
-            put(3 + 3 * k + c, __float2bfloat16_rn(sn));
-            put(3 + 3 * kL + 3 * k + c, __float2bfloat16_rn(cs));
-          }
-          if (c == 0) put(kPE - 1, __float2bfloat16_rn(0.0f));
-        }
-        hp::fence_proxy_async();
-        hp::named_barrier(wg_bar, 128);
+        hp::mbar_wait(pt.bar(), pt.phase);
+        const uint64_t pe_desc = hp::desc_k128(
+            sm32 + M::pe + (pt.at * 2 + wg) * M::kPeBytes);
 
         // layer 0: PE rows from shared memory; one stage holds both halves
         {
@@ -651,6 +741,9 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kWgThreads, 1
 #pragma unroll
           for (int i = 0; i < 32; ++i) h[i] = lo[i];
         }
+        // this warp's last read of the sample's PE rows is behind it
+        if (lane == 0) hp::mbar_arrive(pe_empty + 8 * pt.at);
+        pt.next();
         // layers 6, 7
 #pragma unroll 1
         for (int l = 6; l <= 7; ++l)
@@ -660,6 +753,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kWgThreads, 1
         // sigma head (column 0 of 8, resident) and the feature layer, on h7
         {
           float sig[4] = {};
+          wg_turn_wait();
           hp::wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < 16; ++kk) {
@@ -670,6 +764,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kWgThreads, 1
                 kk);
           }
           hp::wgmma_commit();
+          wg_turn_pass();
           hp::wgmma_wait<0>();
           hp::keep(sig);
           if (q == 0) {
@@ -696,6 +791,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kWgThreads, 1
         // rgb head (columns 0..2 of 8, resident) on the 128 view features
         {
           float rgb[4] = {};
+          wg_turn_wait();
           hp::wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < 8; ++kk) {
@@ -706,6 +802,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kWgThreads, 1
                 kk);
           }
           hp::wgmma_commit();
+          wg_turn_pass();
           hp::wgmma_wait<0>();
           hp::keep(rgb);
           hp::keep(h);
@@ -726,22 +823,11 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kWgThreads, 1
         }
       }
 
-      hp::named_barrier(wg_bar, 128);
-      if constexpr (!COMPOSITE) {
-        // the warpgroup's [live, S, 4] results are one contiguous chunk
-        float4* dst = reinterpret_cast<float4*>(a.raw + (size_t)base * S * 4);
-        const uint2* src = reinterpret_cast<const uint2*>(res);
-        for (int idx = wt; idx < live * S; idx += 128) {
-          const uint2 v = src[idx];
-          dst[idx] = make_float4(hp::bf16_lo(v.x), hp::bf16_hi(v.x),
-                                 hp::bf16_lo(v.y), hp::bf16_hi(v.y));
-        }
-      } else {
-        // one thread per ray
-        if (wt < live) composite_ray(a, base + wt, res + (size_t)wt * S * 4);
-      }
+      // this warp's results of the tile are written: over to the output warps
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(res_full + 8 * rt.at);
+      rt.next();
     }
-    if constexpr (kCluster > 1) hp::cluster_sync();
   }
 }
 
@@ -752,43 +838,25 @@ int run_nerf(const NerfArgs& a, cudaStream_t stream) {
                 nerf_smem<P>(a.S), stream, a);
 }
 
-// One persistent block per SM, as many whole clusters as the card can hold
-// at once, at most one block per tile.
+// One persistent block per SM, at most one per tile.
 template <bool COMPOSITE>
 int run_nerf_wg(const NerfArgs& a, cudaStream_t stream) {
-  auto kernel = nerf_wg_kernel<COMPOSITE>;
-  const size_t smem = WgSmem::bytes(a.S);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr = {};
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kCluster;
-  attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster);
-  cfg.blockDim = dim3(kWgThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-  if (err != cudaSuccess) return (int)err;
-  if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
   const int tiles = (a.N + kWgTile - 1) / kWgTile;
-  const int wanted = (tiles + kCluster - 1) / kCluster;
-  const int blocks = (wanted < clusters ? wanted : clusters) * kCluster;
-  kernel<<<blocks, kWgThreads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  return launch(nerf_wg_kernel<COMPOSITE>, sms < tiles ? sms : tiles,
+                kWgThreads, WgSmem::bytes(a.S), stream, a);
 }
 
 // bf16: S is bounded by the shared memory that the results of a tile take
-// beside at least three weight stages.
+// beside at least two weight stages (a block of products spans two).
 inline bool nerf_args_ok(int N, int S, long long blob_elems, int pack_bf16) {
   if (N <= 0 || S <= 0 || S > 64) return false;
   if (!pack_bf16) return blob_elems == NerfBlob::total;
-  return blob_elems == WgBlob::kBlobElems && WgSmem::stages(S) >= 3;
+  return blob_elems == WgBlob::kBlobElems && WgSmem::stages(S) >= 2;
 }
 
 }  // namespace pn

@@ -1,8 +1,8 @@
 // Hopper building blocks shared by the kernels that run their products on
-// `wgmma`: mbarriers, bulk asynchronous copies (plain and multicast across a
-// thread block cluster), the shared-memory matrix descriptor, the `wgmma`
-// fence / commit / wait and the m64nNk16 bf16 products with A from registers
-// (`_rs`) or from shared memory (`_ss`), `setmaxnreg`, named barriers.
+// `wgmma`: mbarriers, bulk asynchronous copies, the shared-memory matrix
+// descriptor, the `wgmma` fence / commit / wait and the m64nNk16 bf16 products
+// (N = 128, 8) with A from registers (`_rs`) or from shared memory (`_ss`),
+// `setmaxnreg`, named barriers.
 // Everything here needs `sm_90a`.
 //
 // Operand layout the products assume. B is a weight panel w_t [out, K] held
@@ -35,25 +35,16 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// ---------------------------------------------------------------- cluster --
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// Every thread of every block of the cluster arrives and waits.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 // ---------------------------------------------------------------- barriers --
 
 // bar.sync on a named barrier: `threads` threads (a multiple of 32) meet.
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// bar.arrive: count this thread in without waiting.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t arrivals) {
@@ -62,7 +53,7 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t arrivals) {
                : "memory");
 }
 
-// After the inits, before any thread (of any block of the cluster) uses them.
+// After the inits, before any thread uses them.
 __device__ __forceinline__ void mbar_fence_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
@@ -70,18 +61,6 @@ __device__ __forceinline__ void mbar_fence_init() {
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
                : "memory");
-}
-
-// Arrive on the barrier at the same shared-memory offset in block `cta` of
-// the cluster.
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
-                                                    uint32_t cta) {
-  asm volatile(
-      "{\n.reg .b32 remote;\n"
-      "mapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
-      "r"(cta)
-      : "memory");
 }
 
 // One arrival that also announces `bytes` of asynchronous copies to come.
@@ -108,7 +87,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
     if (done) return;
-    if (spins > (1u << 24)) __trap();
+    if (spins > (1u << 22)) __trap();
   }
 }
 
@@ -122,20 +101,6 @@ __device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// The same copy delivered to every block of the cluster named in `cta_mask`,
-// at the same offsets, each signalling its own barrier.
-__device__ __forceinline__ void bulk_g2s_multicast(uint32_t dst,
-                                                   const void* src,
-                                                   uint32_t bytes,
-                                                   uint32_t bar,
-                                                   uint16_t cta_mask) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar), "h"(cta_mask)
       : "memory");
 }
 
