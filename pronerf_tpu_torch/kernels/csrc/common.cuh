@@ -190,9 +190,9 @@ __device__ __forceinline__ void warp_tile_bf16(const __nv_bfloat16* in,
   warp_emit<MT, NT>(acc, m0, n0, sink);
 }
 
-// Nout is 256, 128, or a small multiple of 8 (a head). Wide layers: each
-// warp takes 64 rays by Nout/8-per-warp outputs, so an A tile is reused for
-// NT products and a B pair for four.
+// Nout is 256 or a small multiple of 8 (a head). Wide layers: each warp
+// takes 64 rays by 32 outputs, so an A tile is reused for four products and a
+// B pair for four.
 template <class P, class Sink>
 __device__ __forceinline__ void dense_bf16(const __nv_bfloat16* in, int ld,
                                            int K, const __nv_bfloat16* Wg,
@@ -201,8 +201,6 @@ __device__ __forceinline__ void dense_bf16(const __nv_bfloat16* in, int ld,
   const int warp = threadIdx.x >> 5;
   if (Nout == 256) {
     warp_tile_bf16<4, 4>(in, ld, K, Wg, 0, warp * 32, epi);
-  } else if (Nout == 128) {
-    warp_tile_bf16<4, 2>(in, ld, K, Wg, 0, warp * 16, epi);
   } else {
     const int items = (P::TILE / 16) * (Nout / 8);
     for (int it = warp; it < items; it += P::THREADS / 32)

@@ -21,11 +21,15 @@
 // Two kernels share that frame.
 //
 // bf16 (`nerf_wg_kernel`, the serving path). What stands between the chain
-// and the tensor-core rate is operand traffic: the weights have to reach
-// every SM once per 128 rays and sample (1.18 MB a pass, from L2), and the
-// activations change every layer. The design:
-//  * products are `wgmma` m64nNk16: a warpgroup owns 64 rays and all 256
-//    outputs of a layer, f32 sums in 128 registers a thread;
+// and the tensor-core rate is operand traffic and everything that is not a
+// product: the weights have to reach every SM once per 128 rays and sample
+// (1.18 MB a pass, from L2), the activations change every layer, and each
+// layer ends in an epilogue of a few hundred instructions a thread. The
+// design:
+//  * products are `wgmma` m64n128k16: a warpgroup owns 64 rays and computes a
+//    256-wide layer as two halves of 128 outputs, f32 sums in 64 registers a
+//    thread (with all 256 outputs at once, 128 accumulators beside the 64 A
+//    registers, ptxas runs out of registers and serializes every product);
 //  * activations never leave the registers: rounded, biased, clamped and
 //    packed in pairs, the accumulators of one layer are the A fragments of
 //    the next (hopper.cuh), so a hidden layer has no shared-memory round trip
@@ -37,20 +41,26 @@
 //    contiguous copy. One producer thread runs ahead of the consumers across
 //    layer, sample and tile boundaries; a stage is released by every consumer
 //    warp after the wait that covers its last read;
-//  * a block is two consumer warpgroups (128 rays a weight pass) and one
-//    producer warpgroup, one block per SM, persistent: it walks tiles
-//    blockIdx.x, + gridDim.x, ...; `setmaxnreg` moves the producer's registers
+//  * a block is two consumer warpgroups (128 rays a weight pass) and a third
+//    warpgroup of helpers, one block per SM, persistent: it walks tiles
+//    blockIdx.x, + gridDim.x, ...; `setmaxnreg` moves the helpers' registers
 //    to the consumers;
-//  * the blocks of a cluster share every stage: each block fetches its 1/C of
-//    the stage and multicasts it to all, which divides the L2 traffic by C;
-//  * layer 5 needs two separately rounded sums per output, and two 128-wide
-//    accumulators do not fit: it runs as two halves of 128 outputs, the PE
-//    product of a half rounded and packed before the h product of that half;
-//  * the PE rows ([x | sin | cos | 0], A of layer 0 and of layer 5's PE
-//    product) are written to shared memory by the warpgroup itself, swizzled,
-//    and read through a descriptor; the two heads and the biases stay in
-//    shared memory for the block's life; `vcon` is kept per tile in the
-//    order of the view layer's accumulator fragments.
+//  * the two consumer warpgroups take turns at the tensor cores, one block of
+//    16 products each (named barriers), so that one's epilogue runs while the
+//    other's products execute;
+//  * the helpers do what is not a product: one thread fills the ring; three
+//    warps write the PE rows ([x | sin | cos | 0], A of layer 0 and of layer
+//    5's PE product, swizzled, read through a descriptor) up to two samples
+//    ahead, and store or composite a finished tile while the consumers work on
+//    the next one. mbarriers hand the PE and result buffers back and forth;
+//  * layer 5 needs two separately rounded sums per output: per half, the PE
+//    product is rounded and packed before the h product of that half;
+//  * the two heads and the biases stay in shared memory for the block's
+//    life; `vcon` is kept per tile in the order of the view layer's
+//    accumulator fragments.
+// Sharing each stage across a cluster of 2 or 4 blocks (multicast copies)
+// was measured and is slower: L2 is not the limit, and the blocks of a
+// cluster then wait for each other at every stage.
 //
 // f32 (`nerf_kernel<PF32>`, the exactness check, not on the serving path):
 // plain FMA loops through common.cuh, activations in shared memory.
@@ -294,10 +304,10 @@ __global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS) nerf_kernel(NerfArg
 
 constexpr int kWgRays = 64;        // rays of one consumer warpgroup
 constexpr int kWgTile = 2 * kWgRays;   // rays of a block per weight pass
-constexpr int kWgThreads = 384;    // two consumer warpgroups + the producer
+constexpr int kWgThreads = 384;    // two consumer warpgroups + the helpers
 constexpr int kMaxStages = 4;
-constexpr int kHelpers = 96;       // threads of the producer warpgroup's
-                                   // warps 1..3
+constexpr int kHelpers = 96;       // threads of the third warpgroup's warps
+                                   // 1..3 (warp 0 fills the weight ring)
 
 struct WgBlob {  // the bf16 blob, in bytes
   static constexpr int kStageBytes = 32768;

@@ -290,14 +290,19 @@ def stage_table():
     return table
 
 
+def _pad_k(a, k):
+    """Panel ``a`` [out, K] with zero columns up to K = k."""
+    if a.shape[1] == k:
+        return a
+    padded = a.new_zeros(a.shape[0], k)
+    padded[:, : a.shape[1]] = a
+    return padded
+
+
 def _slab_image(a, row0, rows, ks):
     """The swizzled image of one slab of panel ``a`` (K padded with zero
     columns to a multiple of 64), flat."""
-    k = -(-a.shape[1] // SLAB_K) * SLAB_K
-    if a.shape[1] != k:
-        padded = a.new_zeros(a.shape[0], k)
-        padded[:, : a.shape[1]] = a
-        a = padded
+    a = _pad_k(a, -(-a.shape[1] // SLAB_K) * SLAB_K)
     chunks = a[row0:row0 + rows, ks * SLAB_K:(ks + 1) * SLAB_K].reshape(
         rows, 8, 8)
     r = torch.arange(rows, device=a.device)
@@ -324,13 +329,8 @@ def _blob(packed):
                     parts.append(_slab_image(packed[name], row0, rows, ks))
             parts += [packed[name].reshape(-1) for name in BIAS_ORDER]
         else:
-            for name, k in _BLOB_ORDER:
-                a = packed[name]
-                if a.shape[1] != k:
-                    padded = a.new_zeros(a.shape[0], k)
-                    padded[:, : a.shape[1]] = a
-                    a = padded
-                parts.append(a.reshape(-1))
+            parts += [_pad_k(packed[name], k).reshape(-1)
+                      for name, k in _BLOB_ORDER]
         blob = torch.cat(parts).contiguous()
         packed[_BLOB_KEY] = blob
     return blob
@@ -371,6 +371,13 @@ def _check_cuda(packed, **tensors):
     return int(cdt == torch.bfloat16)
 
 
+def _launch_error(err: int) -> str:
+    if err == -1:
+        return ("arguments the kernel does not take (it needs N > 0, "
+                "1 <= n_samples <= 64 and the blob built by this module)")
+    return f"CUDA error {err}"
+
+
 def fused_nerf_raw_t(packed, pts24_t, vcon_t, n_samples: int = 8):
     """Fused PE -> NeRF MLP forward (no autograd; inference path).
 
@@ -401,7 +408,8 @@ def fused_nerf_raw_t(packed, pts24_t, vcon_t, n_samples: int = 8):
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"fused_nerf_raw kernel launch failed: error {err}")
+        raise RuntimeError(
+            f"fused_nerf_raw kernel launch failed: {_launch_error(err)}")
     fused_nerf_raw_t.launches += 1
     return raw
 
@@ -467,7 +475,7 @@ def fused_nerf_composite_t(packed, pts24_t, vcon_t, z_t, mm_add_t, mm_mul_t,
         )
     if err != 0:
         raise RuntimeError(
-            f"fused_nerf_composite kernel launch failed: error {err}"
+            f"fused_nerf_composite kernel launch failed: {_launch_error(err)}"
         )
     fused_nerf_composite_t.launches += 1
     return out

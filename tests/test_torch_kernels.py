@@ -317,18 +317,31 @@ def test_wrappers_reject_wrong_shapes_before_dispatch():
 
 def test_blob_layout_matches_the_kernel_sources():
     """The contiguous weight buffers the CUDA kernels read: sizes as the
-    ``.cu`` files compute them, PE panels padded to K = 64 with a zero
-    column, first MinMax layer padded to a multiple of 32."""
+    ``.cu`` files compute them. bf16 NeRF: the stage images of the ring, the
+    head slabs, the biases (``tests/test_torch_kernels_layout.py`` reads every
+    element back); f32 NeRF: panels in order, PE panels padded to K = 64 with
+    a zero column; MinMax: first layer padded to a multiple of 32."""
     _, net = nerf_nets()
+    sq, W = 256 * 256, 256
+    weights = 2 * (W * 64) + 7 * sq + sq + 128 * W + 8 * W + 8 * 128
+    biases = 8 * W + 8 + W + 128 + 8
     packed = t_fn.pack_nerf_params(net, torch.bfloat16)
     blob = t_fn._blob(packed)
-    sq, W = 256 * 256, 256
-    want = (2 * (W * 64) + 8 * W + 7 * sq + 8 * W + 8 + sq + W + 128 * W + 128
-            + 8 * 128 + 8)
-    assert blob.dtype == torch.bfloat16 and blob.numel() == want
+    assert blob.dtype == torch.bfloat16 and blob.numel() == weights + biases
     assert t_fn._blob(packed) is blob  # built once
-    w0p = blob[: W * 64].reshape(W, 64)
+    # stage 0 is w0p [256, 64]: row r, chunk c stored at chunk c ^ (r % 8)
+    w0p = blob[: W * 64].reshape(W, 8, 8)
+    r = torch.arange(W)[:, None]
+    w0p = w0p[r, torch.arange(8)[None, :] ^ (r % 8)].reshape(W, 64)
     assert torch.equal(w0p[:, :63], packed["w0p_t"]) and not w0p[:, 63].any()
+    assert torch.equal(blob[-8:], packed["b_rgb"].reshape(-1))
+
+    packed32 = t_fn.pack_nerf_params(net, torch.float32)
+    blob32 = t_fn._blob(packed32)
+    assert blob32.dtype == torch.float32
+    assert blob32.numel() == weights + biases
+    w0p = blob32[: W * 64].reshape(W, 64)
+    assert torch.equal(w0p[:, :63], packed32["w0p_t"]) and not w0p[:, 63].any()
     broken = dict(t_fn.pack_nerf_params(net, torch.float32))
     broken["bx_t"] = broken["bx_t"] * 3.0
     with pytest.raises(ValueError, match="frequency"):
