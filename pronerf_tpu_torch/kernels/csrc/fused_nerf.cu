@@ -422,7 +422,8 @@ __device__ __forceinline__ void wg_turn_pass() {
 // acc[64, 128] = A . W^T for 128 rows of a panel of K = 256, which arrive as
 // two stages of two k-slabs [128 x 64] each; A from the 64 registers `a`.
 // Stage 0 is released once the products of stage 1 are queued behind it, so
-// the tensor cores always have work.
+// the tensor cores always have work. The warpgroup takes its turn before it
+// queues the block and passes it on before it waits.
 __device__ __forceinline__ void wg_dense128(float (&acc)[64],
                                             uint32_t (&a)[64], WgRing& ring) {
   uint32_t prev = 0;
