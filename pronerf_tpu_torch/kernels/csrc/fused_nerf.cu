@@ -385,20 +385,17 @@ struct WgTurns {
 
 // The consumer's view of the weight ring.
 struct WgRing {
-  uint32_t full, empty, buf;   // shared addresses of barriers and stage 0
-  uint32_t stages, slot, phase;
+  WgTurns full;          // the stages' `full` barriers
+  uint32_t empty, buf;   // shared addresses of `empty` barrier 0 and stage 0
   // Wait for the current stage; returns its shared address.
   __device__ __forceinline__ uint32_t wait() const {
-    hp::mbar_wait(full + 8 * slot, phase);
-    return buf + slot * WgBlob::kStageBytes;
+    hp::mbar_wait(full.bar(), full.phase);
+    return buf + full.at * WgBlob::kStageBytes;
   }
   // Move to the next stage; returns the slot left behind.
   __device__ __forceinline__ uint32_t advance() {
-    const uint32_t left = slot;
-    if (++slot == stages) {
-      slot = 0;
-      phase ^= 1;
-    }
+    const uint32_t left = full.at;
+    full.next();
     return left;
   }
   // This warp has finished reading slot `sl`.
@@ -589,19 +586,16 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         hp::mbar_arrive_expect_tx(head_bar, B::kHeadBytes);
         hp::bulk_g2s(sm32 + M::heads, blob + B::heads, B::kHeadBytes,
                      head_bar);
-        uint32_t slot = 0, phase = 0;
+        WgTurns wt = {empty, n_stages, 0, 0};
         for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
           for (int s = 0; s < S; ++s)
             for (int i = 0; i < B::kStagesPerSample; ++i) {
-              hp::mbar_wait(empty + 8 * slot, phase ^ 1);
+              hp::mbar_wait(wt.bar(), wt.phase ^ 1);
               const uint32_t bytes = B::stage_bytes(i);
-              hp::mbar_arrive_expect_tx(full + 8 * slot, bytes);
-              hp::bulk_g2s(ring_buf + slot * B::kStageBytes,
-                           blob + B::stage_off(i), bytes, full + 8 * slot);
-              if (++slot == n_stages) {
-                slot = 0;
-                phase ^= 1;
-              }
+              hp::mbar_arrive_expect_tx(full + 8 * wt.at, bytes);
+              hp::bulk_g2s(ring_buf + wt.at * B::kStageBytes,
+                           blob + B::stage_off(i), bytes, full + 8 * wt.at);
+              wt.next();
             }
       }
     } else {
@@ -677,7 +671,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     hp::named_barrier(3, 256);
     if (wg == 1) wg_turn_pass();
 
-    WgRing ring = {full, empty, ring_buf, n_stages, 0, 0};
+    WgRing ring = {{full, n_stages, 0, 0}, empty, ring_buf};
     WgTurns pt = {pe_full, 2, 0, 0}, rt = {res_empty, n_res, 0, 0};
     float acc[64];
     uint32_t h[64];
