@@ -7,13 +7,17 @@ falls back to the CPU. Phases, each printing one JSON line:
 
 1. ``device``   card name and power limit (nvidia-smi), torch/CUDA versions;
 2. ``build``    compiles ``pronerf_tpu_torch/kernels/csrc/*.cu`` (one nvcc per
-                source, started together);
+                source, started together) and reads ``ptxas -v``'s report of
+                the two ``wgmma`` kernels: it fails if any of their products
+                was serialized or if either spills;
 3. ``kernels``  every fused kernel, in bf16 and in f32 (the int8 NeRF
                 kernel in int8), at the width and ray count of a 504x378
                 frame, on inputs made from a numpy seed: held against its
                 plain PyTorch version on the same inputs (the plain version
                 runs in chunks of rays, for memory), on a ragged ray count
-                too, and timed with CUDA events. The MinMax kernel also with
+                too, on 100 rays (one block, one ragged tile) for the bf16
+                and f32 NeRF and MinMax kernels, and timed with CUDA events.
+                The MinMax kernel also with
                 ``transpose_out=False`` and, for the refine shape, with the
                 transposed graph's permuted pack; the int8 kernel also
                 against the bf16 kernel;
@@ -50,6 +54,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -65,7 +70,7 @@ H, W_IMG, N_VIEWS = 378, 504, 17
 FRAME_RAYS = H * W_IMG
 CHUNK = 16384          # rays per call of a plain version
 RAGGED = 16384 - 37    # not a multiple of any kernel tile
-TINY = 100             # bf16/f32 NeRF kernels: one ragged tile, one block
+TINY = 100             # NeRF and MinMax kernels: one ragged tile, one block
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet).
 PEAK_BYTES_S = 3.35e12
@@ -402,7 +407,12 @@ KERNELS = (
 # the instantiations each kernel has; the first is the one its main path runs
 DTYPES = {"fused_nerf_raw_tq": ("int8",)}
 BOTH = ("bfloat16", "float32")
-TINY_TOO = ("fused_nerf_raw_t", "fused_nerf_composite_t")
+TINY_TOO = ("fused_minmax_t[sampler]", "fused_minmax_t[refine]",
+            "fused_nerf_raw_t", "fused_nerf_composite_t")
+# the kernels on wgmma, by source: ptxas must neither serialize their products
+# nor spill
+WGMMA_KERNELS = {"fused_minmax": "minmax_wg_kernel",
+                 "fused_nerf": "nerf_wg_kernel"}
 
 
 def make_case(name, nets, n_rays, dtype, device, seed):
@@ -437,6 +447,55 @@ def counter(name):
 
 
 @torch.no_grad()
+def ptxas_report(log, kernel):
+    """What ``ptxas -v`` said of the entry functions whose name holds
+    ``kernel``: registers, stack, spills; and every line of the log that
+    reports serialized ``wgmma`` products (C7510 to C7520; C7519 is kept apart
+    as a note)."""
+    funcs, current, props = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = m.group(1)
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props and kernel in props:
+            funcs.setdefault(props, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current and kernel in current:
+            funcs.setdefault(current, {})["registers"] = int(m.group(1))
+    flagged = [ln.strip() for ln in log.splitlines()
+               if "wgmma" in ln and "serialized" in ln]
+    return {
+        "functions": funcs,
+        "serialized": [ln for ln in flagged if "C7519" not in ln],
+        "notes": [ln for ln in flagged if "C7519" in ln],
+    }
+
+
+def check_build():
+    """ptxas' report of the wgmma kernels; fails on a serialized product, a
+    spill, or a kernel it did not report."""
+    from pronerf_tpu_torch.kernels import build
+
+    reports = {src: ptxas_report(build.ptxas_log(src), kernel)
+               for src, kernel in WGMMA_KERNELS.items()}
+    bad = {src: r for src, r in reports.items()
+           if not r["functions"] or r["serialized"]
+           or any(f.get("spill_stores", 1) or f.get("spill_loads", 1)
+                  for f in r["functions"].values())}
+    if bad:
+        say({"ptxas": reports})
+        raise SystemExit(f"ptxas serialized, spilled or did not report: "
+                         f"{sorted(bad)}")
+    return reports
+
+
 def phase_kernels(device, n_rays):
     nets = make_nets(0, device)
     rows = []
@@ -855,7 +914,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("build", "kernels", "frame"))
     ap.add_argument("--rays", type=int, default=FRAME_RAYS)
-    ap.add_argument("--verbose-build", action="store_true")
+    ap.add_argument("--verbose-build", action="store_true",
+                    help="print the compiler's output of every source")
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel name for the "
                          "fused-composite, the int8 and the transposed "
@@ -875,12 +935,13 @@ def main(argv=None):
                     "name": torch.cuda.get_device_name(0)}})
 
     t0 = time.perf_counter()
-    logs = build.build_all(verbose=args.verbose_build)
-    say({"build": {"seconds": time.perf_counter() - t0,
-                   "built": sorted(logs), "sources": build.sources()}})
+    logs = build.build_all()
+    seconds = time.perf_counter() - t0
     if args.verbose_build:
-        for name, log in logs.items():
-            print(f"--- nvcc {name}\n{log}", flush=True)
+        for name in build.sources():
+            print(f"--- nvcc {name}\n{build.ptxas_log(name)}", flush=True)
+    say({"build": {"seconds": seconds, "built": sorted(logs),
+                   "sources": build.sources(), "ptxas": check_build()}})
 
     rows, launches = [], {}
     if args.only in (None, "kernels"):

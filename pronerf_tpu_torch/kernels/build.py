@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library ``_build/lib<name>-<hash>.so`` (the hash covers every file under
 ``csrc/``, so an edited source is rebuilt and a stale library is never
-loaded). ``nvcc`` compiles such a file in seconds; nothing here includes
+loaded), with the compiler's output beside it in ``lib<name>-<hash>.log``:
+``ptxas -v`` reports each kernel's registers, spills and any ``wgmma`` it
+had to serialize (:func:`ptxas_log`). ``nvcc`` compiles such a file in seconds; nothing here includes
 PyTorch's headers. The libraries are loaded with ``ctypes``; the wrappers in
 ``fused_minmax.py`` / ``fused_nerf.py`` set ``argtypes`` (``c_void_p`` for
 every pointer and for the stream, or ctypes would cut them to 32 bits).
@@ -27,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _loaded: dict = {}
@@ -67,22 +69,31 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{_digest()}.so"
 
 
-def _command(name: str, out: Path, verbose: bool) -> list:
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    return cmd + ["-o", str(out), str(CSRC / f"{name}.cu")]
+def log_path(name: str) -> Path:
+    return lib_path(name).with_suffix(".log")
+
+
+def ptxas_log(name: str) -> str:
+    """The compiler's output of the library built from ``csrc/<name>.cu``
+    (empty if it has not been built)."""
+    p = log_path(name)
+    return p.read_text() if p.exists() else ""
+
+
+def _command(name: str, out: Path) -> list:
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
 def _finish(name: str, proc, tmp: Path, out: Path) -> str:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    log_path(name).write_text(log)
     os.replace(tmp, out)
     return log
 
 
-def build_all(verbose: bool = False) -> dict:
+def build_all() -> dict:
     """Build every missing library, all ``nvcc`` processes started together.
     Returns {name: compiler output} for the ones that were built."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -93,7 +104,7 @@ def build_all(verbose: bool = False) -> dict:
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
         proc = subprocess.Popen(
-            _command(name, tmp, verbose), stdout=subprocess.PIPE,
+            _command(name, tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True,
         )
         running.append((name, proc, tmp, out))

@@ -302,12 +302,8 @@ __global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS) nerf_kernel(NerfArg
 
 // ----------------------------------------------------------------- bf16 --
 
-constexpr int kWgRays = 64;        // rays of one consumer warpgroup
-constexpr int kWgTile = 2 * kWgRays;   // rays of a block per weight pass
-constexpr int kWgThreads = 384;    // two consumer warpgroups + the helpers
-constexpr int kMaxStages = 4;
-constexpr int kHelpers = 96;       // threads of the third warpgroup's warps
-                                   // 1..3 (warp 0 fills the weight ring)
+// The frame (kWgTile, kWgThreads, kHelpers, the ring, the turns, the dense
+// products and epilogues) is hopper.cuh's.
 
 struct WgBlob {  // the bf16 blob, in bytes
   static constexpr int kStageBytes = 32768;
@@ -331,6 +327,7 @@ struct WgBlob {  // the bf16 blob, in bytes
 };
 static_assert(WgBlob::stage_off(WgBlob::kStagesPerSample) ==
                   WgBlob::kRingBytes, "the stages tile the ring region");
+static_assert(WgBlob::kStageBytes == kRingStageBytes, "a stage fills a slot");
 
 // Shared memory of the bf16 kernel, from a 1,024-byte boundary. The PE rows
 // have two buffers (the next sample's are written while this one's are read),
@@ -369,146 +366,6 @@ static_assert(WgBlob::kBiases * 4 <= 10240, "bias region");
 static_assert(WgSmem::n_res(8) == 2 && WgSmem::stages(8) == 4 &&
                   WgSmem::stages(49) == 3 && WgSmem::stages(64) == 2,
               "what fits");
-
-// A barrier that alternates between `n` buffers: use k waits on (and fills)
-// buffer k % n, in the phase of parity (k / n) % 2.
-struct WgTurns {
-  uint32_t bars, n, at, phase;   // shared address of barrier 0
-  __device__ __forceinline__ uint32_t bar() const { return bars + 8 * at; }
-  __device__ __forceinline__ void next() {
-    if (++at == n) {
-      at = 0;
-      phase ^= 1;
-    }
-  }
-};
-
-// The consumer's view of the weight ring.
-struct WgRing {
-  WgTurns full;          // the stages' `full` barriers
-  uint32_t empty, buf;   // shared addresses of `empty` barrier 0 and stage 0
-  // Wait for the current stage; returns its shared address.
-  __device__ __forceinline__ uint32_t wait() const {
-    hp::mbar_wait(full.bar(), full.phase);
-    return buf + full.at * WgBlob::kStageBytes;
-  }
-  // Move to the next stage; returns the slot left behind.
-  __device__ __forceinline__ uint32_t advance() {
-    const uint32_t left = full.at;
-    full.next();
-    return left;
-  }
-  // This warp has finished reading slot `sl`.
-  __device__ __forceinline__ void release(uint32_t sl) const {
-    if ((threadIdx.x & 31) == 0) hp::mbar_arrive(empty + 8 * sl);
-  }
-};
-
-// The two consumer warpgroups take turns at the tensor cores: a warpgroup
-// waits for its turn, queues one block of products, and hands the turn over
-// before it waits for them. Its epilogue then runs while the other
-// warpgroup's products execute. Named barriers 4 and 5; warpgroup 1 gives
-// warpgroup 0 the first turn.
-__device__ __forceinline__ void wg_turn_wait() {
-  hp::named_barrier(4 + (threadIdx.x >> 7), 256);
-}
-__device__ __forceinline__ void wg_turn_pass() {
-  hp::named_barrier_arrive(5 - (threadIdx.x >> 7), 256);
-}
-
-// acc[64, 128] = A . W^T for 128 rows of a panel of K = 256, which arrive as
-// two stages of two k-slabs [128 x 64] each; A from the 64 registers `a`.
-// Stage 0 is released once the products of stage 1 are queued behind it, so
-// the tensor cores always have work. The warpgroup takes its turn before it
-// queues the block and passes it on before it waits.
-__device__ __forceinline__ void wg_dense128(float (&acc)[64],
-                                            uint32_t (&a)[64], WgRing& ring) {
-  uint32_t prev = 0;
-  wg_turn_wait();
-  hp::wgmma_fence();
-#pragma unroll
-  for (int st = 0; st < 2; ++st) {
-    const uint32_t stage = ring.wait();
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const int j = 4 * (8 * st + kk);
-      const uint64_t d = hp::desc_k128(stage + (kk / 4) * (kWH * 128)) +
-                         (kk % 4) * hp::kDescKStep;
-      hp::wgmma_m64n128k16_rs(acc, a[j], a[j + 1], a[j + 2], a[j + 3], d,
-                              st | kk);
-    }
-    hp::wgmma_commit();
-    if (st > 0) {
-      wg_turn_pass();
-      hp::wgmma_wait<1>();
-      ring.release(prev);
-    }
-    prev = ring.advance();
-  }
-  hp::wgmma_wait<0>();
-  ring.release(prev);
-  hp::keep(acc);
-  hp::keep(a);
-}
-
-// acc[64, 128] = PE . W^T for a [128 x 64] slab at `slab` (shared address).
-__device__ __forceinline__ void wg_dense128_pe(float (&acc)[64],
-                                               uint64_t pe_desc,
-                                               uint32_t slab) {
-  wg_turn_wait();
-  hp::wgmma_fence();
-  const uint64_t d = hp::desc_k128(slab);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    hp::wgmma_m64n128k16_ss(acc, pe_desc + kk * hp::kDescKStep,
-                            d + kk * hp::kDescKStep, kk);
-  hp::wgmma_commit();
-  wg_turn_pass();
-  hp::wgmma_wait<0>();
-  hp::keep(acc);
-}
-
-// round(v + bias) for the pair of columns a register holds, from the packed
-// rounded dots `dots`; RELU clamps.
-template <bool RELU>
-__device__ __forceinline__ uint32_t wg_add_pair(uint32_t dots, float2 b) {
-  return hp::pack_bf16x2<RELU>(hp::bf16_lo(dots) + b.x, hp::bf16_hi(dots) + b.y);
-}
-// the same with another packed addend in the place of the bias
-__device__ __forceinline__ uint32_t wg_add_pair(uint32_t dots, uint32_t v) {
-  return hp::pack_bf16x2(hp::bf16_lo(dots) + hp::bf16_lo(v),
-                         hp::bf16_hi(dots) + hp::bf16_hi(v));
-}
-
-// The epilogue of 128 outputs of a layer: out = [relu](round(round(acc) +
-// bias)), accumulator pair p -> A register p (hopper.cuh). `bias` points at
-// this thread's first column pair of the 128 (f32, shared memory); n-tile j
-// is 8 j further.
-template <bool RELU>
-__device__ __forceinline__ void wg_epilogue(const float (&acc)[64],
-                                            uint32_t* a, const float* bias) {
-#pragma unroll
-  for (int p = 0; p < 32; ++p) {
-    const float2 b = *reinterpret_cast<const float2*>(bias + 8 * (p / 2));
-    a[p] = wg_add_pair<RELU>(hp::pack_bf16x2(acc[2 * p], acc[2 * p + 1]), b);
-  }
-}
-
-// One 256-wide layer of K = 256 on h, in place: two halves of 128 outputs
-// (see the head of this file), each four k-slabs in two stages. h is read by
-// both halves, so the first half's outputs wait beside it.
-template <bool RELU>
-__device__ __forceinline__ void wg_layer256(float (&acc)[64],
-                                            uint32_t (&h)[64], WgRing& ring,
-                                            const float* bias) {
-  uint32_t lo[32];
-  wg_dense128(acc, h, ring);
-  wg_epilogue<RELU>(acc, lo, bias);
-  wg_dense128(acc, h, ring);
-  wg_epilogue<RELU>(acc, h + 32, bias + kWH);
-#pragma unroll
-  for (int i = 0; i < 32; ++i) h[i] = lo[i];
-}
 
 // The PE rows [x(3) | sin(30) | cos(30) | 0] of sample s of 128 rays from
 // `base`, swizzled, written by the helper threads (`t` of kHelpers) into the
@@ -586,17 +443,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         hp::mbar_arrive_expect_tx(head_bar, B::kHeadBytes);
         hp::bulk_g2s(sm32 + M::heads, blob + B::heads, B::kHeadBytes,
                      head_bar);
-        WgTurns wt = {empty, n_stages, 0, 0};
+        WgRingFill fill = {{empty, n_stages, 0, 0}, full, ring_buf};
         for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
           for (int s = 0; s < S; ++s)
-            for (int i = 0; i < B::kStagesPerSample; ++i) {
-              hp::mbar_wait(wt.bar(), wt.phase ^ 1);
-              const uint32_t bytes = B::stage_bytes(i);
-              hp::mbar_arrive_expect_tx(full + 8 * wt.at, bytes);
-              hp::bulk_g2s(ring_buf + wt.at * B::kStageBytes,
-                           blob + B::stage_off(i), bytes, full + 8 * wt.at);
-              wt.next();
-            }
+            for (int i = 0; i < B::kStagesPerSample; ++i)
+              fill.put(blob + B::stage_off(i), B::stage_bytes(i));
       }
     } else {
       // Three warps do what is not a product. They write the PE rows, up to
@@ -711,15 +562,15 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           const uint32_t stage = ring.wait();
 #pragma unroll
           for (int hf = 0; hf < 2; ++hf) {
-            wg_dense128_pe(acc, pe_desc, stage + hf * (kWH * 128));
-            wg_epilogue<true>(acc, h + 32 * hf, bias_q + hf * kWH);
+            wg_dense128_ss(acc, pe_desc, 0, stage + hf * kSlab128Bytes, 4);
+            wg_epilogue<Act::kRelu>(acc, h + 32 * hf, bias_q + hf * kWH);
           }
           ring.release(ring.advance());
         }
         // layers 1..4
 #pragma unroll 1
         for (int l = 1; l <= 4; ++l)
-          wg_layer256<true>(acc, h, ring, bias_q + l * kW);
+          wg_layer256<Act::kRelu>(acc, h, ring, bias_q + l * kW);
         // layer 5, per half: the PE product, rounded and packed; then the h
         // product; added, biased, clamped
         {
@@ -727,7 +578,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
           for (int hf = 0; hf < 2; ++hf) {
             uint32_t pdot[32];
-            wg_dense128_pe(acc, pe_desc, ring.wait());
+            wg_dense128_ss(acc, pe_desc, 0, ring.wait(), 4);
             ring.release(ring.advance());
 #pragma unroll
             for (int p = 0; p < 32; ++p)
@@ -738,9 +589,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
             for (int p = 0; p < 32; ++p) {
               const float2 b = *reinterpret_cast<const float2*>(
                   bias_q + 5 * kW + hf * kWH + 8 * (p / 2));
-              const uint32_t both = wg_add_pair(
+              const uint32_t both = wg_add_packed(
                   pdot[p], hp::pack_bf16x2(acc[2 * p], acc[2 * p + 1]));
-              out[p] = wg_add_pair<true>(both, b);
+              out[p] = wg_add_pair<Act::kRelu>(both, b);
             }
           }
 #pragma unroll
@@ -752,7 +603,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         // layers 6, 7
 #pragma unroll 1
         for (int l = 6; l <= 7; ++l)
-          wg_layer256<true>(acc, h, ring, bias_q + l * kW);
+          wg_layer256<Act::kRelu>(acc, h, ring, bias_q + l * kW);
 
         __nv_bfloat16* rs = res + s * 4;   // [ray][S][4]
         // sigma head (column 0 of 8, resident) and the feature layer, on h7
@@ -779,7 +630,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
             rs[(size_t)(row0 + 8) * S * 4 + 3] = __float2bfloat16_rn(
                 __bfloat162float(__float2bfloat16_rn(sig[2])) + ba);
           }
-          wg_layer256<false>(acc, h, ring, bias_q + B::b_feat);
+          wg_layer256<Act::kNone>(acc, h, ring, bias_q + B::b_feat);
         }
         // view branch: relu(round(round(dot + vcon) + bv)), 128 wide
         {
@@ -788,9 +639,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           for (int p = 0; p < 32; ++p) {
             const float2 b = *reinterpret_cast<const float2*>(
                 bias_q + B::bv + 8 * (p / 2));
-            const uint32_t withv = wg_add_pair(
+            const uint32_t withv = wg_add_packed(
                 hp::pack_bf16x2(acc[2 * p], acc[2 * p + 1]), vfrag[p * 128]);
-            h[p] = wg_add_pair<true>(withv, b);
+            h[p] = wg_add_pair<Act::kRelu>(withv, b);
           }
         }
         // rgb head (columns 0..2 of 8, resident) on the 128 view features

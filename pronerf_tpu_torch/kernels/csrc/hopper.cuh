@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the kernels that run their products on
 // `wgmma`: mbarriers, bulk asynchronous copies, the shared-memory matrix
 // descriptor, the `wgmma` fence / commit / wait and the m64nNk16 bf16 products
-// (N = 128, 8) with A from registers (`_rs`) or from shared memory (`_ss`),
-// `setmaxnreg`, named barriers.
+// (N = 128, 64, 32, 8) with A from registers (`_rs`) or from shared memory
+// (`_ss`), `setmaxnreg`, named barriers; then (namespace pn, after hp) the
+// warpgroup frame that the NeRF and the MinMax kernels are built on.
 // Everything here needs `sm_90a`.
 //
 // Operand layout the products assume. B is a weight panel w_t [out, K] held
@@ -165,11 +166,33 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
     asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
   return d;
 }
+// Two packed bf16 pairs added, rounded once to bf16: for two bf16 values
+// the same as their f32 sum rounded to bf16 (the sum is exact in f32, or the
+// smaller value is too small to move the rounding).
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(a), "r"(0x3F803F80u), "r"(b));
+  return d;
+}
 __device__ __forceinline__ float bf16_lo(uint32_t v) {
   return __uint_as_float(v << 16);
 }
 __device__ __forceinline__ float bf16_hi(uint32_t v) {
   return __uint_as_float(v & 0xffff0000u);
+}
+
+// exp(x) in f32 to about 2 ulp (the bound CUDA states for `expf`) in four
+// instructions, where `expf` takes several times as many: r = `ex2.approx`
+// of t = x log2(e) rounded, then exp(x) = r e^d with d = x - t ln(2), a
+// rounding error's worth, taken as r + r d. Results below 2^-126 flush to
+// zero; x above 88.7 gives inf.
+__device__ __forceinline__ float exp_f32(float x) {
+  const float t = __fmul_rn(x, 1.44269502f);
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(t));
+  return fmaf(r, fmaf(t, -0.693147182f, x), r);
 }
 
 // D[64, N] (+)= A[64, 16] . B[N, 16]^T, bf16 operands, f32 sums. `scale_d`
@@ -244,6 +267,68 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+    uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t desc_b,
+    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+    uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16],
+    uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t desc_b,
+    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4], 
     uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t desc_b,
     int scale_d) {
@@ -258,4 +343,308 @@ __device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4],
 }
 
 }  // namespace hp
+
+// ------------------------------------------------------ warpgroup frame --
+//
+// The frame of a persistent block that streams a chain of 256-wide layers
+// for 128 rays at a time (see the head of fused_nerf.cu for why it is built
+// so): 384 threads, two consumer warpgroups of 64 rays each and a third
+// warpgroup of helpers (warp 0 fills the weight ring, warps 1..3 do what is
+// not a product). Weights arrive in a ring of up to kMaxStages slots of
+// kRingStageBytes, each filled by one bulk copy of a stage image: one or two
+// k-slabs (64 k, 128-byte swizzle, see the head of this file) of 128 or 256
+// panel rows. The activations of a layer stay in the consumers' registers.
+
+constexpr int kWgRays = 64;          // rays of one consumer warpgroup
+constexpr int kWgTile = 2 * kWgRays; // rays of a block per weight pass
+constexpr int kWgThreads = 384;      // two consumer warpgroups + the helpers
+constexpr int kMaxStages = 4;
+constexpr int kHelpers = 96;         // threads of the third warpgroup's warps
+                                     // 1..3 (warp 0 fills the weight ring)
+constexpr int kHalf = 128;           // outputs of one m64n128 product
+constexpr int kRingStageBytes = 32768;   // a ring slot
+constexpr int kSlab128Bytes = kHalf * 128;   // a slab of 128 panel rows
+
+// A barrier that alternates between `n` buffers: use k waits on (and fills)
+// buffer k % n, in the phase of parity (k / n) % 2.
+struct WgTurns {
+  uint32_t bars, n, at, phase;   // shared address of barrier 0
+  __device__ __forceinline__ uint32_t bar() const { return bars + 8 * at; }
+  __device__ __forceinline__ void next() {
+    if (++at == n) {
+      at = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// The producer's view of the weight ring: one thread copies each stage
+// image into the next slot once every consumer warp has released it.
+struct WgRingFill {
+  WgTurns empty;         // the slots' `empty` barriers
+  uint32_t full, buf;    // shared addresses of `full` barrier 0 and slot 0
+  __device__ __forceinline__ void put(const void* src, uint32_t bytes) {
+    hp::mbar_wait(empty.bar(), empty.phase ^ 1);
+    hp::mbar_arrive_expect_tx(full + 8 * empty.at, bytes);
+    hp::bulk_g2s(buf + empty.at * kRingStageBytes, src, bytes,
+                 full + 8 * empty.at);
+    empty.next();
+  }
+};
+
+// The consumer's view of the weight ring.
+struct WgRing {
+  WgTurns full;          // the stages' `full` barriers
+  uint32_t empty, buf;   // shared addresses of `empty` barrier 0 and stage 0
+  // Wait for the current stage; returns its shared address.
+  __device__ __forceinline__ uint32_t wait() const {
+    hp::mbar_wait(full.bar(), full.phase);
+    return buf + full.at * kRingStageBytes;
+  }
+  // Move to the next stage; returns the slot left behind.
+  __device__ __forceinline__ uint32_t advance() {
+    const uint32_t left = full.at;
+    full.next();
+    return left;
+  }
+  // This warp has finished reading slot `sl`.
+  __device__ __forceinline__ void release(uint32_t sl) const {
+    if ((threadIdx.x & 31) == 0) hp::mbar_arrive(empty + 8 * sl);
+  }
+};
+
+// The two consumer warpgroups take turns at the tensor cores: a warpgroup
+// waits for its turn, queues one block of products, and hands the turn over
+// before it waits for them. Its epilogue then runs while the other
+// warpgroup's products execute. Named barriers 4 and 5; warpgroup 1 gives
+// warpgroup 0 the first turn. Both warpgroups must take the same number of
+// turns.
+__device__ __forceinline__ void wg_turn_wait() {
+  hp::named_barrier(4 + (threadIdx.x >> 7), 256);
+}
+__device__ __forceinline__ void wg_turn_pass() {
+  hp::named_barrier_arrive(5 - (threadIdx.x >> 7), 256);
+}
+
+// acc[64, 128] = A . W^T for 128 rows of a panel of K = 256, which arrive as
+// two stages of two k-slabs [128 x 64] each; A from the 64 registers `a`.
+// Stage 0 is released once the products of stage 1 are queued behind it, so
+// the tensor cores always have work. The warpgroup takes its turn before it
+// queues the block and passes it on before it waits.
+__device__ __forceinline__ void wg_dense128(float (&acc)[64],
+                                            uint32_t (&a)[64], WgRing& ring) {
+  uint32_t prev = 0;
+  wg_turn_wait();
+  hp::wgmma_fence();
+#pragma unroll
+  for (int st = 0; st < 2; ++st) {
+    const uint32_t stage = ring.wait();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int j = 4 * (8 * st + kk);
+      const uint64_t d = hp::desc_k128(stage + (kk / 4) * kSlab128Bytes) +
+                         (kk % 4) * hp::kDescKStep;
+      hp::wgmma_m64n128k16_rs(acc, a[j], a[j + 1], a[j + 2], a[j + 3], d,
+                              st | kk);
+    }
+    hp::wgmma_commit();
+    if (st > 0) {
+      wg_turn_pass();
+      hp::wgmma_wait<1>();
+      ring.release(prev);
+    }
+    prev = ring.advance();
+  }
+  hp::wgmma_wait<0>();
+  ring.release(prev);
+  hp::keep(acc);
+  hp::keep(a);
+}
+
+// acc[64, 128] = A . W^T over `ksteps` k-steps of 16, A from shared memory:
+// rows of the warpgroup's rays in k-slabs of 64 (`a_desc` describes slab 0,
+// the next slab `a_slab_bytes` further); W as k-slabs [128 x 64] from `slab`
+// (shared address), one after the other.
+__device__ __forceinline__ void wg_dense128_ss(float (&acc)[64],
+                                               uint64_t a_desc,
+                                               uint32_t a_slab_bytes,
+                                               uint32_t slab, int ksteps) {
+  wg_turn_wait();
+  hp::wgmma_fence();
+#pragma unroll 4
+  for (int kk = 0; kk < ksteps; ++kk) {
+    const uint64_t step = (kk % 4) * hp::kDescKStep;
+    hp::wgmma_m64n128k16_ss(
+        acc, a_desc + (((kk / 4) * a_slab_bytes) >> 4) + step,
+        hp::desc_k128(slab + (kk / 4) * kSlab128Bytes) + step, kk);
+  }
+  hp::wgmma_commit();
+  wg_turn_pass();
+  hp::wgmma_wait<0>();
+  hp::keep(acc);
+}
+
+// The activation an epilogue applies after the bias.
+enum class Act { kNone, kRelu, kElu };
+
+// round(v + bias) for the pair of columns a register holds, from the packed
+// rounded dots `dots`, then the activation: kRelu clamps; kElu takes
+// exp(min(x, 0)) - 1 in f32 on the rounded sum for x <= 0 and rounds again
+// (the MinMax nets' ELU as the TPU kernel writes it; exp_f32, not `expf`,
+// which took half of the MinMax kernel's time). The bias comes as two f32
+// or as one packed bf16 pair.
+template <Act A>
+__device__ __forceinline__ uint32_t wg_act(uint32_t v) {
+  if constexpr (A == Act::kElu) {
+    // exp is taken of every x and dropped where x > 0 (no branch)
+    const float x0 = hp::bf16_lo(v), x1 = hp::bf16_hi(v);
+    const float e0 = hp::exp_f32(x0) - 1.0f, e1 = hp::exp_f32(x1) - 1.0f;
+    return hp::pack_bf16x2(x0 > 0.0f ? x0 : e0, x1 > 0.0f ? x1 : e1);
+  } else if constexpr (A == Act::kRelu) {
+    return hp::pack_bf16x2<true>(hp::bf16_lo(v), hp::bf16_hi(v));
+  } else {
+    return v;
+  }
+}
+template <Act A>
+__device__ __forceinline__ uint32_t wg_add_pair(uint32_t dots, float2 b) {
+  const float lo = hp::bf16_lo(dots) + b.x, hi = hp::bf16_hi(dots) + b.y;
+  if constexpr (A == Act::kElu) return wg_act<A>(hp::pack_bf16x2(lo, hi));
+  else return hp::pack_bf16x2<A == Act::kRelu>(lo, hi);
+}
+template <Act A>
+__device__ __forceinline__ uint32_t wg_add_pair(uint32_t dots, uint32_t b2) {
+  return wg_act<A>(hp::add_bf16x2(dots, b2));
+}
+// the same with another packed addend in the place of the bias, in f32
+__device__ __forceinline__ uint32_t wg_add_packed(uint32_t dots, uint32_t v) {
+  return hp::pack_bf16x2(hp::bf16_lo(dots) + hp::bf16_lo(v),
+                         hp::bf16_hi(dots) + hp::bf16_hi(v));
+}
+
+// This thread's bias of column pair p of 128 outputs (n-tile p / 2), from
+// its first pair `b`: f32 (two floats a pair) or packed bf16 (one word).
+__device__ __forceinline__ float2 bias_pair(const float* b, int p) {
+  return *reinterpret_cast<const float2*>(b + 8 * (p / 2));
+}
+__device__ __forceinline__ uint32_t bias_pair(const uint32_t* b, int p) {
+  return b[4 * (p / 2)];
+}
+// the bias `n` columns further
+__device__ __forceinline__ const float* bias_cols(const float* b, int n) {
+  return b + n;
+}
+__device__ __forceinline__ const uint32_t* bias_cols(const uint32_t* b,
+                                                     int n) {
+  return b + n / 2;
+}
+
+// The epilogue of 128 outputs of a layer: out = act(round(round(acc) +
+// bias)), accumulator pair p -> A register p (see the head of this file).
+// `bias` points at this thread's first column pair of the 128 (shared
+// memory).
+template <Act A, class Bias>
+__device__ __forceinline__ void wg_epilogue(const float (&acc)[64],
+                                            uint32_t* a, const Bias* bias) {
+#pragma unroll
+  for (int p = 0; p < 32; ++p)
+    a[p] = wg_add_pair<A>(hp::pack_bf16x2(acc[2 * p], acc[2 * p + 1]),
+                          bias_pair(bias, p));
+}
+
+// One 256-wide layer of K = 256 on h, in place: two halves of 128 outputs,
+// each four k-slabs in two stages. h is read by both halves, so the first
+// half's outputs wait beside it.
+template <Act A, class Bias>
+__device__ __forceinline__ void wg_layer256(float (&acc)[64],
+                                            uint32_t (&h)[64], WgRing& ring,
+                                            const Bias* bias) {
+  uint32_t lo[32];
+  wg_dense128(acc, h, ring);
+  wg_epilogue<A>(acc, lo, bias);
+  wg_dense128(acc, h, ring);
+  wg_epilogue<A>(acc, h + 32, bias_cols(bias, kHalf));
+#pragma unroll
+  for (int i = 0; i < 32; ++i) h[i] = lo[i];
+}
+
+// A half of 128 outputs as two quarters of 64 (m64n64k16, accumulators q0
+// and q1): both quarters' products are queued in one turn, and the epilogue
+// of the first runs while the products of the second execute, so the tensor
+// cores wait for at most half an epilogue. `done` runs once every product
+// has finished (release stages, keep operands); the 32 packed results go to
+// `out` after it, so `out` may be the A registers the products read.
+template <Act A, class Bias, class Done>
+__device__ __forceinline__ void wg_quarters_out(float (&q0)[32],
+                                                float (&q1)[32],
+                                                uint32_t* out,
+                                                const Bias* bias, Done done) {
+  uint32_t first[16];
+  hp::wgmma_wait<1>();
+  hp::keep(q0);
+#pragma unroll
+  for (int p = 0; p < 16; ++p)
+    first[p] = wg_add_pair<A>(hp::pack_bf16x2(q0[2 * p], q0[2 * p + 1]),
+                              bias_pair(bias, p));
+  hp::wgmma_wait<0>();
+  hp::keep(q1);
+  done();
+#pragma unroll
+  for (int p = 0; p < 16; ++p) {
+    out[p] = first[p];
+    out[16 + p] = wg_add_pair<A>(hp::pack_bf16x2(q1[2 * p], q1[2 * p + 1]),
+                                 bias_pair(bias_cols(bias, 64), p));
+  }
+}
+
+// The products of quarter `qt` (rows 64 qt .. 64 qt + 63 of the 128) of a
+// half, A from the 64 registers `a`, W from two stages of two k-slabs.
+__device__ __forceinline__ void wg_quarter(float (&q)[32], uint32_t (&a)[64],
+                                           uint32_t s0, uint32_t s1, int qt) {
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk) {
+    const int j = 4 * kk;
+    const uint64_t d =
+        hp::desc_k128((kk < 8 ? s0 : s1) + ((kk % 8) / 4) * kSlab128Bytes +
+                      qt * 64 * 128) +
+        (kk % 4) * hp::kDescKStep;
+    hp::wgmma_m64n64k16_rs(q, a[j], a[j + 1], a[j + 2], a[j + 3], d, kk);
+  }
+  hp::wgmma_commit();
+}
+
+// 128 outputs of a hidden layer (K = 256) on `a` as two quarters.
+template <Act A, class Bias>
+__device__ __forceinline__ void wg_half_q(float (&q0)[32], float (&q1)[32],
+                                          uint32_t (&a)[64], WgRing& ring,
+                                          uint32_t* out, const Bias* bias) {
+  const uint32_t s0 = ring.wait(), l0 = ring.advance();
+  const uint32_t s1 = ring.wait(), l1 = ring.advance();
+  wg_turn_wait();
+  hp::wgmma_fence();
+  wg_quarter(q0, a, s0, s1, 0);
+  wg_quarter(q1, a, s0, s1, 1);
+  wg_turn_pass();
+  wg_quarters_out<A>(q0, q1, out, bias, [&] {
+    hp::keep(a);
+    ring.release(l0);
+    ring.release(l1);
+  });
+}
+
+// wg_layer256 with each half as two quarters; the accumulators are the two
+// halves of `acc`.
+template <Act A, class Bias>
+__device__ __forceinline__ void wg_layer256_q(float (&acc)[64],
+                                              uint32_t (&h)[64], WgRing& ring,
+                                              const Bias* bias) {
+  float(&q0)[32] = *reinterpret_cast<float(*)[32]>(acc);
+  float(&q1)[32] = *reinterpret_cast<float(*)[32]>(acc + 32);
+  uint32_t lo[32];
+  wg_half_q<A>(q0, q1, h, ring, lo, bias);
+  wg_half_q<A>(q0, q1, h, ring, h + 32, bias_cols(bias, kHalf));
+#pragma unroll
+  for (int i = 0; i < 32; ++i) h[i] = lo[i];
+}
+
 }  // namespace pn

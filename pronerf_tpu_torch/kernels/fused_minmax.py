@@ -25,6 +25,14 @@ import ctypes
 
 import torch
 
+from pronerf_tpu_torch.kernels.stages import (
+    SLAB_K,
+    halves,
+    images,
+    pad_k,
+    slabs,
+)
+
 W = 256
 
 
@@ -127,22 +135,53 @@ def fused_minmax_plain(packed, x_t, transpose_out: bool = True):
 
 
 _BLOB_KEY = "_kernel_blob"
+# The bf16 kernel's layer 0 takes K = C padded to a multiple of 16, held in
+# at most two k-slabs of 64 (C <= 128; the refine net of 4 views and 8
+# samples has C = 102).
+MAX_C_BF16 = 2 * SLAB_K
+
+
+def ring_stages(packed):
+    """The ring stages of one tile of the bf16 kernel, in the order it
+    consumes them: layer 0 as one stage per half of 128 outputs (its one or
+    two k-slabs), then each hidden layer as four stages of two slabs."""
+    n0 = -(-packed["w0_t"].shape[1] // SLAB_K)
+    ring = [st for half in (0, 1)
+            for st in slabs("w0_t", W // 2, half * W // 2, per_stage=n0,
+                            n=n0)]
+    for i in range(1, _depth(packed)):
+        ring += halves(f"w{i}_t")
+    return tuple(tuple(st) for st in ring)
+
+
+def head_slabs(packed):
+    """The head ``wout_t [out_pad, 256]`` as four k-slabs, resident in the
+    block's shared memory."""
+    out_pad = packed["wout_t"].shape[0]
+    return tuple(("wout_t", 0, out_pad, ks) for ks in range(W // SLAB_K))
+
+
+def bias_order(packed):
+    return tuple(f"b{i}" for i in range(_depth(packed))) + ("bout",)
 
 
 def _blob(packed):
     """The panels as the one contiguous buffer the kernel reads (see the
-    head of ``csrc/fused_minmax.cu``), built once and kept in ``packed``."""
+    head of ``csrc/fused_minmax.cu``), built once and kept in ``packed``:
+    for bf16 the stage images of the ring, the head slabs and the biases;
+    for f32 the panels in order, the first padded to a multiple of 32
+    columns."""
     blob = packed.get(_BLOB_KEY)
     if blob is None:
-        depth = _depth(packed)
         w0 = packed["w0_t"]
-        kpad = _pad32(w0.shape[1])
-        w0p = w0.new_zeros(W, kpad)
-        w0p[:, : w0.shape[1]] = w0
-        parts = [w0p, packed["b0"]]
-        for i in range(1, depth):
-            parts += [packed[f"w{i}_t"], packed[f"b{i}"]]
-        parts += [packed["wout_t"], packed["bout"]]
+        if w0.dtype == torch.bfloat16:
+            parts = images(packed, ring_stages(packed) + (head_slabs(packed),))
+            parts += [packed[name].reshape(-1) for name in bias_order(packed)]
+        else:
+            parts = [pad_k(w0, _pad32(w0.shape[1])), packed["b0"]]
+            for i in range(1, _depth(packed)):
+                parts += [packed[f"w{i}_t"], packed[f"b{i}"]]
+            parts += [packed["wout_t"], packed["bout"]]
         blob = torch.cat([p.reshape(-1) for p in parts]).contiguous()
         packed[_BLOB_KEY] = blob
     return blob
@@ -174,7 +213,9 @@ def fused_minmax_t(packed, x_t, transpose_out: bool = True):
         [out_pad, N].
 
     The JAX wrapper's ``rays_per_block`` is dropped: the CUDA kernel's tile
-    is fixed at build time and it masks a ragged last tile itself.
+    is fixed at build time and it masks a ragged last tile itself. bf16
+    panels run ``minmax_wg_kernel`` (``wgmma``, C <= 128), f32 panels the
+    exact FMA kernel.
 
     Returns float32; the caller slices its true output width (pad columns are
     exact zero-weight products).
@@ -192,6 +233,10 @@ def fused_minmax_t(packed, x_t, transpose_out: bool = True):
         raise TypeError(f"pack dtype {w0.dtype} has no kernel")
     if not x_t.is_contiguous():
         raise ValueError("x_t must be contiguous")
+    if w0.dtype == torch.bfloat16 and x_t.shape[0] > MAX_C_BF16:
+        raise ValueError(
+            f"the bf16 kernel takes C <= {MAX_C_BF16} input rows, got "
+            f"{x_t.shape[0]}")
     if w0.device != x_t.device:
         raise ValueError(f"panels on {w0.device}, x_t on {x_t.device}")
     C, N = x_t.shape
@@ -212,7 +257,10 @@ def fused_minmax_t(packed, x_t, transpose_out: bool = True):
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"fused_minmax kernel launch failed: error {err}")
+        what = ("arguments the kernel does not take (it needs N > 0, a head "
+                "padded to a multiple of 8 and the blob built by this module)"
+                if err == -1 else f"CUDA error {err}")
+        raise RuntimeError(f"fused_minmax kernel launch failed: {what}")
     fused_minmax_t.launches += 1
     fused_minmax_t.launches_by_width[C] = (
         fused_minmax_t.launches_by_width.get(C, 0) + 1)

@@ -27,6 +27,17 @@ import ctypes
 import numpy as np
 import torch
 
+from pronerf_tpu_torch.kernels.stages import (  # noqa: F401 (re-exported)
+    SLAB_K,
+    SLAB_ROW_BYTES,
+    STAGE_BYTES,
+    halves,
+    images,
+    pad_k,
+    slabs,
+)
+from pronerf_tpu_torch.kernels.stages import stage_table as _stage_table
+
 L_PTS = 10     # position octaves: PE = [x(3), sin(30), cos(30)]
 L_DIR = 4      # direction octaves: PE = [d(3), sin(12), cos(12)]
 W = 256
@@ -231,43 +242,21 @@ _BLOB_ORDER = (
 )
 
 # The bf16 blob is the sequence of shared-memory images the kernel copies in
-# bulk. A SLAB is rows [row0, row0 + rows) of a panel w_t [out, K] at k in
-# [64 ks, 64 ks + 64): ``rows x 128`` bytes, the 16-byte chunk c of row r
-# stored at chunk c ^ (r % 8) (the 128-byte swizzle ``wgmma`` reads). A STAGE
-# is one bulk copy: one or two slabs, 16 or 32 KB. The ring stages come in
-# the order the chain consumes them, the same for every sample. The kernel
-# computes a 256-wide layer as two halves of 128 outputs, so a [256, 256]
-# panel comes as outputs 0..127 (four slabs, two to a stage), then outputs
-# 128..255; layer 5 has the PE slab of a half before its h slabs; the view
-# layer is one such half; layer 0 is one stage of 256 rows. After the ring:
-# the two heads (read in place for the block's life), then the biases.
-SLAB_K = 64
-SLAB_ROW_BYTES = 128
-STAGE_BYTES = 32768
-
-
-def _slabs(panel, rows=W, row0=0, per_stage=1, n=W // SLAB_K):
-    return [[(panel, row0, rows, ks + i) for i in range(per_stage)]
-            for ks in range(0, n, per_stage)]
-
-
-def _halves(panel):
-    """A [256, 256] panel as the kernel takes it: outputs 0..127 over all of
-    k (four slabs [128 x 64], two to a stage), then outputs 128..255."""
-    return [st for half in (0, 1)
-            for st in _slabs(panel, W_HALF, half * W_HALF, per_stage=2)]
-
-
+# bulk (slabs and stages as ``stages.py`` defines them). The ring stages come
+# in the order the chain consumes them, the same for every sample: layer 0 is
+# one stage of 256 rows, layer 5 has the PE slab of a half before its h
+# slabs, the view layer is one half. After the ring: the two heads (read in
+# place for the block's life), then the biases.
 def _ring_stages():
-    ring = _slabs("w0p_t", n=1)
+    ring = slabs("w0p_t", n=1)
     for i in (1, 2, 3, 4):
-        ring += _halves(f"w{i}_t")
+        ring += halves(f"w{i}_t")
     for half in (0, 1):
-        ring += _slabs("w5p_t", W_HALF, half * W_HALF, n=1)
-        ring += _slabs("w5h_t", W_HALF, half * W_HALF, per_stage=2)
+        ring += slabs("w5p_t", W_HALF, half * W_HALF, n=1)
+        ring += slabs("w5h_t", W_HALF, half * W_HALF, per_stage=2)
     for name in ("w6_t", "w7_t", "w_feat_t"):
-        ring += _halves(name)
-    ring += _slabs("wvf_t", W_HALF, per_stage=2)
+        ring += halves(name)
+    ring += slabs("wvf_t", W_HALF, per_stage=2)
     return tuple(tuple(st) for st in ring)
 
 
@@ -282,32 +271,7 @@ BIAS_ORDER = ("b0", "b1", "b2", "b3", "b4", "b5", "b6", "b7", "b_feat", "bv",
 
 def stage_table():
     """(byte offset in the blob, bytes) of every ring stage, in order."""
-    table, off = [], 0
-    for stage in RING_STAGES:
-        nbytes = sum(rows * SLAB_ROW_BYTES for _, _, rows, _ in stage)
-        table.append((off, nbytes))
-        off += nbytes
-    return table
-
-
-def _pad_k(a, k):
-    """Panel ``a`` [out, K] with zero columns up to K = k."""
-    if a.shape[1] == k:
-        return a
-    padded = a.new_zeros(a.shape[0], k)
-    padded[:, : a.shape[1]] = a
-    return padded
-
-
-def _slab_image(a, row0, rows, ks):
-    """The swizzled image of one slab of panel ``a`` (K padded with zero
-    columns to a multiple of 64), flat."""
-    a = _pad_k(a, -(-a.shape[1] // SLAB_K) * SLAB_K)
-    chunks = a[row0:row0 + rows, ks * SLAB_K:(ks + 1) * SLAB_K].reshape(
-        rows, 8, 8)
-    r = torch.arange(rows, device=a.device)
-    src = torch.arange(8, device=a.device)[None, :] ^ (r % 8)[:, None]
-    return chunks[r[:, None], src].reshape(-1)
+    return _stage_table(RING_STAGES)
 
 
 def _blob(packed):
@@ -322,15 +286,12 @@ def _blob(packed):
         want = _freq_matrix(L_PTS).T.to(device=bx.device, dtype=bx.dtype)
         if not torch.equal(bx, want):
             raise ValueError("bx_t is not the power-of-two frequency matrix")
-        parts = []
         if bx.dtype == torch.bfloat16:
-            for stage in RING_STAGES + (HEAD_SLABS,):
-                for name, row0, rows, ks in stage:
-                    parts.append(_slab_image(packed[name], row0, rows, ks))
+            parts = images(packed, RING_STAGES + (HEAD_SLABS,))
             parts += [packed[name].reshape(-1) for name in BIAS_ORDER]
         else:
-            parts += [_pad_k(packed[name], k).reshape(-1)
-                      for name, k in _BLOB_ORDER]
+            parts = [pad_k(packed[name], k).reshape(-1)
+                     for name, k in _BLOB_ORDER]
         blob = torch.cat(parts).contiguous()
         packed[_BLOB_KEY] = blob
     return blob
