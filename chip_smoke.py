@@ -18,8 +18,8 @@ falls back to the CPU. Phases, each printing one JSON line:
                 too, on 100 rays (one block, one ragged tile) for the bf16
                 and f32 NeRF and MinMax kernels, and timed with CUDA events.
                 The MinMax kernel also with
-                ``transpose_out=False`` and, for the refine shape, with the
-                transposed graph's permuted pack; the int8 kernel also
+                ``transpose_out=False``, with a bf16 input and, for the
+                refine shape, with the transposed graph's permuted pack; the int8 kernel also
                 against the bf16 kernel;
 4. ``frame``    the serving path end to end, three times through
                 ``run_inference`` on the synthetic 504x378 scene with 17
@@ -223,10 +223,18 @@ def minmax_case(net, reps, C, n_rays, dtype, device, seed):
     def compare(tol):
         k, pl = kernel(), plain()
         k_t = fm.fused_minmax_t(packed, x_t, transpose_out=False)
+        # a bf16 input, as the row-major graph gives the refine net
+        x_b = x_t.to(torch.bfloat16)
+        k_b = fm.fused_minmax_t(packed, x_b)
+        pl_b = torch.cat([
+            fm.fused_minmax_plain(packed, x_b[:, i:i + CHUNK].contiguous())
+            for i in range(0, n_rays, CHUNK)
+        ])
         errs = {
             "head": (max_err(k, pl), tol["head"]),
             # the untransposed form: the same values, element for element
             "untransposed": (max_err(k_t, k.T), 0.0),
+            "bf16_input": (max_err(k_b, pl_b), tol["head"]),
         }
         if C > 6:
             # the transposed graph's pack: first-layer rows permuted, and
@@ -672,10 +680,14 @@ def profile_frames(render, frames):
             if e.device_type.name == "CUDA" and e.device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    # the MinMax kernel's launches one by one (sampler, refine, sampler, ...)
+    minmax = [e.device_time_total / 1e3 for e in prof.events()
+              if e.device_type.name == "CUDA" and "minmax" in e.name]
     return {
         "frames": frames,
         "device_busy_ms_per_frame": busy,
         "device_kernels_per_frame": sum(r[2] for r in rows),
+        "minmax_launch_ms": minmax,
         "top": [{"kernel": k[:80], "ms_per_frame": ms, "calls_per_frame": n}
                 for k, ms, n in rows[:14]],
     }

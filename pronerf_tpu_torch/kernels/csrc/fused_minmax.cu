@@ -206,11 +206,13 @@ struct MmSmem {
 // warpgroup w's 64 rays at + w * n0 * kASlabBytes, k-slab s at + s *
 // kASlabBytes, row r of 128 bytes with the slab swizzle. An item is 8
 // columns of one ray: eight loads along rays (coalesced), one 16-byte store.
-// A thread loads kABatch items before it stores any, so that 32 loads are in
-// flight: one item at a time, the refine net's 52 KB a tile took longer than
-// the consumers' whole tile.
-constexpr int kABatch = 1;
+// A thread loads kABatch items before it stores any (32 loads in flight).
+// The input's dtype is a template argument: a bf16 input is copied as it is,
+// two values a word, and with the dtype chosen per element the refine net's
+// bf16 input took twice the kernel's time.
+constexpr int kABatch = 4;
 
+template <bool BF16>
 __device__ __forceinline__ void mm_write_a(const MmArgs& a, int base,
                                            unsigned char* abuf, int t) {
   const int items = kWgTile * (a.k0 / 8);
@@ -220,19 +222,23 @@ __device__ __forceinline__ void mm_write_a(const MmArgs& a, int base,
     for (int b = 0; b < kABatch; ++b) {
       const int idx = i0 + b * kHelpers;
       const int ray = base + idx % kWgTile, c0 = 8 * (idx / kWgTile);
-      float x[8];
+      const bool in = idx < items && ray < a.N;
+      uint32_t w[4];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int c = c0 + e;
-        const size_t at = (size_t)c * a.N + ray;
-        x[e] = idx >= items || ray >= a.N || c >= a.C ? 0.0f
-               : a.x_is_bf16
-                   ? __bfloat162float(
-                         __ldg(static_cast<const __nv_bfloat16*>(a.x) + at))
-                   : __ldg(static_cast<const float*>(a.x) + at);
+      for (int e = 0; e < 8; e += 2) {
+        const size_t at = (size_t)(c0 + e) * a.N + ray;
+        const bool ok0 = in && c0 + e < a.C, ok1 = in && c0 + e + 1 < a.C;
+        if constexpr (BF16) {
+          const unsigned short* x = static_cast<const unsigned short*>(a.x);
+          w[e / 2] = (ok0 ? (uint32_t)__ldg(x + at) : 0u) |
+                     (ok1 ? (uint32_t)__ldg(x + at + a.N) << 16 : 0u);
+        } else {
+          const float* x = static_cast<const float*>(a.x);
+          w[e / 2] = hp::pack_bf16x2(ok0 ? __ldg(x + at) : 0.0f,
+                                     ok1 ? __ldg(x + at + a.N) : 0.0f);
+        }
       }
-      v[b] = make_uint4(hp::pack_bf16x2(x[0], x[1]), hp::pack_bf16x2(x[2], x[3]),
-                        hp::pack_bf16x2(x[4], x[5]), hp::pack_bf16x2(x[6], x[7]));
+      v[b] = make_uint4(w[0], w[1], w[2], w[3]);
     }
 #pragma unroll
     for (int b = 0; b < kABatch; ++b) {
@@ -352,7 +358,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       int finished = -1;
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
         hp::mbar_wait(at.bar(), at.phase ^ 1);
-        mm_write_a(a, tile * kWgTile, sm + M.a, t);
+        if (a.x_is_bf16)
+          mm_write_a<true>(a, tile * kWgTile, sm + M.a, t);
+        else
+          mm_write_a<false>(a, tile * kWgTile, sm + M.a, t);
         hp::fence_proxy_async();
         __syncwarp();
         if (lane == 0) hp::mbar_arrive(a_full);
@@ -389,10 +398,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
     WgRing ring = {{full, (uint32_t)M.stages, 0, 0}, empty, ring_buf};
     WgTurns at = {a_full, 1, 0, 0}, rt = {res_empty, 2, 0, 0};
-    // the accumulators of every layer, as two quarters q0 | q1
     float acc[64];
-    float(&q0)[32] = *reinterpret_cast<float(*)[32]>(acc);
-    float(&q1)[32] = *reinterpret_cast<float(*)[32]>(acc + 32);
     uint32_t h[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
@@ -405,37 +411,20 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       hp::named_barrier(1 + wg, 128);
       hp::mbar_wait(at.bar(), at.phase);
 
-      // layer 0: A from shared memory, one stage a half, as two quarters
+      // layer 0: A from shared memory, one stage a half
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
-        const uint32_t stage = ring.wait(), slot = ring.advance();
-        wg_turn_wait();
-        hp::wgmma_fence();
-#pragma unroll
-        for (int qt = 0; qt < 2; ++qt) {
-          float(&q)[32] = qt ? q1 : q0;
-#pragma unroll 4
-          for (int kk = 0; kk < ksteps0; ++kk) {
-            const uint64_t step = (kk % 4) * hp::kDescKStep;
-            hp::wgmma_m64n64k16_ss(
-                q, a_desc + (((kk / 4) * kASlabBytes) >> 4) + step,
-                hp::desc_k128(stage + (kk / 4) * kSlab128Bytes +
-                              qt * 64 * 128) + step,
-                kk);
-          }
-          hp::wgmma_commit();
-        }
-        wg_turn_pass();
-        wg_quarters_out<Act::kElu>(q0, q1, h + 32 * hf,
-                                   bias_cols(bias_q, hf * kHalf),
-                                   [&] { ring.release(slot); });
+        wg_dense128_ss(acc, a_desc, kASlabBytes, ring.wait(), ksteps0);
+        ring.release(ring.advance());
+        wg_epilogue<Act::kElu>(acc, h + 32 * hf,
+                               bias_cols(bias_q, hf * kHalf));
       }
       // this warp's last read of the A rows is behind it
       if (lane == 0) hp::mbar_arrive(a_empty);
       at.next();
 #pragma unroll 1
       for (int l = 1; l < a.depth; ++l)
-        wg_layer256_q<Act::kElu>(acc, h, ring, bias_cols(bias_q, l * kW));
+        wg_layer256<Act::kElu>(acc, h, ring, bias_cols(bias_q, l * kW));
 
       // the head, resident: 32 columns at a time, then 8
       uint32_t* res =

@@ -1,7 +1,7 @@
 // Hopper building blocks shared by the kernels that run their products on
 // `wgmma`: mbarriers, bulk asynchronous copies, the shared-memory matrix
 // descriptor, the `wgmma` fence / commit / wait and the m64nNk16 bf16 products
-// (N = 128, 64, 32, 8) with A from registers (`_rs`) or from shared memory
+// (N = 128, 32, 8) with A from registers (`_rs`) or from shared memory
 // (`_ss`), `setmaxnreg`, named barriers; then (namespace pn, after hp) the
 // warpgroup frame that the NeRF and the MinMax kernels are built on.
 // Everything here needs `sm_90a`.
@@ -267,51 +267,6 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
-    uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t desc_b,
-    int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
-    uint64_t desc_a, uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
 __device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16],
     uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t desc_b,
     int scale_d) {
@@ -564,85 +519,6 @@ __device__ __forceinline__ void wg_layer256(float (&acc)[64],
   wg_epilogue<A>(acc, lo, bias);
   wg_dense128(acc, h, ring);
   wg_epilogue<A>(acc, h + 32, bias_cols(bias, kHalf));
-#pragma unroll
-  for (int i = 0; i < 32; ++i) h[i] = lo[i];
-}
-
-// A half of 128 outputs as two quarters of 64 (m64n64k16, accumulators q0
-// and q1): both quarters' products are queued in one turn, and the epilogue
-// of the first runs while the products of the second execute, so the tensor
-// cores wait for at most half an epilogue. `done` runs once every product
-// has finished (release stages, keep operands); the 32 packed results go to
-// `out` after it, so `out` may be the A registers the products read.
-template <Act A, class Bias, class Done>
-__device__ __forceinline__ void wg_quarters_out(float (&q0)[32],
-                                                float (&q1)[32],
-                                                uint32_t* out,
-                                                const Bias* bias, Done done) {
-  uint32_t first[16];
-  hp::wgmma_wait<1>();
-  hp::keep(q0);
-#pragma unroll
-  for (int p = 0; p < 16; ++p)
-    first[p] = wg_add_pair<A>(hp::pack_bf16x2(q0[2 * p], q0[2 * p + 1]),
-                              bias_pair(bias, p));
-  hp::wgmma_wait<0>();
-  hp::keep(q1);
-  done();
-#pragma unroll
-  for (int p = 0; p < 16; ++p) {
-    out[p] = first[p];
-    out[16 + p] = wg_add_pair<A>(hp::pack_bf16x2(q1[2 * p], q1[2 * p + 1]),
-                                 bias_pair(bias_cols(bias, 64), p));
-  }
-}
-
-// The products of quarter `qt` (rows 64 qt .. 64 qt + 63 of the 128) of a
-// half, A from the 64 registers `a`, W from two stages of two k-slabs.
-__device__ __forceinline__ void wg_quarter(float (&q)[32], uint32_t (&a)[64],
-                                           uint32_t s0, uint32_t s1, int qt) {
-#pragma unroll
-  for (int kk = 0; kk < 16; ++kk) {
-    const int j = 4 * kk;
-    const uint64_t d =
-        hp::desc_k128((kk < 8 ? s0 : s1) + ((kk % 8) / 4) * kSlab128Bytes +
-                      qt * 64 * 128) +
-        (kk % 4) * hp::kDescKStep;
-    hp::wgmma_m64n64k16_rs(q, a[j], a[j + 1], a[j + 2], a[j + 3], d, kk);
-  }
-  hp::wgmma_commit();
-}
-
-// 128 outputs of a hidden layer (K = 256) on `a` as two quarters.
-template <Act A, class Bias>
-__device__ __forceinline__ void wg_half_q(float (&q0)[32], float (&q1)[32],
-                                          uint32_t (&a)[64], WgRing& ring,
-                                          uint32_t* out, const Bias* bias) {
-  const uint32_t s0 = ring.wait(), l0 = ring.advance();
-  const uint32_t s1 = ring.wait(), l1 = ring.advance();
-  wg_turn_wait();
-  hp::wgmma_fence();
-  wg_quarter(q0, a, s0, s1, 0);
-  wg_quarter(q1, a, s0, s1, 1);
-  wg_turn_pass();
-  wg_quarters_out<A>(q0, q1, out, bias, [&] {
-    hp::keep(a);
-    ring.release(l0);
-    ring.release(l1);
-  });
-}
-
-// wg_layer256 with each half as two quarters; the accumulators are the two
-// halves of `acc`.
-template <Act A, class Bias>
-__device__ __forceinline__ void wg_layer256_q(float (&acc)[64],
-                                              uint32_t (&h)[64], WgRing& ring,
-                                              const Bias* bias) {
-  float(&q0)[32] = *reinterpret_cast<float(*)[32]>(acc);
-  float(&q1)[32] = *reinterpret_cast<float(*)[32]>(acc + 32);
-  uint32_t lo[32];
-  wg_half_q<A>(q0, q1, h, ring, lo, bias);
-  wg_half_q<A>(q0, q1, h, ring, h + 32, bias_cols(bias, kHalf));
 #pragma unroll
   for (int i = 0; i < 32; ++i) h[i] = lo[i];
 }

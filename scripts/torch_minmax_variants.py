@@ -45,16 +45,9 @@ VARIANTS = {
     # the ELU's exp as CUDA's accurate expf, and as the fast __expf
     "expf": [("hopper.cuh", "hp::exp_f32(x", "expf(x")],
     "fast_exp": [("hopper.cuh", "hp::exp_f32(x", "__expf(x")],
-    # the helpers load x four items at a time
-    "a_batch4": [("fused_minmax.cu", "constexpr int kABatch = 1;",
-                  "constexpr int kABatch = 4;")],
-    # the helpers write A rows of made-up values without loading x
-    "a_noload": [("fused_minmax.cu",
-                  "__ldg(static_cast<const float*>(a.x) + at)",
-                  "(float)((ray * 7 + c) % 13) * 0.1f - 0.6f")],
-    # each half of a hidden layer in one block of m64n128 products
-    "halves": [("fused_minmax.cu", "wg_layer256_q<Act::kElu>(acc, h, ring,",
-                "wg_layer256<Act::kElu>(acc, h, ring,")],
+    # the helpers load x one item at a time
+    "a_batch1": [("fused_minmax.cu", "constexpr int kABatch = 4;",
+                  "constexpr int kABatch = 1;")],
     # ReLU in the place of ELU: the epilogue without exp
     "relu": [("fused_minmax.cu", "Act::kElu", "Act::kRelu")],
     # no head products and no result rows
@@ -63,7 +56,9 @@ VARIANTS = {
                 ("fused_minmax.cu", "c0 < out_pad; c0 += 8", "false; c0 += 8")],
     # the helpers neither read x nor write the A rows
     "no_a_rows": [("fused_minmax.cu",
-                   "mm_write_a(a, tile * kWgTile, sm + M.a, t);", "")],
+                   "mm_write_a<true>(a, tile * kWgTile, sm + M.a, t);", ""),
+                  ("fused_minmax.cu",
+                   "mm_write_a<false>(a, tile * kWgTile, sm + M.a, t);", "")],
     # the helpers store nothing
     "no_store": [("fused_minmax.cu", "idx < live * out_pad / 4;", "idx < 0;"),
                  ("fused_minmax.cu", "idx < out_pad * kWgTile;", "idx < 0;")],
@@ -136,6 +131,9 @@ def main(argv=None):
     ap.add_argument("--rays", type=int, default=378 * 504)
     ap.add_argument("--only", nargs="*", default=sorted(VARIANTS))
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--forms", action="store_true",
+                    help="also time as_is with a bf16 input and with the "
+                         "[out_pad, N] output")
     ap.add_argument("--sass", action="store_true",
                     help="count the opcodes of each variant's kernel in its "
                          "SASS (cuobjdump)")
@@ -191,6 +189,35 @@ def main(argv=None):
                     row["max_abs_err_16384"] = float(
                         (out[:16384] - want).abs().max())
                 print(json.dumps(row), flush=True)
+                if name == "as_is" and args.forms:
+                    # the wrapper's other input dtype and output layout
+                    for form, xx, strides in (
+                            ("bf16_x", x_t.to(torch.bfloat16), (out_pad, 1)),
+                            ("untransposed", x_t, (1, N))):
+                        def launch2():
+                            err = fn(xx.data_ptr(),
+                                     int(xx.dtype == torch.bfloat16),
+                                     blob.data_ptr(), blob.numel(),
+                                     out.data_ptr(), N, C, depth, out_pad,
+                                     strides[0], strides[1], 1,
+                                     torch.cuda.current_stream().cuda_stream)
+                            if err:
+                                raise SystemExit(f"{form}: error {err}")
+                        launch2()
+                        torch.cuda.synchronize()
+                        ts = []
+                        for _ in range(args.reps):
+                            a = torch.cuda.Event(enable_timing=True)
+                            b = torch.cuda.Event(enable_timing=True)
+                            a.record()
+                            launch2()
+                            b.record()
+                            torch.cuda.synchronize()
+                            ts.append(a.elapsed_time(b))
+                        print(json.dumps({"variant": name, "form": form,
+                                          "shape": shape, "rays": N,
+                                          "ms": statistics.median(ts)}),
+                              flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
