@@ -17,10 +17,10 @@ falls back to the CPU. Phases, each printing one JSON line:
                 runs in chunks of rays, for memory), on a ragged ray count
                 too, on 100 rays (one block, one ragged tile) for the bf16
                 and f32 NeRF and MinMax kernels, and timed with CUDA events.
-                The MinMax kernel also with
-                ``transpose_out=False``, with a bf16 input and, for the
-                refine shape, with the transposed graph's permuted pack; the int8 kernel also
-                against the bf16 kernel;
+                The MinMax kernel also with ``transpose_out=False``, with a
+                bf16 input and, for the refine shape, with the transposed
+                graph's permuted pack; the int8 kernel also against the bf16
+                kernel;
 4. ``frame``    the serving path end to end, three times through
                 ``run_inference`` on the synthetic 504x378 scene with 17
                 views, release widths, bf16, whole frame in one tile, fused
@@ -454,7 +454,6 @@ def counter(name):
     return wrappers()[name.split("[")[0]]
 
 
-@torch.no_grad()
 def ptxas_report(log, kernel):
     """What ``ptxas -v`` said of the entry functions whose name holds
     ``kernel``: registers, stack, spills; and every line of the log that
@@ -504,6 +503,7 @@ def check_build():
     return reports
 
 
+@torch.no_grad()
 def phase_kernels(device, n_rays):
     nets = make_nets(0, device)
     rows = []

@@ -11,6 +11,7 @@ purpose: they are only timed (median of CUDA-event times, one launch each).
 ``as_is`` is also held against the plain version.
 
     python3 scripts/torch_minmax_variants.py [--rays N] [--only NAME ...]
+        [--forms] [--sass]
 
 Prints one JSON line per variant and shape, then the card's name and power
 limit.
@@ -126,13 +127,29 @@ def sass_counts(lib: Path, kernel="minmax_wg_kernel"):
             "top": sorted(counts.items(), key=lambda kv: -kv[1])[:24]}
 
 
+def cuda_times(launch, reps):
+    """ms of each of ``reps`` launches by CUDA events, after one to warm up."""
+    launch()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        launch()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return times
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rays", type=int, default=378 * 504)
     ap.add_argument("--only", nargs="*", default=sorted(VARIANTS))
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--forms", action="store_true",
-                    help="also time as_is with a bf16 input and with the "
+                    help="also time each variant with a bf16 input and with the "
                          "[out_pad, N] output")
     ap.add_argument("--sass", action="store_true",
                     help="count the opcodes of each variant's kernel in its "
@@ -162,62 +179,32 @@ def main(argv=None):
             for name in args.only:
                 fn, ptxas = libs[name]
                 out = torch.empty(N, out_pad, device=dev)
-
-                def launch():
-                    err = fn(x_t.data_ptr(), 0, blob.data_ptr(), blob.numel(),
-                             out.data_ptr(), N, C, depth, out_pad, out_pad, 1,
-                             1, torch.cuda.current_stream().cuda_stream)
-                    if err:
-                        raise SystemExit(f"{name}: launch error {err}")
-
-                launch()
-                torch.cuda.synchronize()
-                times = []
-                for _ in range(args.reps):
-                    a = torch.cuda.Event(enable_timing=True)
-                    b = torch.cuda.Event(enable_timing=True)
-                    a.record()
-                    launch()
-                    b.record()
-                    torch.cuda.synchronize()
-                    times.append(a.elapsed_time(b))
-                row = {"variant": name, "shape": shape, "rays": N,
-                       "ms": statistics.median(times), "ms_min": min(times),
-                       "ptxas": ptxas}
-                if name == "as_is":
-                    want = fm.fused_minmax_plain(packed, x_t[:, :16384])
-                    row["max_abs_err_16384"] = float(
-                        (out[:16384] - want).abs().max())
-                print(json.dumps(row), flush=True)
-                if name == "as_is" and args.forms:
+                forms = [("", x_t, (out_pad, 1))]
+                if args.forms:
                     # the wrapper's other input dtype and output layout
-                    for form, xx, strides in (
-                            ("bf16_x", x_t.to(torch.bfloat16), (out_pad, 1)),
-                            ("untransposed", x_t, (1, N))):
-                        def launch2():
-                            err = fn(xx.data_ptr(),
-                                     int(xx.dtype == torch.bfloat16),
-                                     blob.data_ptr(), blob.numel(),
-                                     out.data_ptr(), N, C, depth, out_pad,
-                                     strides[0], strides[1], 1,
-                                     torch.cuda.current_stream().cuda_stream)
-                            if err:
-                                raise SystemExit(f"{form}: error {err}")
-                        launch2()
-                        torch.cuda.synchronize()
-                        ts = []
-                        for _ in range(args.reps):
-                            a = torch.cuda.Event(enable_timing=True)
-                            b = torch.cuda.Event(enable_timing=True)
-                            a.record()
-                            launch2()
-                            b.record()
-                            torch.cuda.synchronize()
-                            ts.append(a.elapsed_time(b))
-                        print(json.dumps({"variant": name, "form": form,
-                                          "shape": shape, "rays": N,
-                                          "ms": statistics.median(ts)}),
-                              flush=True)
+                    forms += [("bf16_x", x_t.to(torch.bfloat16), (out_pad, 1)),
+                              ("untransposed", x_t, (1, N))]
+                for form, xx, (sr, sc) in forms:
+                    def launch():
+                        err = fn(xx.data_ptr(), int(xx.dtype == torch.bfloat16),
+                                 blob.data_ptr(), blob.numel(), out.data_ptr(),
+                                 N, C, depth, out_pad, sr, sc, 1,
+                                 torch.cuda.current_stream().cuda_stream)
+                        if err:
+                            raise SystemExit(f"{name} {form}: launch error {err}")
+
+                    times = cuda_times(launch, args.reps)
+                    row = {"variant": name, "shape": shape, "rays": N,
+                           "ms": statistics.median(times), "ms_min": min(times)}
+                    if form:
+                        row["form"] = form
+                    else:
+                        row["ptxas"] = ptxas
+                        if name == "as_is":
+                            want = fm.fused_minmax_plain(packed, x_t[:, :16384])
+                            row["max_abs_err_16384"] = float(
+                                (out[:16384] - want).abs().max())
+                    print(json.dumps(row), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
