@@ -206,49 +206,37 @@ struct MmSmem {
 // warpgroup w's 64 rays at + w * n0 * kASlabBytes, k-slab s at + s *
 // kASlabBytes, row r of 128 bytes with the slab swizzle. An item is 8
 // columns of one ray: eight loads along rays (coalesced), one 16-byte store.
-// A thread loads kABatch items before it stores any (32 loads in flight).
 // The input's dtype is a template argument: a bf16 input is copied as it is,
-// two values a word, and with the dtype chosen per element the refine net's
-// bf16 input took twice the kernel's time.
-constexpr int kABatch = 4;
-
+// two values a word (with the dtype chosen per element the refine net's bf16
+// input took twice the kernel's time). Loading four items before storing any
+// was no faster for an f32 input and 0.1 ms slower for a bf16 one.
 template <bool BF16>
 __device__ __forceinline__ void mm_write_a(const MmArgs& a, int base,
                                            unsigned char* abuf, int t) {
   const int items = kWgTile * (a.k0 / 8);
-  for (int i0 = t; i0 < items; i0 += kHelpers * kABatch) {
-    uint4 v[kABatch];
+  for (int idx = t; idx < items; idx += kHelpers) {
+    const int r = idx % kWgTile, c0 = 8 * (idx / kWgTile), row = r % kWgRays;
+    const int ray = base + r;
+    uint32_t w[4];
 #pragma unroll
-    for (int b = 0; b < kABatch; ++b) {
-      const int idx = i0 + b * kHelpers;
-      const int ray = base + idx % kWgTile, c0 = 8 * (idx / kWgTile);
-      const bool in = idx < items && ray < a.N;
-      uint32_t w[4];
-#pragma unroll
-      for (int e = 0; e < 8; e += 2) {
-        const size_t at = (size_t)(c0 + e) * a.N + ray;
-        const bool ok0 = in && c0 + e < a.C, ok1 = in && c0 + e + 1 < a.C;
-        if constexpr (BF16) {
-          const unsigned short* x = static_cast<const unsigned short*>(a.x);
-          w[e / 2] = (ok0 ? (uint32_t)__ldg(x + at) : 0u) |
-                     (ok1 ? (uint32_t)__ldg(x + at + a.N) << 16 : 0u);
-        } else {
-          const float* x = static_cast<const float*>(a.x);
-          w[e / 2] = hp::pack_bf16x2(ok0 ? __ldg(x + at) : 0.0f,
-                                     ok1 ? __ldg(x + at + a.N) : 0.0f);
-        }
+    for (int e = 0; e < 8; e += 2) {
+      const size_t at = (size_t)(c0 + e) * a.N + ray;
+      const bool ok0 = ray < a.N && c0 + e < a.C;
+      const bool ok1 = ray < a.N && c0 + e + 1 < a.C;
+      if constexpr (BF16) {
+        const unsigned short* x = static_cast<const unsigned short*>(a.x);
+        w[e / 2] = (ok0 ? (uint32_t)__ldg(x + at) : 0u) |
+                   (ok1 ? (uint32_t)__ldg(x + at + a.N) << 16 : 0u);
+      } else {
+        const float* x = static_cast<const float*>(a.x);
+        w[e / 2] = hp::pack_bf16x2(ok0 ? __ldg(x + at) : 0.0f,
+                                   ok1 ? __ldg(x + at + a.N) : 0.0f);
       }
-      v[b] = make_uint4(w[0], w[1], w[2], w[3]);
     }
-#pragma unroll
-    for (int b = 0; b < kABatch; ++b) {
-      const int idx = i0 + b * kHelpers;
-      if (idx >= items) break;
-      const int r = idx % kWgTile, c0 = 8 * (idx / kWgTile), row = r % kWgRays;
-      *reinterpret_cast<uint4*>(
-          abuf + (r / kWgRays) * a.n0 * kASlabBytes + (c0 / 64) * kASlabBytes +
-          row * 128 + ((((c0 % 64) >> 3) ^ (row & 7)) << 4)) = v[b];
-    }
+    *reinterpret_cast<uint4*>(
+        abuf + (r / kWgRays) * a.n0 * kASlabBytes + (c0 / 64) * kASlabBytes +
+        row * 128 + ((((c0 % 64) >> 3) ^ (row & 7)) << 4)) =
+        make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 

@@ -46,9 +46,6 @@ VARIANTS = {
     # the ELU's exp as CUDA's accurate expf, and as the fast __expf
     "expf": [("hopper.cuh", "hp::exp_f32(x", "expf(x")],
     "fast_exp": [("hopper.cuh", "hp::exp_f32(x", "__expf(x")],
-    # the helpers load x one item at a time
-    "a_batch1": [("fused_minmax.cu", "constexpr int kABatch = 4;",
-                  "constexpr int kABatch = 1;")],
     # ReLU in the place of ELU: the epilogue without exp
     "relu": [("fused_minmax.cu", "Act::kElu", "Act::kRelu")],
     # no head products and no result rows
