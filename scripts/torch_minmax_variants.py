@@ -22,23 +22,16 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import re
-import shutil
 import statistics
-import subprocess
-import sys
 import tempfile
 from pathlib import Path
 
 import numpy as np
 import torch
+from kernel_variants import build_variants, card_line, cuda_times, sass_counts
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
-
-from pronerf_tpu_torch.kernels import build  # noqa: E402
-from pronerf_tpu_torch.kernels import fused_minmax as fm  # noqa: E402
-from pronerf_tpu_torch.models.mlp import MinMaxMLP  # noqa: E402
+from pronerf_tpu_torch.kernels import fused_minmax as fm
+from pronerf_tpu_torch.models.mlp import MinMaxMLP
 
 # name: [(file, old, new)], every occurrence of old replaced
 VARIANTS = {
@@ -71,73 +64,10 @@ VARIANTS = {
 SHAPES = {"sampler": (48, 0, 27), "refine": (8, 96, 35)}
 
 
-def build_variants(names, tmp: Path):
-    procs = {}
-    for name in names:
-        d = tmp / name
-        d.mkdir()
-        for src in build.CSRC.iterdir():
-            if src.suffix in (".cu", ".cuh"):
-                shutil.copy(src, d / src.name)
-        for fname, old, new in VARIANTS[name]:
-            text = (d / fname).read_text()
-            if old not in text:
-                raise SystemExit(f"{name}: {old!r} not in {fname}")
-            (d / fname).write_text(text.replace(old, new))
-        out = d / "libfused_minmax.so"
-        procs[name] = (subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out),
-             str(d / "fused_minmax.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
-    libs = {}
-    for name, (proc, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed for {name}:\n{log}")
-        fn = ctypes.CDLL(str(out)).pn_fused_minmax
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, i, p, ll, p, i, i, i, i, ll, ll, i, p]
-        fn.restype = ctypes.c_int
-        libs[name] = (fn, [ln.strip() for ln in log.splitlines()
-                           if "Used" in ln or "spill" in ln
-                           or "serialized" in ln])
-    return libs
-
-
-def sass_counts(lib: Path, kernel="minmax_wg_kernel"):
-    """Opcodes of ``kernel`` in the library's SASS, most frequent first."""
-    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
-                          capture_output=True, text=True).stdout
-    counts, inside = {}, False
-    for line in sass.splitlines():
-        if "Function :" in line:
-            inside = kernel in line
-        elif inside:
-            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
-                         line)
-            if m:
-                op = m.group(1)
-                counts[op] = counts.get(op, 0) + 1
-    total = sum(counts.values())
-    return {"total": total,
-            "top": sorted(counts.items(), key=lambda kv: -kv[1])[:24]}
-
-
-def cuda_times(launch, reps):
-    """ms of each of ``reps`` launches by CUDA events, after one to warm up."""
-    launch()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        launch()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return times
+ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p]
 
 
 def main(argv=None):
@@ -156,11 +86,12 @@ def main(argv=None):
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory(prefix="minmax_variants_") as tmp:
-        libs = build_variants(args.only, Path(tmp))
+        libs = build_variants("fused_minmax", VARIANTS, args.only, Path(tmp),
+                              "pn_fused_minmax", ARGTYPES)
         if args.sass:
             for name in args.only:
                 print(json.dumps({"variant": name, "sass": sass_counts(
-                    Path(tmp) / name / "libfused_minmax.so")}), flush=True)
+                    libs[name][1], "minmax_wg_kernel")}), flush=True)
         rng = np.random.default_rng(0)
         for shape, (reps, rest, out_w) in SHAPES.items():
             net = MinMaxMLP(input_ch=6 * reps + rest, output_ch=out_w,
@@ -174,7 +105,7 @@ def main(argv=None):
             out_pad = packed["wout_t"].shape[0]
             depth = 6
             for name in args.only:
-                fn, ptxas = libs[name]
+                fn, _, ptxas = libs[name]
                 out = torch.empty(N, out_pad, device=dev)
                 forms = [("", x_t, (out_pad, 1))]
                 if args.forms:
@@ -202,10 +133,7 @@ def main(argv=None):
                             row["max_abs_err_16384"] = float(
                                 (out[:16384] - want).abs().max())
                     print(json.dumps(row), flush=True)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip(), flush=True)
+    print(card_line(), flush=True)
 
 
 if __name__ == "__main__":
