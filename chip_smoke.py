@@ -8,15 +8,18 @@ falls back to the CPU. Phases, each printing one JSON line:
 1. ``device``   card name and power limit (nvidia-smi), torch/CUDA versions;
 2. ``build``    compiles ``pronerf_tpu_torch/kernels/csrc/*.cu`` (one nvcc per
                 source, started together) and reads ``ptxas -v``'s report of
-                the two ``wgmma`` kernels: it fails if any of their products
-                was serialized or if either spills;
+                the three ``wgmma`` kernels: it fails if any of their
+                products was serialized or if one spills, and if the int8
+                kernel's SASS holds more conversion instructions (I2F, F2I,
+                FRND, ...) than the bf16 NeRF kernel's, whose only ones are
+                in the PE code that both share;
 3. ``kernels``  every fused kernel, in bf16 and in f32 (the int8 NeRF
                 kernel in int8), at the width and ray count of a 504x378
                 frame, on inputs made from a numpy seed: held against its
                 plain PyTorch version on the same inputs (the plain version
                 runs in chunks of rays, for memory), on a ragged ray count
-                too, on 100 rays (one block, one ragged tile) for the bf16
-                and f32 NeRF and MinMax kernels, and timed with CUDA events.
+                too, on 100 rays (one block, one ragged tile) for every
+                kernel, and timed with CUDA events.
                 The MinMax kernel also with ``transpose_out=False``, with a
                 bf16 input and, for the refine shape, with the transposed
                 graph's permuted pack; the int8 kernel also against the bf16
@@ -45,7 +48,8 @@ non-zero and no result line is printed.
 ``--only build|kernels|frame`` runs a subset while developing, ``--rays N``
 shrinks the kernel phase, ``--profile`` adds ``profile`` lines (device time
 by kernel name over a few frames of the fused-composite, the int8 and the
-transposed frame).
+transposed frame; the launches of the MinMax and the int8 NeRF kernel
+one by one).
 """
 
 from __future__ import annotations
@@ -416,11 +420,16 @@ KERNELS = (
 DTYPES = {"fused_nerf_raw_tq": ("int8",)}
 BOTH = ("bfloat16", "float32")
 TINY_TOO = ("fused_minmax_t[sampler]", "fused_minmax_t[refine]",
-            "fused_nerf_raw_t", "fused_nerf_composite_t")
+            "fused_nerf_raw_t", "fused_nerf_composite_t", "fused_nerf_raw_tq")
 # the kernels on wgmma, by source: ptxas must neither serialize their products
 # nor spill
 WGMMA_KERNELS = {"fused_minmax": "minmax_wg_kernel",
-                 "fused_nerf": "nerf_wg_kernel"}
+                 "fused_nerf": "nerf_wg_kernel",
+                 "fused_nerf_q": "nerf_q_wg_kernel"}
+# opcodes of the conversion pipe (16 results a clock an SM): the int8
+# kernel's epilogue is written without them, so its SASS may hold no more of
+# them than the PE code it shares with the bf16 kernel's raw form
+CONVERSIONS = ("I2F", "I2FP", "F2I", "F2IP", "FRND", "I2I", "I2IP")
 
 
 def make_case(name, nets, n_rays, dtype, device, seed):
@@ -483,6 +492,26 @@ def ptxas_report(log, kernel):
         "serialized": [ln for ln in flagged if "C7519" not in ln],
         "notes": [ln for ln in flagged if "C7519" in ln],
     }
+
+
+def conversion_counts():
+    """Conversion instructions in the SASS of the int8 kernel and of the bf16
+    NeRF kernel's raw form; fails if the int8 kernel has more."""
+    from pronerf_tpu_torch.kernels import build
+
+    def count(source, kernel):
+        funcs = build.sass_opcodes(build.lib_path(source), kernel)
+        if len(funcs) != 1:
+            raise SystemExit(f"SASS of {kernel}: functions {sorted(funcs)}")
+        ops = next(iter(funcs.values()))
+        return {op: ops[op] for op in CONVERSIONS if op in ops}
+
+    got = {"nerf_q_wg_kernel": count("fused_nerf_q", "nerf_q_wg_kernel"),
+           "nerf_wg_kernel<false>": count("fused_nerf", "nerf_wg_kernelILb0E")}
+    if sum(got["nerf_q_wg_kernel"].values()) > sum(
+            got["nerf_wg_kernel<false>"].values()):
+        raise SystemExit(f"conversion instructions in the int8 kernel: {got}")
+    return got
 
 
 def check_build():
@@ -680,14 +709,18 @@ def profile_frames(render, frames):
             if e.device_type.name == "CUDA" and e.device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    # the MinMax kernel's launches one by one (sampler, refine, sampler, ...)
-    minmax = [e.device_time_total / 1e3 for e in prof.events()
-              if e.device_type.name == "CUDA" and "minmax" in e.name]
+    # the launches of the MinMax kernel (sampler, refine, sampler, ...) and of
+    # the int8 NeRF kernel one by one
+    def launches(part):
+        return [e.device_time_total / 1e3 for e in prof.events()
+                if e.device_type.name == "CUDA" and part in e.name]
+
     return {
         "frames": frames,
         "device_busy_ms_per_frame": busy,
         "device_kernels_per_frame": sum(r[2] for r in rows),
-        "minmax_launch_ms": minmax,
+        "minmax_launch_ms": launches("minmax"),
+        "nerf_q_launch_ms": launches("nerf_q"),
         "top": [{"kernel": k[:80], "ms_per_frame": ms, "calls_per_frame": n}
                 for k, ms, n in rows[:14]],
     }
@@ -953,7 +986,8 @@ def main(argv=None):
         for name in build.sources():
             print(f"--- nvcc {name}\n{build.ptxas_log(name)}", flush=True)
     say({"build": {"seconds": seconds, "built": sorted(logs),
-                   "sources": build.sources(), "ptxas": check_build()}})
+                   "sources": build.sources(), "ptxas": check_build(),
+                   "conversions": conversion_counts()}})
 
     rows, launches = [], {}
     if args.only in (None, "kernels"):

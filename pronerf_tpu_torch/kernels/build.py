@@ -5,8 +5,9 @@ library ``_build/lib<name>-<hash>.so`` (the hash covers every file under
 ``csrc/``, so an edited source is rebuilt and a stale library is never
 loaded), with the compiler's output beside it in ``lib<name>-<hash>.log``:
 ``ptxas -v`` reports each kernel's registers, spills and any ``wgmma`` it
-had to serialize (:func:`ptxas_log`). ``nvcc`` compiles such a file in seconds; nothing here includes
-PyTorch's headers. The libraries are loaded with ``ctypes``; the wrappers in
+had to serialize (:func:`ptxas_log`); :func:`sass_opcodes` counts a
+kernel's instructions in a built library. ``nvcc`` compiles such a file in
+seconds; nothing here includes PyTorch's headers. The libraries are loaded with ``ctypes``; the wrappers in
 ``fused_minmax.py`` / ``fused_nerf.py`` set ``argtypes`` (``c_void_p`` for
 every pointer and for the stream, or ctypes would cut them to 32 bits).
 
@@ -20,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -78,6 +80,27 @@ def ptxas_log(name: str) -> str:
     (empty if it has not been built)."""
     p = log_path(name)
     return p.read_text() if p.exists() else ""
+
+
+def sass_opcodes(lib: Path, kernel: str) -> dict:
+    """{function: {opcode: count}} of the entry functions whose (mangled) name
+    holds ``kernel`` in the SASS of the library ``lib`` (``cuobjdump -sass``,
+    from the toolkit that holds ``nvcc``)."""
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    funcs, counts = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            counts = funcs.setdefault(m.group(1), {}) if kernel in m.group(1) \
+                else None
+        elif counts is not None:
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_]*)", line)
+            if m:
+                counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return funcs
 
 
 def _command(name: str, out: Path) -> list:

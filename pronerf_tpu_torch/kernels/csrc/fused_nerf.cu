@@ -82,9 +82,7 @@
 
 namespace pn {
 
-constexpr int kWH = 128;   // view branch width
-constexpr int kL = 10;     // position octaves
-constexpr int kPE = 64;    // 3 + 2 * 3 * kL = 63, padded
+constexpr int kWH = 128;   // view branch width (kL, kPE: hopper.cuh)
 
 struct NerfBlob {  // the f32 blob, in elements
   static constexpr long long sq = (long long)kW * kW;
@@ -303,7 +301,7 @@ __global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS) nerf_kernel(NerfArg
 // ----------------------------------------------------------------- bf16 --
 
 // The frame (kWgTile, kWgThreads, kHelpers, the ring, the turns, the dense
-// products and epilogues) is hopper.cuh's.
+// products and epilogues, the PE rows' writer `wg_write_pe`) is hopper.cuh's.
 
 struct WgBlob {  // the bf16 blob, in bytes
   static constexpr int kStageBytes = 32768;
@@ -366,34 +364,6 @@ static_assert(WgBlob::kBiases * 4 <= 10240, "bias region");
 static_assert(WgSmem::n_res(8) == 2 && WgSmem::stages(8) == 4 &&
                   WgSmem::stages(49) == 3 && WgSmem::stages(64) == 2,
               "what fits");
-
-// The PE rows [x(3) | sin(30) | cos(30) | 0] of sample s of 128 rays from
-// `base`, swizzled, written by the helper threads (`t` of kHelpers) into the
-// two warpgroups' buffers at `pe` (shared memory; warpgroup w at + w *
-// kPeBytes).
-__device__ __forceinline__ void wg_write_pe(const NerfArgs& a, int base, int s,
-                                            unsigned char* pe, int t) {
-  for (int idx = t; idx < kWgTile * 3; idx += kHelpers) {
-    const int r = idx % kWgTile, c = idx / kWgTile;
-    const __nv_bfloat16 x = __float2bfloat16_rn(
-        base + r < a.N ? a.pts[(size_t)(3 * s + c) * a.N + base + r] : 0.0f);
-    unsigned char* row = pe + r * 128;   // 64 rows of 128 bytes a warpgroup
-    auto put = [&](int col, __nv_bfloat16 v) {
-      *reinterpret_cast<__nv_bfloat16*>(
-          row + ((((col >> 3) ^ (r & 7)) << 4) | ((col & 7) << 1))) = v;
-    };
-    put(c, x);
-    const float xf = __bfloat162float(x);
-#pragma unroll
-    for (int k = 0; k < kL; ++k) {
-      float sn, cs;
-      sincosf(ldexpf(xf, k), &sn, &cs);
-      put(3 + 3 * k + c, __float2bfloat16_rn(sn));
-      put(3 + 3 * kL + 3 * k + c, __float2bfloat16_rn(cs));
-    }
-    if (c == 0) put(kPE - 1, __float2bfloat16_rn(0.0f));
-  }
-}
 
 template <bool COMPOSITE>
 __global__ void __launch_bounds__(kWgThreads, 1)
@@ -486,7 +456,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
         for (int s = 0; s < S; ++s) {
           hp::mbar_wait(pt.bar(), pt.phase ^ 1);
-          wg_write_pe(a, tile * kWgTile, s,
+          wg_write_pe(a.pts, N, tile * kWgTile, s,
                       sm + M::pe + pt.at * 2 * M::kPeBytes, t);
           hp::fence_proxy_async();
           __syncwarp();

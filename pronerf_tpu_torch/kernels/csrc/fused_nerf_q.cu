@@ -10,21 +10,53 @@
 //
 // Bound on this card: operations. A point costs 557,696 int8 multiply-adds
 // and 32,256 bf16 ones against 12 input and 16 output bytes; the panels are
-// about 0.65 MB and stay in L2. As in fused_nerf.cu a block owns a tile of 64
+// about 0.6 MB and stay in L2. As in fused_nerf.cu a block owns tiles of
 // rays, loops over the ray's S samples itself (the TPU kernel's (ray-block,
-// sample) grid is a choice for that machine), keeps every activation of the
-// chain in shared memory, as int8 codes, and stores the tile's S results as
-// one contiguous chunk.
+// sample) grid is a choice for that machine) and keeps every activation of
+// the chain on the SM.
 //
-// What the design does about the bound. fused_nerf.cu is limited by how each
-// warp fetches its operand fragments, not by the tensor cores; int8 halves
-// those bytes and `mma.m16n8k32` does twice the multiply-adds an instruction,
-// so per multiply-add this kernel executes half the loads and half the
-// `mma`s of the bf16 one (common.cuh: 16-byte loads of the panel rows against
-// codes stored with a permuted k order). The operand buffers are half as
-// large, so two blocks per SM fit with room to spare. The epilogue is where
-// int8 costs more: a multiply, two adds, a floor, two clamps and a conversion
-// per element instead of one rounding and one add.
+// `nerf_q_wg_kernel` runs on hopper.cuh's warpgroup frame, as the bf16 NeRF
+// kernel does (see the head of fused_nerf.cu for the frame: persistent blocks
+// of two consumer warpgroups of 64 rays and a helper warpgroup; weights
+// through a ring of 32 KB stages filled by bulk copies; the PE rows written
+// by the helper warps). What is int8:
+//  * the products are `wgmma` m64nNk32 s8 x s8 -> s32 with the codes of the
+//    activation as A in registers and the int8 panel from the ring (K-major,
+//    the only layout `wgmma` takes for 8-bit operands; a slab is 128 k). A
+//    256-wide layer arrives as two 32 KB stages of a half and runs as four
+//    quarters of 64 outputs (m64n64k32, 32 accumulators: with halves of 128
+//    ptxas ran out of registers and serialized the products). Layer 0 and
+//    the PE half of layer 5 stay bf16 m64n32k16 with A = the PE rows in
+//    shared memory;
+//  * the epilogue requantises each layer into the A registers of the next
+//    (`wg_requant`, hopper.cuh): four codes a register, under a fixed
+//    permutation of k that the wrapper applies to the K columns of every
+//    panel reading a requantised activation. Hidden layers never leave the
+//    registers;
+//  * the epilogue issues no conversion instruction: on this card those run at
+//    a quarter of the FADD rate (16 a clock an SM), and the first int8 kernel
+//    spent a sixth of its time on them. s32 -> f32 and the floor are done
+//    with integer and float adds (`s32_f32`, `requant_byte`), with every
+//    rounding point kept. The epilogue is then about ten full-rate
+//    instructions an element, as much issue time as the products take on the
+//    tensor cores, so a hidden layer's quarters alternate between two
+//    accumulator blocks: a warpgroup's epilogue of one quarter runs while the
+//    products of the next execute (the two warpgroups do not take turns:
+//    they gained nothing once the int8 products were this short);
+//  * layer 5 adds an int8 sum and an f32 PE sum unrounded, (acc * A5 +
+//    pe_dot) + B5, so both sums of an output are live at once. It runs in
+//    eighths of 32 outputs (16 s32 + 16 f32 accumulators beside the 32 A
+//    registers: in quarters ptxas spilled and serialized the products), two
+//    to a stage of [PE slab | two int8 slabs] for 64 panel rows; layer 0
+//    (f32 sums only) in eighths too, so that the f32 accumulators are 16;
+//  * the view layer runs in eighths of 32 outputs: its `vcon` term is f32
+//    (64 KB a tile, too much shared memory beside the ring), so each thread
+//    loads its own 16 `vcon` values of an eighth from device memory one
+//    eighth ahead (a tile's `vcon` is read S times and stays in L2) and
+//    scales them by `vcon_scale` there;
+//  * the heads are m64n8k32 on resident slabs; the lane of q = 0 stores a
+//    ray's [rgb, sigma] of a sample as one float4 straight to `raw`, so no
+//    result buffer takes shared memory and S does not bound it.
 //
 // Rounding points (they are part of the function; the plain PyTorch version
 // has the same): the product `acc * A` is rounded to f32 before B is added,
@@ -39,253 +71,380 @@
 // The frequency panel bx_t is 2^k by construction, so `bx_t . x` is exactly
 // ldexp(x, k); the wrapper checks the panel before it drops it from the blob.
 //
-// Weight blob, bytes, every section on a multiple of 16:
-//   bf16  w0p 256x64 | w5p 256x64
-//   int8  w1..w7 256x256 | wf 256x256 | wv 128x256 | wa 8x256 | wr 8x128
-//   f32   A0 B0 A1 B1 .. A7 B7 (256 each) | Af Bf (256) |
-//         Av Bv vcon_scale (128) | Aa Ba Ar Br (8)
-//
-// Shared memory: 87,040 bytes a block at S = 8 (two code buffers of 17 KB,
-// the bf16 PE rows, the f32 view contribution, the staged results), so two
-// blocks fit an SM with room to spare. __launch_bounds__(256, 2) caps the
-// kernel at 128 registers; nvcc of CUDA 12.8 (-Xptxas -v, sm_90a) takes all
-// 128, with a 48-byte stack frame of which 16 bytes are spills.
+// Weight blob, bytes (`_blob` in ../fused_nerf_q.py): the 21 ring stages of
+// one sample (QBlob::stage_bytes), then the resident part: the head slabs
+// (waq 2 x [8 x 128], wrq [8 x 128]) and the f32 columns (QBlob::c_*).
+// Panels that read a requantised activation (w1..w7, wf, wv, wa, wr) have
+// their K columns permuted (hopper.cuh); w0p and w5p (bf16, K = 63 + one
+// zero column) do not.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace pn {
 
-constexpr int kQWH = 128;  // view branch width
-constexpr int kQL = 10;    // position octaves
-constexpr int kQPE = 64;   // 3 + 2 * 3 * kQL = 63, padded
+constexpr int kSlab64Bytes = 64 * 128;   // a slab of 64 panel rows
 
-struct NerfQBlob {  // byte offsets
-  static constexpr long long sq = (long long)kW * kW;
-  static constexpr long long w0p = 0, w5p = w0p + 2 * kW * kQPE;
-  static constexpr long long wq = w5p + 2 * kW * kQPE;  // w_i at wq + (i-1)*sq
-  static constexpr long long wf = wq + 7 * sq, wv = wf + sq;
-  static constexpr long long wa = wv + kQWH * kW, wr = wa + 8 * kW;
-  static constexpr long long cols = wr + 8 * kQWH;      // the f32 columns
-  // float offsets inside the f32 section
-  static constexpr int AB = 0;                 // A_i at 2*i*kW, B_i after it
-  static constexpr int Af = 16 * kW, Bf = Af + kW;
-  static constexpr int Av = Bf + kW, Bv = Av + kQWH, vscale = Bv + kQWH;
-  static constexpr int Aa = vscale + kQWH, Ba = Aa + 8, Ar = Ba + 8,
-                       Br = Ar + 8;
-  static constexpr int n_cols = Br + 8;
-  static constexpr long long total = cols + 4LL * n_cols;
+struct QBlob {  // the int8 blob, in bytes
+  static constexpr int kStagesPerSample = 21;
+  // stages 9..12 are layer 5's quarters [w5p slab | w5q slab 0 | slab 1] of
+  // 64 rows; 19 and 20 the view layer's quarters [wvq slab 0 | slab 1];
+  // stage 0 is w0p (256 rows), the others a half [128 rows x two slabs]
+  static constexpr int kFirstQuarter5 = 9, kFirstView = 19;
+  __host__ __device__ static constexpr int stage_bytes(int i) {
+    return i >= kFirstView ? 16384
+           : (i >= kFirstQuarter5 && i < kFirstQuarter5 + 4) ? 24576
+                                                             : 32768;
+  }
+  static constexpr int kRingBytes = 608 * 1024;
+  static constexpr int kAlphaBytes = 2 * 1024, kRgbBytes = 1024;
+  static constexpr int kHeadBytes = kAlphaBytes + kRgbBytes;
+  // the f32 columns, bytes from their start. Layers 0..7 and the feature
+  // layer as 128 pairs {A(2p), A(2p+1), B(2p), B(2p+1)}; the view layer as
+  // 64 such pairs, then vcon_scale [128]; then Aa Ba Ar Br, 8 each.
+  static constexpr int c_feat = 8 * 2048, c_view = c_feat + 2048,
+                       c_vscale = c_view + 1024, c_heads = c_vscale + 512,
+                       kColBytes = c_heads + 128;
+  static constexpr int resident = kRingBytes;
+  static constexpr int kResidentBytes = kHeadBytes + kColBytes;
+  static constexpr long long kBlobBytes = resident + kResidentBytes;
 };
 
-constexpr int kLD8 = kW + kPadS8;              // bytes, int8 operand buffers
-constexpr int kLDPE = kQPE + PBf16::PAD;       // bf16 elements
-constexpr int kLDVC = kQWH + 8;                // floats
-
-constexpr size_t nerf_q_smem(int S) {
-  return (size_t)2 * PBf16::TILE * kLD8 +
-         sizeof(__nv_bfloat16) * PBf16::TILE * kLDPE +
-         sizeof(float) * PBf16::TILE * kLDVC +
-         sizeof(float) * PBf16::TILE * S * 4;
+__host__ __device__ constexpr int q_ring_bytes() {
+  int n = 0;
+  for (int i = 0; i < QBlob::kStagesPerSample; ++i) n += QBlob::stage_bytes(i);
+  return n;
 }
+static_assert(q_ring_bytes() == QBlob::kRingBytes,
+              "the stages tile the ring region");
+static_assert(QBlob::stage_bytes(0) == kRingStageBytes, "a stage fits a slot");
 
-// f32 in output-quant units -> int8 code
-__device__ __forceinline__ int8_t requant(float t) {
-  const float q = fminf(fmaxf(floorf(__fadd_rn(t, 0.5f)), 0.0f), 254.0f);
-  return (int8_t)(__float2int_rn(q) - 127);
-}
+// Shared memory of the int8 kernel, from a 1,024-byte boundary: the PE rows
+// (two buffers: the next sample's are written while this one's are read),
+// the resident part of the blob (head slabs, then the columns), the
+// mbarriers, the weight ring. The results go straight to device memory, so
+// nothing here depends on S: what fits at S = 8 fits at every S the wrapper
+// takes.
+struct QSmem {
+  static constexpr int kPeBytes = kWgRays * kPE * 2;   // one warpgroup's rows
+  static constexpr int pe = 0;                         // [2][2 wg][64][64]
+  static constexpr int resident = pe + 4 * kPeBytes;
+  static constexpr int cols = resident + QBlob::kHeadBytes;
+  static constexpr int bars = resident + QBlob::kResidentBytes;
+  static constexpr int ring = (bars + 128 + 1023) & ~1023;
+  static constexpr int kBytes = 1024 + ring + kMaxStages * kRingStageBytes;
+};
+static_assert(QSmem::resident % 1024 == 0, "head slabs on a 1,024-byte line");
+static_assert(QSmem::kBytes <= 232448, "fits the 227 KB of a block");
 
-// acc * A + B with the product rounded first (never a fused multiply-add)
-__device__ __forceinline__ float scale_shift(float acc, float A, float B) {
-  return __fadd_rn(__fmul_rn(acc, A), B);
-}
+struct NerfQArgs {
+  const float* pts;    // [S*3, N]
+  const float* vcon;   // [128, N]
+  const unsigned char* blob;
+  float* raw;          // [N, S, 4]
+  int N, S;
+};
 
-// (acc * A + mid) + B
-__device__ __forceinline__ float scale_add_shift(float acc, float A, float mid,
-                                                 float B) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(acc, A), mid), B);
-}
+__global__ void __launch_bounds__(kWgThreads, 1)
+    nerf_q_wg_kernel(const __grid_constant__ NerfQArgs a) {
+  using M = QSmem;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t pad = (1024 - (hp::smem_u32(smem_raw) & 1023)) & 1023;
+  unsigned char* sm = smem_raw + pad;
+  const uint32_t sm32 = hp::smem_u32(sm);
 
-// a lane's (out, out + 1) pair stays adjacent under col_s8: one 2-byte store
-__device__ __forceinline__ void store_codes(int8_t* dst, int r, int n,
-                                            int8_t c0, int8_t c1) {
-  char2 v;
-  v.x = c0;
-  v.y = c1;
-  *reinterpret_cast<char2*>(dst + r * kLD8 + col_s8(n)) = v;
-}
+  const int N = a.N, S = a.S;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  // mbarriers: the weight ring, the resident part, the PE rows
+  const uint32_t full = sm32 + M::bars, empty = full + 8 * kMaxStages,
+                 res_bar = empty + 8 * kMaxStages, pe_full = res_bar + 8,
+                 pe_empty = pe_full + 16;
+  const uint32_t ring_buf = sm32 + M::ring;
+  const int n_tiles = (N + kWgTile - 1) / kWgTile;
 
-__global__ void __launch_bounds__(PBf16::THREADS, PBf16::MIN_BLOCKS)
-nerf_q_kernel(const float* __restrict__ pts, const float* __restrict__ vcon,
-              const unsigned char* __restrict__ blob, float* __restrict__ raw,
-              int N, int S) {
-  using P = PBf16;
-  using B = NerfQBlob;
-  constexpr int TILE = P::TILE;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int8_t* bufA = reinterpret_cast<int8_t*>(smem_raw);
-  int8_t* bufB = bufA + TILE * kLD8;
-  __nv_bfloat16* pe = reinterpret_cast<__nv_bfloat16*>(bufB + TILE * kLD8);
-  float* vc = reinterpret_cast<float*>(pe + TILE * kLDPE);
-  float* res = vc + TILE * kLDVC;  // [TILE][S][4]
-
-  const __nv_bfloat16* w0p =
-      reinterpret_cast<const __nv_bfloat16*>(blob + B::w0p);
-  const __nv_bfloat16* w5p =
-      reinterpret_cast<const __nv_bfloat16*>(blob + B::w5p);
-  const int8_t* wq = reinterpret_cast<const int8_t*>(blob + B::wq);
-  const int8_t* wf = reinterpret_cast<const int8_t*>(blob + B::wf);
-  const int8_t* wv = reinterpret_cast<const int8_t*>(blob + B::wv);
-  const int8_t* wa = reinterpret_cast<const int8_t*>(blob + B::wa);
-  const int8_t* wr = reinterpret_cast<const int8_t*>(blob + B::wr);
-  const float* cols = reinterpret_cast<const float*>(blob + B::cols);
-
-  const int base = blockIdx.x * TILE;
-
-  // per-ray view contribution in hv-quant units, once for all samples
-  for (int idx = threadIdx.x; idx < TILE * kQWH; idx += P::THREADS) {
-    const int r = idx % TILE, n = idx / TILE, ray = base + r;
-    vc[r * kLDVC + n] =
-        ray < N ? __fmul_rn(vcon[(size_t)n * N + ray], ro(cols + B::vscale + n))
-                : 0.0f;
+  if (tid == 0) {
+    for (int i = 0; i < kMaxStages; ++i) {
+      hp::mbar_init(full + 8 * i, 1);
+      hp::mbar_init(empty + 8 * i, 8);   // consumer warps
+    }
+    hp::mbar_init(res_bar, 1);
+    for (int i = 0; i < 2; ++i) {
+      hp::mbar_init(pe_full + 8 * i, 3);    // helper warps
+      hp::mbar_init(pe_empty + 8 * i, 8);   // consumer warps
+    }
+    hp::mbar_fence_init();
   }
+  __syncthreads();
 
-  // a lane's pair of per-channel columns
-  auto pair = [&](int at, int n) {
-    return __ldg(reinterpret_cast<const float2*>(cols + at + n));
-  };
-
-  // out = requant(acc * A + B) of an int8 layer of 256 outputs
-  auto hidden = [&](const int8_t* in, const int8_t* wp, int at_a, int at_b,
-                    int8_t* out) {
-    auto sink = [&](int r, int n, float a0, float a1) {
-      const float2 A = pair(at_a, n), Bc = pair(at_b, n);
-      store_codes(out, r, n, requant(scale_shift(a0, A.x, Bc.x)),
-                  requant(scale_shift(a1, A.y, Bc.y)));
-    };
-    dense_s8<P>(in, kLD8, kW, wp, kW, sink);
-    __syncthreads();
-  };
-  auto layer = [&](int i, const int8_t* in, int8_t* out) {
-    hidden(in, wq + (i - 1) * B::sq, B::AB + 2 * i * kW,
-           B::AB + (2 * i + 1) * kW, out);
-  };
-
-  for (int s = 0; s < S; ++s) {
-    // positional encoding rows [x(3) | sin(30) | cos(30) | 0], bf16
-    for (int idx = threadIdx.x; idx < TILE * 3; idx += P::THREADS) {
-      const int r = idx % TILE, c = idx / TILE, ray = base + r;
-      const __nv_bfloat16 x =
-          P::rnd(ray < N ? pts[(size_t)(3 * s + c) * N + ray] : 0.0f);
-      __nv_bfloat16* row = pe + r * kLDPE;
-      row[P::col(c)] = x;
-      const float xf = P::f(x);
-#pragma unroll
-      for (int k = 0; k < kQL; ++k) {
-        float sn, cs;
-        sincosf(ldexpf(xf, k), &sn, &cs);
-        row[P::col(3 + 3 * k + c)] = P::rnd(sn);
-        row[P::col(3 + 3 * kQL + 3 * k + c)] = P::rnd(cs);
-      }
-      if (c == 0) row[P::col(kQPE - 1)] = P::rnd(0.0f);
-    }
-    __syncthreads();
-
-    // layer 0: the bf16 PE product, its f32 sum straight into h0 codes
-    {
-      auto sink = [&](int r, int n, float a0, float a1) {
-        const float2 A = pair(B::AB, n), Bc = pair(B::AB + kW, n);
-        store_codes(bufA, r, n, requant(scale_shift(a0, A.x, Bc.x)),
-                    requant(scale_shift(a1, A.y, Bc.y)));
-      };
-      dense_bf16<P>(pe, kLDPE, kQPE, w0p, kW, sink);
-      __syncthreads();
-    }
-    layer(1, bufA, bufB);
-    layer(2, bufB, bufA);
-    layer(3, bufA, bufB);
-    layer(4, bufB, bufA);
-
-    // layer 5: (acc * A5 + pe_dot) + B5. Both sums of an output are needed
-    // at once, so a warp takes its 32 outputs in two halves of 16 and holds
-    // the f32 and the int32 accumulators of a half together.
-    {
-      const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-      const int g = lane >> 2, t = lane & 3;
-      for (int half = 0; half < 2; ++half) {
-        const int n0 = warp * 32 + half * 16;
-        float facc[4][2][4] = {};
-        warp_acc_bf16<4, 2>(pe, kLDPE, kQPE, w5p, 0, n0, facc);
-        int iacc[4][2][4] = {};
-        warp_acc_s8<4, 2>(bufA, kLD8, kW, wq + 4 * B::sq, 0, n0, iacc);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 2; ++ni) {
-            const int r = mi * 16 + g, n = n0 + ni * 8 + 2 * t;
-            const float2 A = pair(B::AB + 10 * kW, n),
-                         Bc = pair(B::AB + 11 * kW, n);
-            store_codes(
-                bufB, r, n,
-                requant(scale_add_shift(__int2float_rn(iacc[mi][ni][0]), A.x,
-                                        facc[mi][ni][0], Bc.x)),
-                requant(scale_add_shift(__int2float_rn(iacc[mi][ni][1]), A.y,
-                                        facc[mi][ni][1], Bc.y)));
-            store_codes(
-                bufB, r + 8, n,
-                requant(scale_add_shift(__int2float_rn(iacc[mi][ni][2]), A.x,
-                                        facc[mi][ni][2], Bc.x)),
-                requant(scale_add_shift(__int2float_rn(iacc[mi][ni][3]), A.y,
-                                        facc[mi][ni][3], Bc.y)));
+  if (wg == 2) {
+    // ---------------------------------------------------- helper warps --
+    hp::setmaxnreg_dec<72>();
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    if (warp == 0) {
+      // the weights: one thread copies the resident part, then keeps the
+      // ring full
+      if (lane == 0) {
+        hp::mbar_arrive_expect_tx(res_bar, QBlob::kResidentBytes);
+        hp::bulk_g2s(sm32 + M::resident, a.blob + QBlob::resident,
+                     QBlob::kResidentBytes, res_bar);
+        WgRingFill fill = {{empty, kMaxStages, 0, 0}, full, ring_buf};
+        for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
+          for (int s = 0; s < S; ++s) {
+            int off = 0;
+            for (int i = 0; i < QBlob::kStagesPerSample; ++i) {
+              fill.put(a.blob + off, QBlob::stage_bytes(i));
+              off += QBlob::stage_bytes(i);
+            }
           }
       }
-      __syncthreads();
-    }
-
-    layer(6, bufB, bufA);
-    layer(7, bufA, bufB);
-
-    // heads on h = bufB: sigma (row 0 of 8, f32, no requant) and the
-    // feature layer
-    float* rs = res + s * 4;
-    {
-      auto sink = [&](int r, int n, float a0, float) {
-        if (n == 0)
-          rs[r * S * 4 + 3] =
-              scale_shift(a0, ro(cols + B::Aa), ro(cols + B::Ba));
-      };
-      dense_s8<P>(bufB, kLD8, kW, wa, 8, sink);
-    }
-    hidden(bufB, wf, B::Af, B::Bf, bufA);
-    // view branch: requant((acc * Av + vcon') + Bv), 128 wide, into bufB
-    {
-      auto sink = [&](int r, int n, float a0, float a1) {
-        const float2 A = pair(B::Av, n), Bc = pair(B::Bv, n);
-        const float2 v = *reinterpret_cast<const float2*>(vc + r * kLDVC + n);
-        store_codes(bufB, r, n,
-                    requant(scale_add_shift(a0, A.x, v.x, Bc.x)),
-                    requant(scale_add_shift(a1, A.y, v.y, Bc.y)));
-      };
-      dense_s8<P>(bufA, kLD8, kW, wv, kQWH, sink);
-      __syncthreads();
-    }
-    {
-      auto sink = [&](int r, int n, float a0, float a1) {
-        if (n < 3) {
-          const float2 A = pair(B::Ar, n), Bc = pair(B::Br, n);
-          rs[r * S * 4 + n] = scale_shift(a0, A.x, Bc.x);
-          if (n + 1 < 3) rs[r * S * 4 + n + 1] = scale_shift(a1, A.y, Bc.y);
+    } else {
+      // three warps write the PE rows, up to two samples ahead
+      const int t = tid - (kWgThreads - kHelpers);
+      WgTurns pt = {pe_empty, 2, 0, 0};
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
+        for (int s = 0; s < S; ++s) {
+          hp::mbar_wait(pt.bar(), pt.phase ^ 1);
+          wg_write_pe(a.pts, N, tile * kWgTile, s,
+                      sm + M::pe + pt.at * 2 * M::kPeBytes, t);
+          hp::fence_proxy_async();
+          __syncwarp();
+          if (lane == 0) hp::mbar_arrive(pe_full + 8 * pt.at);
+          pt.next();
         }
-      };
-      dense_s8<P>(bufB, kLD8, kQWH, wr, 8, sink);
     }
-    __syncthreads();
-  }
+  } else {
+    // ------------------------------------------------------ consumers --
+    hp::setmaxnreg_inc<216>();
+    const int wt = tid & 127, warp = wt >> 5, lane = wt & 31;
+    const int g = lane >> 2, q = lane & 3;
+    const int row0 = 16 * warp + g;   // this thread's rows: row0, row0 + 8
 
-  // the tile's [live, S, 4] results are one contiguous chunk of raw
-  const int live = min(TILE, N - base);
-  float4* dst = reinterpret_cast<float4*>(raw + (size_t)base * S * 4);
-  const float4* src = reinterpret_cast<const float4*>(res);
-  for (int idx = threadIdx.x; idx < live * S; idx += P::THREADS)
-    dst[idx] = src[idx];
+    // this thread's first column pair of each epilogue (see wg_requant): a
+    // layer's pairs are 128 float4 apart
+    const float4* cols = reinterpret_cast<const float4*>(sm + M::cols) + q;
+    const float2* vscale =
+        reinterpret_cast<const float2*>(sm + M::cols + QBlob::c_vscale) + q;
+    const float* head =   // Aa, Ba, Ar, Br
+        reinterpret_cast<const float*>(sm + M::cols + QBlob::c_heads);
+    const uint64_t alpha_desc = hp::desc_k128(sm32 + M::resident);
+    const uint64_t rgb_desc =
+        hp::desc_k128(sm32 + M::resident + QBlob::kAlphaBytes);
+    hp::mbar_wait(res_bar, 0);
+
+    WgRing ring = {{full, kMaxStages, 0, 0}, empty, ring_buf};
+    WgTurns pt = {pe_full, 2, 0, 0};
+    uint32_t h[32];   // the codes of the current activation, as A registers
+    // The accumulators of every product, in the same registers all the way
+    // (as in the bf16 kernel), set once, here (a write to them inside the
+    // loop makes ptxas serialize the products): s32 for two quarters of 64
+    // outputs (an eighth uses the first 16), f32 for an eighth of a PE
+    // product, s32 for a head (apart: inside the block, ptxas serialized the
+    // products).
+    int acc[64], head_acc[4];
+    float pdot[16];
+    int (&acc_e)[16] = *reinterpret_cast<int (*)[16]>(acc);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) pdot[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) head_acc[i] = 0;
+
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int base = tile * kWgTile + wg * kWgRays;
+      const int live = min(kWgRays, max(N - base, 0));
+      // A point where the compiler sees the whole warpgroup together: without
+      // one in the loop it issues every product serialized (ptxas C7520).
+      hp::named_barrier(1 + wg, 128);
+
+      for (int s = 0; s < S; ++s) {
+        hp::mbar_wait(pt.bar(), pt.phase);
+        const uint64_t pe_desc = hp::desc_k128(
+            sm32 + M::pe + (pt.at * 2 + wg) * M::kPeBytes);
+
+        // layer 0: the bf16 PE product in eighths of 32 outputs, all from
+        // one stage; its f32 sums straight into h0 codes
+        {
+          const uint32_t stage = ring.wait();
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            hp::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              hp::wgmma_m64n32k16_ss(
+                  pdot, pe_desc + kk * hp::kDescKStep,
+                  hp::desc_k128(stage + e * (kSlab64Bytes / 2)) +
+                      kk * hp::kDescKStep,
+                  kk);
+            hp::wgmma_commit();
+            hp::wgmma_wait<0>();
+            hp::keep(pdot);
+            wg_requant<16>(h + 4 * e, cols + 16 * e,
+                           [&](int i, float ca, float cb) {
+                             return __fadd_rn(__fmul_rn(pdot[i], ca), cb);
+                           });
+          }
+          ring.release(ring.advance());
+        }
+        // layers 1..4
+#pragma unroll 1
+        for (int l = 1; l <= 4; ++l)
+          wg_layer256_s8(acc, h, ring, cols + 128 * l);
+        // layer 5 in eighths of 32 outputs, two to a stage [PE slab | two
+        // int8 slabs] of 64 rows: the PE product and the int8 product queued
+        // together, then (acc * A5 + pe_dot) + B5
+        {
+          uint32_t out[28];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            hp::wgmma_fence();
+            const uint32_t stage = ring.wait() + (e % 2) * (kSlab64Bytes / 2);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              hp::wgmma_m64n32k16_ss(
+                  pdot, pe_desc + kk * hp::kDescKStep,
+                  hp::desc_k128(stage) + kk * hp::kDescKStep, kk);
+#pragma unroll
+            for (int kk = 0; kk < 8; ++kk)
+              hp::wgmma_m64n32k32_s8(
+                  acc_e, h[4 * kk], h[4 * kk + 1], h[4 * kk + 2],
+                  h[4 * kk + 3],
+                  hp::desc_k128(stage + (1 + kk / 4) * kSlab64Bytes) +
+                      (kk % 4) * hp::kDescKStep,
+                  kk);
+            hp::wgmma_commit();
+            hp::wgmma_wait<0>();
+            if (e % 2) ring.release(ring.advance());
+            hp::keep(pdot);
+            hp::keep(acc_e);
+            hp::keep(h);
+            // the last eighth's codes go straight into h: its products are
+            // done
+            wg_requant<16>(
+                e < 7 ? out + 4 * e : h + 28, cols + 128 * 5 + 16 * e,
+                [&](int i, float ca, float cb) {
+                  return __fadd_rn(
+                      __fadd_rn(__fmul_rn(s32_f32(acc[i]), ca), pdot[i]), cb);
+                });
+          }
+#pragma unroll
+          for (int i = 0; i < 28; ++i) h[i] = out[i];
+        }
+        // this warp's last read of the sample's PE rows is behind it
+        if (lane == 0) hp::mbar_arrive(pe_empty + 8 * pt.at);
+        pt.next();
+        // layers 6, 7
+#pragma unroll 1
+        for (int l = 6; l <= 7; ++l)
+          wg_layer256_s8(acc, h, ring, cols + 128 * l);
+
+        // sigma head (column 0 of 8, resident) on h7: f32, no requant
+        float sig0, sig1;
+        {
+          hp::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk)
+            hp::wgmma_m64n8k32_s8(
+                head_acc, h[4 * kk], h[4 * kk + 1], h[4 * kk + 2], h[4 * kk + 3],
+                alpha_desc + (kk / 4) * (1024 >> 4) + (kk % 4) * hp::kDescKStep,
+                kk);
+          hp::wgmma_commit();
+          hp::wgmma_wait<0>();
+          hp::keep(head_acc);
+          sig0 = __fadd_rn(__fmul_rn(s32_f32(head_acc[0]), head[0]), head[8]);
+          sig1 = __fadd_rn(__fmul_rn(s32_f32(head_acc[2]), head[0]), head[8]);
+        }
+        // the feature layer (linear: its offset is folded into B)
+        wg_layer256_s8(acc, h, ring, cols + 128 * 8);
+        // view branch in eighths of 32 outputs (two to a stage): (acc * Av +
+        // vcon * vcon_scale) + Bv. This thread's 16 vcon values of an eighth
+        // come from device memory (L2): the next eighth's are loaded while
+        // this one's products and epilogue run.
+        uint32_t hv[16];
+        auto load_vcon = [&](float (&v)[16], int e) {
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int r = row0 + 8 * ((i >> 1) & 1);
+            const int c = 32 * e + 8 * (i >> 2) + 2 * q + (i & 1);
+            v[i] = r < live ? __ldg(a.vcon + (size_t)c * N + base + r) : 0.0f;
+          }
+        };
+        float vc[16], vn[16];
+        load_vcon(vc, 0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          hp::wgmma_fence();
+          const uint32_t stage = ring.wait() + (e % 2) * (kSlab64Bytes / 2);
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk)
+            hp::wgmma_m64n32k32_s8(
+                acc_e, h[4 * kk], h[4 * kk + 1], h[4 * kk + 2], h[4 * kk + 3],
+                hp::desc_k128(stage + (kk / 4) * kSlab64Bytes) +
+                    (kk % 4) * hp::kDescKStep,
+                kk);
+          hp::wgmma_commit();
+          if (e < 3) load_vcon(vn, e + 1);
+          hp::wgmma_wait<0>();
+          if (e % 2) ring.release(ring.advance());
+          hp::keep(acc_e);
+          hp::keep(h);
+          wg_requant<16>(
+              hv + 4 * e, cols + 128 * 9 + 16 * e,
+              [&](int i, float ca, float cb) {
+                const float2 vs = vscale[16 * e + 4 * (i >> 2)];
+                const float v = __fmul_rn(vc[i], (i & 1) ? vs.y : vs.x);
+                return __fadd_rn(
+                    __fadd_rn(__fmul_rn(s32_f32(acc[i]), ca), v), cb);
+              });
+#pragma unroll
+          for (int i = 0; i < 16; ++i) vc[i] = vn[i];
+        }
+        // rgb head (columns 0..2 of 8, resident) on the 128 view codes; the
+        // lane of q = 0 stores [rgb, sigma] of its rays, column 2 from the
+        // lane of q = 1
+        {
+          hp::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            hp::wgmma_m64n8k32_s8(head_acc, hv[4 * kk], hv[4 * kk + 1],
+                                  hv[4 * kk + 2], hv[4 * kk + 3],
+                                  rgb_desc + kk * hp::kDescKStep, kk);
+          hp::wgmma_commit();
+          hp::wgmma_wait<0>();
+          hp::keep(head_acc);
+          hp::keep(hv);
+          const float* ar = head + 16 + 2 * q;   // Ar of columns 2q, 2q + 1
+          float v[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            v[i] = __fadd_rn(__fmul_rn(s32_f32(head_acc[i]), ar[i & 1]),
+                             ar[8 + (i & 1)]);
+          const float b0 = __shfl_down_sync(0xffffffffu, v[0], 1);
+          const float b1 = __shfl_down_sync(0xffffffffu, v[2], 1);
+          if (q == 0) {
+            float* rs = a.raw + ((size_t)(base + row0) * S + s) * 4;
+            if (row0 < live)
+              *reinterpret_cast<float4*>(rs) = make_float4(v[0], v[1], b0, sig0);
+            if (row0 + 8 < live)
+              *reinterpret_cast<float4*>(rs + (size_t)8 * S * 4) =
+                  make_float4(v[2], v[3], b1, sig1);
+          }
+        }
+      }
+    }
+  }
+}
+
+// One persistent block per SM, at most one per tile.
+inline int run_nerf_q_wg(const NerfQArgs& a, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (a.N + kWgTile - 1) / kWgTile;
+  return launch(nerf_q_wg_kernel, sms < tiles ? sms : tiles, kWgThreads,
+                QSmem::kBytes, stream, a);
 }
 
 }  // namespace pn
@@ -295,11 +454,14 @@ nerf_q_kernel(const float* __restrict__ pts, const float* __restrict__ vcon,
 extern "C" int pn_fused_nerf_raw_q(const float* pts24_t, const float* vcon_t,
                                    const void* blob, long long blob_bytes,
                                    float* raw, int N, int S, void* stream) {
-  if (N <= 0 || S <= 0 || S > 64 || blob_bytes != pn::NerfQBlob::total)
+  if (N <= 0 || S <= 0 || S > 64 || blob_bytes != pn::QBlob::kBlobBytes)
     return -1;
-  const int blocks = (N + pn::PBf16::TILE - 1) / pn::PBf16::TILE;
-  return pn::launch(pn::nerf_q_kernel, blocks, pn::PBf16::THREADS,
-                    pn::nerf_q_smem(S), reinterpret_cast<cudaStream_t>(stream),
-                    pts24_t, vcon_t,
-                    reinterpret_cast<const unsigned char*>(blob), raw, N, S);
+  pn::NerfQArgs a = {};
+  a.pts = pts24_t;
+  a.vcon = vcon_t;
+  a.blob = static_cast<const unsigned char*>(blob);
+  a.raw = raw;
+  a.N = N;
+  a.S = S;
+  return pn::run_nerf_q_wg(a, reinterpret_cast<cudaStream_t>(stream));
 }

@@ -1,9 +1,11 @@
 // Hopper building blocks shared by the kernels that run their products on
 // `wgmma`: mbarriers, bulk asynchronous copies, the shared-memory matrix
-// descriptor, the `wgmma` fence / commit / wait and the m64nNk16 bf16 products
-// (N = 128, 32, 8) with A from registers (`_rs`) or from shared memory
-// (`_ss`), `setmaxnreg`, named barriers; then (namespace pn, after hp) the
-// warpgroup frame that the NeRF and the MinMax kernels are built on.
+// descriptor, the `wgmma` fence / commit / wait, the m64nNk16 bf16 products
+// (N = 128, 64, 32, 8) with A from registers (`_rs`) or from shared memory
+// (`_ss`) and the m64nNk32 int8 products (N = 128, 64, 32, 8; A from
+// registers),
+// `setmaxnreg`, named barriers; then (namespace pn, after hp) the warpgroup
+// frame that the NeRF (bf16 and int8) and the MinMax kernels are built on.
 // Everything here needs `sm_90a`.
 //
 // Operand layout the products assume. B is a weight panel w_t [out, K] held
@@ -12,7 +14,8 @@
 // c ^ (r % 8)), groups of 8 rows 1,024 bytes apart, the slab itself on a
 // 1,024-byte boundary. `desc_k128` describes such a slab; one k-step of 16
 // advances the descriptor's address by 32 bytes. A from shared memory uses
-// the same form with rows = rays.
+// the same form with rows = rays. An int8 slab is the same 128 bytes a row,
+// 128 k; one k-step of 32 advances the address by the same 32 bytes.
 //
 // Fragments (thread t of the warpgroup, warp w = t / 32, lane l, g = l / 4,
 // q = l % 4). Accumulator register i of an m64nNk16 product is the element
@@ -23,6 +26,18 @@
 // so the accumulators 8 j .. 8 j + 7 of a thread, rounded and packed in pairs,
 // ARE that thread's A registers for k-step j of the next product: a chain of
 // layers never has to leave the register file.
+//
+// int8 (m64nNk32, s32 sums). The accumulators are laid out as above. The A
+// operand of k-step j is four registers of four codes each:
+//   a[2 h]: row g, k 32 j + 16 h + 4 q + {0..3}   a[2 h + 1]: row g + 8, same k
+// (h = 0, 1), so a thread's accumulator columns 8 c + 2 q + {0, 1} are NOT its
+// A codes. They become so under a fixed permutation pi of k inside every chunk
+// of 16: the next layer's weight panel holds at k position 16 m + 4 q + e the
+// column of output 16 m + 8 (e / 2) + 2 q + (e % 2). The wrapper applies pi to
+// the K columns of every panel that reads a requantised activation, when it
+// builds the blob; the per-channel columns stay indexed by output. Then A
+// register 2 m + r of a half (r = row half) packs the codes of accumulators
+// 8 m + 2 r + {0, 1} and 8 m + 4 + 2 r + {0, 1} (`wg_requant`).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -142,6 +157,11 @@ __device__ __forceinline__ void keep(float (&r)[N]) {
 }
 template <int N>
 __device__ __forceinline__ void keep(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(int (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
@@ -294,6 +314,150 @@ __device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4],
       "{%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64, N] (+)= A[64, 16] . B[N, 16]^T, bf16, A and B through descriptors
+// (N = 64, 32).
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+    uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16],
+    uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64, N] (+)= A[64, 32] . B[N, 32]^T, int8 operands, exact s32 sums, A from
+// this thread's four registers (each four codes, see the head of this file),
+// B K-major through a descriptor (the only layout `wgmma` takes for 8-bit
+// types). One k-step of 32 advances B's descriptor by 32 bytes, as for bf16.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64],
+    uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t desc_b,
+    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32],
+    uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t desc_b,
+    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n32k32_s8(int (&d)[16],
+    uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t desc_b,
+    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "{%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n8k32_s8(int (&d)[4],
+    uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t desc_b,
+    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+      "{"
+      " %0, %1, %2, %3"
+      "}, "
+      "{%4, %5, %6, %7}, %8, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
 }
 
@@ -521,6 +685,165 @@ __device__ __forceinline__ void wg_layer256(float (&acc)[64],
   wg_epilogue<A>(acc, h + 32, bias_cols(bias, kHalf));
 #pragma unroll
   for (int i = 0; i < 32; ++i) h[i] = lo[i];
+}
+
+
+// ------------------------------------------------------- positional rows --
+
+constexpr int kL = 10;     // position octaves
+constexpr int kPE = 64;    // PE row: 3 + 2 * 3 * kL = 63, padded
+
+// The PE rows [x(3) | sin(30) | cos(30) | 0] of sample s of 128 rays from
+// `base` (points `pts` [S * 3, N]), bf16, swizzled, written by the helper
+// threads (`t` of kHelpers) into the two warpgroups' buffers at `pe` (shared
+// memory; warpgroup w at + w * 64 rows of 128 bytes). The A operand of a
+// layer that reads the encoding through a descriptor.
+__device__ __forceinline__ void wg_write_pe(const float* pts, int N, int base,
+                                            int s, unsigned char* pe, int t) {
+  for (int idx = t; idx < kWgTile * 3; idx += kHelpers) {
+    const int r = idx % kWgTile, c = idx / kWgTile;
+    const __nv_bfloat16 x = __float2bfloat16_rn(
+        base + r < N ? pts[(size_t)(3 * s + c) * N + base + r] : 0.0f);
+    unsigned char* row = pe + r * 128;   // 64 rows of 128 bytes a warpgroup
+    auto put = [&](int col, __nv_bfloat16 v) {
+      *reinterpret_cast<__nv_bfloat16*>(
+          row + ((((col >> 3) ^ (r & 7)) << 4) | ((col & 7) << 1))) = v;
+    };
+    put(c, x);
+    const float xf = __bfloat162float(x);
+#pragma unroll
+    for (int k = 0; k < kL; ++k) {
+      float sn, cs;
+      sincosf(ldexpf(xf, k), &sn, &cs);
+      put(3 + 3 * k + c, __float2bfloat16_rn(sn));
+      put(3 + 3 * kL + 3 * k + c, __float2bfloat16_rn(cs));
+    }
+    if (c == 0) put(kPE - 1, __float2bfloat16_rn(0.0f));
+  }
+}
+
+// ------------------------------------------------------- int8 epilogue --
+//
+// An int8 layer ends in t = acc * A + B per output (per-channel f32 columns,
+// the product rounded before B is added), then the code clamp(floor(t + .5),
+// 0, 254) - 127 of the next layer's A operand. Written with the conversion
+// instructions (I2F, FRND, F2I: 16 results a clock an SM on this card, a
+// quarter of FADD) it took a sixth of the first int8 kernel; here it is
+// IADD / FADD / FMUL / FMNMX / PRMT, with every rounding point kept. The
+// wrapper stores every requantised layer's A and B (and the addends of
+// layers 5 and view: the w5p panel, vcon_scale) times 2^-8, so the kernel
+// computes t' = t / 256 exactly (a power of two commutes with every
+// rounding, and nothing here comes near the subnormal range), and the floor
+// lands in the low byte of an add with a unit in the last place of 1 / 256.
+
+// The s32 sum of an int8 product as f32, exactly, for |v| < 2^22 (|v| <= 256 *
+// 127 * 127 here): the bits of 1.5 * 2^23 + v, less 1.5 * 2^23.
+__device__ __forceinline__ float s32_f32(int v) {
+  return __fsub_rn(__int_as_float(v + 0x4B400000), 12582912.0f);
+}
+
+// The code of t = 256 t' in the low byte (the other bytes are not zero): y =
+// clamp(t' + 2^-9, 0, 254 / 256) (clamping before the floor is clamping after
+// it: floor is monotone and the bounds are whole codes; fmaxf takes a NaN to
+// 0), then y + 2^15 +
+// 129 / 256 rounded down, whose unit in the last place is 1 / 256, so it is
+// 2^15 + (floor(256 y) + 129) / 256, and the low byte of its bits is
+// floor(256 y) + 129 = floor(256 y) - 127 mod 256.
+__device__ __forceinline__ uint32_t requant_byte(float t) {
+  const float y = fmaxf(__fadd_rn(t, 0.001953125f), 0.0f);   // + 2^-9
+  return __float_as_uint(__fadd_rd(fminf(y, 0.9921875f), 32768.50390625f));
+}
+
+// The low bytes of four words, b0 lowest.
+__device__ __forceinline__ uint32_t pack_bytes(uint32_t b0, uint32_t b1,
+                                               uint32_t b2, uint32_t b3) {
+  return __byte_perm(__byte_perm(b0, b1, 0x0040), __byte_perm(b2, b3, 0x0040),
+                     0x5410);
+}
+
+// The codes of NACC accumulators of a thread (128 or 64 outputs of 64 rays)
+// as the NACC / 4 A registers `a` of the next int8 product (see the head of
+// this file). `t_of(i, A, B)` is the value t of accumulator i given the
+// per-channel A and B of its column; `cols` points at this thread's first
+// column pair, as {A(2 p), A(2 p + 1), B(2 p), B(2 p + 1)}: the pair of n-tile
+// c (8 outputs) is cols[4 c].
+template <int NACC, class T>
+__device__ __forceinline__ void wg_requant(uint32_t* a, const float4* cols,
+                                           T t_of) {
+#pragma unroll
+  for (int m = 0; m < NACC / 8; ++m) {
+    const float4 c0 = cols[8 * m], c1 = cols[8 * m + 4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = 8 * m + 2 * r;
+      a[2 * m + r] = pack_bytes(requant_byte(t_of(i, c0.x, c0.z)),
+                                requant_byte(t_of(i + 1, c0.y, c0.w)),
+                                requant_byte(t_of(i + 4, c1.x, c1.z)),
+                                requant_byte(t_of(i + 5, c1.y, c1.w)));
+    }
+  }
+}
+
+// Queue the products of one quarter of an int8 layer (64 outputs, K = 256)
+// into d: A from the 32 registers h, B from 64 rows of each of the two
+// k-slabs [128 x 128] of a stage, the first at shared address `rows`.
+__device__ __forceinline__ void wg_quarter_s8(int (&d)[32], uint32_t (&h)[32],
+                                              uint32_t rows) {
+  hp::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    hp::wgmma_m64n64k32_s8(
+        d, h[4 * kk], h[4 * kk + 1], h[4 * kk + 2], h[4 * kk + 3],
+        hp::desc_k128(rows + (kk / 4) * kSlab128Bytes) +
+            (kk % 4) * hp::kDescKStep,
+        kk);
+  hp::wgmma_commit();
+}
+
+// One 256-wide int8 layer of K = 256 on the codes h, in place, in quarters of
+// 64 outputs: t = acc * A + B, requantised. The panel arrives as two stages
+// of a half. The quarters alternate between the two halves of `acc`, so that
+// the products of one run while the epilogue of the one before does: the
+// tensor cores never wait for an epilogue of this warpgroup, and no
+// accumulator block is larger than 32 registers (with halves of 128, ptxas
+// ran out of registers and serialized the products). `cols` as for
+// wg_requant, the layer's 128 pairs.
+__device__ __forceinline__ void wg_layer256_s8(int (&acc)[64],
+                                               uint32_t (&h)[32], WgRing& ring,
+                                               const float4* cols) {
+  int (&a0)[32] = *reinterpret_cast<int (*)[32]>(acc);
+  int (&a1)[32] = *reinterpret_cast<int (*)[32]>(acc + 32);
+  uint32_t out[24];
+  auto requant = [&](int (&d)[32], uint32_t* dst, int qt) {
+    wg_requant<32>(dst, cols + 32 * qt, [&](int i, float ca, float cb) {
+      return __fadd_rn(__fmul_rn(s32_f32(d[i]), ca), cb);
+    });
+  };
+  const uint32_t s0 = ring.wait();
+  wg_quarter_s8(a0, h, s0);
+  wg_quarter_s8(a1, h, s0 + kSlab128Bytes / 2);
+  const uint32_t first = ring.advance();
+  hp::wgmma_wait<1>();
+  hp::keep(a0);
+  requant(a0, out, 0);
+  const uint32_t s1 = ring.wait();
+  wg_quarter_s8(a0, h, s1);
+  hp::wgmma_wait<1>();
+  hp::keep(a1);
+  ring.release(first);
+  requant(a1, out + 8, 1);
+  wg_quarter_s8(a1, h, s1 + kSlab128Bytes / 2);
+  hp::wgmma_wait<1>();
+  hp::keep(a0);
+  requant(a0, out + 16, 2);
+  hp::wgmma_wait<0>();
+  hp::keep(a1);
+  hp::keep(h);
+  ring.release(ring.advance());
+  // the last quarter's codes go straight into h: its products are done
+  requant(a1, h + 24, 3);
+#pragma unroll
+  for (int i = 0; i < 24; ++i) h[i] = out[i];
 }
 
 }  // namespace pn

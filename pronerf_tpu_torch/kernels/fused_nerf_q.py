@@ -40,19 +40,21 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from pronerf_tpu_torch.kernels.fused_nerf import (
     L_DIR,
     L_PTS,
-    PE_PAD,
     W,
     W_HALF,
     _check_common,
     _freq_matrix,
     _split_pe_rows,
 )
+from pronerf_tpu_torch.kernels.stages import images, slabs
+from pronerf_tpu_torch.kernels.stages import stage_table as _stage_table
 from pronerf_tpu_torch.ops.encoding import positional_encoding
 
 # Calibration headroom: maxima measured on the synthetic sweep are inflated
@@ -316,27 +318,95 @@ def fused_nerf_raw_q_plain(packed, pts24_t, vcon_t, n_samples: int = 8):
 
 
 _BLOB_KEY = "_kernel_blob"
-# The blob's sections in order, as (panel, rows, K as the kernel reads it).
-# First the panels (bf16, then int8), then the float32 columns; every section
-# starts on a multiple of 16 bytes.
-_BLOB_PANELS = (
-    ("w0p_t", W, PE_PAD), ("w5p_t", W, PE_PAD),
-    ("w1q", W, W), ("w2q", W, W), ("w3q", W, W), ("w4q", W, W),
-    ("w5q", W, W), ("w6q", W, W), ("w7q", W, W),
-    ("wfq", W, W), ("wvq", W_HALF, W), ("waq", 8, W), ("wrq", 8, W_HALF),
-)
-_BLOB_COLUMNS = (
-    "A0", "B0", "A1", "B1", "A2", "B2", "A3", "B3", "A4", "B4", "A5", "B5",
-    "A6", "B6", "A7", "B7", "Af", "Bf", "Av", "Bv", "vcon_scale",
-    "Aa", "Ba", "Ar", "Br",
-)
+
+
+def k_perm(k: int):
+    """The permutation of K that makes a thread's s32 accumulators its A
+    codes of the next int8 ``wgmma`` (see the head of ``csrc/hopper.cuh``), as
+    an index: position p of a permuted panel holds column ``k_perm(k)[p]``.
+    Inside each chunk of 16, position 4 q + e holds column 8 (e // 2) + 2 q
+    + e % 2."""
+    p = np.arange(k)
+    q, e = (p % 16) // 4, p % 4
+    return p - p % 16 + 8 * (e // 2) + 2 * q + e % 2
+
+
+# The panels whose K is a requantised activation (permuted in the blob); the
+# two PE panels read the PE rows from shared memory and are not.
+PERMUTED = ("w1q", "w2q", "w3q", "w4q", "w5q", "w6q", "w7q", "wfq", "wvq",
+            "waq", "wrq")
+
+
+def _half(name, half):
+    """128 rows of an int8 panel of K = 256: two slabs of 128 k, one stage."""
+    return [(name, half * W_HALF, W_HALF, ks) for ks in (0, 1)]
+
+
+def _quarter(name, qt):
+    """64 rows of an int8 panel of K = 256: two slabs."""
+    return [(name, qt * 64, 64, ks) for ks in (0, 1)]
+
+
+# The int8 blob is the sequence of shared-memory images the kernel copies in
+# bulk (slabs and stages as ``stages.py`` defines them; an int8 slab is 128
+# k) in the order the chain consumes them, the same for every sample: layer 0
+# is one stage of 256 rows (bf16), a 256-wide int8 layer two stages of a
+# half, layer 5 four stages of a quarter [w5p slab | w5q slabs], the view
+# layer two stages of a quarter. After the ring: the two heads (resident for
+# the block's life), then the f32 columns (:func:`_columns`).
+def _ring_stages():
+    ring = slabs("w0p_t", n=1)
+    for name in ("w1q", "w2q", "w3q", "w4q"):
+        ring += [_half(name, 0), _half(name, 1)]
+    ring += [[("w5p_t", qt * 64, 64, 0)] + _quarter("w5q", qt)
+             for qt in range(4)]
+    for name in ("w6q", "w7q", "wfq"):
+        ring += [_half(name, 0), _half(name, 1)]
+    ring += [_quarter("wvq", qt) for qt in range(2)]
+    return tuple(tuple(st) for st in ring)
+
+
+RING_STAGES = _ring_stages()
+HEAD_SLABS = (("waq", 0, 8, 0), ("waq", 0, 8, 1), ("wrq", 0, 8, 0))
+# The f32 columns, in the order of QBlob::c_*: per layer the pairs
+# {A(2p), A(2p+1), B(2p), B(2p+1)} (one 16-byte load serves a thread's two
+# columns of an n-tile), then vcon_scale, then the heads' columns whole.
+COLUMN_PAIRS = tuple((f"A{i}", f"B{i}") for i in range(8)) + (
+    ("Af", "Bf"), ("Av", "Bv"))
+HEAD_COLUMNS = ("Aa", "Ba", "Ar", "Br")
+# What the blob stores times T_SCALE, so that the kernel's requantising
+# epilogue computes t / 256 (see ``csrc/hopper.cuh``): every requantised
+# layer's A and B, and the addends of layers 5 (the w5p panel) and view
+# (vcon_scale). Scaling by a power of two is exact; ``_blob`` checks it.
+T_SCALE = 2.0 ** -8
+SCALED = tuple(n for pair in COLUMN_PAIRS for n in pair) + (
+    "vcon_scale", "w5p_t")
+
+
+def stage_table():
+    """(byte offset in the blob, bytes) of every ring stage, in order."""
+    return _stage_table(RING_STAGES)
+
+
+def _columns(panels):
+    """The f32 column section of the blob, flat, from ``panels`` (the
+    packed dict with ``SCALED`` applied)."""
+    parts = [torch.stack([panels[a].reshape(-1, 2), panels[b].reshape(-1, 2)],
+                         dim=1).reshape(-1) for a, b in COLUMN_PAIRS]
+    parts += [panels[name].reshape(-1)
+              for name in ("vcon_scale",) + HEAD_COLUMNS]
+    return torch.cat([p.float() for p in parts])
 
 
 def _blob(packed):
     """The panels as the one contiguous byte buffer the kernel reads (see the
-    head of ``csrc/fused_nerf_q.cu``), built once and kept in ``packed``. The
-    kernel computes ``bx_t . x`` as ``ldexp(x, k)``, so the panel must be the
-    frequency matrix, and its PE products are bf16; both are checked here."""
+    head of ``csrc/fused_nerf_q.cu``), built once and kept in ``packed``: the
+    stage images above with ``k_perm`` applied to the panels in
+    ``PERMUTED`` and ``T_SCALE`` to those in ``SCALED`` (``packed`` itself is
+    neither permuted nor scaled), then the columns. The kernel computes
+    ``bx_t . x`` as ``ldexp(x, k)``, so the panel must be the frequency
+    matrix, and its PE products are bf16; both are checked here, and that
+    the scaling is exact."""
     blob = packed.get(_BLOB_KEY)
     if blob is None:
         bx = packed["bx_t"]
@@ -346,17 +416,19 @@ def _blob(packed):
         want = _freq_matrix(L_PTS).T.to(device=bx.device, dtype=bx.dtype)
         if not torch.equal(bx, want):
             raise ValueError("bx_t is not the power-of-two frequency matrix")
-        parts = []
-        for name, rows, k in _BLOB_PANELS:
+        panels = dict(packed)
+        for name in PERMUTED:
             a = packed[name]
-            if tuple(a.shape) != (rows, k):
-                padded = a.new_zeros(rows, k)
-                padded[:, : a.shape[1]] = a
-                a = padded
-            parts.append(a.contiguous().view(torch.uint8).reshape(-1))
-        for name in _BLOB_COLUMNS:
-            a = packed[name].float().contiguous()
-            parts.append(a.view(torch.uint8).reshape(-1))
+            panels[name] = a[:, torch.as_tensor(k_perm(a.shape[1]),
+                                                device=a.device)]
+        for name in SCALED:
+            a = packed[name] * T_SCALE
+            if not torch.equal(a / T_SCALE, packed[name]):
+                raise ValueError(f"{name} is not exact times 2^-8")
+            panels[name] = a
+        parts = [img.view(torch.uint8)
+                 for img in images(panels, RING_STAGES + (HEAD_SLABS,))]
+        parts.append(_columns(panels).view(torch.uint8))
         blob = torch.cat(parts).contiguous()
         packed[_BLOB_KEY] = blob
     return blob

@@ -1,14 +1,15 @@
-"""Stage images of the bf16 weight blobs that the ``wgmma`` kernels copy into
+"""Stage images of the weight blobs that the ``wgmma`` kernels copy into
 shared memory in bulk (``csrc/hopper.cuh``'s warpgroup frame), shared by
-``fused_nerf.py`` and ``fused_minmax.py``.
+``fused_nerf.py``, ``fused_minmax.py`` and ``fused_nerf_q.py``.
 
 A SLAB is rows [row0, row0 + rows) of a panel w_t [out, K] at k in
-[64 ks, 64 ks + 64): ``rows x 128`` bytes, the 16-byte chunk c of row r
-stored at chunk c ^ (r % 8) (the 128-byte swizzle ``wgmma`` reads), K padded
-with zero columns to a multiple of 64. A STAGE is one bulk copy: a list of
-slabs, at most ``STAGE_BYTES``. A kernel computes a 256-wide layer as two
-halves of 128 outputs, so a [256, 256] panel comes as outputs 0..127 (four
-slabs, two to a stage), then outputs 128..255 (:func:`halves`).
+[n ks, n ks + n), n = 128 bytes of k (64 bf16 or 128 int8 values): ``rows x
+128`` bytes, the 16-byte chunk c of row r stored at chunk c ^ (r % 8) (the
+128-byte swizzle ``wgmma`` reads), K padded with zero columns to a multiple
+of n. A STAGE is one bulk copy: a list of slabs, at most ``STAGE_BYTES``. A
+kernel computes a 256-wide bf16 layer as two halves of 128 outputs, so a
+[256, 256] panel comes as outputs 0..127 (four slabs, two to a stage), then
+outputs 128..255 (:func:`halves`).
 """
 
 from __future__ import annotations
@@ -58,10 +59,10 @@ def pad_k(a, k):
 
 def slab_image(a, row0, rows, ks):
     """The swizzled image of one slab of panel ``a`` (K padded with zero
-    columns to a multiple of 64), flat."""
-    a = pad_k(a, -(-a.shape[1] // SLAB_K) * SLAB_K)
-    chunks = a[row0:row0 + rows, ks * SLAB_K:(ks + 1) * SLAB_K].reshape(
-        rows, 8, 8)
+    columns to a multiple of the slab's k), flat, in ``a``'s dtype."""
+    n = SLAB_ROW_BYTES // a.element_size()
+    a = pad_k(a, -(-a.shape[1] // n) * n)
+    chunks = a[row0:row0 + rows, ks * n:(ks + 1) * n].reshape(rows, 8, n // 8)
     r = torch.arange(rows, device=a.device)
     src = torch.arange(8, device=a.device)[None, :] ^ (r % 8)[:, None]
     return chunks[r[:, None], src].reshape(-1)

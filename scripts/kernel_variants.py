@@ -9,7 +9,6 @@ toolkit; nothing here runs on import.
 from __future__ import annotations
 
 import ctypes
-import re
 import shutil
 import subprocess
 import sys
@@ -66,19 +65,10 @@ def build_variants(source, variants, names, tmp: Path, symbol, argtypes):
 def sass_counts(lib: Path, kernel):
     """Opcodes of the functions whose name holds ``kernel`` in the library's
     SASS: the total, the most frequent, and those of the conversion pipe."""
-    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
-                          capture_output=True, text=True).stdout
-    counts, inside = {}, False
-    for line in sass.splitlines():
-        if "Function :" in line:
-            inside = kernel in line
-        elif inside:
-            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
-                         line)
-            if m:
-                op = m.group(1)
-                counts[op] = counts.get(op, 0) + 1
+    counts = {}
+    for ops in build.sass_opcodes(lib, kernel).values():
+        for op, n in ops.items():
+            counts[op] = counts.get(op, 0) + n
     return {"total": sum(counts.values()),
             "top": sorted(counts.items(), key=lambda kv: -kv[1])[:24],
             "conversions": {op: counts.get(op, 0) for op in CONVERSIONS}}

@@ -35,43 +35,56 @@ from pronerf_tpu_torch.models.mlp import NeRFMLP
 from pronerf_tpu_torch.models.pronerf import view_contribution
 from pronerf_tpu_torch.ops.encoding import positional_encoding
 
-KERNEL = "nerf_q_kernel"
-# s32 -> f32 without the conversion pipe, exact for |v| < 2^22
-_I2F = ("__device__ __forceinline__ float pn_i2f(float v) { return v; }\n"
-        "__device__ __forceinline__ float pn_i2f(int v) {\n"
-        "  return __int_as_float(v + 0x4B400000) - 12582912.0f;\n}\n")
-_REQUANT = ("const float q = fminf(fmaxf(floorf(__fadd_rn(t, 0.5f)), 0.0f), "
-            "254.0f);\n  return (int8_t)(__float2int_rn(q) - 127);")
-NO_I2F = [
-    ("common.cuh", "// The pairs (out, out + 1) of a ray that a lane holds",
-     _I2F + "// The pairs (out, out + 1) of a ray that a lane holds"),
-    ("common.cuh", "(float)acc[mi][ni][0], (float)acc[mi][ni][1]",
-     "pn_i2f(acc[mi][ni][0]), pn_i2f(acc[mi][ni][1])"),
-    ("common.cuh", "(float)acc[mi][ni][2], (float)acc[mi][ni][3]",
-     "pn_i2f(acc[mi][ni][2]), pn_i2f(acc[mi][ni][3])"),
-    ("fused_nerf_q.cu", "__int2float_rn(", "pn_i2f("),
-]
-# floor by adding 2^23 + 129 rounding down: the low byte is floor(y) - 127
-NO_REQUANT_CONVERSIONS = [
-    ("fused_nerf_q.cu", _REQUANT,
-     "const float q = fminf(fmaxf(__fadd_rn(t, 0.5f), 0.0f), 254.0f);\n"
-     "  return (int8_t)__float_as_int(__fadd_rd(q, 8388737.0f));"),
-]
+KERNEL = "nerf_q_wg_kernel"
+_S32 = "return __fsub_rn(__int_as_float(v + 0x4B400000), 12582912.0f);"
+_Y = "const float y = fmaxf(__fadd_rn(t, 0.001953125f), 0.0f);"
+_REQUANT = ("return __float_as_uint(__fadd_rd(fminf(y, 0.9921875f), "
+            "32768.50390625f));")
 
 # name: ([(file, old, new)], EXACT)
 VARIANTS = {
     "as_is": ([], True),
-    # (a) no conversion instruction in the epilogue, and each half of it
-    "no_conversions": (NO_I2F + NO_REQUANT_CONVERSIONS, True),
-    "no_i2f": (NO_I2F, True),
-    "no_requant_conversions": (NO_REQUANT_CONVERSIONS, True),
-    # (b) requant replaced by a plain bf16 cast (the bf16 kernel's epilogue)
-    "bf16_cast": ([("fused_nerf_q.cu", _REQUANT,
-                    "return (int8_t)(__bfloat16_as_ushort("
-                    "__float2bfloat16_rn(t)) >> 8);")], False),
-    # (c) no requant at all: the f32 value's low byte
-    "no_requant": ([("fused_nerf_q.cu", _REQUANT,
-                     "return (int8_t)__float_as_int(t);")], False),
+    # the epilogue with the conversion instructions (I2F; FRND and F2I), as
+    # the first int8 kernel wrote it (on t = 256 t'): the same codes
+    "conversions": ([
+        ("hopper.cuh", _S32, "return (float)v;"),
+        ("hopper.cuh", _Y,
+         "const float y = fminf(fmaxf(floorf(__fadd_rn(__fmul_rn(t, 256.0f), "
+         "0.5f)), 0.0f), 254.0f);"),
+        ("hopper.cuh", _REQUANT, "return (uint32_t)(__float2int_rn(y) - 127);"),
+    ], True),
+    # s32 -> f32 by the conversion instruction alone (I2FP on this card)
+    "i2fp": ([("hopper.cuh", _S32, "return (float)v;")], True),
+    # the clamp at 0 as the saturation of the add (add.rn.sat: to [0, 1]),
+    # one FMNMX less an element
+    "sat": ([("hopper.cuh", _Y,
+              "float y;\n  asm(\"add.rn.sat.f32 %0, %1, 0f3B000000;\\n\" "
+              ": \"=f\"(y) : \"f\"(t));")], True),
+    # the floor's add rounded to nearest (wrong codes on purpose): what the
+    # round-down mode costs
+    "rn_floor": ([("hopper.cuh", _REQUANT,
+                   "return __float_as_uint(__fadd_rn(fminf(y, 0.9921875f), "
+                   "32768.50390625f));")], False),
+    # no clamps (wrong codes on purpose): what the two FMNMX cost
+    "no_clamp": ([("hopper.cuh", _Y,
+                   "const float y = __fadd_rn(t, 0.001953125f);"),
+                  ("hopper.cuh", _REQUANT,
+                   "return __float_as_uint(__fadd_rd(y, 32768.50390625f));")],
+                 False),
+    # no clamp and no floor: the f32 value's low byte
+    "no_requant": ([("hopper.cuh", _REQUANT,
+                     "return __float_as_uint(t);")], False),
+    # ... and no s32 -> f32 either: what is left of the epilogue is the
+    # per-channel multiply and add and the packing
+    "no_requant_no_s32": ([("hopper.cuh", _REQUANT,
+                            "return __float_as_uint(t);"),
+                           ("hopper.cuh", _S32, "return __int_as_float(v);")],
+                          False),
+    # the view epilogue without its vcon loads
+    "no_vcon_loads": ([("fused_nerf_q.cu",
+                        "v[i] = r < live ? __ldg(a.vcon + (size_t)c * N + "
+                        "base + r) : 0.0f;", "v[i] = (float)(r + c);")],
+                      False),
 }
 
 ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

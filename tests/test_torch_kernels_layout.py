@@ -248,11 +248,15 @@ def test_epilogue_maps_of_the_kernel():
 
 
 def test_pe_rows_use_the_slab_swizzle():
-    """The kernel writes the PE rows with the formula of its source; it is
-    the slab swizzle, so the rows can be read through the same descriptor
-    as a weight slab."""
-    src = (CSRC / "fused_nerf.cu").read_text()
+    """The kernels write the PE rows with the formula of their shared source
+    (``hopper.cuh``'s ``wg_write_pe``, which the bf16 and the int8 NeRF kernel
+    call); it is the slab swizzle, so the rows can be read through the same
+    descriptor as a weight slab."""
+    src = (CSRC / "hopper.cuh").read_text()
     assert "((((col >> 3) ^ (r & 7)) << 4) | ((col & 7) << 1))" in src
+    for name in ("fused_nerf.cu", "fused_nerf_q.cu"):
+        assert "wg_write_pe(a.pts, N, tile * kWgTile, s," in (
+            CSRC / name).read_text(), name
     for r in range(128):
         for col in range(64):
             assert (r % 64) * 128 + ((((col >> 3) ^ (r & 7)) << 4)

@@ -313,46 +313,58 @@ def test_wrapper_rejects_wrong_shapes_before_dispatch(carried):
 
 def test_blob_layout_matches_the_kernel_source(carried):
     """The byte buffer the CUDA kernel reads, section by section, against the
-    offsets ``csrc/fused_nerf_q.cu`` computes (``NerfQBlob``)."""
+    sizes ``csrc/fused_nerf_q.cu`` computes (``QBlob``): the ring stages of
+    one sample, the resident head slabs, the f32 columns. The stage images
+    themselves are read back element by element in
+    ``tests/test_torch_nerf_q_layout.py``."""
     import re
 
     from pronerf_tpu_torch.kernels import build
 
     packed = dict(carried["packed"])
     blob = t_fq._blob(packed)
-    sq, W = 256 * 256, 256
-    panels = 2 * (W * 64 * 2) + 8 * sq + 128 * W + 8 * W + 8 * 128
-    n_cols = 16 * W + 2 * W + 3 * 128 + 4 * 8
-    assert blob.dtype == torch.uint8 and blob.numel() == panels + 4 * n_cols
+    ring = sum(nbytes for _, nbytes in t_fq.stage_table())
+    # all weights but the two heads, once: 2 PE panels (K padded to 64, bf16),
+    # 8 square int8 panels, the view panel
+    assert ring == 2 * (256 * 64 * 2) + 8 * 256 * 256 + 128 * 256
+    heads = 2 * 8 * 128 + 8 * 128
+    n_cols = 16 * 256 + 2 * 256 + 3 * 128 + 4 * 8
+    assert blob.dtype == torch.uint8
+    assert blob.numel() == ring + heads + 4 * n_cols
     assert t_fq._blob(packed) is blob  # built once
-    assert panels % 16 == 0
 
     src = (build.CSRC / "fused_nerf_q.cu").read_text()
-    # the constants the offsets are built from, as the source spells them
-    for needle in ("w5p = w0p + 2 * kW * kQPE", "wq = w5p + 2 * kW * kQPE",
-                   "wf = wq + 7 * sq, wv = wf + sq",
-                   "wa = wv + kQWH * kW, wr = wa + 8 * kW",
-                   "cols = wr + 8 * kQWH", "Af = 16 * kW, Bf = Af + kW",
-                   "Av = Bf + kW, Bv = Av + kQWH, vscale = Bv + kQWH",
-                   "Aa = vscale + kQWH, Ba = Aa + 8, Ar = Ba + 8"):
-        assert needle in src, needle
-    assert re.search(r"kQPE = 64;", src) and re.search(r"kQWH = 128;", src)
-    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in (
-        build.CSRC / "common.cuh").read_text()
-    assert "__fmul_rn" in src and "__fadd_rn" in src
 
-    w0p = blob[: W * 64 * 2].view(torch.bfloat16).reshape(W, 64)
-    assert torch.equal(w0p[:, :63], packed["w0p_t"]) and not w0p[:, 63].any()
-    at = 2 * (W * 64 * 2)
-    w1 = blob[at: at + sq].view(torch.int8).reshape(W, W)
-    assert torch.equal(w1, packed["w1q"])
-    wr = blob[panels - 8 * 128: panels].view(torch.int8).reshape(8, 128)
-    assert torch.equal(wr, packed["wrq"])
-    cols = blob[panels:].view(torch.float32)
-    assert torch.equal(cols[10 * W: 11 * W], packed["A5"].reshape(-1))
-    assert torch.equal(cols[11 * W: 12 * W], packed["B5"].reshape(-1))
-    assert torch.equal(cols[18 * W + 256: 18 * W + 384],
-                       packed["vcon_scale"].reshape(-1))
+    def const(name):
+        return int(re.search(rf"{name} = (\d+)", src).group(1))
+
+    assert const("kStagesPerSample") == len(t_fq.stage_table()) == 21
+    assert re.search(r"kRingBytes = (\d+) \* 1024", src).group(1) == str(
+        ring // 1024)
+    assert "kAlphaBytes = 2 * 1024, kRgbBytes = 1024;" in src
+    assert "c_feat = 8 * 2048, c_view = c_feat + 2048" in src
+    assert "c_vscale = c_view + 1024, c_heads = c_vscale + 512" in src
+    assert "kColBytes = c_heads + 128" in src
+    assert 8 * 2048 + 2048 + 1024 + 512 + 128 == 4 * n_cols
+    assert "__fmul_rn" in src and "__fadd_rn" in src
+    assert "nerf_q_wg_kernel" in src and "mma.sync" not in src
+    assert "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8" in (
+        build.CSRC / "hopper.cuh").read_text()
+
+    # the columns: pairs {A(2p), A(2p+1), B(2p), B(2p+1)} per layer
+    # the columns of requantised layers and vcon_scale are stored times
+    # 2^-8 (the kernel computes t / 256); the heads' as they are
+    cols = blob[ring + heads:].view(torch.float32)
+    a5 = packed["A5"].reshape(-1) * t_fq.T_SCALE
+    b5 = packed["B5"].reshape(-1) * t_fq.T_SCALE
+    layer5 = cols[5 * 512: 6 * 512].reshape(128, 4)
+    assert torch.equal(layer5[:, 0], a5[0::2])
+    assert torch.equal(layer5[:, 1], a5[1::2])
+    assert torch.equal(layer5[:, 2], b5[0::2])
+    assert torch.equal(layer5[:, 3], b5[1::2])
+    at = 8 * 512 + 512 + 256
+    assert torch.equal(cols[at:at + 128],
+                       packed["vcon_scale"].reshape(-1) * t_fq.T_SCALE)
     assert torch.equal(cols[-8:], packed["Br"].reshape(-1))
 
     broken = dict(carried["packed"])
