@@ -11,8 +11,8 @@ falls back to the CPU. Phases, each printing one JSON line:
                 the three ``wgmma`` kernels: it fails if any of their
                 products was serialized or if one spills, and if the int8
                 kernel's SASS holds more conversion instructions (I2F, F2I,
-                FRND, ...) than the bf16 NeRF kernel's, whose only ones are
-                in the PE code that both share;
+                FRND, ...; not I2FP) than the bf16 NeRF kernel's, whose only
+                ones are in the PE code that both share;
 3. ``kernels``  every fused kernel, in bf16 and in f32 (the int8 NeRF
                 kernel in int8), at the width and ray count of a 504x378
                 frame, on inputs made from a numpy seed: held against its
@@ -428,8 +428,10 @@ WGMMA_KERNELS = {"fused_minmax": "minmax_wg_kernel",
                  "fused_nerf_q": "nerf_q_wg_kernel"}
 # opcodes of the conversion pipe (16 results a clock an SM): the int8
 # kernel's epilogue is written without them, so its SASS may hold no more of
-# them than the PE code it shares with the bf16 kernel's raw form
-CONVERSIONS = ("I2F", "I2FP", "F2I", "F2IP", "FRND", "I2I", "I2IP")
+# them than the PE code it shares with the bf16 kernel's raw form. I2FP, the
+# int -> float of this card, is not one of them: measured, it is cheaper than
+# the integer-add form it would replace (PERF.md, PR 5).
+CONVERSIONS = ("I2F", "F2I", "F2IP", "FRND", "I2I", "I2IP")
 
 
 def make_case(name, nets, n_rays, dtype, device, seed):

@@ -23,8 +23,8 @@
 //  * the products are `wgmma` m64nNk32 s8 x s8 -> s32 with the codes of the
 //    activation as A in registers and the int8 panel from the ring (K-major,
 //    the only layout `wgmma` takes for 8-bit operands; a slab is 128 k). A
-//    256-wide layer arrives as two 32 KB stages of a half and runs as four
-//    quarters of 64 outputs (m64n64k32, 32 accumulators: with halves of 128
+//    256-wide layer arrives as two 32 KB stages of a half and runs as eight
+//    eighths of 32 outputs (m64n32k32, 16 accumulators: with halves of 128
 //    ptxas ran out of registers and serialized the products). Layer 0 and
 //    the PE half of layer 5 stay bf16 m64n32k16 with A = the PE rows in
 //    shared memory;
@@ -33,16 +33,17 @@
 //    permutation of k that the wrapper applies to the K columns of every
 //    panel reading a requantised activation. Hidden layers never leave the
 //    registers;
-//  * the epilogue issues no conversion instruction: on this card those run at
-//    a quarter of the FADD rate (16 a clock an SM), and the first int8 kernel
-//    spent a sixth of its time on them. s32 -> f32 and the floor are done
-//    with integer and float adds (`s32_f32`, `requant_byte`), with every
-//    rounding point kept. The epilogue is then about ten full-rate
-//    instructions an element, as much issue time as the products take on the
-//    tensor cores, so a hidden layer's quarters alternate between two
-//    accumulator blocks: a warpgroup's epilogue of one quarter runs while the
-//    products of the next execute (the two warpgroups do not take turns:
-//    they gained nothing once the int8 products were this short);
+//  * the epilogue bounds the kernel, not the tensor cores, and what costs
+//    in it is the instruction mix (scripts/torch_nerf_q_variants.py): FRND
+//    and F2I run at a quarter of the FADD rate and an FMNMX costs as much as
+//    several FADDs, so the floor is an add rounded down and the clamp at 0
+//    the saturation of an add, on t / 256 (the blob's columns are scaled by
+//    2^-8, exactly); s32 -> f32 is one I2FP, which measured cheaper than
+//    the integer-add form (`s32_f32`, `requant_byte`). Every rounding point
+//    is kept. A hidden layer's eighths alternate between two accumulator
+//    blocks: a warpgroup's epilogue of one eighth runs while the products of
+//    the next execute (the two warpgroups do not take turns: they gained
+//    nothing once the int8 products were this short);
 //  * layer 5 adds an int8 sum and an f32 PE sum unrounded, (acc * A5 +
 //    pe_dot) + B5, so both sums of an output are live at once. It runs in
 //    eighths of 32 outputs (16 s32 + 16 f32 accumulators beside the 32 A
@@ -52,8 +53,10 @@
 //  * the view layer runs in eighths of 32 outputs: its `vcon` term is f32
 //    (64 KB a tile, too much shared memory beside the ring), so each thread
 //    loads its own 16 `vcon` values of an eighth from device memory one
-//    eighth ahead (a tile's `vcon` is read S times and stays in L2) and
-//    scales them by `vcon_scale` there;
+//    eighth ahead, and scales them by `vcon_scale` there. A tile's `vcon`
+//    stays in L2 over its S samples, and each sample brings the thread's
+//    lines into L1 three layers before the view (from L2 the loads cost a
+//    quarter of the kernel);
 //  * the heads are m64n8k32 on resident slabs; the lane of q = 0 stores a
 //    ray's [rgb, sigma] of a sample as one float4 straight to `raw`, so no
 //    result buffer takes shared memory and S does not bound it.
@@ -236,15 +239,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     uint32_t h[32];   // the codes of the current activation, as A registers
     // The accumulators of every product, in the same registers all the way
     // (as in the bf16 kernel), set once, here (a write to them inside the
-    // loop makes ptxas serialize the products): s32 for two quarters of 64
-    // outputs (an eighth uses the first 16), f32 for an eighth of a PE
-    // product, s32 for a head (apart: inside the block, ptxas serialized the
-    // products).
-    int acc[64], head_acc[4];
+    // loop makes ptxas serialize the products): s32 for two eighths of 32
+    // outputs, f32 for an eighth of a PE product, s32 for a head (apart:
+    // inside the block, ptxas serialized the products).
+    int acc[32], head_acc[4];
     float pdot[16];
     int (&acc_e)[16] = *reinterpret_cast<int (*)[16]>(acc);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0;
+    for (int i = 0; i < 32; ++i) acc[i] = 0;
 #pragma unroll
     for (int i = 0; i < 16; ++i) pdot[i] = 0.0f;
 #pragma unroll
@@ -333,6 +335,16 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         // this warp's last read of the sample's PE rows is behind it
         if (lane == 0) hp::mbar_arrive(pe_empty + 8 * pt.at);
         pt.next();
+        // This thread's vcon lines of the view layer into L1, three layers
+        // ahead of the view's loads (from L2 they cost a quarter of the
+        // kernel): one a column, whose line holds both rows of the thread.
+        if (row0 < live) {
+#pragma unroll 4
+          for (int c = 0; c < 32; ++c)
+            hp::prefetch_l1(a.vcon +
+                            (size_t)(8 * (c >> 1) + 2 * q + (c & 1)) * N +
+                            base + row0);
+        }
         // layers 6, 7
 #pragma unroll 1
         for (int l = 6; l <= 7; ++l)

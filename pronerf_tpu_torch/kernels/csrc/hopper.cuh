@@ -1,9 +1,8 @@
 // Hopper building blocks shared by the kernels that run their products on
 // `wgmma`: mbarriers, bulk asynchronous copies, the shared-memory matrix
 // descriptor, the `wgmma` fence / commit / wait, the m64nNk16 bf16 products
-// (N = 128, 64, 32, 8) with A from registers (`_rs`) or from shared memory
-// (`_ss`) and the m64nNk32 int8 products (N = 128, 64, 32, 8; A from
-// registers),
+// (N = 128, 32, 8) with A from registers (`_rs`) or from shared memory
+// (`_ss`) and the m64nNk32 int8 products (N = 32, 8; A from registers),
 // `setmaxnreg`, named barriers; then (namespace pn, after hp) the warpgroup
 // frame that the NeRF (bf16 and int8) and the MinMax kernels are built on.
 // Everything here needs `sm_90a`.
@@ -118,6 +117,11 @@ __device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// Bring the line that holds `p` (device memory) into this SM's L1.
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
 }
 
 // Writes made with ordinary stores become visible to `wgmma` and bulk copies
@@ -317,32 +321,7 @@ __device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4],
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
 }
 
-// D[64, N] (+)= A[64, 16] . B[N, 16]^T, bf16, A and B through descriptors
-// (N = 64, 32).
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
-    uint64_t desc_a, uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      " %0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
+// D[64, 32] (+)= A[64, 16] . B[32, 16]^T, bf16, A and B through descriptors.
 __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16],
     uint64_t desc_a, uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -365,68 +344,6 @@ __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16],
 // this thread's four registers (each four codes, see the head of this file),
 // B K-major through a descriptor (the only layout `wgmma` takes for 8-bit
 // types). One k-step of 32 advances B's descriptor by 32 bytes, as for bf16.
-__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64],
-    uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t desc_b,
-    int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{"
-      " %0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39, "
-      " %40, %41, %42, %43, %44, %45, %46, %47, "
-      " %48, %49, %50, %51, %52, %53, %54, %55, "
-      " %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, "
-      "{%64, %65, %66, %67}, %68, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
-        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
-        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
-        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32],
-    uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t desc_b,
-    int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
-      "{"
-      " %0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, "
-      "{%32, %33, %34, %35}, %36, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
-        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
-}
-
 __device__ __forceinline__ void wgmma_m64n32k32_s8(int (&d)[16],
     uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t desc_b,
     int scale_d) {
@@ -726,31 +643,37 @@ __device__ __forceinline__ void wg_write_pe(const float* pts, int N, int base,
 //
 // An int8 layer ends in t = acc * A + B per output (per-channel f32 columns,
 // the product rounded before B is added), then the code clamp(floor(t + .5),
-// 0, 254) - 127 of the next layer's A operand. Written with the conversion
-// instructions (I2F, FRND, F2I: 16 results a clock an SM on this card, a
-// quarter of FADD) it took a sixth of the first int8 kernel; here it is
-// IADD / FADD / FMUL / FMNMX / PRMT, with every rounding point kept. The
+// 0, 254) - 127 of the next layer's A operand. Written with FRND and F2I
+// (conversion instructions: 16 results a clock an SM on this card, a quarter
+// of FADD) the floor took a sixth of the first int8 kernel; here it is
+// I2FP / FMUL / FADD / one FMNMX / PRMT, with every rounding point kept. The
 // wrapper stores every requantised layer's A and B (and the addends of
 // layers 5 and view: the w5p panel, vcon_scale) times 2^-8, so the kernel
 // computes t' = t / 256 exactly (a power of two commutes with every
-// rounding, and nothing here comes near the subnormal range), and the floor
-// lands in the low byte of an add with a unit in the last place of 1 / 256.
+// rounding, and nothing here comes near the subnormal range): the clamp at 0
+// is then the saturation of the add of .5 / 256, which costs nothing, where
+// an FMNMX costs as much as a few FADDs (the two FMNMX of the clamp took
+// over a quarter of the kernel), and the floor lands in the low byte of an
+// add with a unit in the last place of 1 / 256.
 
-// The s32 sum of an int8 product as f32, exactly, for |v| < 2^22 (|v| <= 256 *
-// 127 * 127 here): the bits of 1.5 * 2^23 + v, less 1.5 * 2^23.
+// The s32 sum of an int8 product as f32, exactly (|v| <= 256 * 127 * 127 <
+// 2^24). One I2FP: measured cheaper than the bits of 1.5 * 2^23 + v less
+// 1.5 * 2^23 (an IADD and an FADD), which gives the same value for |v| <
+// 2^22 (`scripts/torch_nerf_q_variants.py`, copy `magic_s32`).
 __device__ __forceinline__ float s32_f32(int v) {
-  return __fsub_rn(__int_as_float(v + 0x4B400000), 12582912.0f);
+  return __int2float_rn(v);
 }
 
 // The code of t = 256 t' in the low byte (the other bytes are not zero): y =
 // clamp(t' + 2^-9, 0, 254 / 256) (clamping before the floor is clamping after
-// it: floor is monotone and the bounds are whole codes; fmaxf takes a NaN to
-// 0), then y + 2^15 +
+// it: floor is monotone and the bounds are whole codes; the saturation takes
+// a NaN to 0), then y + 2^15 +
 // 129 / 256 rounded down, whose unit in the last place is 1 / 256, so it is
 // 2^15 + (floor(256 y) + 129) / 256, and the low byte of its bits is
 // floor(256 y) + 129 = floor(256 y) - 127 mod 256.
 __device__ __forceinline__ uint32_t requant_byte(float t) {
-  const float y = fmaxf(__fadd_rn(t, 0.001953125f), 0.0f);   // + 2^-9
+  float y;   // t' + 2^-9, saturated to [0, 1] (FADD.SAT: no FMNMX)
+  asm("add.rn.sat.f32 %0, %1, 0f3B000000;\n" : "=f"(y) : "f"(t));
   return __float_as_uint(__fadd_rd(fminf(y, 0.9921875f), 32768.50390625f));
 }
 
@@ -784,15 +707,15 @@ __device__ __forceinline__ void wg_requant(uint32_t* a, const float4* cols,
   }
 }
 
-// Queue the products of one quarter of an int8 layer (64 outputs, K = 256)
-// into d: A from the 32 registers h, B from 64 rows of each of the two
+// Queue the products of one eighth of an int8 layer (32 outputs, K = 256)
+// into d: A from the 32 registers h, B from 32 rows of each of the two
 // k-slabs [128 x 128] of a stage, the first at shared address `rows`.
-__device__ __forceinline__ void wg_quarter_s8(int (&d)[32], uint32_t (&h)[32],
-                                              uint32_t rows) {
+__device__ __forceinline__ void wg_eighth_s8(int (&d)[16], uint32_t (&h)[32],
+                                             uint32_t rows) {
   hp::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk)
-    hp::wgmma_m64n64k32_s8(
+    hp::wgmma_m64n32k32_s8(
         d, h[4 * kk], h[4 * kk + 1], h[4 * kk + 2], h[4 * kk + 3],
         hp::desc_k128(rows + (kk / 4) * kSlab128Bytes) +
             (kk % 4) * hp::kDescKStep,
@@ -800,50 +723,50 @@ __device__ __forceinline__ void wg_quarter_s8(int (&d)[32], uint32_t (&h)[32],
   hp::wgmma_commit();
 }
 
-// One 256-wide int8 layer of K = 256 on the codes h, in place, in quarters of
-// 64 outputs: t = acc * A + B, requantised. The panel arrives as two stages
-// of a half. The quarters alternate between the two halves of `acc`, so that
-// the products of one run while the epilogue of the one before does: the
-// tensor cores never wait for an epilogue of this warpgroup, and no
-// accumulator block is larger than 32 registers (with halves of 128, ptxas
-// ran out of registers and serialized the products). `cols` as for
-// wg_requant, the layer's 128 pairs.
-__device__ __forceinline__ void wg_layer256_s8(int (&acc)[64],
+// One 256-wide int8 layer of K = 256 on the codes h, in place, in eighths of
+// 32 outputs: t = acc * A + B, requantised. The panel arrives as two stages
+// of a half (eighths 0..3, then 4..7). The eighths alternate between the
+// two halves of `acc`, so that the products of one run while the epilogue of
+// the one before does: the tensor cores never wait for an epilogue of this
+// warpgroup. Blocks of 16 accumulators keep ptxas' register budget: with
+// halves of 128 outputs it serialized the products, and quarters left no
+// room for the epilogue's saturating add. `cols` as for wg_requant, the
+// layer's 128 pairs.
+__device__ __forceinline__ void wg_layer256_s8(int (&acc)[32],
                                                uint32_t (&h)[32], WgRing& ring,
                                                const float4* cols) {
-  int (&a0)[32] = *reinterpret_cast<int (*)[32]>(acc);
-  int (&a1)[32] = *reinterpret_cast<int (*)[32]>(acc + 32);
-  uint32_t out[24];
-  auto requant = [&](int (&d)[32], uint32_t* dst, int qt) {
-    wg_requant<32>(dst, cols + 32 * qt, [&](int i, float ca, float cb) {
-      return __fadd_rn(__fmul_rn(s32_f32(d[i]), ca), cb);
-    });
-  };
+  int (&b0)[16] = *reinterpret_cast<int (*)[16]>(acc);
+  int (&b1)[16] = *reinterpret_cast<int (*)[16]>(acc + 16);
+  constexpr uint32_t kRows32 = 32 * 128;   // 32 panel rows of a slab
+  uint32_t out[28];
   const uint32_t s0 = ring.wait();
-  wg_quarter_s8(a0, h, s0);
-  wg_quarter_s8(a1, h, s0 + kSlab128Bytes / 2);
+  wg_eighth_s8(b0, h, s0);
+  wg_eighth_s8(b1, h, s0 + kRows32);
   const uint32_t first = ring.advance();
-  hp::wgmma_wait<1>();
-  hp::keep(a0);
-  requant(a0, out, 0);
-  const uint32_t s1 = ring.wait();
-  wg_quarter_s8(a0, h, s1);
-  hp::wgmma_wait<1>();
-  hp::keep(a1);
-  ring.release(first);
-  requant(a1, out + 8, 1);
-  wg_quarter_s8(a1, h, s1 + kSlab128Bytes / 2);
-  hp::wgmma_wait<1>();
-  hp::keep(a0);
-  requant(a0, out + 16, 2);
-  hp::wgmma_wait<0>();
-  hp::keep(a1);
-  hp::keep(h);
-  ring.release(ring.advance());
-  // the last quarter's codes go straight into h: its products are done
-  requant(a1, h + 24, 3);
+  uint32_t s1 = 0;
 #pragma unroll
-  for (int i = 0; i < 24; ++i) h[i] = out[i];
+  for (int e = 0; e < 8; ++e) {
+    int (&d)[16] = e % 2 ? b1 : b0;
+    if (e < 7) hp::wgmma_wait<1>();
+    else hp::wgmma_wait<0>();
+    hp::keep(d);
+    if (e == 3) ring.release(first);   // eighths 0..3 read the first stage
+    if (e == 7) {
+      hp::keep(h);
+      ring.release(ring.advance());
+    }
+    // the last eighth's codes go straight into h: its products are done
+    wg_requant<16>(e < 7 ? out + 4 * e : h + 28, cols + 16 * e,
+                   [&](int i, float ca, float cb) {
+                     return __fadd_rn(__fmul_rn(s32_f32(d[i]), ca), cb);
+                   });
+    if (e + 2 < 8) {
+      if (e + 2 == 4) s1 = ring.wait();
+      wg_eighth_s8(d, h, (e + 2 < 4 ? s0 : s1) + ((e + 2) % 4) * kRows32);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 28; ++i) h[i] = out[i];
 }
 
 }  // namespace pn

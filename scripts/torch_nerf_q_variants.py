@@ -36,38 +36,36 @@ from pronerf_tpu_torch.models.pronerf import view_contribution
 from pronerf_tpu_torch.ops.encoding import positional_encoding
 
 KERNEL = "nerf_q_wg_kernel"
-_S32 = "return __fsub_rn(__int_as_float(v + 0x4B400000), 12582912.0f);"
-_Y = "const float y = fmaxf(__fadd_rn(t, 0.001953125f), 0.0f);"
+_S32 = "return __int2float_rn(v);"
+_Y = ('asm("add.rn.sat.f32 %0, %1, 0f3B000000;\\n" : "=f"(y) : "f"(t));')
 _REQUANT = ("return __float_as_uint(__fadd_rd(fminf(y, 0.9921875f), "
             "32768.50390625f));")
 
 # name: ([(file, old, new)], EXACT)
 VARIANTS = {
     "as_is": ([], True),
-    # the epilogue with the conversion instructions (I2F; FRND and F2I), as
-    # the first int8 kernel wrote it (on t = 256 t'): the same codes
+    # the floor and the clamps with the conversion instructions (FRND and
+    # F2I), as the first int8 kernel wrote them (on t = 256 t'): the same codes
     "conversions": ([
-        ("hopper.cuh", _S32, "return (float)v;"),
         ("hopper.cuh", _Y,
-         "const float y = fminf(fmaxf(floorf(__fadd_rn(__fmul_rn(t, 256.0f), "
-         "0.5f)), 0.0f), 254.0f);"),
+         "y = fminf(fmaxf(floorf(__fadd_rn(__fmul_rn(t, 256.0f), 0.5f)), "
+         "0.0f), 254.0f);"),
         ("hopper.cuh", _REQUANT, "return (uint32_t)(__float2int_rn(y) - 127);"),
     ], True),
-    # s32 -> f32 by the conversion instruction alone (I2FP on this card)
-    "i2fp": ([("hopper.cuh", _S32, "return (float)v;")], True),
-    # the clamp at 0 as the saturation of the add (add.rn.sat: to [0, 1]),
-    # one FMNMX less an element
-    "sat": ([("hopper.cuh", _Y,
-              "float y;\n  asm(\"add.rn.sat.f32 %0, %1, 0f3B000000;\\n\" "
-              ": \"=f\"(y) : \"f\"(t));")], True),
+    # s32 -> f32 as the bits of 1.5 * 2^23 + v, less 1.5 * 2^23 (an IADD
+    # and an FADD in the place of one I2FP)
+    "magic_s32": ([("hopper.cuh", _S32, "return __fsub_rn(__int_as_float("
+                    "v + 0x4B400000), 12582912.0f);")], True),
+    # the clamp at 0 as an FMNMX, as step 5 had it
+    "fmnmx": ([("hopper.cuh", _Y, "y = fmaxf(__fadd_rn(t, 0.001953125f), 0.0f);")],
+              True),
     # the floor's add rounded to nearest (wrong codes on purpose): what the
     # round-down mode costs
     "rn_floor": ([("hopper.cuh", _REQUANT,
                    "return __float_as_uint(__fadd_rn(fminf(y, 0.9921875f), "
                    "32768.50390625f));")], False),
     # no clamps (wrong codes on purpose): what the two FMNMX cost
-    "no_clamp": ([("hopper.cuh", _Y,
-                   "const float y = __fadd_rn(t, 0.001953125f);"),
+    "no_clamp": ([("hopper.cuh", _Y, "y = __fadd_rn(t, 0.001953125f);"),
                   ("hopper.cuh", _REQUANT,
                    "return __float_as_uint(__fadd_rd(y, 32768.50390625f));")],
                  False),

@@ -348,7 +348,7 @@ def test_blob_layout_matches_the_kernel_source(carried):
     assert 8 * 2048 + 2048 + 1024 + 512 + 128 == 4 * n_cols
     assert "__fmul_rn" in src and "__fadd_rn" in src
     assert "nerf_q_wg_kernel" in src and "mma.sync" not in src
-    assert "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8" in (
+    assert "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8" in (
         build.CSRC / "hopper.cuh").read_text()
 
     # the columns: pairs {A(2p), A(2p+1), B(2p), B(2p+1)} per layer

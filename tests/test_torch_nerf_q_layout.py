@@ -13,9 +13,11 @@ CPU with numpy models and integer arithmetic; no card, no ``nvcc``.
   codes of the next ``wgmma``; without pi they are not. The maps the kernel
   indexes by (the requant packing, the per-channel columns, ``vcon``, the
   heads) are stated as the integer arithmetic of its source.
-* The epilogue without conversion instructions: s32 -> f32 as the bits of
-  1.5 * 2^23 + acc less 1.5 * 2^23, the floor as an add rounded down, both
-  modelled in numpy against exact conversion and against ``_requant``.
+* The epilogue without the floor's and clamp's conversion instructions: the
+  floor as an add rounded down on t / 256 saturated to [0, 1], modelled in
+  numpy against ``_requant``; and the s32 -> f32 of the ``magic_s32`` copy
+  of the variants script (the bits of 1.5 * 2^23 + acc less 1.5 * 2^23)
+  against exact conversion.
 * A CPU emulation of the kernel's order (panels and columns read out of the
   blob, codes in permuted order, the numpy models of the epilogue) is bit for
   bit the plain version.
@@ -133,8 +135,10 @@ def columns(packed, blob):
 
 
 def s32_f32(acc):
-    """The kernel's s32 -> f32: the bits of 0x4B400000 + acc as f32, less
-    12582912 (1.5 * 2^23), in f32."""
+    """s32 -> f32 without a conversion instruction (the ``magic_s32`` copy of
+    ``scripts/torch_nerf_q_variants.py``): the bits of 0x4B400000 + acc as
+    f32, less 12582912 (1.5 * 2^23), in f32. The kernel takes one I2FP, which
+    is exact for these sums."""
     bits = (np.asarray(acc, np.int64) + 0x4B400000).astype(np.int32)
     return bits.view(np.float32) - np.float32(12582912.0)
 
@@ -151,13 +155,13 @@ def fadd_rd(x, y):
 
 def requant_code(t_scaled):
     """The kernel's requantisation (``requant_byte``) of t' = t / 256 (f32):
-    y = fmaxf(t' + 2^-9, 0) (a NaN goes to 0, as np.fmax), then fminf(y,
-    254 / 256), then the low byte of that plus 2^15 + 129 / 256 rounded
-    down, as an int8 code."""
+    y = t' + 2^-9 saturated to [0, 1] (add.rn.sat: a NaN goes to 0), then
+    fminf(y, 254 / 256), then the low byte of that plus 2^15 + 129 / 256
+    rounded down, as an int8 code."""
     y = (np.asarray(t_scaled, np.float32) + np.float32(2.0 ** -9)).astype(
         np.float32)
-    y = np.fmax(y, np.float32(0.0))
-    y = np.fmin(y, np.float32(254 / 256))
+    y = np.where(np.isnan(y), np.float32(0.0), np.clip(y, 0.0, 1.0))
+    y = np.fmin(y.astype(np.float32), np.float32(254 / 256))
     bits = fadd_rd(y.astype(np.float32), 32768.50390625).view(np.uint32)
     return (bits & 0xFF).astype(np.uint8).view(np.int8)
 
@@ -503,8 +507,8 @@ def test_requant_model_is_floor_and_clamp_exactly():
 def emulate_kernel_order(packed, blob, pts24_t, vcon_t, S=8):
     """The int8 chain in the kernel's order: every int8 panel and every
     per-channel column read out of the blob, the activation's codes carried
-    in the permuted order the A registers hold them (codes[:, pi]), s32 ->
-    f32 and the requantisation by the numpy models above, on t / 256 as the
+    in the permuted order the A registers hold them (codes[:, pi]), the
+    requantisation by the numpy model above, on t / 256 as the
     kernel computes it. The two PE products are the plain version's own f32
     sums (the kernel's f32 sums on the tensor cores run in another order,
     which no CPU model repeats)."""
@@ -531,7 +535,7 @@ def emulate_kernel_order(packed, blob, pts24_t, vcon_t, S=8):
         k = w.shape[1]
         acc = codes[:, fq.k_perm(k)].astype(np.int64) @ w.T
         assert np.abs(acc).max() <= ACC_MAX
-        t = s32_f32(acc) * cols[a]
+        t = acc.astype(f32) * cols[a]   # I2FP: exact for these sums
         if mid is not None:
             t = (t + mid).astype(f32)
         return (t + cols[b]).astype(f32)
