@@ -50,13 +50,13 @@
 //    registers: in quarters ptxas spilled and serialized the products), two
 //    to a stage of [PE slab | two int8 slabs] for 64 panel rows; layer 0
 //    (f32 sums only) in eighths too, so that the f32 accumulators are 16;
-//  * the view layer runs in eighths of 32 outputs: its `vcon` term is f32
-//    (64 KB a tile, too much shared memory beside the ring), so each thread
-//    loads its own 16 `vcon` values of an eighth from device memory one
-//    eighth ahead, and scales them by `vcon_scale` there. A tile's `vcon`
-//    stays in L2 over its S samples, and each sample brings the thread's
-//    lines into L1 three layers before the view (from L2 the loads cost a
-//    quarter of the kernel);
+//  * the view layer runs in eighths of 32 outputs; its `vcon * vcon_scale`
+//    term (f32, the same for the S samples of a ray) is written once a tile
+//    by the helper warps into shared memory, in the order of the view
+//    layer's accumulators, so each thread reads its own values with
+//    conflict-free loads (read from device memory in the epilogue, even one
+//    eighth ahead or prefetched into L1, they cost a quarter of the kernel).
+//    The 64 KB leave room for three ring slots, not four;
 //  * the heads are m64n8k32 on resident slabs; the lane of q = 0 stores a
 //    ray's [rgb, sigma] of a sample as one float4 straight to `raw`, so no
 //    result buffer takes shared memory and S does not bound it.
@@ -125,19 +125,25 @@ static_assert(QBlob::stage_bytes(0) == kRingStageBytes, "a stage fits a slot");
 // Shared memory of the int8 kernel, from a 1,024-byte boundary: the PE rows
 // (two buffers: the next sample's are written while this one's are read),
 // the resident part of the blob (head slabs, then the columns), the
-// mbarriers, the weight ring. The results go straight to device memory, so
-// nothing here depends on S: what fits at S = 8 fits at every S the wrapper
-// takes.
+// mbarriers, the tile's vcon * vcon_scale (f32, in the order of the view
+// layer's accumulators: [2 wg][64 elements][128 threads]), the weight ring
+// of three slots (the fourth would not fit beside the 64 KB of vcon). The
+// results go straight to device memory, so nothing here depends on S: what
+// fits at S = 8 fits at every S the wrapper takes.
 struct QSmem {
   static constexpr int kPeBytes = kWgRays * kPE * 2;   // one warpgroup's rows
   static constexpr int pe = 0;                         // [2][2 wg][64][64]
   static constexpr int resident = pe + 4 * kPeBytes;
   static constexpr int cols = resident + QBlob::kHeadBytes;
   static constexpr int bars = resident + QBlob::kResidentBytes;
-  static constexpr int ring = (bars + 128 + 1023) & ~1023;
-  static constexpr int kBytes = 1024 + ring + kMaxStages * kRingStageBytes;
+  static constexpr int vv = bars + 128;
+  static constexpr int kVvBytes = 2 * 64 * 128 * 4;
+  static constexpr int kStages = 3;
+  static constexpr int ring = (vv + kVvBytes + 1023) & ~1023;
+  static constexpr int kBytes = 1024 + ring + kStages * kRingStageBytes;
 };
 static_assert(QSmem::resident % 1024 == 0, "head slabs on a 1,024-byte line");
+static_assert(QSmem::kStages <= kMaxStages, "ring barriers");
 static_assert(QSmem::kBytes <= 232448, "fits the 227 KB of a block");
 
 struct NerfQArgs {
@@ -147,6 +153,26 @@ struct NerfQArgs {
   float* raw;          // [N, S, 4]
   int N, S;
 };
+
+// vcon * vcon_scale of the 128 rays from `base` (`vscale` is the blob's,
+// times 2^-8 as the other addends of the requant), written by the helper
+// threads (`t` of kHelpers) into `vv` in the order of the view layer's
+// accumulators: element i of eighth e of consumer thread wt of warpgroup w at
+// vv[(w * 64 + 16 e + i) * 128 + wt], the (row, column) of that accumulator
+// (hopper.cuh). Rays are read along the array, so the loads coalesce.
+__device__ __forceinline__ void q_write_vcon(const NerfQArgs& a, int base,
+                                             const float* vscale, float* vv,
+                                             int t) {
+  for (int idx = t; idx < kWgTile * 128; idx += kHelpers) {
+    const int r = idx % kWgTile, c = idx / kWgTile;
+    const float v = base + r < a.N ? a.vcon[(size_t)c * a.N + base + r] : 0.0f;
+    const int w = r >> 6, row = r & 63;   // warpgroup, its row
+    const int wt = 32 * (row >> 4) + 4 * (row & 7) + ((c >> 1) & 3);
+    const int i = 16 * (c >> 5) + 4 * ((c >> 3) & 3) + 2 * ((row >> 3) & 1) +
+                  (c & 1);
+    vv[(w * 64 + i) * 128 + wt] = __fmul_rn(v, vscale[c]);
+  }
+}
 
 __global__ void __launch_bounds__(kWgThreads, 1)
     nerf_q_wg_kernel(const __grid_constant__ NerfQArgs a) {
@@ -158,10 +184,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
   const int N = a.N, S = a.S;
   const int tid = threadIdx.x, wg = tid >> 7;
-  // mbarriers: the weight ring, the resident part, the PE rows
+  // mbarriers: the weight ring, the resident part, the PE rows, the vcon
   const uint32_t full = sm32 + M::bars, empty = full + 8 * kMaxStages,
                  res_bar = empty + 8 * kMaxStages, pe_full = res_bar + 8,
-                 pe_empty = pe_full + 16;
+                 pe_empty = pe_full + 16, vv_full = pe_empty + 16,
+                 vv_empty = vv_full + 8;
   const uint32_t ring_buf = sm32 + M::ring;
   const int n_tiles = (N + kWgTile - 1) / kWgTile;
 
@@ -175,6 +202,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       hp::mbar_init(pe_full + 8 * i, 3);    // helper warps
       hp::mbar_init(pe_empty + 8 * i, 8);   // consumer warps
     }
+    hp::mbar_init(vv_full, 3);
+    hp::mbar_init(vv_empty, 8);
     hp::mbar_fence_init();
   }
   __syncthreads();
@@ -190,7 +219,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         hp::mbar_arrive_expect_tx(res_bar, QBlob::kResidentBytes);
         hp::bulk_g2s(sm32 + M::resident, a.blob + QBlob::resident,
                      QBlob::kResidentBytes, res_bar);
-        WgRingFill fill = {{empty, kMaxStages, 0, 0}, full, ring_buf};
+        WgRingFill fill = {{empty, M::kStages, 0, 0}, full, ring_buf};
         for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
           for (int s = 0; s < S; ++s) {
             int off = 0;
@@ -201,9 +230,16 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           }
       }
     } else {
-      // three warps write the PE rows, up to two samples ahead
+      // Three warps write the PE rows, up to two samples ahead, and once a
+      // tile, after its first sample's rows, the tile's vcon * vcon_scale,
+      // once the consumers' last view layer of the tile before is done.
       const int t = tid - (kWgThreads - kHelpers);
+      const float* vscale =
+          reinterpret_cast<const float*>(sm + M::cols + QBlob::c_vscale);
+      float* vv = reinterpret_cast<float*>(sm + M::vv);
       WgTurns pt = {pe_empty, 2, 0, 0};
+      uint32_t vv_phase = 0;
+      hp::mbar_wait(res_bar, 0);
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
         for (int s = 0; s < S; ++s) {
           hp::mbar_wait(pt.bar(), pt.phase ^ 1);
@@ -213,6 +249,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           __syncwarp();
           if (lane == 0) hp::mbar_arrive(pe_full + 8 * pt.at);
           pt.next();
+          if (s == 0) {
+            hp::mbar_wait(vv_empty, vv_phase ^ 1);
+            q_write_vcon(a, tile * kWgTile, vscale, vv, t);
+            __syncwarp();
+            if (lane == 0) hp::mbar_arrive(vv_full);
+            vv_phase ^= 1;
+          }
         }
     }
   } else {
@@ -225,8 +268,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     // this thread's first column pair of each epilogue (see wg_requant): a
     // layer's pairs are 128 float4 apart
     const float4* cols = reinterpret_cast<const float4*>(sm + M::cols) + q;
-    const float2* vscale =
-        reinterpret_cast<const float2*>(sm + M::cols + QBlob::c_vscale) + q;
+    // this thread's copy of vcon * vcon_scale, element i at vv[i * 128]
+    const float* vv = reinterpret_cast<const float*>(sm + M::vv) +
+                      wg * 64 * 128 + wt;
+    uint32_t vv_phase = 0;
     const float* head =   // Aa, Ba, Ar, Br
         reinterpret_cast<const float*>(sm + M::cols + QBlob::c_heads);
     const uint64_t alpha_desc = hp::desc_k128(sm32 + M::resident);
@@ -234,7 +279,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         hp::desc_k128(sm32 + M::resident + QBlob::kAlphaBytes);
     hp::mbar_wait(res_bar, 0);
 
-    WgRing ring = {{full, kMaxStages, 0, 0}, empty, ring_buf};
+    WgRing ring = {{full, M::kStages, 0, 0}, empty, ring_buf};
     WgTurns pt = {pe_full, 2, 0, 0};
     uint32_t h[32];   // the codes of the current activation, as A registers
     // The accumulators of every product, in the same registers all the way
@@ -335,16 +380,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         // this warp's last read of the sample's PE rows is behind it
         if (lane == 0) hp::mbar_arrive(pe_empty + 8 * pt.at);
         pt.next();
-        // This thread's vcon lines of the view layer into L1, three layers
-        // ahead of the view's loads (from L2 they cost a quarter of the
-        // kernel): one a column, whose line holds both rows of the thread.
-        if (row0 < live) {
-#pragma unroll 4
-          for (int c = 0; c < 32; ++c)
-            hp::prefetch_l1(a.vcon +
-                            (size_t)(8 * (c >> 1) + 2 * q + (c & 1)) * N +
-                            base + row0);
-        }
         // layers 6, 7
 #pragma unroll 1
         for (int l = 6; l <= 7; ++l)
@@ -369,22 +404,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         // the feature layer (linear: its offset is folded into B)
         wg_layer256_s8(acc, h, ring, cols + 128 * 8);
         // view branch in eighths of 32 outputs (two to a stage): (acc * Av +
-        // vcon * vcon_scale) + Bv. This thread's 16 vcon values of an eighth
-        // come from device memory (L2): the next eighth's are loaded while
-        // this one's products and epilogue run.
+        // vcon * vcon_scale) + Bv, the second term from the helpers' copy
+        // (a tile's first sample waits for it; its last releases it)
+        if (s == 0) hp::mbar_wait(vv_full, vv_phase);
         uint32_t hv[16];
-        auto load_vcon = [&](float (&v)[16], int e) {
-#pragma unroll
-          for (int i = 0; i < 16; ++i) {
-            const int r = row0 + 8 * ((i >> 1) & 1);
-            const int c = 32 * e + 8 * (i >> 2) + 2 * q + (i & 1);
-            v[i] = r < live ? __ldg(a.vcon + (size_t)c * N + base + r) : 0.0f;
-          }
-        };
-        float vc[16], vn[16];
-        load_vcon(vc, 0);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
+          float vc[16];
           hp::wgmma_fence();
           const uint32_t stage = ring.wait() + (e % 2) * (kSlab64Bytes / 2);
 #pragma unroll
@@ -395,7 +421,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                     (kk % 4) * hp::kDescKStep,
                 kk);
           hp::wgmma_commit();
-          if (e < 3) load_vcon(vn, e + 1);
+#pragma unroll
+          for (int i = 0; i < 16; ++i) vc[i] = vv[(16 * e + i) * 128];
           hp::wgmma_wait<0>();
           if (e % 2) ring.release(ring.advance());
           hp::keep(acc_e);
@@ -403,13 +430,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           wg_requant<16>(
               hv + 4 * e, cols + 128 * 9 + 16 * e,
               [&](int i, float ca, float cb) {
-                const float2 vs = vscale[16 * e + 4 * (i >> 2)];
-                const float v = __fmul_rn(vc[i], (i & 1) ? vs.y : vs.x);
                 return __fadd_rn(
-                    __fadd_rn(__fmul_rn(s32_f32(acc[i]), ca), v), cb);
+                    __fadd_rn(__fmul_rn(s32_f32(acc[i]), ca), vc[i]), cb);
               });
-#pragma unroll
-          for (int i = 0; i < 16; ++i) vc[i] = vn[i];
+        }
+        if (s == S - 1) {
+          if (lane == 0) hp::mbar_arrive(vv_empty);
+          vv_phase ^= 1;
         }
         // rgb head (columns 0..2 of 8, resident) on the 128 view codes; the
         // lane of q = 0 stores [rgb, sigma] of its rays, column 2 from the

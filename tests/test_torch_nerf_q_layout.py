@@ -292,21 +292,28 @@ def test_stage_table_agrees_with_the_cuda_source(packed_and_blob):
 
 def test_shared_memory_fits_at_every_sample_count():
     """QSmem as the source lays it out: nothing depends on S (the results go
-    straight to device memory), and the whole fits the 227 KB of a block
-    with four ring slots."""
+    straight to device memory), and the PE rows, the resident part, the
+    barriers, the tile's vcon (64 KB) and three ring slots fit the 227 KB of
+    a block; a fourth slot would not."""
     src = (CSRC / "fused_nerf_q.cu").read_text()
     hop = (CSRC / "hopper.cuh").read_text()
-    assert "kBytes = 1024 + ring + kMaxStages * kRingStageBytes" in src
     body = re.search(r"struct QSmem \{(.*?)\};", src, re.S).group(1)
     assert not re.search(r"\bS\b", body)
-    stages = int(re.search(r"kMaxStages = (\d+);", hop).group(1))
+    assert "kBytes = 1024 + ring + kStages * kRingStageBytes" in body
+    assert "kVvBytes = 2 * 64 * 128 * 4" in body
+    stages = int(re.search(r"kStages = (\d+);", body).group(1))
+    assert stages <= int(re.search(r"kMaxStages = (\d+);", hop).group(1))
     slot = int(re.search(r"kRingStageBytes = (\d+);", hop).group(1))
     pe = 4 * 64 * 64 * 2
     bars = pe + 3 * 1024 + (8 * 2048 + 2048 + 1024 + 512 + 128)
-    ring = (bars + 128 + 1023) & ~1023
-    assert 1024 + ring + stages * slot <= 232448
+    ring = (bars + 128 + 2 * 64 * 128 * 4 + 1023) & ~1023
+
+    def total(n):
+        return 1024 + ring + n * slot
+
+    assert total(stages) <= 232448 < total(stages + 1)
     assert max(b for _, b in fq.stage_table()) <= slot
-    assert bars - pe >= 0 and pe % 1024 == 0
+    assert pe % 1024 == 0 and (bars + 128) % 16 == 0
 
 
 # ------------------------------------------------------ fragment maps ----
@@ -397,30 +404,40 @@ def test_requant_reads_each_accumulators_own_column_pair():
 
 
 def test_view_and_head_maps_of_the_kernel():
-    """The view layer runs in eighths e of 32 outputs (m64n32): its epilogue
-    loads vcon at (row0 + 8 ((i >> 1) & 1), 32 e + 8 (i >> 2) + 2 q + (i & 1))
-    and vcon_scale from pair 16 e + 4 (i >> 2) + q, element i & 1, and writes
-    A registers 4 e .. 4 e + 3 of the rgb head (k-step e); the sigma head's
-    column 0 is accumulators 0 and 2 of the lanes q = 0; the rgb head's v[i]
-    is column 2 q + (i & 1), and the lane below takes column 2 from the lane
-    of q = 1 (shfl_down by 1)."""
+    """The view layer runs in eighths e of 32 outputs (m64n32). The helpers
+    write vcon * vcon_scale of ray r (of the tile's 128) and column c to
+    thread wt of warpgroup r >> 6, element 16 e + i, by the formulas of
+    ``q_write_vcon``; that is the (row, column) of that thread's accumulator
+    i of eighth e, each exactly once. The eighth writes A registers 4 e ..
+    4 e + 3 of the rgb head (k-step e); the sigma head's column 0 is
+    accumulators 0 and 2 of the lanes q = 0; the rgb head's v[i] is column
+    2 q + (i & 1), and the lane below takes column 2 from the lane of q = 1
+    (shfl_down by 1)."""
     src = (CSRC / "fused_nerf_q.cu").read_text()
-    assert "const int r = row0 + 8 * ((i >> 1) & 1);" in src
-    assert "const int c = 32 * e + 8 * (i >> 2) + 2 * q + (i & 1);" in src
-    assert "vscale[16 * e + 4 * (i >> 2)]" in src
-    assert "hv + 4 * e" in src
+    assert "const int w = r >> 6, row = r & 63;" in src
+    assert ("const int wt = 32 * (row >> 4) + 4 * (row & 7) + ((c >> 1) & 3);"
+            in src)
+    assert ("const int i = 16 * (c >> 5) + 4 * ((c >> 3) & 3) + "
+            "2 * ((row >> 3) & 1) +\n                  (c & 1);") in src
+    assert "vv[(w * 64 + i) * 128 + wt]" in src and "hv + 4 * e" in src
+    seen = np.zeros((2, 64, 128), np.int32)
+    for r in range(128):
+        for c in range(128):
+            w, row = r >> 6, r & 63
+            wt = 32 * (row >> 4) + 4 * (row & 7) + ((c >> 1) & 3)
+            ie = (16 * (c >> 5) + 4 * ((c >> 3) & 3) + 2 * ((row >> 3) & 1)
+                  + (c & 1))
+            seen[w, ie, wt] += 1
+            e, i = ie // 16, ie % 16
+            got_row, got_col = acc_element(wt, i)
+            assert (got_row, 32 * e + got_col) == (row, c), (r, c)
+    assert (seen == 1).all()
     pi = fq.k_perm(128)
     for t in range(128):
         w, lane = t // 32, t % 32
         g, q = lane // 4, lane % 4
         row0 = 16 * w + g
         for e in range(4):
-            for i in range(16):
-                r = row0 + 8 * ((i >> 1) & 1)
-                c = 32 * e + 8 * (i >> 2) + 2 * q + (i & 1)
-                row, col = acc_element(t, i)
-                assert (r, c) == (row, 32 * e + col)
-                assert (c // 2, c % 2) == (16 * e + 4 * (i >> 2) + q, i & 1)
             # the eighth's four A registers are k-step e of the rgb head
             for m in range(2):
                 for rr in range(2):
