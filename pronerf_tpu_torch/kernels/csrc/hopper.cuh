@@ -119,11 +119,6 @@ __device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src,
       : "memory");
 }
 
-// Bring the line that holds `p` (device memory) into this SM's L1.
-__device__ __forceinline__ void prefetch_l1(const void* p) {
-  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
-}
-
 // Writes made with ordinary stores become visible to `wgmma` and bulk copies
 // (the asynchronous proxy) of this block.
 __device__ __forceinline__ void fence_proxy_async() {
