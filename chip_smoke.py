@@ -23,7 +23,8 @@ falls back to the CPU. Phases, each printing one JSON line:
                 The MinMax kernel also with ``transpose_out=False``, with a
                 bf16 input and, for the refine shape, with the transposed
                 graph's permuted pack; the int8 kernel also against the bf16
-                kernel;
+                kernel; and each kernel past its former limits (the refine
+                net at C = 198 and 1542 input rows, 128 samples a ray);
 4. ``frame``    the serving path end to end, three times through
                 ``run_inference`` on the synthetic 504x378 scene with 17
                 views, release widths, bf16, whole frame in one tile, fused
@@ -36,17 +37,37 @@ falls back to the CPU. Phases, each printing one JSON line:
                 against the plain versions (the same code on CPU tensors),
                 the int8 path against the bf16 kernel path and against its
                 plain versions, the transposed graph against the row-major
-                one. Launch counters (the MinMax one by input width, so
-                sampler and refine are counted apart, and its untransposed
-                form apart again) are zeroed before and read after each drive.
+                one; then four more drives at the shapes past the kernels'
+                former limits: 16 samples a ray (refine C = 198), and 128
+                (refine C = 1542, its head in parts; the NeRF kernels at S =
+                128) in the default, the int8 and the transposed graph.
+                Launch counters (the MinMax one by input width, so sampler
+                and refine are counted apart, and its untransposed form
+                apart again; the NeRF ones also by samples a ray) are zeroed
+                before and read after each drive;
+5. ``train``    the training slice at release widths (``fern_epi.txt``,
+                ``fern_refine.txt``) on the same scene (14 train views):
+                ``run_training`` for 4 steps of stage 1 (2 pairs, writing an
+                ``i_img`` PNG) and 2 of stage 2 bootstrapped from that
+                expdir, every kernel counter 0 across both (training runs no
+                kernel); a run of 2 steps resumed for 2 more, equal to the
+                uninterrupted run in every logged loss and in the weights;
+                the stage-2 checkpoint served by ``run_inference`` through
+                the kernels (``fern_trt.txt``), its frame equal to a render
+                from the checkpoint's params passed in directly and not to
+                one from untrained weights; ms a step by CUDA events (median
+                of 5 after 2) and peak memory for the NeRF step at n_mult =
+                1 and 8, the sampler step and the stage-2 step, at 4096
+                rays; one step of each kind on the card held against the
+                same step on CPU tensors (``TRAIN_TOL``).
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line with
 the roofline bound of each kernel beside its measured time, and last
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero and no result line is printed.
 
-``--only build|kernels|frame`` runs a subset while developing, ``--rays N``
-shrinks the kernel phase, ``--profile`` adds ``profile`` lines (device time
+``--only build|kernels|frame|train`` runs a subset while developing,
+``--rays N`` shrinks the kernel phase, ``--profile`` adds ``profile`` lines (device time
 by kernel name over a few frames of the fused-composite, the int8 and the
 transposed frame; the launches of the MinMax and the int8 NeRF kernel
 one by one).
@@ -240,7 +261,7 @@ def minmax_case(net, reps, C, n_rays, dtype, device, seed):
             "untransposed": (max_err(k_t, k.T), 0.0),
             "bf16_input": (max_err(k_b, pl_b), tol["head"]),
         }
-        if C > 6:
+        if C == 102:
             # the transposed graph's pack: first-layer rows permuted, and
             # the input rows with them
             perm = refine_rest_row_perm(4, 8)
@@ -415,12 +436,39 @@ KERNELS = (
      "pronerf_tpu/kernels/fused_nerf.py:302"),
     ("fused_nerf_raw_tq", "pronerf_tpu_torch/kernels/csrc/fused_nerf_q.cu",
      "pronerf_tpu/kernels/fused_nerf_q.py:351"),
+    # the same kernels past their former limits, at shapes the release
+    # configs do not reach: the refine net of 16 samples and 128 samples of
+    # 4 views (layer 0 in 2 / 13 passes), 128 samples a ray (16 chunks of
+    # results). The frame phase serves frames of 16 and of 128 samples a ray
+    # through the same entry point, which launch them at these shapes.
+    ("fused_minmax_t[refine,C=198]",
+     "pronerf_tpu_torch/kernels/csrc/fused_minmax.cu",
+     "pronerf_tpu/kernels/fused_minmax.py:125"),
+    ("fused_minmax_t[refine,C=1542]",
+     "pronerf_tpu_torch/kernels/csrc/fused_minmax.cu",
+     "pronerf_tpu/kernels/fused_minmax.py:125"),
+    ("fused_nerf_raw_t[S=128]", "pronerf_tpu_torch/kernels/csrc/fused_nerf.cu",
+     "pronerf_tpu/kernels/fused_nerf.py:196"),
+    ("fused_nerf_composite_t[S=128]",
+     "pronerf_tpu_torch/kernels/csrc/fused_nerf.cu",
+     "pronerf_tpu/kernels/fused_nerf.py:302"),
+    ("fused_nerf_raw_tq[S=128]",
+     "pronerf_tpu_torch/kernels/csrc/fused_nerf_q.cu",
+     "pronerf_tpu/kernels/fused_nerf_q.py:351"),
 )
 # the instantiations each kernel has; the first is the one its main path runs
-DTYPES = {"fused_nerf_raw_tq": ("int8",)}
+DTYPES = {"fused_nerf_raw_tq": ("int8",), "fused_nerf_raw_tq[S=128]": ("int8",),
+          "fused_minmax_t[refine,C=198]": ("bfloat16",),
+          "fused_minmax_t[refine,C=1542]": ("bfloat16",)}
 BOTH = ("bfloat16", "float32")
 TINY_TOO = ("fused_minmax_t[sampler]", "fused_minmax_t[refine]",
             "fused_nerf_raw_t", "fused_nerf_composite_t", "fused_nerf_raw_tq")
+# the wide rows: (samples a ray, rays); a ray count that keeps them short
+WIDE = {"fused_minmax_t[refine,C=198]": (16, 16384),
+        "fused_minmax_t[refine,C=1542]": (128, 16384),
+        "fused_nerf_raw_t[S=128]": (128, 8192),
+        "fused_nerf_composite_t[S=128]": (128, 8192),
+        "fused_nerf_raw_tq[S=128]": (128, 8192)}
 # the kernels on wgmma, by source: ptxas must neither serialize their products
 # nor spill
 WGMMA_KERNELS = {"fused_minmax": "minmax_wg_kernel",
@@ -434,6 +482,14 @@ WGMMA_KERNELS = {"fused_minmax": "minmax_wg_kernel",
 CONVERSIONS = ("I2F", "F2I", "F2IP", "FRND", "I2I", "I2IP")
 
 
+def wide_refine(S, views, device):
+    """A refine net of ``S`` samples and ``views`` views, seeded."""
+    from pronerf_tpu_torch.models.mlp import MinMaxMLP
+
+    return MinMaxMLP(6, 256, 6 * S + 3 * views * S, 4 * S + 3, (),
+                     torch.Generator().manual_seed(S * views), device)
+
+
 def make_case(name, nets, n_rays, dtype, device, seed):
     if name == "fused_minmax_t[sampler]":
         return minmax_case(nets["sampler"], 48, 6, n_rays, dtype, device,
@@ -441,10 +497,17 @@ def make_case(name, nets, n_rays, dtype, device, seed):
     if name == "fused_minmax_t[refine]":
         return minmax_case(nets["refine"], 8, 102, n_rays, dtype, device,
                            seed)
-    if name == "fused_nerf_raw_tq":
-        return nerf_q_case(nets["nerf"], n_rays, device, seed)
-    kind = "raw" if name == "fused_nerf_raw_t" else "comp"
-    return nerf_case(kind, nets["nerf"], n_rays, dtype, device, seed)
+    if name.startswith("fused_minmax_t[refine,C="):
+        C, S = int(name[len("fused_minmax_t[refine,C="):-1]), WIDE[name][0]
+        views = (C - 6) // (3 * S)
+        return minmax_case(wide_refine(S, views, device), S, C, n_rays,
+                           dtype, device, seed)
+    S = WIDE.get(name, (8,))[0]
+    base = name.split("[")[0]
+    if base == "fused_nerf_raw_tq":
+        return nerf_q_case(nets["nerf"], n_rays, device, seed, S)
+    kind = "raw" if base == "fused_nerf_raw_t" else "comp"
+    return nerf_case(kind, nets["nerf"], n_rays, dtype, device, seed, S)
 
 
 def wrappers():
@@ -539,21 +602,22 @@ def phase_kernels(device, n_rays):
     nets = make_nets(0, device)
     rows = []
     for name, source, replaces in KERNELS:
+        rays = min(n_rays, WIDE[name][1]) if name in WIDE else n_rays
         for dname in DTYPES.get(name, BOTH):
             dtype = getattr(torch, dname)
             tol = TOL[dname]
             before = counter(name).launches
             # the ragged count first: a short run that also checks the mask
             _, _, compare_r, _, _ = make_case(
-                name, nets, RAGGED if n_rays > RAGGED else n_rays - 37,
+                name, nets, RAGGED if rays > RAGGED else rays - 37,
                 dtype, device, seed=1)
             errs = {f"ragged_{k}": v for k, v in compare_r(tol).items()}
-            if name in TINY_TOO and n_rays > TINY:
+            if name in TINY_TOO and rays > TINY:
                 _, _, compare_t, _, _ = make_case(
                     name, nets, TINY, dtype, device, seed=3)
                 errs |= {f"tiny_{k}": v for k, v in compare_t(tol).items()}
             kernel, plain, compare, work, nbytes = make_case(
-                name, nets, n_rays, dtype, device, seed=2)
+                name, nets, rays, dtype, device, seed=2)
             errs.update(compare(tol))
             torch.cuda.synchronize()
             ms = cuda_ms(kernel, 5)
@@ -565,7 +629,7 @@ def phase_kernels(device, n_rays):
             bound_bytes = nbytes / PEAK_BYTES_S * 1e3
             row = {
                 "name": name, "dtype": dname, "route": "cuda",
-                "source": source, "replaces": replaces, "rays": n_rays,
+                "source": source, "replaces": replaces, "rays": rays,
                 # measures that are not absolute errors against the plain
                 # version (disp relative to its size, the int8 kernel's
                 # share and its distance to the bf16 kernel) are listed in
@@ -596,7 +660,15 @@ def phase_kernels(device, n_rays):
 
 # ------------------------------------------------------- frame phase ------
 
-MINMAX_WIDTH = {"fused_minmax_t[sampler]": 6, "fused_minmax_t[refine]": 102}
+MINMAX_WIDTH = {"fused_minmax_t[sampler]": 6, "fused_minmax_t[refine]": 102,
+                "fused_minmax_t[refine,C=198]": 198,
+                "fused_minmax_t[refine,C=1542]": 1542}
+# the NeRF kernels' rows at 128 samples a ray, counted by the wrappers'
+# launches by samples
+NERF_SAMPLES = {"fused_nerf_raw_t[S=128]": ("fused_nerf_raw_t", 128),
+                "fused_nerf_composite_t[S=128]": ("fused_nerf_composite_t",
+                                                  128),
+                "fused_nerf_raw_tq[S=128]": ("fused_nerf_raw_tq", 128)}
 UNTRANSPOSED = "fused_minmax_t[transpose_out=False]"
 
 
@@ -604,24 +676,33 @@ def reset_counters():
     w = wrappers()
     for fn in w.values():
         fn.launches = 0
+    for name in ("fused_nerf_raw_t", "fused_nerf_composite_t",
+                 "fused_nerf_raw_tq"):
+        w[name].launches_by_samples.clear()
     w["fused_minmax_t"].launches_by_width.clear()
     w["fused_minmax_t"].launches_untransposed.clear()
 
 
 def read_counters():
-    """Launches since the last reset, by the names of ``KERNELS``: the two
-    MinMax shapes from the wrapper's count by input width, and its launches
-    with ``transpose_out=False`` (both shapes together) under their own
-    name."""
+    """Launches since the last reset, by the names of ``KERNELS``: the
+    MinMax shapes from the wrapper's count by input width (a width of no
+    row fails), each NeRF kernel's launches at any S under its own name and
+    at S = 128 under its wide row's, and the MinMax kernel's launches with
+    ``transpose_out=False`` (all widths together) under their own name."""
     w = wrappers()
     by_width = w["fused_minmax_t"].launches_by_width
     counts = {name: by_width.get(c, 0) for name, c in MINMAX_WIDTH.items()}
-    if sum(by_width.values()) != w["fused_minmax_t"].launches:
+    if sum(counts.values()) != w["fused_minmax_t"].launches:
         raise SystemExit(f"fused_minmax_t counted {w['fused_minmax_t'].launches}"
                          f" launches, by width {by_width}")
     for name in ("fused_nerf_raw_t", "fused_nerf_composite_t",
                  "fused_nerf_raw_tq"):
         counts[name] = w[name].launches
+        if sum(w[name].launches_by_samples.values()) != counts[name]:
+            raise SystemExit(f"{name} counted {counts[name]} launches, by "
+                             f"samples {w[name].launches_by_samples}")
+    for name, (fn, S) in NERF_SAMPLES.items():
+        counts[name] = w[fn].launches_by_samples.get(S, 0)
     counts[UNTRANSPOSED] = sum(
         w["fused_minmax_t"].launches_untransposed.values())
     return counts
@@ -695,9 +776,9 @@ def all_finite(result_arrays):
 
 
 def profile_frames(render, frames):
-    """Device time by kernel name over ``frames`` frames (torch.profiler).
-    The profiler slows the host down, so the frame's own time is taken
-    elsewhere, without it."""
+    """Device time by kernel name over ``frames`` calls of ``render`` (a
+    frame or a training step; torch.profiler). The profiler slows the host
+    down, so the call's own time is taken elsewhere, without it."""
     from torch.profiler import ProfilerActivity, profile
 
     render()
@@ -760,6 +841,7 @@ def first_frame(drive, device):
 @torch.no_grad()
 def phase_frame(device, profile=False):
     from pronerf_tpu_torch.config import Config
+    from pronerf_tpu_torch.kernels import fused_minmax as fm
     from pronerf_tpu_torch.models.pronerf import render_rays
     from pronerf_tpu_torch.models.pronerf_t import render_rays_t
     from pronerf_tpu_torch.render import infer
@@ -787,6 +869,43 @@ def phase_frame(device, profile=False):
                       sampler=trans["frames"], refine=trans["frames"],
                       untransposed=2 * trans["frames"],
                       fused_nerf_composite_t=trans["frames"])
+
+        # ---- the same server at shapes the kernels did not take before this
+        # port lifted their limits: 16 samples a ray (the refine net's input
+        # C = 6 + 3 * 4 * 16 = 198) in the default graph, 128 (C = 1542, the
+        # NeRF kernels at S = 128) in the default graph, the int8 one and the
+        # transposed one, each answering every test pose once more after the
+        # first. A MinMax head too large for the kernel's shared memory (the
+        # sampler's 3 S + 3 and the refine net's 4 S + 3 rows at S = 128)
+        # runs in parts, one launch each (fused_minmax.head_parts).
+        def launches_a_frame(C, n_out):
+            return len(fm.head_parts(C, cfg.mmnetdepth, -(-n_out // 8) * 8))
+
+        wide = {}
+        for S, what, over, kernels in (
+                (16, "N_samples=16", {},
+                 {"fused_minmax_t[refine,C=198]": None,
+                  "fused_nerf_raw_t": 1}),
+                (128, "N_samples=128", {},
+                 {"fused_minmax_t[refine,C=1542]": None,
+                  "fused_nerf_raw_t": 1, "fused_nerf_raw_t[S=128]": 1}),
+                (128, "N_samples=128,quant=int8", {"quant": "int8"},
+                 {"fused_minmax_t[refine,C=1542]": None,
+                  "fused_nerf_raw_tq": 1, "fused_nerf_raw_tq[S=128]": 1}),
+                (128, "N_samples=128,transposed=True", {"transposed": True},
+                 {"fused_minmax_t[refine,C=1542]": None,
+                  "fused_nerf_composite_t": 1,
+                  "fused_nerf_composite_t[S=128]": 1})):
+            drive = serve(what, cfg.replace(N_samples=S, **over), 1)
+            sampler = launches_a_frame(6, 3 * S + 3)
+            refine = launches_a_frame(6 + 3 * cfg.num_neighbor * S, 4 * S + 3)
+            want = {k: refine if n is None else n for k, n in kernels.items()}
+            if over.get("transposed"):
+                want["untransposed"] = sampler + refine
+            expect_counts(what, drive["counts"],
+                          **{k: n * drive["frames"] for k, n in
+                             (want | {"sampler": sampler}).items()})
+            wide[what] = drive
 
         # ---- the default graph's frame with the composite fused into the
         # kernel
@@ -929,6 +1048,11 @@ def phase_frame(device, profile=False):
             "launches": main["counts"], "launches_fused_composite": counts_f,
             "launches_int8": quant["counts"],
             "launches_transposed": trans["counts"],
+            "wide": {what: {"frames_rendered": d["frames"],
+                            "ms_per_frame": d["ms_per_frame"],
+                            "run_inference_wall_s": d["wall_s"],
+                            "launches": d["counts"]}
+                     for what, d in wide.items()},
             "composite_forms_frame": forms_frame,
             "composite_forms_tile": forms_tile, "forms_rel_tol": FORMS_REL,
             "kernel_vs_kernel_free_bf16_tile": paths,
@@ -944,7 +1068,9 @@ def phase_frame(device, profile=False):
     # launches on each kernel's main-path drive: the default graph's for the
     # MinMax shapes and the raw kernel, the fuse_composite frame for the
     # composite kernel, the int8 drive for the int8 kernel, the transposed
-    # drive for the MinMax kernel's untransposed form
+    # drive for the MinMax kernel's untransposed form; the wide rows' on the
+    # drives of 16 and 128 samples a ray
+    w16, w128 = wide["N_samples=16"], wide["N_samples=128"]
     return {
         "fused_minmax_t[sampler]": main["counts"]["fused_minmax_t[sampler]"],
         "fused_minmax_t[refine]": main["counts"]["fused_minmax_t[refine]"],
@@ -952,21 +1078,401 @@ def phase_frame(device, profile=False):
         "fused_nerf_composite_t": counts_f["fused_nerf_composite_t"],
         "fused_nerf_raw_tq": quant["counts"]["fused_nerf_raw_tq"],
         UNTRANSPOSED: trans["counts"][UNTRANSPOSED],
+        "fused_minmax_t[refine,C=198]":
+            w16["counts"]["fused_minmax_t[refine,C=198]"],
+        "fused_minmax_t[refine,C=1542]":
+            w128["counts"]["fused_minmax_t[refine,C=1542]"],
+        "fused_nerf_raw_t[S=128]": w128["counts"]["fused_nerf_raw_t[S=128]"],
+        "fused_nerf_composite_t[S=128]": wide["N_samples=128,transposed=True"][
+            "counts"]["fused_nerf_composite_t[S=128]"],
+        "fused_nerf_raw_tq[S=128]": wide["N_samples=128,quant=int8"][
+            "counts"]["fused_nerf_raw_tq[S=128]"],
     }
+
+
+# ------------------------------------------------------- train phase ------
+
+# Release widths of the two training configs (NeRF 8x256 + 128 view branch,
+# sampler and refine 6x256 unfolded, 8 samples, 4 neighbours, 4096 rays a
+# step, exploration up to 64 samples a ray) on the synthetic 504x378 scene
+# of 17 views (14 train, a pool of 2,667,168 rays).
+TRAIN_STEPS = {1: 4, 2: 2}     # steps of run_training: 2 stage-1 pairs, 2
+TIMED_STEPS = 5                # median of this many, after 2 to warm up
+CPU_RAYS = 512                 # rays of the card-against-CPU step
+# The card against the CPU, one step of each kind from the same params,
+# batch, controls and noise: every sum is f32 on both (TF32 off), taken in
+# another order by cuBLAS and by the CPU's BLAS, so the loss agrees to
+# ~1e-6 of its size (bound 1e-5), and the gradients, seen through Adam's
+# first moment (0.1 g after one step), to f32 rounding, except where a
+# ReLU input lies within the last bits of its kink on one side only: such a
+# point moves one row of a weight and, through its backward, the layers below
+# (measured on the CPU against JAX: 2.8e-3 of a tensor's size in norm, 3.9e-3
+# at an element; tests/torch_train_common.py). Bound: 5e-3 in norm, 1e-2 at
+# an element, relative to the tensor's size. Params move by lr * u with u =
+# g / (|g| + eps), about the sign of g: within 2 lr everywhere and 1e-3 lr
+# on 99% of the elements.
+TRAIN_TOL = {"loss_rel": 1e-5, "grad_norm_rel": 5e-3, "grad_max_rel": 1e-2,
+             "param_lr": 1e-3, "param_share": 0.99}
+# H100 SXM peak for f32 outside the tensor cores (TF32 is off).
+PEAK_F32 = 67e12
+
+
+def nerf_macs_per_point():
+    """Multiply-adds of the 8x256 NeRF a point: layer 0 on the 63-wide
+    encoding, layers 1-4, layer 5 on [encoding | h] (319), layers 6-7, the
+    alpha head, the feature layer, the view layer on [feature | 27], the rgb
+    head."""
+    return (63 * 256 + 4 * 256 * 256 + 319 * 256 + 2 * 256 * 256 + 256
+            + 256 * 256 + 283 * 128 + 128 * 3)
+
+
+def minmax_macs_per_ray(n_in, n_out):
+    return n_in * 256 + 5 * 256 * 256 + 256 * n_out
+
+
+def step_flops(kind, rays, width):
+    """Operations of one training step: a forward and backward costs three
+    forwards (the backward takes the gradients of the inputs and of the
+    weights); the stage-1 NeRF step runs the sampler and refine nets forward
+    only."""
+    nerf = 2 * nerf_macs_per_point() * rays * width
+    mm = 2 * (minmax_macs_per_ray(288, 27) + minmax_macs_per_ray(144, 35)) \
+        * rays
+    if kind == "nerf":
+        return 3 * nerf + mm
+    return 3 * (nerf + mm)
+
+
+def train_config(stage, tmp, **kw):
+    from pronerf_tpu_torch.config import Config
+
+    name = "fern_epi.txt" if stage == 1 else "fern_refine.txt"
+    base = dict(datadir=f"synthetic:{W_IMG}x{H}x{N_VIEWS}", basedir=tmp,
+                expname=f"stage{stage}", i_print=1, i_weights=1000, i_img=0,
+                i_testset=0, i_video=0, pretrain_path="")
+    return Config.from_file(ROOT / f"configs/llff/fern/{name}", **(base | kw))
+
+
+def training_data(cfg):
+    """The training scene and its ray pool, made once for the step drives
+    (the same seed as run_training's)."""
+    from pronerf_tpu_torch.render.raygen import build_ray_pool
+    from pronerf_tpu_torch.train.loop import load_training_data
+
+    data = load_training_data(cfg)
+    pool, ids = build_ray_pool(data["images"], data["poses"], data["K"],
+                               list(data["i_train"]), cfg.num_neighbor,
+                               np.random.default_rng(cfg.seed))
+    return data, pool, ids
+
+
+def step_setup(cfg, shared, device, rays):
+    """Params from the seed (drawn on the CPU, moved to ``device``), the
+    scene, and the first ``rays`` rays of the pool, for the step
+    functions."""
+    from pronerf_tpu_torch.render.infer import _init_params
+    from pronerf_tpu_torch.render.raygen import prepare_scene
+
+    data, pool, ids = shared
+    i_train = data["i_train"]
+    scene = prepare_scene(data["images"][i_train], data["poses"][i_train],
+                          data["K"], device=device)
+    params = _init_params(cfg, torch.Generator().manual_seed(cfg.seed), device)
+    return scene, params, torch.from_numpy(pool[:rays]).to(device), \
+        torch.from_numpy(ids[:rays]).to(device)
+
+
+def step_controls(cfg, n_train, device, rays, n_mult, width, seed,
+                  noise=True):
+    """A step's controls as the trainer draws them (``_draw_controls``, from
+    a numpy Generator of ``seed``), with n_mult set, and the N(0, 1) noise
+    drawn with numpy at ``[rays, width]``, so that both devices see it."""
+    from pronerf_tpu_torch.train.loop import _draw_controls
+
+    rng = np.random.default_rng(seed)
+    ctl = _draw_controls(rng, n_train, cfg, seed, device)
+    ctl["n_mult"] = n_mult
+    if noise:
+        for k in ("raw_noise", "jitter_noise"):
+            ctl[k] = torch.from_numpy(
+                rng.standard_normal((rays, width), dtype=np.float32)).to(device)
+    return ctl
+
+
+def make_step(kind, cfg, data):
+    from pronerf_tpu_torch.train import stage1, stage2
+
+    H_, W_, f = data["H"], data["W"], data["focal"]
+    if kind == "stage2":
+        return stage2.make_stage2_step(cfg, H_, W_, f), stage2.init_stage2_state
+    nerf_step, sampler_step = stage1.make_stage1_steps(cfg, H_, W_, f)
+    return (nerf_step if kind == "nerf" else sampler_step,
+            stage1.init_stage1_state)
+
+
+STEP_KINDS = (  # name, step, n_mult, noise width
+    ("nerf[n_mult=1]", "nerf", 1, 64), ("nerf[n_mult=8]", "nerf", 8, 64),
+    ("sampler", "sampler", 3, 64), ("stage2", "stage2", 3, 8))
+OPT_KEY = {"nerf": "opt_nerf", "sampler": "opt_s", "stage2": "opt"}
+
+
+def time_steps(tmp, shared, device, profile=False):
+    """ms a step by CUDA events (median of TIMED_STEPS after two to warm
+    up) and peak memory, for each kind at the configs' 4096 rays; with
+    ``profile``, device time by kernel name over 3 more steps of each."""
+    rows = {}
+    for name, kind, n_mult, width in STEP_KINDS:
+        cfg = train_config(1 if kind != "stage2" else 2, tmp)
+        scene, params, batch, ids = step_setup(cfg, shared, device,
+                                               cfg.N_rand)
+        step, init = make_step(kind, cfg, shared[0])
+        state = init(params, cfg.weight_decay)
+        ctl = step_controls(cfg, len(shared[0]["i_train"]), device,
+                            cfg.N_rand, n_mult, width, seed=2)
+        losses = []
+
+        def run():
+            _, m = step(state, scene, batch, ids, ctl, 1e-4)
+            losses.append(m["loss"])
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        run()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(TIMED_STEPS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            run()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        ms = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated()
+        vals = [float(v) for v in losses]
+        if not all(np.isfinite(vals)):
+            raise SystemExit(f"train step {name}: losses {vals}")
+        w = width if kind == "nerf" else cfg.N_samples
+        flops = step_flops("nerf" if kind == "nerf" else "joint", cfg.N_rand, w)
+        if profile:
+            say({"profile": {"path": f"train step {name}"}
+                 | profile_frames(run, 3)})
+        rows[name] = {
+            "rays": cfg.N_rand, "samples_a_ray": w, "ms": ms, "ms_all": times,
+            "flops": flops, "bound_ms": flops / PEAK_F32 * 1e3,
+            "bound_by": "operations (f32)", "peak_mem_bytes": peak,
+            "losses": vals,
+        }
+        del state, params, scene, batch
+        torch.cuda.empty_cache()
+    return rows
+
+
+def card_against_cpu(tmp, shared, device):
+    """One step of each kind on the card and on CPU tensors, from the same
+    params, batch, controls and noise (TRAIN_TOL)."""
+    from pronerf_tpu_torch.train.state import named_params
+
+    cpu = torch.device("cpu")
+    out = {}
+    for name, kind, n_mult, width in STEP_KINDS[1:]:
+        cfg = train_config(1 if kind != "stage2" else 2, tmp)
+        res = {}
+        for side, dev in (("card", device), ("cpu", cpu)):
+            scene, params, batch, ids = step_setup(cfg, shared, dev, CPU_RAYS)
+            p0 = {k: v.detach().clone() for k, v in
+                  named_params(params).items()}
+            step, init = make_step(kind, cfg, shared[0])
+            state = init(params, cfg.weight_decay)
+            ctl = step_controls(cfg, len(shared[0]["i_train"]), dev,
+                                CPU_RAYS, n_mult, width, seed=4)
+            state, m = step(state, scene, batch, ids, ctl, 5e-4)
+            res[side] = {
+                "loss": float(m["loss"]),
+                "mu": {k: v.to(cpu) for k, v in state[OPT_KEY[kind]]["mu"]
+                       .items()},
+                "dp": {k: (v.detach() - p0[k]).to(cpu) for k, v in
+                       named_params(state["params"]).items()},
+            }
+        c, h = res["card"], res["cpu"]
+        loss_rel = abs(c["loss"] - h["loss"]) / abs(h["loss"])
+        norm_rel = max(float((c["mu"][k] - v).norm() / v.norm())
+                       for k, v in h["mu"].items())
+        max_rel = max(float((c["mu"][k] - v).abs().max() / v.abs().max())
+                      for k, v in h["mu"].items())
+        d = torch.cat([(c["dp"][k] - v).abs().flatten()
+                       for k, v in h["dp"].items()])
+        row = {"loss_card": c["loss"], "loss_cpu": h["loss"],
+               "loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+               "grad_max_rel": max_rel, "param_max_over_lr": float(d.max())
+               / 5e-4,
+               "param_share_within": float((d <= TRAIN_TOL["param_lr"] * 5e-4)
+                                           .float().mean())}
+        out[name] = row
+        if not (loss_rel <= TRAIN_TOL["loss_rel"]
+                and norm_rel <= TRAIN_TOL["grad_norm_rel"]
+                and max_rel <= TRAIN_TOL["grad_max_rel"]
+                # a sanity check that also catches a non-finite update:
+                # after one Adam step from zero moments |u| <= 1 on both
+                # sides, so a finite difference is at most 2 lr
+                and row["param_max_over_lr"] <= 2
+                and row["param_share_within"] >= TRAIN_TOL["param_share"]):
+            raise SystemExit(f"train step {name}: card against CPU {row} "
+                             f"(bounds {TRAIN_TOL})")
+    return out
+
+
+def read_losses(expdir):
+    return {rec["step"]: rec["loss"] for rec in map(
+        json.loads, (Path(expdir) / "metrics.jsonl").read_text().splitlines())}
+
+
+def phase_train(device, profile=False):
+    """The slice's main path: run_training for a few steps of stage 1 and
+    then of stage 2 from its expdir, on the card, at release widths; a
+    resume that must equal the uninterrupted run; the stage-2 checkpoint
+    served through the kernels; per-step times; one step of each kind held
+    against the CPU."""
+    from pronerf_tpu_torch.config import Config
+    from pronerf_tpu_torch.render import infer
+    from pronerf_tpu_torch.render.raygen import prepare_scene
+    from pronerf_tpu_torch.render.renderer import make_frame_renderer
+    from pronerf_tpu_torch.train import checkpoint
+    from pronerf_tpu_torch.train.loop import run_training
+    from pronerf_tpu_torch.train.state import named_params
+
+    report = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        # ---- the trainer: stage 1, then stage 2 from its expdir; counters
+        # zeroed just before and read just after (training runs no kernel)
+        reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        s1, exp1 = run_training(
+            train_config(1, tmp, max_steps=TRAIN_STEPS[1], i_img=2), 1)
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        s2, exp2 = run_training(
+            train_config(2, tmp, max_steps=TRAIN_STEPS[2],
+                         pretrain_path=str(exp1)), 2)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        counts = read_counters()
+        expect_counts("training", counts)
+        peak_train = torch.cuda.max_memory_allocated()
+        if s1["global_step"] != TRAIN_STEPS[1] or \
+                s2["global_step"] != TRAIN_STEPS[2]:
+            raise SystemExit("run_training ran the wrong number of steps")
+        losses1, losses2 = read_losses(exp1), read_losses(exp2)
+        all_losses = list(losses1.values()) + list(losses2.values())
+        if not all(np.isfinite(all_losses)):
+            raise SystemExit(f"training losses {losses1} {losses2}")
+        if not (Path(exp1) / "imgs" / "test0_000002.png").exists():
+            raise SystemExit("i_img wrote no PNG")
+        ck1 = checkpoint.latest_checkpoint(exp1)
+        ck2 = checkpoint.latest_checkpoint(exp2)
+
+        # ---- resume: 2 steps, then 2 more from the checkpoint, equal to the
+        # uninterrupted run step for step and in the end
+        half = TRAIN_STEPS[1] // 2
+        run_training(train_config(1, tmp, expname="resumed", max_steps=half),
+                     1)
+        r1, exp_r = run_training(
+            train_config(1, tmp, expname="resumed", max_steps=half), 1)
+        resumed = read_losses(exp_r)
+        steps_equal = {i: resumed[i] == losses1[i] for i in losses1}
+        want = checkpoint.load_checkpoint(ck1)
+        got = checkpoint.load_checkpoint(checkpoint.latest_checkpoint(exp_r))
+        params_equal = all(
+            torch.equal(got[net][k], v) for net in
+            ("network_fn", "mmr_network_fn", "refine_net")
+            for k, v in want[net].items())
+        if not (all(steps_equal.values()) and params_equal):
+            raise SystemExit(f"resumed run differs: losses {resumed} against "
+                             f"{losses1}, params equal {params_equal}")
+
+        # ---- the stage-2 checkpoint served through the kernels
+        cfg_i = Config.from_file(
+            ROOT / "configs/llff/fern/fern_trt.txt",
+            datadir=f"synthetic:{W_IMG}x{H}x{N_VIEWS}", use_trt=True,
+            tile_rays=0, use_pallas=True, basedir=tmp, ft_path=ck2,
+            max_images=1)
+        drive = serve("trained checkpoint", cfg_i, 1)
+        expect_counts("trained checkpoint", drive["counts"],
+                      sampler=drive["frames"], refine=drive["frames"],
+                      fused_nerf_raw_t=drive["frames"])
+        data = infer.load_inference_data(cfg_i)
+        scene = prepare_scene(
+            data["images"][data["i_ref"]], data["poses"][data["i_ref"]],
+            data["K"], pack_corners="u8", device=device)
+        statics = infer._infer_statics(cfg_i, use_bf16=True)
+        render = make_frame_renderer(statics, H, W_IMG, data["K"], 0,
+                                     device=device)
+        c2w = data["poses"][data["i_test"][0]][:3, :4]
+        with torch.no_grad():
+            direct = render(infer.load_params_for_inference(ck2, cfg_i,
+                                                            device),
+                            scene, c2w)["rgb1"]
+            untrained = render(infer._init_params(
+                cfg_i, torch.Generator().manual_seed(cfg_i.seed), device),
+                scene, c2w)["rgb1"]
+        served = torch.from_numpy(drive["result"]["rgbs1"][0]).to(device)
+        served_err = max_err(served, direct)
+        if served_err != 0.0 or torch.equal(direct, untrained):
+            raise SystemExit(f"served frame against the checkpoint's params: "
+                             f"{served_err}; equal to untrained weights: "
+                             f"{torch.equal(direct, untrained)}")
+        trained_moved = max_err(direct, untrained)
+
+        # ---- per-step times and memory; the card against the CPU
+        shared = training_data(train_config(1, tmp))
+        steps = time_steps(tmp, shared, device, profile)
+        vs_cpu = card_against_cpu(tmp, shared, device)
+        report = {
+            "config": {"stage1": "configs/llff/fern/fern_epi.txt",
+                       "stage2": "configs/llff/fern/fern_refine.txt",
+                       "datadir": f"synthetic:{W_IMG}x{H}x{N_VIEWS}",
+                       "N_rand": train_config(1, tmp).N_rand,
+                       "card_vs_cpu_rays": CPU_RAYS},
+            "run_training": {
+                "stage1_steps": TRAIN_STEPS[1], "stage2_steps": TRAIN_STEPS[2],
+                "wall_s": {"stage1": wall1, "stage2": wall2},
+                "losses_stage1": losses1, "losses_stage2": losses2,
+                "peak_mem_bytes": peak_train, "launches": counts,
+                "params": sum(v.numel() for v in
+                              named_params(s2["params"]).values()),
+            },
+            "resume": {"steps_equal": steps_equal,
+                       "params_equal": params_equal},
+            "serve_trained": {"ckpt": Path(ck2).name,
+                              "launches": drive["counts"],
+                              "served_vs_direct_max_err": served_err,
+                              "trained_vs_untrained_max_diff": trained_moved,
+                              "psnr": drive["result"]["psnrs"]},
+            "steps": steps, "card_vs_cpu": vs_cpu, "tol": TRAIN_TOL,
+            "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                     "cudnn": torch.backends.cudnn.allow_tf32},
+        }
+    say({"train": report})
+    return report
 
 
 # ---------------------------------------------------------------- main ----
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("build", "kernels", "frame"))
+    ap.add_argument("--only", choices=("build", "kernels", "frame", "train"))
     ap.add_argument("--rays", type=int, default=FRAME_RAYS)
     ap.add_argument("--verbose-build", action="store_true",
                     help="print the compiler's output of every source")
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel name for the "
                          "fused-composite, the int8 and the transposed "
-                         "frame (torch.profiler)")
+                         "frame, and for each training step "
+                         "(torch.profiler)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -996,6 +1502,8 @@ def main(argv=None):
         rows = phase_kernels(device, args.rays)
     if args.only in (None, "frame"):
         launches = phase_frame(device, args.profile)
+    if args.only in (None, "train"):
+        phase_train(device, args.profile)
 
     print(smi, flush=True)
     contract = []

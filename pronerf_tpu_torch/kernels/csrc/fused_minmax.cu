@@ -30,6 +30,13 @@
 //    memory times a zero weight can be NaN). One buffer is enough: the
 //    consumers read it only in layer 0, and the helpers fill it for the next
 //    tile while layers 1.. run;
+//  * the A buffer and a layer-0 stage hold two k-slabs (K <= 128). A wider
+//    input (the refine net of more samples or views: C = 6 + 3 V S) runs
+//    layer 0 in passes of 128 k, the instantiation PASSES: each half of 128
+//    outputs accumulates over the passes in the same registers, and the
+//    helpers refill the A buffer for every (half, pass), 2 P fills a tile
+//    instead of one. The stages are then the slabs of a pass; the blob's
+//    bytes are the same either way;
 //  * the head (out_pad = 32 or 40 rows, any multiple of 8) and the biases stay
 //    in shared memory for the block's life; the head runs as m64n32k16
 //    products and m64n8k16 for the rest, its rounded, biased values go to a
@@ -132,7 +139,8 @@ int run_minmax(const void* x, int x_is_bf16, const void* blob, float* out,
 
 // ----------------------------------------------------------------- bf16 --
 
-constexpr int kMaxK0Slabs = 2;     // layer 0 takes C <= 128 (refine: 102)
+constexpr int kMaxK0Slabs = 2;     // k-slabs of a layer-0 pass (128 k)
+constexpr int kPassK = 64 * kMaxK0Slabs;
 constexpr int kASlabBytes = kWgRays * 128;   // a warpgroup's 64 rows of 64 k
 
 struct MmArgs {
@@ -143,29 +151,34 @@ struct MmArgs {
   int x_is_bf16, N, C;
   int k0;              // C padded to a multiple of 16
   int n0;              // k-slabs of 64 that hold k0
+  int passes;          // layer-0 passes of up to kMaxK0Slabs slabs
+  int np;              // slabs of a pass: min(n0, kMaxK0Slabs)
   int depth, out_pad;
 };
 
-// The bf16 blob, in bytes. A tile consumes 2 + 4 (depth - 1) ring stages:
-// layer 0 as one stage per half of 128 outputs (n0 slabs of [128 x 64],
-// 16 KB each), then each hidden layer as four stages of two slabs (outputs
-// 0..127 over all of k, then 128..255).
+// The bf16 blob, in bytes. A tile consumes 2 P + 4 (depth - 1) ring stages:
+// layer 0 as P stages per half of 128 outputs (the half's n0 slabs of
+// [128 x 64], 16 KB each, two to a stage), then each hidden layer as four
+// stages of two slabs (outputs 0..127 over all of k, then 128..255).
 struct MmBlob {
-  static constexpr int kLayer0Stages = 2;
   static constexpr int kStagesPerLayer = 4;
   static constexpr int kStageBytes = 32768;
-  int n0, depth, out_pad;
+  int n0, passes, depth, out_pad;
+  __host__ __device__ int layer0_stages() const { return 2 * passes; }
   __host__ __device__ int stages_per_tile() const {
-    return kLayer0Stages + kStagesPerLayer * (depth - 1);
+    return layer0_stages() + kStagesPerLayer * (depth - 1);
   }
   __host__ __device__ int stage_bytes(int i) const {
-    return i < kLayer0Stages ? n0 * kSlab128Bytes : kStageBytes;
+    if (i >= layer0_stages()) return kStageBytes;
+    const int left = n0 - kMaxK0Slabs * (i % passes);   // slabs of the pass
+    return (left < kMaxK0Slabs ? left : kMaxK0Slabs) * kSlab128Bytes;
   }
   __host__ __device__ int stage_off(int i) const {
-    return i < kLayer0Stages
-               ? i * n0 * kSlab128Bytes
-               : kLayer0Stages * n0 * kSlab128Bytes +
-                     (i - kLayer0Stages) * kStageBytes;
+    return i < layer0_stages()
+               ? ((i / passes) * n0 + kMaxK0Slabs * (i % passes)) *
+                     kSlab128Bytes
+               : 2 * n0 * kSlab128Bytes +
+                     (i - layer0_stages()) * kStageBytes;
   }
   __host__ __device__ int head_bytes() const { return out_pad * 512; }
   __host__ __device__ int heads() const { return stage_off(stages_per_tile()); }
@@ -180,15 +193,15 @@ static_assert(kMaxK0Slabs * kSlab128Bytes <= kRingStageBytes,
               "a layer-0 stage fits a slot");
 
 // Shared memory of the bf16 kernel, from a 1,024-byte boundary: the layer-0
-// A rows (one buffer, both warpgroups), the head slabs, the weight ring, the
-// biases (bf16, as in the blob), two result buffers [128][out_pad] bf16, the
-// mbarriers.
+// A rows of a pass (one buffer, both warpgroups), the head slabs, the weight
+// ring, the biases (bf16, as in the blob), two result buffers [128][out_pad]
+// bf16, the mbarriers.
 struct MmSmem {
   static constexpr int kLimit = 232448 - 1024;   // room to align the base
   int a, head, ring, stages, bias, res, res_bytes, bars, bytes;
   __host__ __device__ MmSmem(const MmBlob& b) {
     a = 0;
-    head = a + 2 * b.n0 * kASlabBytes;
+    head = a + 2 * (b.n0 < kMaxK0Slabs ? b.n0 : kMaxK0Slabs) * kASlabBytes;
     ring = head + b.head_bytes();
     res_bytes = kWgTile * b.out_pad * 2;
     const int rest = ((b.n_biases() * 2 + 15) & ~15) + 2 * res_bytes + 256;
@@ -201,28 +214,31 @@ struct MmSmem {
   }
 };
 
-// The rows of x_t for the tile of 128 rays from `base`, rounded to bf16,
-// written by the helper threads (`t` of kHelpers) into the A buffer at `abuf`:
-// warpgroup w's 64 rays at + w * n0 * kASlabBytes, k-slab s at + s *
-// kASlabBytes, row r of 128 bytes with the slab swizzle. An item is 8
-// columns of one ray: eight loads along rays (coalesced), one 16-byte store.
+// The rows of x_t of layer-0 pass `pass` (k in [kPassK pass, + kPassK)) for
+// the tile of 128 rays from `base`, rounded to bf16, written by the helper
+// threads (`t` of kHelpers) into the A buffer at `abuf`: warpgroup w's 64
+// rays at + w * np * kASlabBytes, k-slab s of the pass at + s * kASlabBytes,
+// row r of 128 bytes with the slab swizzle. An item is 8 columns of one ray:
+// eight loads along rays (coalesced), one 16-byte store.
 // The input's dtype is a template argument: a bf16 input is copied as it is,
 // two values a word (with the dtype chosen per element the refine net's bf16
 // input took twice the kernel's time). Loading four items before storing any
 // was no faster for an f32 input and 0.1 ms slower for a bf16 one.
 template <bool BF16>
 __device__ __forceinline__ void mm_write_a(const MmArgs& a, int base,
-                                           unsigned char* abuf, int t) {
-  const int items = kWgTile * (a.k0 / 8);
+                                           int pass, unsigned char* abuf,
+                                           int t) {
+  const int k_lo = kPassK * pass;
+  const int items = kWgTile * (min(kPassK, a.k0 - k_lo) / 8);
   for (int idx = t; idx < items; idx += kHelpers) {
     const int r = idx % kWgTile, c0 = 8 * (idx / kWgTile), row = r % kWgRays;
-    const int ray = base + r;
+    const int ray = base + r, k = k_lo + c0;
     uint32_t w[4];
 #pragma unroll
     for (int e = 0; e < 8; e += 2) {
-      const size_t at = (size_t)(c0 + e) * a.N + ray;
-      const bool ok0 = ray < a.N && c0 + e < a.C;
-      const bool ok1 = ray < a.N && c0 + e + 1 < a.C;
+      const size_t at = (size_t)(k + e) * a.N + ray;
+      const bool ok0 = ray < a.N && k + e < a.C;
+      const bool ok1 = ray < a.N && k + e + 1 < a.C;
       if constexpr (BF16) {
         const unsigned short* x = static_cast<const unsigned short*>(a.x);
         w[e / 2] = (ok0 ? (uint32_t)__ldg(x + at) : 0u) |
@@ -234,7 +250,7 @@ __device__ __forceinline__ void mm_write_a(const MmArgs& a, int base,
       }
     }
     *reinterpret_cast<uint4*>(
-        abuf + (r / kWgRays) * a.n0 * kASlabBytes + (c0 / 64) * kASlabBytes +
+        abuf + (r / kWgRays) * a.np * kASlabBytes + (c0 / 64) * kASlabBytes +
         row * 128 + ((((c0 % 64) >> 3) ^ (row & 7)) << 4)) =
         make_uint4(w[0], w[1], w[2], w[3]);
   }
@@ -256,9 +272,10 @@ __device__ __forceinline__ void mm_head_store(const float (&d)[NACC],
   }
 }
 
+template <bool PASSES>
 __global__ void __launch_bounds__(kWgThreads, 1)
     minmax_wg_kernel(const __grid_constant__ MmArgs a) {
-  const MmBlob B = {a.n0, a.depth, a.out_pad};
+  const MmBlob B = {a.n0, a.passes, a.depth, a.out_pad};
   const MmSmem M(B);
   extern __shared__ unsigned char smem_raw[];
   const uint32_t pad = (1024 - (hp::smem_u32(smem_raw) & 1023)) & 1023;
@@ -311,7 +328,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     } else {
       // Three warps write the A rows of the next tile as soon as the
       // consumers have read this one's (layer 0), then store the tile the
-      // consumers finished last.
+      // consumers finished last. With PASSES, the rows of every (half, pass)
+      // of layer 0 in turn, and the store after the first of them.
       const int t = tid - (kWgThreads - kHelpers);
       WgTurns at = {a_empty, 1, 0, 0}, rt = {res_full, 2, 0, 0};
       auto output = [&](int tile) {
@@ -343,18 +361,22 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         if (lane == 0) hp::mbar_arrive(res_empty + 8 * rt.at);
         rt.next();
       };
+      const int fills = PASSES ? 2 * a.passes : 1;
       int finished = -1;
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        hp::mbar_wait(at.bar(), at.phase ^ 1);
-        if (a.x_is_bf16)
-          mm_write_a<true>(a, tile * kWgTile, sm + M.a, t);
-        else
-          mm_write_a<false>(a, tile * kWgTile, sm + M.a, t);
-        hp::fence_proxy_async();
-        __syncwarp();
-        if (lane == 0) hp::mbar_arrive(a_full);
-        at.next();
-        if (finished >= 0) output(finished);
+        for (int f = 0; f < fills; ++f) {
+          const int pass = PASSES ? f % a.passes : 0;
+          hp::mbar_wait(at.bar(), at.phase ^ 1);
+          if (a.x_is_bf16)
+            mm_write_a<true>(a, tile * kWgTile, pass, sm + M.a, t);
+          else
+            mm_write_a<false>(a, tile * kWgTile, pass, sm + M.a, t);
+          hp::fence_proxy_async();
+          __syncwarp();
+          if (lane == 0) hp::mbar_arrive(a_full);
+          at.next();
+          if (f == 0 && finished >= 0) output(finished);
+        }
         finished = tile;
       }
       if (finished >= 0) output(finished);
@@ -371,7 +393,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const uint32_t* bias_q = bias2 + q;   // this thread's first column pair
     const uint32_t* bias_out = bias2 + a.depth * kW / 2;
     const uint32_t head = sm32 + M.head, head_slab = out_pad * 128;
-    const uint64_t a_desc = hp::desc_k128(sm32 + M.a + wg * a.n0 * kASlabBytes);
+    const uint64_t a_desc = hp::desc_k128(sm32 + M.a + wg * a.np * kASlabBytes);
     const int ksteps0 = a.k0 / 16;
 
     // the biases, once for the block's life
@@ -397,19 +419,39 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       // A point where the compiler sees the whole warpgroup together: without
       // one in the loop it issues every product serialized (ptxas C7520).
       hp::named_barrier(1 + wg, 128);
-      hp::mbar_wait(at.bar(), at.phase);
+      if constexpr (!PASSES) {
+        hp::mbar_wait(at.bar(), at.phase);
 
-      // layer 0: A from shared memory, one stage a half
+        // layer 0: A from shared memory, one stage a half
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        wg_dense128_ss(acc, a_desc, kASlabBytes, ring.wait(), ksteps0);
-        ring.release(ring.advance());
-        wg_epilogue<Act::kElu>(acc, h + 32 * hf,
-                               bias_cols(bias_q, hf * kHalf));
+        for (int hf = 0; hf < 2; ++hf) {
+          wg_dense128_ss(acc, a_desc, kASlabBytes, ring.wait(), ksteps0);
+          ring.release(ring.advance());
+          wg_epilogue<Act::kElu>(acc, h + 32 * hf,
+                                 bias_cols(bias_q, hf * kHalf));
+        }
+        // this warp's last read of the A rows is behind it
+        if (lane == 0) hp::mbar_arrive(a_empty);
+        at.next();
+      } else {
+        // layer 0 in passes: per half, the sums of every pass's stage into
+        // the same accumulators, each pass's A rows filled in turn
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll 1
+          for (int p = 0; p < a.passes; ++p) {
+            hp::mbar_wait(at.bar(), at.phase);
+            wg_dense128_ss(acc, a_desc, kASlabBytes, ring.wait(),
+                           min(kPassK / 16, ksteps0 - p * (kPassK / 16)),
+                           p > 0);
+            ring.release(ring.advance());
+            if (lane == 0) hp::mbar_arrive(a_empty);
+            at.next();
+          }
+          wg_epilogue<Act::kElu>(acc, h + 32 * hf,
+                                 bias_cols(bias_q, hf * kHalf));
+        }
       }
-      // this warp's last read of the A rows is behind it
-      if (lane == 0) hp::mbar_arrive(a_empty);
-      at.next();
 #pragma unroll 1
       for (int l = 1; l < a.depth; ++l)
         wg_layer256<Act::kElu>(acc, h, ring, bias_cols(bias_q, l * kW));
@@ -468,11 +510,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
-// What the bf16 kernel takes: C <= 128, the blob of this form, and at least
+// What the bf16 kernel takes: any C, the blob of this form, and at least
 // two ring stages beside the rest of its shared memory.
 inline bool minmax_wg_ok(const MmArgs& a, long long blob_elems) {
-  if (a.n0 > kMaxK0Slabs) return false;
-  const MmBlob b = {a.n0, a.depth, a.out_pad};
+  const MmBlob b = {a.n0, a.passes, a.depth, a.out_pad};
   return blob_elems == b.elems() && MmSmem(b).stages >= 2;
 }
 
@@ -484,9 +525,10 @@ int run_minmax_wg(const MmArgs& a, cudaStream_t stream) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (a.N + kWgTile - 1) / kWgTile;
-  const MmSmem m(MmBlob{a.n0, a.depth, a.out_pad});
-  return launch(minmax_wg_kernel, sms < tiles ? sms : tiles, kWgThreads,
-                m.bytes, stream, a);
+  const MmSmem m(MmBlob{a.n0, a.passes, a.depth, a.out_pad});
+  return launch(a.passes > 1 ? minmax_wg_kernel<true>
+                             : minmax_wg_kernel<false>,
+                sms < tiles ? sms : tiles, kWgThreads, m.bytes, stream, a);
 }
 
 }  // namespace pn
@@ -514,6 +556,8 @@ extern "C" int pn_fused_minmax(const void* x, int x_is_bf16, const void* blob,
     a.C = C;
     a.k0 = (C + 15) / 16 * 16;
     a.n0 = (a.k0 + 63) / 64;
+    a.passes = (a.n0 + pn::kMaxK0Slabs - 1) / pn::kMaxK0Slabs;
+    a.np = a.n0 < pn::kMaxK0Slabs ? a.n0 : pn::kMaxK0Slabs;
     a.depth = depth;
     a.out_pad = out_pad;
     if (!pn::minmax_wg_ok(a, blob_elems)) return -1;

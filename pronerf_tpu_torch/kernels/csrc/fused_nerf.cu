@@ -13,10 +13,13 @@
 // samples itself, and keeps every activation of the chain on the SM.
 // The TPU kernel walks a (ray-block, sample) grid in order and revisits its
 // output block to carry the transmittance; blocks on a GPU run in no order,
-// so the sample loop is inside the block: the S raw results of a tile are
-// kept in shared memory, and either stored as one contiguous chunk (raw) or
-// composited by one thread per ray with the transmittance in a register
-// (composite), in which case raw never reaches device memory.
+// so the sample loop is inside the block: the raw results of a tile are
+// kept in shared memory, kResChunk samples at a time, and either stored
+// (raw) or composited by one thread per ray with the transmittance in a
+// register (composite), in which case raw never reaches device memory. The
+// chunks make every buffer independent of S, so the kernels take any S, as
+// the TPU kernel's sample grid axis does: a ray's running sums cross from
+// one chunk to the next through its own outputs.
 //
 // Two kernels share that frame.
 //
@@ -125,17 +128,33 @@ __device__ __forceinline__ float as_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// The streaming composite of one ray over its S raw results q [S][4]
-// (rgb logits, sigma); all f32, transmittance in a register.
+// A tile's results cross shared memory this many samples at a time, as
+// [ray][kResChunk][4]; S = 8, the release configs', is one chunk.
+constexpr int kResChunk = 8;
+
+// The streaming composite of one ray over samples [s0, s0 + n) of its S,
+// whose raw results (rgb logits, sigma) are q [n][4]; all f32, transmittance
+// in a register. Between chunks the running sums wait in the ray's own
+// outputs (rgb, depth, acc, and the transmittance in disp), written and read
+// back by the same thread, so a ray composites in one pass over its S
+// samples, whatever the chunks, in the order of a single loop.
 template <class T>
 __device__ __forceinline__ void composite_ray(const NerfArgs& a, int ray,
-                                              const T* q) {
+                                              int s0, int n, const T* q) {
   const int N = a.N, S = a.S;
   const float dn = a.dnorm[ray];
   float trans = 1.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, dsum = 0.0f,
         asum = 0.0f;
-  float zs = a.z[ray];
-  for (int s = 0; s < S; ++s, q += 4) {
+  if (s0 > 0) {
+    c0 = a.rgb[(size_t)ray * 3 + 0];
+    c1 = a.rgb[(size_t)ray * 3 + 1];
+    c2 = a.rgb[(size_t)ray * 3 + 2];
+    dsum = a.depth[ray];
+    asum = a.acc[ray];
+    trans = a.disp[ray];
+  }
+  float zs = a.z[(size_t)s0 * N + ray];
+  for (int s = s0; s < s0 + n; ++s, q += 4) {
     const float znext = s + 1 < S ? a.z[(size_t)(s + 1) * N + ray] : 0.0f;
     const float dist = (s + 1 < S ? znext - zs : 1e10f) * dn;
     const float sig = as_f32(q[3]);
@@ -154,6 +173,15 @@ __device__ __forceinline__ void composite_ray(const NerfArgs& a, int ray,
     a.sigma[(size_t)ray * S + s] = sig;
     zs = znext;
   }
+  if (s0 + n < S) {   // more chunks to come: park the running sums
+    a.rgb[(size_t)ray * 3 + 0] = c0;
+    a.rgb[(size_t)ray * 3 + 1] = c1;
+    a.rgb[(size_t)ray * 3 + 2] = c2;
+    a.depth[ray] = dsum;
+    a.acc[ray] = asum;
+    a.disp[ray] = trans;
+    return;
+  }
   const float ratio = dsum / asum;
   // max(1e-10, NaN) is NaN in the reference; fmaxf would drop it
   a.disp[ray] = 1.0f / (ratio != ratio ? ratio : fmaxf(1e-10f, ratio));
@@ -169,15 +197,41 @@ __device__ __forceinline__ void composite_ray(const NerfArgs& a, int ray,
   a.acc[ray] = asum;
 }
 
+// The results of samples [s0, s0 + n) of `live` rays from `base`, res
+// [ray][kResChunk][4], into raw [N, S, 4]: thread `t` of `threads` (one
+// ray's n results are contiguous in raw). The index runs over whole chunks
+// (a shift and a mask, no division: the helper warps that store a tile also
+// write the next sample's PE rows); slots past n are skipped.
+__device__ __forceinline__ float4 as_float4(const float* q) {
+  return *reinterpret_cast<const float4*>(q);
+}
+__device__ __forceinline__ float4 as_float4(const __nv_bfloat16* q) {
+  const uint2 v = *reinterpret_cast<const uint2*>(q);
+  return make_float4(hp::bf16_lo(v.x), hp::bf16_hi(v.x), hp::bf16_lo(v.y),
+                     hp::bf16_hi(v.y));
+}
+template <class T>
+__device__ __forceinline__ void store_raw(const NerfArgs& a, int base,
+                                          int live, int s0, int n,
+                                          const T* res, int t, int threads) {
+  static_assert((kResChunk & (kResChunk - 1)) == 0, "a power of two");
+  float4* dst = reinterpret_cast<float4*>(a.raw);
+  for (int idx = t; idx < live * kResChunk; idx += threads) {
+    const int r = idx / kResChunk, j = idx % kResChunk;
+    if (j < n)
+      dst[(size_t)(base + r) * a.S + s0 + j] = as_float4(res + idx * 4);
+  }
+}
+
 // ------------------------------------------------------------------ f32 --
 
 template <class P>
-constexpr size_t nerf_smem(int S) {
+constexpr size_t nerf_smem() {
   return sizeof(typename P::T) *
              ((size_t)2 * P::TILE * (kW + P::PAD) +
               (size_t)P::TILE * (kPE + P::PAD) +
               (size_t)P::TILE * (kWH + P::PAD)) +
-         sizeof(float) * P::TILE * S * 4;
+         sizeof(float) * P::TILE * kResChunk * 4;
 }
 
 template <class P, bool COMPOSITE>
@@ -191,11 +245,13 @@ __global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS) nerf_kernel(NerfArg
   T* bufB = bufA + TILE * LD;
   T* pe = bufB + TILE * LD;
   T* vc = pe + TILE * LDPE;
-  float* res = reinterpret_cast<float*>(vc + TILE * LDVC);  // [TILE][S][4]
+  // [TILE][kResChunk][4]
+  float* res = reinterpret_cast<float*>(vc + TILE * LDVC);
 
   const T* w = reinterpret_cast<const T*>(a.blob);
   const int N = a.N, S = a.S;
   const int base = blockIdx.x * TILE;
+  const int live = min(TILE, N - base);
 
   // per-ray view contribution, cast to the pack dtype once for all samples
   for (int idx = threadIdx.x; idx < TILE * kWH; idx += P::THREADS) {
@@ -212,89 +268,87 @@ __global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS) nerf_kernel(NerfArg
     __syncthreads();
   };
 
-  for (int s = 0; s < S; ++s) {
-    // positional encoding rows [x(3) | sin(30) | cos(30) | 0]
-    for (int idx = threadIdx.x; idx < TILE * 3; idx += P::THREADS) {
-      const int r = idx % TILE, c = idx / TILE, ray = base + r;
-      const T x =
-          P::rnd(ray < N ? a.pts[(size_t)(3 * s + c) * N + ray] : 0.0f);
-      T* row = pe + r * LDPE;
-      row[P::col(c)] = x;
-      const float xf = P::f(x);
+  for (int s0 = 0; s0 < S; s0 += kResChunk) {
+    const int n_s = min(kResChunk, S - s0);
+    for (int s = s0; s < s0 + n_s; ++s) {
+      // positional encoding rows [x(3) | sin(30) | cos(30) | 0]
+      for (int idx = threadIdx.x; idx < TILE * 3; idx += P::THREADS) {
+        const int r = idx % TILE, c = idx / TILE, ray = base + r;
+        const T x =
+            P::rnd(ray < N ? a.pts[(size_t)(3 * s + c) * N + ray] : 0.0f);
+        T* row = pe + r * LDPE;
+        row[P::col(c)] = x;
+        const float xf = P::f(x);
 #pragma unroll
-      for (int k = 0; k < kL; ++k) {
-        float sn, cs;
-        sincosf(ldexpf(xf, k), &sn, &cs);
-        row[P::col(3 + 3 * k + c)] = P::rnd(sn);
-        row[P::col(3 + 3 * kL + 3 * k + c)] = P::rnd(cs);
+        for (int k = 0; k < kL; ++k) {
+          float sn, cs;
+          sincosf(ldexpf(xf, k), &sn, &cs);
+          row[P::col(3 + 3 * k + c)] = P::rnd(sn);
+          row[P::col(3 + 3 * kL + 3 * k + c)] = P::rnd(cs);
+        }
+        if (c == 0) row[P::col(kPE - 1)] = P::rnd(0.0f);
       }
-      if (c == 0) row[P::col(kPE - 1)] = P::rnd(0.0f);
+      __syncthreads();
+
+      hidden(pe, LDPE, kPE, w + B::w0p, w + B::b0, bufA);
+      hidden(bufA, LD, kW, w + B::w1, w + B::w1 + B::sq, bufB);
+      hidden(bufB, LD, kW, w + B::w1 + B::lay, w + B::w1 + B::lay + B::sq,
+             bufA);
+      hidden(bufA, LD, kW, w + B::w1 + 2 * B::lay,
+             w + B::w1 + 2 * B::lay + B::sq, bufB);
+      hidden(bufB, LD, kW, w + B::w1 + 3 * B::lay,
+             w + B::w1 + 3 * B::lay + B::sq, bufA);
+
+      // layer 5: two separately rounded dots, added, then the bias
+      dense_store<P>(pe, LDPE, kPE, w + B::w5p, kW, bufB, LD,
+                     [&](int, int, float acc) { return P::rnd(acc); });
+      __syncthreads();
+      dense_store<P>(bufA, LD, kW, w + B::w5h, kW, bufB, LD,
+                     [&](int r, int n, float acc) {
+                       const T both =
+                           add<P>(bufB[r * LD + P::col(n)], P::rnd(acc));
+                       return relu<P>(add<P>(both, ro(w + B::b5 + n)));
+                     });
+      __syncthreads();
+
+      hidden(bufB, LD, kW, w + B::w6, w + B::w6 + B::sq, bufA);
+      hidden(bufA, LD, kW, w + B::w7, w + B::w7 + B::sq, bufB);
+
+      // heads on h = bufB: sigma (row 0 of 8) and the feature layer
+      float* rs = res + (s - s0) * 4;
+      dense_each<P>(bufB, LD, kW, w + B::w_alpha, 8,
+                    [&](int r, int n, float acc) {
+                      if (n == 0)
+                        rs[r * kResChunk * 4 + 3] =
+                            P::f(add<P>(P::rnd(acc), ro(w + B::b_alpha)));
+                    });
+      dense_store<P>(bufB, LD, kW, w + B::w_feat, kW, bufA, LD,
+                     [&](int, int n, float acc) {
+                       return add<P>(P::rnd(acc), ro(w + B::b_feat + n));
+                     });
+      __syncthreads();
+      // view branch: relu(round(round(dot + vcon) + bv)), 128 wide, into bufB
+      dense_store<P>(bufA, LD, kW, w + B::wvf, kWH, bufB, LD,
+                     [&](int r, int n, float acc) {
+                       const T withv = add<P>(P::rnd(acc), vc[r * LDVC + n]);
+                       return relu<P>(add<P>(withv, ro(w + B::bv + n)));
+                     });
+      __syncthreads();
+      dense_each<P>(bufB, LD, kWH, w + B::w_rgb, 8,
+                    [&](int r, int n, float acc) {
+                      if (n < 3)
+                        rs[r * kResChunk * 4 + n] =
+                            P::f(add<P>(P::rnd(acc), ro(w + B::b_rgb + n)));
+                    });
+      __syncthreads();
     }
+    // the chunk's results: stored, or composited by one thread per ray
+    if constexpr (!COMPOSITE)
+      store_raw(a, base, live, s0, n_s, res, threadIdx.x, P::THREADS);
+    else
+      for (int r = threadIdx.x; r < live; r += P::THREADS)
+        composite_ray(a, base + r, s0, n_s, res + r * kResChunk * 4);
     __syncthreads();
-
-    hidden(pe, LDPE, kPE, w + B::w0p, w + B::b0, bufA);
-    hidden(bufA, LD, kW, w + B::w1, w + B::w1 + B::sq, bufB);
-    hidden(bufB, LD, kW, w + B::w1 + B::lay, w + B::w1 + B::lay + B::sq, bufA);
-    hidden(bufA, LD, kW, w + B::w1 + 2 * B::lay,
-           w + B::w1 + 2 * B::lay + B::sq, bufB);
-    hidden(bufB, LD, kW, w + B::w1 + 3 * B::lay,
-           w + B::w1 + 3 * B::lay + B::sq, bufA);
-
-    // layer 5: two separately rounded dots, added, then the bias
-    dense_store<P>(pe, LDPE, kPE, w + B::w5p, kW, bufB, LD,
-                   [&](int, int, float acc) { return P::rnd(acc); });
-    __syncthreads();
-    dense_store<P>(bufA, LD, kW, w + B::w5h, kW, bufB, LD,
-                   [&](int r, int n, float acc) {
-                     const T both =
-                         add<P>(bufB[r * LD + P::col(n)], P::rnd(acc));
-                     return relu<P>(add<P>(both, ro(w + B::b5 + n)));
-                   });
-    __syncthreads();
-
-    hidden(bufB, LD, kW, w + B::w6, w + B::w6 + B::sq, bufA);
-    hidden(bufA, LD, kW, w + B::w7, w + B::w7 + B::sq, bufB);
-
-    // heads on h = bufB: sigma (row 0 of 8) and the feature layer
-    float* rs = res + s * 4;
-    dense_each<P>(bufB, LD, kW, w + B::w_alpha, 8,
-                  [&](int r, int n, float acc) {
-                    if (n == 0)
-                      rs[r * S * 4 + 3] =
-                          P::f(add<P>(P::rnd(acc), ro(w + B::b_alpha)));
-                  });
-    dense_store<P>(bufB, LD, kW, w + B::w_feat, kW, bufA, LD,
-                   [&](int, int n, float acc) {
-                     return add<P>(P::rnd(acc), ro(w + B::b_feat + n));
-                   });
-    __syncthreads();
-    // view branch: relu(round(round(dot + vcon) + bv)), 128 wide, into bufB
-    dense_store<P>(bufA, LD, kW, w + B::wvf, kWH, bufB, LD,
-                   [&](int r, int n, float acc) {
-                     const T withv = add<P>(P::rnd(acc), vc[r * LDVC + n]);
-                     return relu<P>(add<P>(withv, ro(w + B::bv + n)));
-                   });
-    __syncthreads();
-    dense_each<P>(bufB, LD, kWH, w + B::w_rgb, 8,
-                  [&](int r, int n, float acc) {
-                    if (n < 3)
-                      rs[r * S * 4 + n] =
-                          P::f(add<P>(P::rnd(acc), ro(w + B::b_rgb + n)));
-                  });
-    __syncthreads();
-  }
-
-  const int live = min(TILE, N - base);
-  if constexpr (!COMPOSITE) {
-    // the tile's [live, S, 4] results are one contiguous chunk of raw
-    float4* dst = reinterpret_cast<float4*>(a.raw + (size_t)base * S * 4);
-    const float4* src = reinterpret_cast<const float4*>(res);
-    for (int idx = threadIdx.x; idx < live * S; idx += P::THREADS)
-      dst[idx] = src[idx];
-  } else {
-    // one thread per ray
-    for (int r = threadIdx.x; r < live; r += P::THREADS)
-      composite_ray(a, base + r, res + r * S * 4);
   }
 }
 
@@ -329,8 +383,8 @@ static_assert(WgBlob::kStageBytes == kRingStageBytes, "a stage fills a slot");
 
 // Shared memory of the bf16 kernel, from a 1,024-byte boundary. The PE rows
 // have two buffers (the next sample's are written while this one's are read),
-// the results of a tile have two where that leaves room for four weight
-// stages (S <= 8), else one.
+// the results two of one chunk each (the consumers fill one while the
+// helpers empty the other), and the ring four weight stages, whatever S.
 struct WgSmem {
   static constexpr int kPeBytes = kWgRays * kPE * 2;    // one warpgroup's rows
   static constexpr int pe = 0;                          // [2][2 wg][64][64]
@@ -338,32 +392,13 @@ struct WgSmem {
   static constexpr int bias = heads + WgBlob::kHeadBytes;   // f32
   static constexpr int vfrag = bias + 10240;            // 2 x 128 x 32 words
   static constexpr int bars = vfrag + 2 * 128 * 32 * 4;
-  static constexpr int res = bars + 256;                // n x [128][S][4] bf16
-  static constexpr int kLimit = 232448 - 1024;  // room to align the base
-  __host__ __device__ static constexpr int res_bytes(int S) {
-    return kWgTile * S * 8;
-  }
-  __host__ __device__ static constexpr int ring_at(int S, int n_res) {
-    return (res + n_res * res_bytes(S) + 1023) & ~1023;
-  }
-  __host__ __device__ static constexpr int n_res(int S) {
-    return ring_at(S, 2) + kMaxStages * WgBlob::kStageBytes <= kLimit ? 2 : 1;
-  }
-  __host__ __device__ static constexpr int ring(int S) {
-    return ring_at(S, n_res(S));
-  }
-  __host__ __device__ static constexpr int stages(int S) {
-    const int n = (kLimit - ring(S)) / WgBlob::kStageBytes;
-    return n > kMaxStages ? kMaxStages : n;
-  }
-  __host__ __device__ static constexpr int bytes(int S) {
-    return 1024 + ring(S) + stages(S) * WgBlob::kStageBytes;
-  }
+  static constexpr int res = bars + 256;   // 2 x [128][kResChunk][4] bf16
+  static constexpr int kResBytes = kWgTile * kResChunk * 8;
+  static constexpr int ring = (res + 2 * kResBytes + 1023) & ~1023;
+  static constexpr int bytes = 1024 + ring + kMaxStages * WgBlob::kStageBytes;
 };
 static_assert(WgBlob::kBiases * 4 <= 10240, "bias region");
-static_assert(WgSmem::n_res(8) == 2 && WgSmem::stages(8) == 4 &&
-                  WgSmem::stages(49) == 3 && WgSmem::stages(64) == 2,
-              "what fits");
+static_assert(WgSmem::bytes <= 232448, "what fits");
 
 template <bool COMPOSITE>
 __global__ void __launch_bounds__(kWgThreads, 1)
@@ -377,13 +412,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
   const int N = a.N, S = a.S;
   const int tid = threadIdx.x, wg = tid >> 7;
-  const uint32_t n_stages = M::stages(S), n_res = M::n_res(S);
+  const uint32_t n_stages = kMaxStages, n_res = 2;
   // mbarriers: the weight ring, the heads, the PE rows, the results
   const uint32_t full = sm32 + M::bars, empty = full + 8 * kMaxStages,
                  head_bar = empty + 8 * kMaxStages, pe_full = head_bar + 8,
                  pe_empty = pe_full + 16, res_full = pe_empty + 16,
                  res_empty = res_full + 16;
-  const uint32_t ring_buf = sm32 + M::ring(S);
+  const uint32_t ring_buf = sm32 + M::ring;
   const unsigned char* blob = static_cast<const unsigned char*>(a.blob);
   const int n_tiles = (N + kWgTile - 1) / kWgTile;
 
@@ -422,51 +457,50 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     } else {
       // Three warps do what is not a product. They write the PE rows, up to
       // two samples ahead of the consumers, and they store (raw) or
-      // composite the tile the consumers have just finished, while those
-      // work on the next one: after the second sample's rows, when both PE
-      // buffers are full and there is nothing else to do.
+      // composite the chunk of samples of a tile the consumers have just
+      // finished, while those work on the next one: after the second
+      // sample's rows, when both PE buffers are full and there is nothing
+      // else to do.
       const int t = tid - (kWgThreads - kHelpers);
       WgTurns pt = {pe_empty, 2, 0, 0}, rt = {res_full, n_res, 0, 0};
-      auto output = [&](int tile) {
+      auto output = [&](int tile, int s0) {
         hp::mbar_wait(rt.bar(), rt.phase);
         const int base = tile * kWgTile;
-        const int live = min(kWgTile, N - base);
+        const int live = min(kWgTile, N - base), n = min(kResChunk, S - s0);
         const __nv_bfloat16* res = reinterpret_cast<const __nv_bfloat16*>(
-            sm + M::res + rt.at * M::res_bytes(S));
+            sm + M::res + rt.at * M::kResBytes);
         if constexpr (!COMPOSITE) {
-          // the tile's [live, S, 4] results are one contiguous chunk
-          float4* dst =
-              reinterpret_cast<float4*>(a.raw + (size_t)base * S * 4);
-          const uint2* src = reinterpret_cast<const uint2*>(res);
-          for (int idx = t; idx < live * S; idx += kHelpers) {
-            const uint2 v = src[idx];
-            dst[idx] = make_float4(hp::bf16_lo(v.x), hp::bf16_hi(v.x),
-                                   hp::bf16_lo(v.y), hp::bf16_hi(v.y));
-          }
+          store_raw(a, base, live, s0, n, res, t, kHelpers);
         } else {
-          // one thread per ray
+          // one thread per ray, the same one for every chunk of the tile
           for (int r = t; r < live; r += kHelpers)
-            composite_ray(a, base + r, res + (size_t)r * S * 4);
+            composite_ray(a, base + r, s0, n,
+                          res + (size_t)r * kResChunk * 4);
         }
         __syncwarp();
         if (lane == 0) hp::mbar_arrive(res_empty + 8 * rt.at);
         rt.next();
       };
-      int finished = -1;
+      int done_tile = -1, done_s0 = 0;
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        for (int s = 0; s < S; ++s) {
-          hp::mbar_wait(pt.bar(), pt.phase ^ 1);
-          wg_write_pe(a.pts, N, tile * kWgTile, s,
-                      sm + M::pe + pt.at * 2 * M::kPeBytes, t);
-          hp::fence_proxy_async();
-          __syncwarp();
-          if (lane == 0) hp::mbar_arrive(pe_full + 8 * pt.at);
-          pt.next();
-          if (s == min(1, S - 1) && finished >= 0) output(finished);
+        for (int s0 = 0; s0 < S; s0 += kResChunk) {
+          const int n = min(kResChunk, S - s0);
+          for (int s = s0; s < s0 + n; ++s) {
+            hp::mbar_wait(pt.bar(), pt.phase ^ 1);
+            wg_write_pe(a.pts, N, tile * kWgTile, s,
+                        sm + M::pe + pt.at * 2 * M::kPeBytes, t);
+            hp::fence_proxy_async();
+            __syncwarp();
+            if (lane == 0) hp::mbar_arrive(pe_full + 8 * pt.at);
+            pt.next();
+            if (s == s0 + min(1, n - 1) && done_tile >= 0)
+              output(done_tile, done_s0);
+          }
+          done_tile = tile;
+          done_s0 = s0;
         }
-        finished = tile;
       }
-      if (finished >= 0) output(finished);
+      if (done_tile >= 0) output(done_tile, done_s0);
     }
   } else {
     // ------------------------------------------------------ consumers --
@@ -513,16 +547,30 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         const float v1 = ok ? a.vcon[(size_t)(c + 1) * N + base + r] : 0.0f;
         vfrag[p * 128] = hp::pack_bf16x2(v0, v1);
       }
-      // the results buffer of this tile, once its last tile has left it
+      // the results buffer of the tile's first chunk, once its last chunk
+      // has left it
       hp::mbar_wait(rt.bar(), rt.phase ^ 1);
       // A point where the compiler sees the whole warpgroup together: without
       // one in the loop it issues every product serialized (ptxas C7520).
       hp::named_barrier(1 + wg, 128);
-      __nv_bfloat16* res =
-          reinterpret_cast<__nv_bfloat16*>(sm + M::res + rt.at * M::res_bytes(S)) +
-          (size_t)wg * kWgRays * S * 4;
+      auto res_of = [&](uint32_t at) {
+        return reinterpret_cast<__nv_bfloat16*>(sm + M::res +
+                                                at * M::kResBytes) +
+               (size_t)wg * kWgRays * kResChunk * 4;
+      };
+      __nv_bfloat16* res = res_of(rt.at);
 
       for (int s = 0; s < S; ++s) {
+        if (s > 0 && s % kResChunk == 0) {
+          // a chunk of results is written: over to the output warps, and on
+          // to the other buffer once it is free (no live state beyond s and
+          // rt: the consumers' registers are at ptxas' limit)
+          __syncwarp();
+          if (lane == 0) hp::mbar_arrive(res_full + 8 * rt.at);
+          rt.next();
+          hp::mbar_wait(rt.bar(), rt.phase ^ 1);
+          res = res_of(rt.at);
+        }
         hp::mbar_wait(pt.bar(), pt.phase);
         const uint64_t pe_desc = hp::desc_k128(
             sm32 + M::pe + (pt.at * 2 + wg) * M::kPeBytes);
@@ -575,7 +623,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         for (int l = 6; l <= 7; ++l)
           wg_layer256<Act::kRelu>(acc, h, ring, bias_q + l * kW);
 
-        __nv_bfloat16* rs = res + s * 4;   // [ray][S][4]
+        __nv_bfloat16* rs = res + (s % kResChunk) * 4;   // [ray][chunk][4]
         // sigma head (column 0 of 8, resident) and the feature layer, on h7
         {
           float sig[4] = {};
@@ -595,9 +643,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           hp::keep(sig);
           if (q == 0) {
             const float ba = biasf[B::b_alpha];
-            rs[(size_t)row0 * S * 4 + 3] = __float2bfloat16_rn(
+            rs[(size_t)row0 * kResChunk * 4 + 3] = __float2bfloat16_rn(
                 __bfloat162float(__float2bfloat16_rn(sig[0])) + ba);
-            rs[(size_t)(row0 + 8) * S * 4 + 3] = __float2bfloat16_rn(
+            rs[(size_t)(row0 + 8) * kResChunk * 4 + 3] = __float2bfloat16_rn(
                 __bfloat162float(__float2bfloat16_rn(sig[2])) + ba);
           }
           wg_layer256<Act::kNone>(acc, h, ring, bias_q + B::b_feat);
@@ -638,18 +686,19 @@ __global__ void __launch_bounds__(kWgThreads, 1)
               return __float2bfloat16_rn(
                   __bfloat162float(__float2bfloat16_rn(d)) + b);
             };
-            rs[(size_t)row0 * S * 4 + 2 * q] = head(rgb[0], b0);
-            rs[(size_t)(row0 + 8) * S * 4 + 2 * q] = head(rgb[2], b0);
+            rs[(size_t)row0 * kResChunk * 4 + 2 * q] = head(rgb[0], b0);
+            rs[(size_t)(row0 + 8) * kResChunk * 4 + 2 * q] = head(rgb[2], b0);
             if (q == 0) {
               const float b1 = biasf[B::b_rgb + 1];
-              rs[(size_t)row0 * S * 4 + 1] = head(rgb[1], b1);
-              rs[(size_t)(row0 + 8) * S * 4 + 1] = head(rgb[3], b1);
+              rs[(size_t)row0 * kResChunk * 4 + 1] = head(rgb[1], b1);
+              rs[(size_t)(row0 + 8) * kResChunk * 4 + 1] = head(rgb[3], b1);
             }
           }
         }
       }
 
-      // this warp's results of the tile are written: over to the output warps
+      // this warp's results of the tile's last chunk are written: over to
+      // the output warps
       __syncwarp();
       if (lane == 0) hp::mbar_arrive(res_full + 8 * rt.at);
       rt.next();
@@ -661,7 +710,7 @@ template <class P, bool COMPOSITE>
 int run_nerf(const NerfArgs& a, cudaStream_t stream) {
   const int blocks = (a.N + P::TILE - 1) / P::TILE;
   return launch(nerf_kernel<P, COMPOSITE>, blocks, P::THREADS,
-                nerf_smem<P>(a.S), stream, a);
+                nerf_smem<P>(), stream, a);
 }
 
 // One persistent block per SM, at most one per tile.
@@ -674,15 +723,16 @@ int run_nerf_wg(const NerfArgs& a, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
   const int tiles = (a.N + kWgTile - 1) / kWgTile;
   return launch(nerf_wg_kernel<COMPOSITE>, sms < tiles ? sms : tiles,
-                kWgThreads, WgSmem::bytes(a.S), stream, a);
+                kWgThreads, WgSmem::bytes, stream, a);
 }
 
-// bf16: S is bounded by the shared memory that the results of a tile take
-// beside at least two weight stages (a block of products spans two).
+// Any S: no buffer depends on it. Indices into [S*3, N], [S, N] and
+// [N, S, 4] are taken in size_t; the one int product, live * n, is at most
+// 128 * kResChunk.
 inline bool nerf_args_ok(int N, int S, long long blob_elems, int pack_bf16) {
-  if (N <= 0 || S <= 0 || S > 64) return false;
+  if (N <= 0 || S <= 0) return false;
   if (!pack_bf16) return blob_elems == NerfBlob::total;
-  return blob_elems == WgBlob::kBlobElems && WgSmem::stages(S) >= 2;
+  return blob_elems == WgBlob::kBlobElems;
 }
 
 }  // namespace pn

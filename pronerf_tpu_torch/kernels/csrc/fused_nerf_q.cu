@@ -129,7 +129,7 @@ static_assert(QBlob::stage_bytes(0) == kRingStageBytes, "a stage fits a slot");
 // layer's accumulators: [2 wg][64 elements][128 threads]), the weight ring
 // of three slots (the fourth would not fit beside the 64 KB of vcon). The
 // results go straight to device memory, so nothing here depends on S: what
-// fits at S = 8 fits at every S the wrapper takes.
+// fits at S = 8 fits at every S.
 struct QSmem {
   static constexpr int kPeBytes = kWgRays * kPE * 2;   // one warpgroup's rows
   static constexpr int pe = 0;                         // [2][2 wg][64][64]
@@ -489,11 +489,12 @@ inline int run_nerf_q_wg(const NerfQArgs& a, cudaStream_t stream) {
 }  // namespace pn
 
 // Returns the CUDA error of the launch (0 = launched), or -1 for arguments
-// the kernel does not take.
+// the kernel does not take. Any S: every index that S multiplies ([S*3, N],
+// [N, S, 4]) is taken in size_t.
 extern "C" int pn_fused_nerf_raw_q(const float* pts24_t, const float* vcon_t,
                                    const void* blob, long long blob_bytes,
                                    float* raw, int N, int S, void* stream) {
-  if (N <= 0 || S <= 0 || S > 64 || blob_bytes != pn::QBlob::kBlobBytes)
+  if (N <= 0 || S <= 0 || blob_bytes != pn::QBlob::kBlobBytes)
     return -1;
   pn::NerfQArgs a = {};
   a.pts = pts24_t;

@@ -495,11 +495,14 @@ __device__ __forceinline__ void wg_dense128(float (&acc)[64],
 // acc[64, 128] = A . W^T over `ksteps` k-steps of 16, A from shared memory:
 // rows of the warpgroup's rays in k-slabs of 64 (`a_desc` describes slab 0,
 // the next slab `a_slab_bytes` further); W as k-slabs [128 x 64] from `slab`
-// (shared address), one after the other.
+// (shared address), one after the other. With `accumulate` the products add
+// to the sums already in acc (a product over K in parts), else they
+// overwrite them.
 __device__ __forceinline__ void wg_dense128_ss(float (&acc)[64],
                                                uint64_t a_desc,
                                                uint32_t a_slab_bytes,
-                                               uint32_t slab, int ksteps) {
+                                               uint32_t slab, int ksteps,
+                                               int accumulate = 0) {
   wg_turn_wait();
   hp::wgmma_fence();
 #pragma unroll 4
@@ -507,7 +510,8 @@ __device__ __forceinline__ void wg_dense128_ss(float (&acc)[64],
     const uint64_t step = (kk % 4) * hp::kDescKStep;
     hp::wgmma_m64n128k16_ss(
         acc, a_desc + (((kk / 4) * a_slab_bytes) >> 4) + step,
-        hp::desc_k128(slab + (kk / 4) * kSlab128Bytes) + step, kk);
+        hp::desc_k128(slab + (kk / 4) * kSlab128Bytes) + step,
+        kk | accumulate);
   }
   hp::wgmma_commit();
   wg_turn_pass();

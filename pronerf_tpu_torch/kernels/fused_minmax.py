@@ -135,20 +135,21 @@ def fused_minmax_plain(packed, x_t, transpose_out: bool = True):
 
 
 _BLOB_KEY = "_kernel_blob"
-# The bf16 kernel's layer 0 takes K = C padded to a multiple of 16, held in
-# at most two k-slabs of 64 (C <= 128; the refine net of 4 views and 8
-# samples has C = 102).
-MAX_C_BF16 = 2 * SLAB_K
+# The bf16 kernel's layer 0 takes K = C padded to a multiple of 16, in
+# passes of at most two k-slabs of 64 (one pass for C <= 128; the refine net
+# of 4 views and 8 samples has C = 102).
+PASS_SLABS = 2
 
 
 def ring_stages(packed):
     """The ring stages of one tile of the bf16 kernel, in the order it
-    consumes them: layer 0 as one stage per half of 128 outputs (its one or
-    two k-slabs), then each hidden layer as four stages of two slabs."""
+    consumes them: layer 0 per half of 128 outputs, one stage a pass (two of
+    the half's k-slabs, the last pass what is left), then each hidden layer
+    as four stages of two slabs."""
     n0 = -(-packed["w0_t"].shape[1] // SLAB_K)
     ring = [st for half in (0, 1)
-            for st in slabs("w0_t", W // 2, half * W // 2, per_stage=n0,
-                            n=n0)]
+            for st in slabs("w0_t", W // 2, half * W // 2,
+                            per_stage=PASS_SLABS, n=n0)]
     for i in range(1, _depth(packed)):
         ring += halves(f"w{i}_t")
     return tuple(tuple(st) for st in ring)
@@ -187,6 +188,59 @@ def _blob(packed):
     return blob
 
 
+# The bf16 kernel keeps the head [out_pad, 256] and two result buffers
+# [128, out_pad] in shared memory for the block's life, beside the layer-0 A
+# rows, the biases and at least two ring stages (``MmSmem`` in
+# ``csrc/fused_minmax.cu``, mirrored by ``_wg_fits``). A head too large for
+# that (the refine net of more than 29 samples a ray, 4 S + 3 outputs) runs
+# in parts of its rows, one launch a part, each writing its own columns of
+# ``out`` and running the whole trunk.
+_SMEM_LIMIT = 232448 - 1024
+_RING_STAGE = 32768
+_PARTS_KEY = "_kernel_head_parts"
+
+
+def _wg_fits(C: int, depth: int, out_pad: int) -> bool:
+    n0 = -(-(-(-C // 16) * 16) // SLAB_K)
+    a_rows = 2 * min(n0, PASS_SLABS) * 64 * 128
+    biases = ((depth * W + out_pad) * 2 + 15) & ~15
+    rest = biases + 2 * (128 * out_pad * 2) + 256
+    return _SMEM_LIMIT - a_rows - out_pad * 512 - rest >= 2 * _RING_STAGE
+
+
+def head_parts(C: int, depth: int, out_pad: int):
+    """Row ranges ``(c0, c1)`` of the head that the bf16 kernel computes one
+    launch each: the whole head where it fits, else the fewest parts of
+    equal size (a multiple of 8) that each fit."""
+    if _wg_fits(C, depth, out_pad):
+        return ((0, out_pad),)
+    fit = [n for n in range(8, out_pad, 8) if _wg_fits(C, depth, n)]
+    if not fit:
+        raise ValueError(f"no head part fits the bf16 kernel at C={C}")
+    size = _pad8(-(-out_pad // -(-out_pad // fit[-1])))
+    return tuple((c, min(c + size, out_pad)) for c in range(0, out_pad, size))
+
+
+def _parts(packed, C):
+    """``head_parts`` with the pack of each part (the trunk's panels, the
+    part's head rows), built once and kept in ``packed``."""
+    parts = packed.get(_PARTS_KEY)
+    if parts is None:
+        out_pad = packed["wout_t"].shape[0]
+        ranges = head_parts(C, _depth(packed), out_pad)
+        if len(ranges) == 1:
+            parts = ((0, out_pad, packed),)
+        else:
+            trunk = {k: v for k, v in packed.items()
+                     if not k.startswith("_") and k not in ("wout_t", "bout")}
+            parts = tuple(
+                (c0, c1, trunk | {"wout_t": packed["wout_t"][c0:c1].clone(),
+                                  "bout": packed["bout"][c0:c1].clone()})
+                for c0, c1 in ranges)
+        packed[_PARTS_KEY] = parts
+    return parts
+
+
 _fn = None
 
 
@@ -214,8 +268,10 @@ def fused_minmax_t(packed, x_t, transpose_out: bool = True):
 
     The JAX wrapper's ``rays_per_block`` is dropped: the CUDA kernel's tile
     is fixed at build time and it masks a ragged last tile itself. bf16
-    panels run ``minmax_wg_kernel`` (``wgmma``, C <= 128), f32 panels the
-    exact FMA kernel.
+    panels run ``minmax_wg_kernel`` (``wgmma``; layer 0 in passes of 128
+    input rows where C > 128; a head too large for its shared memory in
+    parts, one launch each, see ``head_parts``), f32 panels the exact FMA
+    kernel.
 
     Returns float32; the caller slices its true output width (pad columns are
     exact zero-weight products).
@@ -233,40 +289,39 @@ def fused_minmax_t(packed, x_t, transpose_out: bool = True):
         raise TypeError(f"pack dtype {w0.dtype} has no kernel")
     if not x_t.is_contiguous():
         raise ValueError("x_t must be contiguous")
-    if w0.dtype == torch.bfloat16 and x_t.shape[0] > MAX_C_BF16:
-        raise ValueError(
-            f"the bf16 kernel takes C <= {MAX_C_BF16} input rows, got "
-            f"{x_t.shape[0]}")
     if w0.device != x_t.device:
         raise ValueError(f"panels on {w0.device}, x_t on {x_t.device}")
     C, N = x_t.shape
     out_pad = packed["wout_t"].shape[0]
-    blob = _blob(packed)
+    is_bf16 = w0.dtype == torch.bfloat16
+    parts = _parts(packed, C) if is_bf16 else ((0, out_pad, packed),)
     if transpose_out:
         out = torch.empty(N, out_pad, dtype=torch.float32, device=x_t.device)
-        strides = (out_pad, 1)
+        strides, col = (out_pad, 1), 1
     else:
         out = torch.empty(out_pad, N, dtype=torch.float32, device=x_t.device)
-        strides = (1, N)
-    with torch.cuda.device(x_t.device):
-        err = _kernel()(
-            x_t.data_ptr(), int(x_t.dtype == torch.bfloat16),
-            blob.data_ptr(), blob.numel(), out.data_ptr(), N, C,
-            _depth(packed), out_pad, strides[0], strides[1],
-            int(w0.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        what = ("arguments the kernel does not take (it needs N > 0, a head "
-                "padded to a multiple of 8 and the blob built by this module)"
-                if err == -1 else f"CUDA error {err}")
-        raise RuntimeError(f"fused_minmax kernel launch failed: {what}")
-    fused_minmax_t.launches += 1
-    fused_minmax_t.launches_by_width[C] = (
-        fused_minmax_t.launches_by_width.get(C, 0) + 1)
-    if not transpose_out:
-        fused_minmax_t.launches_untransposed[C] = (
-            fused_minmax_t.launches_untransposed.get(C, 0) + 1)
+        strides, col = (1, N), N
+    for c0, c1, part in parts:
+        blob = _blob(part)
+        with torch.cuda.device(x_t.device):
+            err = _kernel()(
+                x_t.data_ptr(), int(x_t.dtype == torch.bfloat16),
+                blob.data_ptr(), blob.numel(),
+                out.data_ptr() + 4 * c0 * col, N, C, _depth(packed),
+                c1 - c0, strides[0], strides[1], int(is_bf16),
+                torch.cuda.current_stream().cuda_stream,
+            )
+        if err != 0:
+            what = ("arguments the kernel does not take (it needs N > 0, a "
+                    "head padded to a multiple of 8 and the blob built by "
+                    "this module)" if err == -1 else f"CUDA error {err}")
+            raise RuntimeError(f"fused_minmax kernel launch failed: {what}")
+        fused_minmax_t.launches += 1
+        fused_minmax_t.launches_by_width[C] = (
+            fused_minmax_t.launches_by_width.get(C, 0) + 1)
+        if not transpose_out:
+            fused_minmax_t.launches_untransposed[C] = (
+                fused_minmax_t.launches_untransposed.get(C, 0) + 1)
     return out
 
 

@@ -335,7 +335,7 @@ def _check_cuda(packed, **tensors):
 def _launch_error(err: int) -> str:
     if err == -1:
         return ("arguments the kernel does not take (it needs N > 0, "
-                "1 <= n_samples <= 64 and the blob built by this module)")
+                "n_samples >= 1 and the blob built by this module)")
     return f"CUDA error {err}"
 
 
@@ -372,10 +372,18 @@ def fused_nerf_raw_t(packed, pts24_t, vcon_t, n_samples: int = 8):
         raise RuntimeError(
             f"fused_nerf_raw kernel launch failed: {_launch_error(err)}")
     fused_nerf_raw_t.launches += 1
+    _count_samples(fused_nerf_raw_t, n_samples)
     return raw
 
 
+def _count_samples(fn, n_samples):
+    fn.launches_by_samples[n_samples] = (
+        fn.launches_by_samples.get(n_samples, 0) + 1)
+
+
+# Launches of each kernel: all of them, and by samples a ray
 fused_nerf_raw_t.launches = 0
+fused_nerf_raw_t.launches_by_samples = {}
 
 
 def fused_nerf_composite_t(packed, pts24_t, vcon_t, z_t, mm_add_t, mm_mul_t,
@@ -439,7 +447,9 @@ def fused_nerf_composite_t(packed, pts24_t, vcon_t, z_t, mm_add_t, mm_mul_t,
             f"fused_nerf_composite kernel launch failed: {_launch_error(err)}"
         )
     fused_nerf_composite_t.launches += 1
+    _count_samples(fused_nerf_composite_t, S)
     return out
 
 
 fused_nerf_composite_t.launches = 0
+fused_nerf_composite_t.launches_by_samples = {}

@@ -490,7 +490,11 @@ def fused_nerf_raw_tq(packed, pts24_t, vcon_t, n_samples: int = 8):
         raise RuntimeError(
             f"fused_nerf_raw_q kernel launch failed: error {err}")
     fused_nerf_raw_tq.launches += 1
+    fused_nerf_raw_tq.launches_by_samples[n_samples] = (
+        fused_nerf_raw_tq.launches_by_samples.get(n_samples, 0) + 1)
     return raw
 
 
+# Launches of the kernel: all of them, and by samples a ray
 fused_nerf_raw_tq.launches = 0
+fused_nerf_raw_tq.launches_by_samples = {}

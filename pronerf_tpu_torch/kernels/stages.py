@@ -25,8 +25,10 @@ W_HALF = 128
 
 def slabs(panel, rows=W, row0=0, per_stage=1, n=W // SLAB_K):
     """Stages of ``per_stage`` slabs each over the first ``n`` k-slabs of
-    rows [row0, row0 + rows) of ``panel`` (a key of the packed dict)."""
-    return [[(panel, row0, rows, ks + i) for i in range(per_stage)]
+    rows [row0, row0 + rows) of ``panel`` (a key of the packed dict); the
+    last stage holds what is left."""
+    return [[(panel, row0, rows, ks + i)
+             for i in range(min(per_stage, n - ks))]
             for ks in range(0, n, per_stage)]
 
 

@@ -1,23 +1,33 @@
-"""The ProNeRF render pipeline, deterministic (eval / inference) branch.
+"""The ProNeRF render pipeline, all (stage, branch) forms of it.
 
 Pipeline per ray batch:
   1. Pluecker-encode 48 fixed NDC points -> sampler MLP -> 8 candidate depths
      (sigmoid into [near, far]) + density corrections + auxiliary RGB;
   2. sort depths (the corrections move with them), map NDC depth to 3D;
-  3. take the num_neighbor source views nearest to the target pose, project
-     the 8 candidates into them (epipolar warp), mean-fill invalid colors;
+  3. select per-ray neighbor source views (training: random positions in
+     each ray's distance order; eval: the nearest to the target pose),
+     project the 8 candidates into them (epipolar warp), mean-fill invalid
+     colors;
   4. refine MLP on [Pluecker(8 pts) || warped colors] -> refined depths
      (constrained to per-sample bins), 3D point offsets, auxiliary RGB;
-  5. NeRF MLP on positionally-encoded points/dirs -> alpha compositing with
-     the sampler's density corrections folded in.
+  5. branch-specific sample surgery (stage-1 exploration expansion, stage-2
+     jitter, learned offsets);
+  6. NeRF MLP on positionally-encoded points/dirs -> alpha compositing with
+     the sampler's density corrections folded in when enabled.
 
-Counterpart of ``pronerf_tpu/models/pronerf.py``. The training branches of
-``render_rays`` (random neighbors, exploration, jitter, noise) belong to the
-training slice of the port and raise ``NotImplementedError`` here.
+Counterpart of ``pronerf_tpu/models/pronerf.py``, with every (stage, branch)
+of ``RenderStatics``: the deterministic serving path and the three training
+branches (random per-ray neighbors, exploration, jitter, sigma noise,
+frozen sampler). The step's random choices (n_mult, the direction coins,
+the neighbor subset) are host values in ``controls``; the random draws come
+from ``controls['rng']`` (a ``torch.Generator`` on the rays' device) unless
+``controls`` carries them pre-drawn (``raw_noise``, ``jitter_noise``), which
+is how the tests hand both packages the same numbers.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional
 
@@ -37,14 +47,18 @@ from pronerf_tpu_torch.ops.encoding import (
 from pronerf_tpu_torch.ops.rays import linspace_depths, ray_points
 from pronerf_tpu_torch.ops.sampling import (
     bin_constrain,
+    explore_expand,
+    gap_jitter,
     ndc_to_3d_depth,
     sort_with_payloads,
 )
 from pronerf_tpu_torch.ops.warp import (
+    epipolar_colors,
     epipolar_colors_shared,
     is_u8_pack,
     mean_fill_invalid,
     mean_fill_invalid_sct,
+    per_view_gather_auto,
 )
 
 
@@ -99,7 +113,9 @@ class RenderStatics:
     gather_transposed: int = -1  # emit the epipolar colors directly in the
                                  # kernels' transposed layout: -1 auto
                                  # (= off), 0 off, 1 force
-    train_gather: int = -1       # training-path warp choice (not ported)
+    train_gather: int = -1       # training-path warp: -1 auto (= the
+                                 # all-views gather), 0 all-views, 1 the
+                                 # per-view form (not ported)
     netarch: str = "nerf"     # radiance-field family; 'donerf' not ported
     transposed: bool = False  # fully transposed serving graph
                               # (models/pronerf_t.py)
@@ -202,6 +218,25 @@ def init_pronerf_params(
     }
 
 
+def _select_neighbors(rays, scene, controls):
+    """[N, V] per-ray neighbor source-view ids while training: each ray's
+    training views sorted by camera distance, without its own view, at the
+    host-drawn positions ``neighbor_subset`` (shared across the batch). The
+    own view is sent to +inf BY INDEX, so it sorts last even when two
+    training poses coincide; the sort is stable, as ``jnp.argsort``."""
+    poses_t = scene["poses_t"]  # [T, 3] training-pose translations
+    pose_id = rays["pose_id"].to(torch.int64)
+    target_t = poses_t[pose_id]  # [N, 3]
+    dist = torch.linalg.norm(target_t[:, None, :] - poses_t[None], dim=-1)
+    own = (torch.arange(poses_t.shape[0], device=dist.device)[None, :]
+           == pose_id[:, None])
+    dist = torch.where(own, torch.full_like(dist, float("inf")), dist)
+    order = torch.argsort(dist, dim=-1, stable=True)  # self is now last
+    subset = torch.as_tensor(controls["neighbor_subset"], dtype=torch.int64,
+                             device=dist.device)
+    return order[:, :-1][:, subset]
+
+
 def _nearest_views(statics, scene, controls):
     """[V] nearest training views to the eval/inference target pose, shared
     by every ray of the frame. The sort is stable, so two views at the same
@@ -223,10 +258,6 @@ def view_contribution(nerf: NeRFMLP, d_pe, pack_dtype):
 
 def _check_ported(statics: RenderStatics):
     later = []
-    if statics.randomize or statics.explore or statics.jitter \
-            or statics.noise_std > 0.0 or statics.stop_sampler_grad:
-        later.append("the training branches (randomize / explore / jitter / "
-                     "noise / stop_sampler_grad): the training slice")
     if statics.netarch != "nerf":
         later.append("netarch='donerf': the off-main-path serving variants")
     if statics.quant not in ("none", "int8"):
@@ -234,7 +265,11 @@ def _check_ported(statics: RenderStatics):
             f"quant must be 'none' or 'int8', got {statics.quant!r}")
     if statics.gather_tiles > 0 or statics.gather_split \
             or statics.train_gather == 1:
-        later.append("the windowed / split / per-view gathers")
+        later.append("the windowed / split / per-view gathers (ROADMAP "
+                     "A.10)")
+    if statics.randomize and statics.use_kernels:
+        raise ValueError("the fused kernels serve the deterministic path "
+                         "only (no gradient flows through them)")
     if later:
         raise NotImplementedError(
             "not ported to pronerf_tpu_torch yet: " + "; ".join(later)
@@ -242,17 +277,29 @@ def _check_ported(statics: RenderStatics):
 
 
 def render_rays(params, rays, scene, controls, statics: RenderStatics):
-    """Render a batch of rays end to end (deterministic branch).
+    """Render a batch of rays end to end.
 
     Args:
       params: {'nerf', 'sampler', 'refine'} modules, optionally with the
         pre-packed kernel panels of ``kernels.packing.pack_serving_params``.
       rays: dict of [N, ...] tensors: ndc_o, ndc_d, viewdirs (unit world
-        dirs), or_o, or_d (original camera-space rays for warping).
+        dirs), or_o, or_d (original camera-space rays for warping), and
+        pose_id ([N] train-view id; read when ``randomize``).
       scene: dict: images [T, H, W, 3], fused_mats [T, 3, 4], K [3, 3],
         poses_t [T, 3].
-      controls: dict: target_t [3].
+      controls: dict. Eval: target_t [3]. Training: n_mult (int), dir_expand,
+        dir_jitter (bool), neighbor_subset [V] (ints), rng (a
+        ``torch.Generator`` on the rays' device, for the draws that are not
+        given), and optionally the pre-drawn N(0, 1) noise raw_noise and
+        jitter_noise ([N, >= width]; the first ``width`` columns are used,
+        width = the samples a ray after exploration).
       statics: RenderStatics.
+
+    Gradients flow as in the JAX package's ``render_rays`` under
+    ``jax.grad``: never through the epipolar gather (computed under
+    ``no_grad`` on a detached ``z3d``), nor through the sampler and refine
+    nets when ``stop_sampler_grad`` (they then run under ``no_grad``), nor
+    into ``depth0``.
 
     With ``use_kernels`` the fused kernels run: on CUDA tensors the CUDA
     kernels, on CPU tensors their plain versions. No gradient flows through
@@ -276,6 +323,10 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
     # first-layer weights instead of materializing [N, 288].
     fold_mm = cdt is not None and not statics.mmnetskips
     mm_kernel = fold_mm and statics.use_kernels
+    # stage-1 NeRF steps train the NeRF alone: the sampler and refine nets
+    # run frozen, so no graph is kept for them
+    frozen = torch.no_grad() if statics.stop_sampler_grad \
+        else contextlib.nullcontext()
     if mm_kernel:
         from pronerf_tpu_torch.kernels.fused_minmax import (
             fused_minmax_t,
@@ -292,9 +343,10 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
         mm_out = fused_minmax_t(packed_s, sig_t)[:, : 3 * S + 3]
     elif fold_mm:
         sig = plucker(ndc_o, ndc_d)  # [N, 6]
-        mm_out = minmax_mlp_apply_folded(
-            params["sampler"], sig, statics.N_point_ray_enc, None, cdt
-        )
+        with frozen:
+            mm_out = minmax_mlp_apply_folded(
+                params["sampler"], sig, statics.N_point_ray_enc, None, cdt
+            )
     else:
         sig_depths = linspace_depths(
             0.0, 1.0, statics.N_point_ray_enc, ndc_o.dtype, ndc_o.device
@@ -303,7 +355,8 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
             ndc_o, ndc_d, sig_depths.expand(n_rays, statics.N_point_ray_enc)
         )
         sampler_in = plucker(sig_pts, ndc_d[:, None, :]).reshape(n_rays, -1)
-        mm_out = params["sampler"](sampler_in, cdt)
+        with frozen:
+            mm_out = params["sampler"](sampler_in, cdt)
     mm_rgb = torch.sigmoid(mm_out[:, 3 * S:])
     mm_add = mm_out[:, S: 2 * S]
     mm_mul = mm_out[:, 2 * S: 3 * S]
@@ -315,9 +368,8 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
     )
     z3d = ndc_to_3d_depth(depth_values, statics.ndc_eps)
 
-    # 3. Epipolar color features from the shared nearest views (never
-    # differentiated).
-    nearest = _nearest_views(statics, scene, controls)
+    # 3. Epipolar color features (never differentiated): per-ray neighbor
+    # views while training, else the shared nearest views.
     gdt = (
         torch.bfloat16
         if (statics.gather_bf16 == 1
@@ -327,11 +379,25 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
     # Transposed emit: produce the fused kernels' rays-minor layout directly
     # at the gather instead of transposing epi_flat below.
     t_emit = (
-        mm_kernel and is_u8_pack(scene["images"])
+        not statics.randomize and mm_kernel and is_u8_pack(scene["images"])
         and not statics.gather_split and statics.gather_transposed == 1
     )
+    z3d = z3d.detach()
     with torch.no_grad():
-        if t_emit:
+        if statics.randomize:
+            view_idx = _select_neighbors(rays, scene, controls)
+            if statics.train_gather == -1 and \
+                    per_view_gather_auto(scene["images"]):
+                raise NotImplementedError(
+                    "not ported to pronerf_tpu_torch yet: the per-view "
+                    "gather (ROADMAP A.10)")
+            colors = epipolar_colors(
+                scene["images"], scene["fused_mats"], scene["K"], view_idx,
+                rays["or_o"], rays["or_d"], z3d,
+            )  # [N, V, S, 3]
+            colors = mean_fill_invalid(colors)
+        elif t_emit:
+            nearest = _nearest_views(statics, scene, controls)
             epi_v = epipolar_colors_shared(
                 scene["images"], scene["fused_mats"], scene["K"], nearest,
                 rays["or_o"], rays["or_d"], z3d, out_dtype=gdt,
@@ -340,6 +406,7 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
             n_views = epi_v.shape[0]
             epi_v = mean_fill_invalid_sct(epi_v.reshape(n_views, S, 3, n_rays))
         else:
+            nearest = _nearest_views(statics, scene, controls)
             colors = epipolar_colors_shared(
                 scene["images"], scene["fused_mats"], scene["K"], nearest,
                 rays["or_o"], rays["or_d"], z3d, out_dtype=gdt,
@@ -373,21 +440,43 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
             torch.cat([sig_t.to(epi_rows_t.dtype), epi_rows_t], dim=0),
         )[:, : 4 * S + 3]
     elif fold_mm:
-        refine_out = minmax_mlp_apply_folded(
-            params["refine"], sig, S, epi_flat, cdt
-        )
+        with frozen:
+            refine_out = minmax_mlp_apply_folded(
+                params["refine"], sig, S, epi_flat, cdt
+            )
     else:
         epi_pts = ray_points(ndc_o, ndc_d, depth_values)
         plk = plucker(epi_pts, ndc_d[:, None, :]).reshape(n_rays, -1)
-        refine_out = params["refine"](
-            torch.cat([plk, epi_flat], dim=-1), cdt
-        )
+        with frozen:
+            refine_out = params["refine"](
+                torch.cat([plk, epi_flat], dim=-1), cdt
+            )
     refine_sig = torch.sigmoid(refine_out[:, :S])
     refine_rgb = torch.sigmoid(refine_out[:, 4 * S:])
     points_offset = torch.tanh(refine_out[:, S: 4 * S]).reshape(n_rays, S, 3)
 
-    # 5. Bin-constrained refined depths.
+    # 5. Bin-constrained refined depths + branch-specific surgery.
     z_vals = bin_constrain(depth_values, refine_sig, near, far)
+    num_valid = None
+    gen = controls.get("rng")
+    if statics.explore:
+        z_vals, num_valid = explore_expand(
+            z_vals, controls["n_mult"], bool(controls["dir_expand"]), near,
+            far, statics.max_expand,
+        )
+        jittered = gap_jitter(
+            z_vals, near, far, bool(controls["dir_jitter"]), 0.99,
+            noise=controls.get("jitter_noise"), generator=gen,
+        )
+        idx = torch.arange(statics.max_expand, device=z_vals.device)
+        z_vals = torch.where(idx[None, :] < num_valid, jittered,
+                             torch.full_like(jittered, far))
+    elif statics.jitter:
+        z_vals = gap_jitter(
+            z_vals, near, far, bool(controls["dir_jitter"]), 1.0 - 2e-6,
+            noise=controls.get("jitter_noise"), generator=gen,
+        )
+    n_s = z_vals.shape[-1]
 
     # 6. NeRF forward (fused kernel on the inference path, the module
     # otherwise) + shared compositing.
@@ -461,17 +550,28 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
         if cdt is None:
             # The parity path broadcasts dirs per point; the serving path
             # hands the module the per-ray encoding.
-            d_pe = d_pe[:, None, :].expand(n_rays, S, d_pe.shape[-1])
+            d_pe = d_pe[:, None, :].expand(n_rays, n_s, d_pe.shape[-1])
         raw = params["nerf"](x_pe, d_pe, cdt)
 
     if comp is None:
+        noise = None
+        if statics.noise_std > 0.0:
+            rn = controls.get("raw_noise")
+            if rn is None:
+                rn = torch.randn(z_vals.shape, generator=gen,
+                                 dtype=z_vals.dtype, device=z_vals.device)
+            else:
+                rn = rn[:, :n_s].to(z_vals.dtype)
+            noise = statics.noise_std * rn
         comp = composite(
             raw,
             z_vals,
             ndc_d,
+            noise=noise,
             mm_add=mm_add if statics.use_mm else None,
             mm_mul=mm_mul if statics.use_mm else None,
             clamp_raw=statics.clamp_raw,
+            num_valid=num_valid,
             white_bkgd=statics.white_bkgd,
         )
         sigma_out = raw[..., 3]
@@ -483,6 +583,6 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
         "acc": comp["acc"],
         "weights": comp["weights"],
         "mm_rgb": mm_rgb,
-        "depth0": torch.mean(z_vals, dim=-1),
+        "depth0": torch.mean(z_vals.detach(), dim=-1),
         "sigma": sigma_out,
     }

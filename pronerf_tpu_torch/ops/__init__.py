@@ -17,10 +17,13 @@ from pronerf_tpu_torch.ops.warp import (  # noqa: F401
     fuse_projection,
     bilinear_sample,
     project_points,
+    epipolar_colors,
     epipolar_colors_shared,
     mean_fill_invalid,
 )
 from pronerf_tpu_torch.ops.sampling import (  # noqa: F401
+    explore_expand,
+    gap_jitter,
     sort_with_payloads,
     ndc_to_3d_depth,
     bin_constrain,

@@ -1,9 +1,15 @@
-"""Depth-sample manipulation on the deterministic path: sorting with
-payloads, NDC<->3D depth, per-sample bin constraints.
+"""Depth-sample manipulation: sorting with payloads, NDC<->3D depth,
+per-sample bin constraints, and the stage-1 "exploration" machinery.
 
-The stage-1 exploration machinery of the JAX module (``explore_expand``,
-``gap_jitter``) and ``sample_pdf`` belong to the training slice and are not
-here yet.
+Stage-1 exploration multiplies the S refined samples by a per-step random
+integer n_mult in [1, max_total // S]. It is laid out at a fixed width
+``max_total``: slot j maps to (sample s = j // n_mult, multiplier m = j %
+n_mult), and slots with j >= S * n_mult are parked at ``far`` and masked out
+of compositing. In eager PyTorch n_mult is a host integer, so the trainer
+may pick the width per step (``explore_buckets``).
+
+``sample_pdf`` (hierarchical sampling, never run by the release configs) is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -45,3 +51,92 @@ def bin_constrain(depths_sorted, refine_sig, near, far):
     upper = torch.cat([mids, 0.5 * (far + depths_sorted[..., -1:])], dim=-1)
     lower = torch.cat([0.5 * (near + depths_sorted[..., :1]), mids], dim=-1)
     return lower + (upper - lower) * refine_sig
+
+
+def _neighbors(z_vals, near, far):
+    """The next sample (``far`` after the last) and the previous one
+    (``near`` before the first) of every sample."""
+    next_z = torch.cat([z_vals[..., 1:], torch.full_like(z_vals[..., :1], far)],
+                       dim=-1)
+    prev_z = torch.cat([torch.full_like(z_vals[..., :1], near),
+                        z_vals[..., :-1]], dim=-1)
+    return next_z, prev_z
+
+
+def _per_slot(x, n_mult: int, max_total: int):
+    """``x[:, min(j // n_mult, S - 1)]`` for slot j < max_total, written as
+    an expand and a reshape so that its gradient is a sum over each sample's
+    copies (an index with repeats would accumulate with atomics on the card,
+    in no fixed order)."""
+    N, S = x.shape
+    rep = x[:, :, None].expand(N, S, n_mult).reshape(N, S * n_mult)
+    if S * n_mult >= max_total:
+        return rep[:, :max_total]
+    return torch.cat(
+        [rep, x[:, -1:].expand(N, max_total - S * n_mult)], dim=-1)
+
+
+def explore_expand(z_vals, n_mult: int, direction_up: bool, near, far,
+                   max_total: int = 64):
+    """Fixed-width sample multiplication for the stage-1 NeRF exploration.
+
+    For each base sample s, n_mult shifted copies are laid out sample-major
+    (slot j = s * n_mult + m) with the m-th copy offset by (m / n_mult) of the
+    one-sided gap toward the next (direction_up) or previous sample. Slots
+    beyond S * n_mult are parked at ``far``. The result is sorted ascending
+    (stably, as ``jnp.sort``), so the valid samples occupy the first
+    ``num_valid`` slots; gradients flow through the permutation.
+
+    Args:
+      z_vals: [N, S] refined depths (sorted).
+      n_mult: host integer in [1, max_total // S].
+      direction_up: host bool (one coin per training step).
+      near, far: scalars.
+
+    Returns:
+      z_expanded: [N, max_total] sorted, invalid slots == far.
+      num_valid: S * n_mult.
+    """
+    N, S = z_vals.shape
+    n_mult = int(n_mult)
+    j = torch.arange(max_total, device=z_vals.device)
+    # linspace(0, 1 - 1/n, n) == m / n, divided in the dtype of z
+    frac = (j % n_mult).to(z_vals.dtype) / float(n_mult)
+    next_z, prev_z = _neighbors(z_vals, near, far)
+    base = _per_slot(z_vals, n_mult, max_total)
+    if direction_up:
+        offset = frac[None, :] * _per_slot(torch.abs(z_vals - next_z), n_mult,
+                                           max_total)
+    else:
+        offset = -frac[None, :] * _per_slot(torch.abs(z_vals - prev_z),
+                                            n_mult, max_total)
+    valid = (j < S * n_mult)[None, :]
+    z_exp = torch.where(valid, base + offset, torch.full_like(base, far))
+    z_exp, _ = torch.sort(z_exp, dim=-1, stable=True)
+    return z_exp, S * n_mult
+
+
+def gap_jitter(z_vals, near, far, direction_up: bool, max_noise: float,
+               noise=None, generator=None):
+    """One-sided gap-scaled Gaussian jitter shared by stage-1 exploration
+    (max_noise=0.99) and stage-2 training (max_noise=1-2e-6).
+
+    noise = min(|N(0,1)| / 5, max_noise); moved toward the next sample
+    (direction_up) or the previous one, scaled by that gap, so ordering is
+    preserved. Invalid (parked-at-far) slots see zero up-gap and are restored
+    by the caller.
+
+    ``noise`` supplies the N(0,1) draw ([N, >= S]; its first S columns are
+    used); without it the draw comes from ``generator`` (a
+    ``torch.Generator`` on z's device).
+    """
+    next_z, prev_z = _neighbors(z_vals, near, far)
+    if noise is None:
+        noise = torch.randn(z_vals.shape, generator=generator,
+                            dtype=z_vals.dtype, device=z_vals.device)
+    else:
+        noise = noise[..., : z_vals.shape[-1]].to(z_vals.dtype)
+    mag = torch.clamp(torch.abs(noise) / 5.0, max=max_noise)
+    if direction_up:
+        return z_vals + mag * torch.abs(z_vals - next_z)
+    return z_vals - mag * torch.abs(z_vals - prev_z)

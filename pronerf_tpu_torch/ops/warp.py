@@ -9,11 +9,12 @@ source views and fetch bilinearly-interpolated colors.
 - the geometry is full float32: the small products are written as multiplies
   and sums, so no TF32 or bf16 path can touch them.
 
-This is the deterministic shared-view path of the JAX module: the row-major
-gather ``epipolar_colors_shared``, its transposed emit (``transposed_out``)
-and the fully transposed ``epipolar_colors_shared_t`` of the transposed
-serving graph, each with its mean fill. The windowed, split, per-view and
-nearest-neighbor forms are not ported yet.
+The deterministic shared-view path of the JAX module: the row-major gather
+``epipolar_colors_shared``, its transposed emit (``transposed_out``) and the
+fully transposed ``epipolar_colors_shared_t`` of the transposed serving
+graph, each with its mean fill; and the training path's all-views gather
+``epipolar_colors`` (per-ray neighbor views). The windowed, split, per-view
+and nearest-neighbor forms are not ported yet.
 """
 
 from __future__ import annotations
@@ -188,6 +189,43 @@ def bilinear_sample(images, view_idx, xn, yn):
 
     return _lerp(gather(y0, x0), gather(y0, x1), gather(y1, x0),
                  gather(y1, x1), wx[..., None], wy[..., None], inb)
+
+
+def epipolar_colors(images, fused_mats, K, view_idx, rays_o, rays_d, z3d):
+    """Colors of candidate sample points as seen from per-ray neighbor views
+    (the training path: every ray has its own views).
+
+    Args:
+      images: [T, H, W, 3] float source images, a [T, H, W, 12]
+        :func:`build_corner_stack`, or an int32 [T, H, W, 3]
+        :func:`build_corner_stack_u8`.
+      fused_mats: [T, 3, 4] per-view fused projection (``fuse_projection``).
+      K: [3, 3] shared intrinsics.
+      view_idx: [N, V] integer neighbor view ids per ray.
+      rays_o, rays_d: [N, 3] ORIGINAL camera-space rays (not NDC).
+      z3d: [N, S] 3D depths along each ray.
+
+    Returns: colors [N, V, S, 3] (zeros where the projection left the image).
+    """
+    T, H, W, C = images.shape
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z3d[..., None]  # [N, S, 3]
+    M = fused_mats[view_idx]  # [N, V, 3, 4]
+    xn, yn = project_points(pts[:, None, :, :], M[:, :, None, :, :], K, H, W)
+    vidx = view_idx[:, :, None].expand(xn.shape)
+    if is_u8_pack(images):
+        return bilinear_sample_packed_u8(images, vidx, xn, yn)
+    if C == 12:
+        return bilinear_sample_packed(images, vidx, xn, yn)
+    return bilinear_sample(images, vidx, xn, yn)
+
+
+def per_view_gather_auto(images) -> bool:
+    """The policy of ``train_gather = -1`` (auto), which ``render_rays``
+    consults on its training branches: always the single all-views gather
+    (:func:`epipolar_colors`). The per-view form (``train_gather = 1``) is
+    not ported yet."""
+    del images
+    return False
 
 
 def _lerp_t_block(table, idx, wx, wy, hit, out_dtype):

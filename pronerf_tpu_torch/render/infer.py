@@ -7,9 +7,11 @@
   the bf16 fast path;
 - metrics: PSNR (always), SSIM, and LPIPS when the optional package exists.
 
-Counterpart of ``pronerf_tpu/render/infer.py``. Not ported yet: the LLFF /
-COLMAP data branch, the checkpoint reader (the training slice brings the
-port's own checkpoints), ``export`` and the ``render-path`` video verb.
+Counterpart of ``pronerf_tpu/render/infer.py``. Weights come from the
+port's own checkpoints (``train/checkpoint.py``: ``ft_path``, else the
+newest ``*.ckpt`` of the expdir). Not ported yet: the LLFF / COLMAP data
+branch (ROADMAP A.12), the reader of the JAX package's msgpack checkpoints
+(A.11; they raise), ``export`` and the ``render-path`` video verb.
 """
 
 from __future__ import annotations
@@ -25,6 +27,10 @@ from pronerf_tpu_torch.config import Config, enforce_flag_contract
 from pronerf_tpu_torch.models.pronerf import RenderStatics, init_pronerf_params
 from pronerf_tpu_torch.render.raygen import prepare_scene
 from pronerf_tpu_torch.render.renderer import render_path
+from pronerf_tpu_torch.train.checkpoint import (
+    latest_checkpoint,
+    load_checkpoint,
+)
 from pronerf_tpu_torch.utils.tensors import resolve_device
 
 
@@ -111,15 +117,25 @@ def _init_params(cfg: Config, generator: torch.Generator, device):
     )
 
 
+def load_params_for_inference(ckpt_file, cfg: Config, device):
+    """The three nets of a port checkpoint of either stage: the NeRF from
+    ``network_fine`` (stage 2) if present, else ``network_fn`` (stage 1)."""
+    ck = load_checkpoint(ckpt_file)
+    params = _init_params(cfg, torch.Generator().manual_seed(cfg.seed),
+                          device)
+    with torch.no_grad():
+        params["nerf"].load_state_dict(
+            ck["network_fine"] if "network_fine" in ck else ck["network_fn"])
+        params["sampler"].load_state_dict(ck["mmr_network_fn"])
+        params["refine"].load_state_dict(ck["refine_net"])
+    return params
+
+
 def _load_params(cfg: Config, expdir, device):
-    ckpts = sorted(Path(expdir).glob("*.ckpt"))
-    if cfg.ft_path or ckpts:
-        raise NotImplementedError(
-            f"checkpoint {cfg.ft_path or ckpts[-1]}: the checkpoint reader "
-            "is not ported to pronerf_tpu_torch yet (the training slice "
-            "brings the port's own format); weights cross from the JAX "
-            "package through convert.params_from_numpy"
-        )
+    ckpt = cfg.ft_path or latest_checkpoint(expdir)
+    if ckpt:
+        print(f"Loading weights from {ckpt}")
+        return load_params_for_inference(ckpt, cfg, device)
     print("WARNING: no checkpoint found; rendering with random weights")
     return _init_params(cfg, torch.Generator().manual_seed(cfg.seed), device)
 

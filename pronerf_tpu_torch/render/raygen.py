@@ -1,4 +1,4 @@
-"""Scene/ray-batch preparation for eval and inference.
+"""Scene/ray-batch preparation shared by training, eval and inference.
 
 The pipeline consumes TWO parallel ray parameterizations per pixel:
 - NDC rays (near plane at 1.0) for the sampler/NeRF math, and
@@ -9,9 +9,10 @@ The pipeline consumes TWO parallel ray parameterizations per pixel:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from pronerf_tpu_torch.ops.rays import get_rays, ndc_rays
+from pronerf_tpu_torch.ops.rays import get_rays, get_rays_np, ndc_rays
 from pronerf_tpu_torch.ops.warp import (
     build_corner_stack,
     build_corner_stack_u8,
@@ -73,3 +74,50 @@ def rays_for_pose(H: int, W: int, K, c2w, device="cuda"):
         "or_d": flat(rays_d),
         "pose_id": torch.zeros(H * W, dtype=torch.int32, device=device),
     }
+
+
+def rays_from_pool(batch_rays, pose_ids, H: int, W: int, focal: float):
+    """Ray bundle from a [N, 2, 3] (o, d) slice of the training ray pool plus
+    each ray's train-view id; on the device of ``batch_rays``."""
+    rays_o = batch_rays[:, 0].to(torch.float32)
+    rays_d = batch_rays[:, 1].to(torch.float32)
+    viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    ndc_o, ndc_d = ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
+    return {
+        "ndc_o": ndc_o,
+        "ndc_d": ndc_d,
+        "viewdirs": viewdirs,
+        "or_o": rays_o,
+        "or_d": rays_d,
+        "pose_id": pose_ids.to(torch.int64),
+    }
+
+
+def build_ray_pool(images, poses, K, i_train, num_neighbor: int,
+                   rng: np.random.Generator):
+    """Host-side precompute of the shuffled training ray pool: all rays of
+    all training views with their target colors, shuffled once.
+
+    Returns:
+      rays: [M, 3, 3] float32 (origin, direction, rgb),
+      view_ids: [M] int32 index INTO THE TRAIN SUBSET (0..len(i_train)-1),
+      perm-shuffled consistently.
+
+    The NumPy form of the JAX package's ``build_ray_pool``. Its first draw
+    from ``rng`` seeds the JAX package's native (C++) pool; it is drawn here
+    too, so the same Generator state gives the same pool, bit for bit. (The
+    native pool itself is not ported.)
+    """
+    del num_neighbor  # the neighbors are chosen per batch, in render_rays
+    rng.integers(0, 2**63 - 1)
+    H, W = images.shape[1:3]
+    all_rays, all_ids = [], []
+    for local_id, idx in enumerate(i_train):
+        ro, rd = get_rays_np(H, W, K, poses[idx][:3, :4])
+        rays = np.stack([ro, rd, images[idx]], axis=2).reshape(-1, 3, 3)
+        all_rays.append(rays.astype(np.float32))
+        all_ids.append(np.full((H * W,), local_id, np.int32))
+    rays = np.concatenate(all_rays, 0)
+    ids = np.concatenate(all_ids, 0)
+    perm = rng.permutation(rays.shape[0])
+    return rays[perm], ids[perm]

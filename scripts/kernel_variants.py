@@ -25,20 +25,26 @@ from pronerf_tpu_torch.kernels import build  # noqa: E402
 CONVERSIONS = ("I2F", "F2I", "FRND", "I2FP", "F2IP")
 
 
-def build_variants(source, variants, names, tmp: Path, symbol, argtypes):
+def build_variants(source, variants, names, tmp: Path, symbol, argtypes,
+                   parent: Path | None = None):
     """{name: (C function, its library's path, ptxas' lines on registers,
     spills and serialized products)} for every variant in ``names``: the
     sources under ``csrc`` with each ``(file, old, new)`` of
     ``variants[name]`` applied (every occurrence; a missing ``old`` fails),
-    ``csrc/<source>.cu`` built into ``tmp/<name>/lib<source>.so``."""
+    ``csrc/<source>.cu`` built into ``tmp/<name>/lib<source>.so``. With
+    ``parent`` (the root of another checkout, e.g. the parent commit unpacked
+    by ``git archive``), the variant ``parent`` is that tree's sources as
+    they are."""
     procs = {}
     for name in names:
         d = tmp / name
         d.mkdir()
-        for src in build.CSRC.iterdir():
+        csrc = (parent / build.CSRC.relative_to(ROOT) if name == "parent"
+                else build.CSRC)
+        for src in csrc.iterdir():
             if src.suffix in (".cu", ".cuh"):
                 shutil.copy(src, d / src.name)
-        for fname, old, new in variants[name]:
+        for fname, old, new in variants.get(name, ()):
             text = (d / fname).read_text()
             if old not in text:
                 raise SystemExit(f"{name}: {old!r} not in {fname}")
@@ -87,6 +93,29 @@ def cuda_times(launch, reps):
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
+    return times
+
+
+def interleaved_times(launches, reps):
+    """{name: ms of each of ``reps`` launches} for every launch function in
+    ``launches``, by CUDA events, after one each to warm up: one launch of
+    every variant in turn, the order reversed from one turn to the next, so
+    that a drift of the card's clock over the run falls on all of them
+    alike."""
+    names = list(launches)
+    for name in names:
+        launches[name]()
+    torch.cuda.synchronize()
+    times = {name: [] for name in names}
+    for r in range(reps):
+        for name in names if r % 2 == 0 else names[::-1]:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            launches[name]()
+            b.record()
+            torch.cuda.synchronize()
+            times[name].append(a.elapsed_time(b))
     return times
 
 

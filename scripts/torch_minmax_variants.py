@@ -7,11 +7,17 @@ text substitutions, built with ``nvcc`` into a temporary directory (one
 process per variant, started together) and called through the same C
 interface as the wrapper, on the sampler and the refine pack at the ray count
 of a 504x378 frame. Variants that take work away compute wrong values on
-purpose: they are only timed (median of CUDA-event times, one launch each).
+purpose: they are only timed, interleaved: one launch of each in turn, the
+order reversed every turn, ``--reps`` turns (median of CUDA-event times, one
+launch each; the medians of the two halves show a drift of the clock).
 ``as_is`` is also held against the plain version.
 
     python3 scripts/torch_minmax_variants.py [--rays N] [--only NAME ...]
-        [--forms] [--sass]
+        [--forms] [--sass] [--parent DIR] [--reps R]
+
+``one_form`` computes the same function as ``as_is`` and must return its
+output bit for bit; ``--parent DIR`` adds the variant ``parent``, the
+sources of another checkout as they are (compared, not required equal).
 
 Prints one JSON line per variant and shape, then the card's name and power
 limit.
@@ -28,7 +34,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from kernel_variants import build_variants, card_line, cuda_times, sass_counts
+from kernel_variants import (build_variants, card_line, cuda_times,
+                             interleaved_times, sass_counts)
 
 from pronerf_tpu_torch.kernels import fused_minmax as fm
 from pronerf_tpu_torch.models.mlp import MinMaxMLP
@@ -47,12 +54,33 @@ VARIANTS = {
                 ("fused_minmax.cu", "c0 < out_pad; c0 += 8", "false; c0 += 8")],
     # the helpers neither read x nor write the A rows
     "no_a_rows": [("fused_minmax.cu",
-                   "mm_write_a<true>(a, tile * kWgTile, sm + M.a, t);", ""),
+                   "mm_write_a<true>(a, tile * kWgTile, pass, sm + M.a, t);", ""),
                   ("fused_minmax.cu",
-                   "mm_write_a<false>(a, tile * kWgTile, sm + M.a, t);", "")],
+                   "mm_write_a<false>(a, tile * kWgTile, pass, sm + M.a, t);", "")],
     # the helpers store nothing
     "no_store": [("fused_minmax.cu", "idx < live * out_pad / 4;", "idx < 0;"),
                  ("fused_minmax.cu", "idx < out_pad * kWgTile;", "idx < 0;")],
+    # one instantiation for every C: the passes form, which at one pass
+    # (C <= 128) fills the A rows once a tile and waits and arrives once
+    # (the same function)
+    "one_form": [
+        ("fused_minmax.cu", "a.passes > 1 ? minmax_wg_kernel<true>\n"
+         "                             : minmax_wg_kernel<false>",
+         "minmax_wg_kernel<true>"),
+        ("fused_minmax.cu", "const int fills = PASSES ? 2 * a.passes : 1;",
+         "const int fills = a.passes > 1 ? 2 * a.passes : 1;"),
+        ("fused_minmax.cu", "            hp::mbar_wait(at.bar(), at.phase);\n"
+         "            wg_dense128_ss(",
+         "            if (a.passes > 1 || hf == 0)\n"
+         "              hp::mbar_wait(at.bar(), at.phase);\n"
+         "            wg_dense128_ss("),
+        ("fused_minmax.cu", "            if (lane == 0) hp::mbar_arrive(a_empty);\n"
+         "            at.next();\n",
+         "            if (a.passes > 1 || hf == 1) {\n"
+         "              if (lane == 0) hp::mbar_arrive(a_empty);\n"
+         "              at.next();\n"
+         "            }\n"),
+    ],
     # the two consumer warpgroups do not take turns
     "no_turns": [("hopper.cuh", "hp::named_barrier(4 + (threadIdx.x >> 7), 256);",
                   ""),
@@ -75,6 +103,8 @@ def main(argv=None):
     ap.add_argument("--rays", type=int, default=378 * 504)
     ap.add_argument("--only", nargs="*", default=sorted(VARIANTS))
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="root of another checkout to time as 'parent'")
     ap.add_argument("--forms", action="store_true",
                     help="also time each variant with a bf16 input and with the "
                          "[out_pad, N] output")
@@ -85,11 +115,13 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda", 0)
+    names = (["as_is"] + [n for n in args.only if n != "as_is"]
+             + ["parent"] * (args.parent is not None))
     with tempfile.TemporaryDirectory(prefix="minmax_variants_") as tmp:
-        libs = build_variants("fused_minmax", VARIANTS, args.only, Path(tmp),
-                              "pn_fused_minmax", ARGTYPES)
+        libs = build_variants("fused_minmax", VARIANTS, names, Path(tmp),
+                              "pn_fused_minmax", ARGTYPES, args.parent)
         if args.sass:
-            for name in args.only:
+            for name in names:
                 print(json.dumps({"variant": name, "sass": sass_counts(
                     libs[name][1], "minmax_wg_kernel")}), flush=True)
         rng = np.random.default_rng(0)
@@ -104,35 +136,55 @@ def main(argv=None):
                 rng.standard_normal((C, N), dtype=np.float32)).to(dev)
             out_pad = packed["wout_t"].shape[0]
             depth = 6
-            for name in args.only:
-                fn, _, ptxas = libs[name]
-                out = torch.empty(N, out_pad, device=dev)
-                forms = [("", x_t, (out_pad, 1))]
-                if args.forms:
-                    # the wrapper's other input dtype and output layout
-                    forms += [("bf16_x", x_t.to(torch.bfloat16), (out_pad, 1)),
-                              ("untransposed", x_t, (1, N))]
-                for form, xx, (sr, sc) in forms:
-                    def launch():
-                        err = fn(xx.data_ptr(), int(xx.dtype == torch.bfloat16),
-                                 blob.data_ptr(), blob.numel(), out.data_ptr(),
-                                 N, C, depth, out_pad, sr, sc, 1,
-                                 torch.cuda.current_stream().cuda_stream)
-                        if err:
-                            raise SystemExit(f"{name} {form}: launch error {err}")
 
-                    times = cuda_times(launch, args.reps)
-                    row = {"variant": name, "shape": shape, "rays": N,
-                           "ms": statistics.median(times), "ms_min": min(times)}
-                    if form:
-                        row["form"] = form
-                    else:
-                        row["ptxas"] = ptxas
-                        if name == "as_is":
-                            want = fm.fused_minmax_plain(packed, x_t[:, :16384])
-                            row["max_abs_err_16384"] = float(
-                                (out[:16384] - want).abs().max())
-                    print(json.dumps(row), flush=True)
+            def make_launch(name, xx, sr, sc, out):
+                fn = libs[name][0]
+
+                def launch():
+                    err = fn(xx.data_ptr(), int(xx.dtype == torch.bfloat16),
+                             blob.data_ptr(), blob.numel(), out.data_ptr(),
+                             N, C, depth, out_pad, sr, sc, 1,
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise SystemExit(f"{name}: launch error {err}")
+                return launch
+
+            outs = {name: torch.empty(N, out_pad, device=dev)
+                    for name in names}
+            times = interleaved_times(
+                {name: make_launch(name, x_t, out_pad, 1, outs[name])
+                 for name in names}, args.reps)
+            for name in names:
+                ts = times[name]
+                row = {"variant": name, "shape": shape, "rays": N,
+                       "launches": len(ts), "ms": statistics.median(ts),
+                       "ms_min": min(ts),
+                       "ms_first_half": statistics.median(ts[:len(ts) // 2]),
+                       "ms_second_half": statistics.median(ts[len(ts) // 2:]),
+                       "ptxas": libs[name][2]}
+                if name in ("one_form", "parent"):
+                    row["equal_to_as_is"] = bool(torch.equal(
+                        outs[name], outs["as_is"]))
+                if name == "as_is":
+                    want = fm.fused_minmax_plain(packed, x_t[:, :16384])
+                    row["max_abs_err_16384"] = float(
+                        (outs[name][:16384] - want).abs().max())
+                print(json.dumps(row), flush=True)
+                if name == "one_form" and not row["equal_to_as_is"]:
+                    raise SystemExit("one_form differs from as_is")
+            if args.forms:
+                # the wrapper's other input dtype and output layout
+                for name in names:
+                    out = torch.empty(N, out_pad, device=dev)
+                    for form, xx, (sr, sc) in (
+                            ("bf16_x", x_t.to(torch.bfloat16), (out_pad, 1)),
+                            ("untransposed", x_t, (1, N))):
+                        ts = cuda_times(make_launch(name, xx, sr, sc, out),
+                                        args.reps)
+                        print(json.dumps({
+                            "variant": name, "shape": shape, "form": form,
+                            "rays": N, "ms": statistics.median(ts),
+                            "ms_min": min(ts)}), flush=True)
     print(card_line(), flush=True)
 
 

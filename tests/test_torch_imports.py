@@ -27,7 +27,9 @@ def test_port_has_the_expected_modules():
                  "kernels.build", "kernels.fused_minmax",
                  "kernels.fused_nerf", "kernels.fused_nerf_q",
                  "kernels.packing", "render.raygen", "render.renderer",
-                 "render.infer", "utils.synthetic", "utils.profiling"):
+                 "render.infer", "utils.synthetic", "utils.profiling",
+                 "utils.logging", "train.state", "train.stage1",
+                 "train.stage2", "train.checkpoint", "train.loop"):
         assert f"pronerf_tpu_torch.{want}" in mods
 
 
@@ -91,6 +93,10 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         prepare_scene(np.zeros((1, 12, 16, 3), np.float32), pose[None], K)
     with pytest.raises(RuntimeError, match="CUDA"):
         rays_for_pose(12, 16, K, pose)
+    from pronerf_tpu_torch.train.loop import run_training
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_training(Config(datadir="synthetic"), 1)
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -1,15 +1,20 @@
 """The layouts the bf16 MinMax kernel (``csrc/fused_minmax.cu:
-minmax_wg_kernel``) relies on, for the sampler (C = 6, head 27 -> 32) and
-the refine net (C = 102, head 35 -> 40), checked on the CPU with numpy
-models and integer arithmetic; no card, no ``nvcc``.
+minmax_wg_kernel``) relies on, for the sampler (C = 6, head 27 -> 32), the
+refine net (C = 102, head 35 -> 40) and three wider refine nets whose
+layer 0 runs in passes of 128 input rows (16 samples of 4 views, C = 198,
+and of 8 views, C = 390; head 67 -> 72; 128 samples of 4 views, C = 1542,
+head 515 -> 520), checked on the CPU with numpy models and integer
+arithmetic; no card, no ``nvcc``.
 
-* The bf16 blob is the ring stages of one tile (layer 0 one stage a half,
-  each hidden layer four), the head slabs, the biases: every panel element is
-  in it once and reads back bit for bit through a model of the slab swizzle;
-  the pad columns of layer 0 and the pad rows of the head are zero.
+* The bf16 blob is the ring stages of one tile (layer 0 one stage a half and
+  pass, each hidden layer four), the head slabs, the biases: every panel
+  element is in it once and reads back bit for bit through a model of the
+  slab swizzle; the pad columns of layer 0 and the pad rows of the head are
+  zero.
 * The stage table agrees with the constants and formulas of the CUDA source.
-* The helper warps' write map of the layer-0 A rows, (ray, k) -> swizzled
-  byte, covers each warpgroup's slabs once, where the descriptor reads them.
+* The helper warps' write map of the layer-0 A rows of each pass, (ray, k)
+  -> swizzled byte, covers each warpgroup's slabs once, where the descriptor
+  reads them.
 * The head's result map (accumulator -> result row) and the store map
   (result row -> ``out``) cover ``[N, out_pad]`` and ``[out_pad, N]`` once,
   the ragged last tile included.
@@ -30,7 +35,9 @@ torch.set_num_threads(2)
 
 CSRC = Path(fm.__file__).resolve().parent / "csrc"
 # name: (reps, trailing rows, head width): the folded input is 6 + trailing
-SHAPES = {"sampler": (48, 0, 27), "refine": (8, 96, 35)}
+SHAPES = {"sampler": (48, 0, 27), "refine": (8, 96, 35),
+          "refine_16x4": (16, 192, 67), "refine_16x8": (16, 384, 67),
+          "refine_128x4": (128, 1536, 515)}
 TILE, RAYS_WG, A_SLAB = 128, 64, 64 * 128
 
 
@@ -135,22 +142,29 @@ def test_stage_table_agrees_with_the_cuda_source(case):
     half = const(hop, "kHalf")
     assert "kSlab128Bytes = kHalf * 128;" in hop
     slab128 = half * stages.SLAB_ROW_BYTES
-    l0, per_layer = const(src, "kLayer0Stages"), const(src, "kStagesPerLayer")
+    per_layer = const(src, "kStagesPerLayer")
     max_slabs = const(src, "kMaxK0Slabs")
+    assert max_slabs == fm.PASS_SLABS
+    assert "int layer0_stages() const { return 2 * passes; }" in src
     depth = 1 + max(int(k[1:-2]) for k in packed
                     if k.startswith("w") and k[1].isdigit())
     C, out_pad = packed["w0_t"].shape[1], packed["wout_t"].shape[0]
-    k0 = -(-C // 16) * 16           # MmArgs::k0
-    n0 = -(-k0 // 64)               # MmArgs::n0
-    assert n0 <= max_slabs and C <= fm.MAX_C_BF16 == 64 * max_slabs
+    k0 = -(-C // 16) * 16                   # MmArgs::k0
+    n0 = -(-k0 // 64)                       # MmArgs::n0
+    passes = -(-n0 // max_slabs)            # MmArgs::passes
+    assert (passes > 1) == (C > 64 * max_slabs)
+    l0 = 2 * passes                         # layer0_stages()
     table = stages.stage_table(fm.ring_stages(packed))
     assert len(table) == l0 + per_layer * (depth - 1)   # stages_per_tile()
     for i, (off, nbytes) in enumerate(table):           # stage_bytes, _off
         if i < l0:
-            assert (off, nbytes) == (i * n0 * slab128, n0 * slab128)
+            hf, pss = divmod(i, passes)
+            assert (off, nbytes) == (
+                (hf * n0 + max_slabs * pss) * slab128,
+                min(max_slabs, n0 - max_slabs * pss) * slab128)
         else:
             assert (off, nbytes) == (
-                l0 * n0 * slab128 + (i - l0) * stages.STAGE_BYTES,
+                2 * n0 * slab128 + (i - l0) * stages.STAGE_BYTES,
                 stages.STAGE_BYTES)
         assert off % 1024 == 0 and nbytes <= stages.STAGE_BYTES
     heads = sum(b for _, b in table)                    # heads()
@@ -161,45 +175,61 @@ def test_stage_table_agrees_with_the_cuda_source(case):
     assert "return biases() / 2 + n_biases();" in src
 
 
-def a_write_map(C):
+def a_write_map(C, pss):
     """Byte offset of every (warpgroup, row, k) the helper threads write into
-    the A buffer, following ``mm_write_a``: thread item idx -> ray r =
-    idx % 128, columns c0 = 8 (idx / 128) .. c0 + 7, one 16-byte store."""
+    the A buffer in layer-0 pass ``pss``, following ``mm_write_a``: thread
+    item idx -> ray r = idx % 128, columns k = 128 pss + c0 .. + 7 with
+    c0 = 8 (idx / 128), one 16-byte store."""
     k0 = -(-C // 16) * 16
     n0 = -(-k0 // 64)
+    n_p = min(n0, fm.PASS_SLABS)            # MmArgs::np
+    k_lo = 64 * fm.PASS_SLABS * pss
     writes = {}
-    for idx in range(TILE * (k0 // 8)):
+    for idx in range(TILE * (min(64 * fm.PASS_SLABS, k0 - k_lo) // 8)):
         r, c0 = idx % TILE, 8 * (idx // TILE)
         row = r % RAYS_WG
-        base = ((r // RAYS_WG) * n0 * A_SLAB + (c0 // 64) * A_SLAB
+        base = ((r // RAYS_WG) * n_p * A_SLAB + (c0 // 64) * A_SLAB
                 + row * 128 + ((((c0 % 64) >> 3) ^ (row & 7)) << 4))
         assert base % 16 == 0
         for e in range(8):
             writes.setdefault(base + 2 * e, []).append(
-                (r // RAYS_WG, row, c0 + e))
-    return writes, k0, n0
+                (r // RAYS_WG, row, k_lo + c0 + e))
+    return writes, k0, n0, n_p
 
 
-@pytest.mark.parametrize("C", [6, 102])
+@pytest.mark.parametrize("C", [6, 102, 198, 390, 1542])
 def test_layer_0_a_rows_are_written_once_where_the_descriptor_reads(C):
     src = (CSRC / "fused_minmax.cu").read_text()
     assert "row * 128 + ((((c0 % 64) >> 3) ^ (row & 7)) << 4)) =" in src
     assert "const int r = idx % kWgTile, c0 = 8 * (idx / kWgTile)" in src
-    writes, k0, n0 = a_write_map(C)
-    assert (k0, n0) == ((16, 1) if C == 6 else (112, 2))
-    # every byte pair once
-    assert all(len(v) == 1 for v in writes.values())
-    got = {v[0]: off for off, v in writes.items()}
-    want = {(w, row, k) for w in (0, 1) for row in range(RAYS_WG)
-            for k in range(k0)}
-    assert set(got) == want
-    # the k-steps a warpgroup's descriptor reads: slab k // 64 at
-    # + (k // 64) * A_SLAB from its base, the slab swizzle inside
-    for (w, row, k), off in got.items():
-        assert off == (w * n0 * A_SLAB + (k // 64) * A_SLAB
-                       + swizzled_offset(row, k % 64))
-    # the two warpgroups' regions do not overlap and fit the buffer
-    assert max(writes) < 2 * n0 * A_SLAB
+    assert "const int ray = base + r, k = k_lo + c0;" in src
+    assert "abuf + (r / kWgRays) * a.np * kASlabBytes" in src
+    passes = -(-(-(-C // 16) * 16) // (64 * fm.PASS_SLABS))
+    seen = set()
+    for pss in range(passes):
+        writes, k0, n0, n_p = a_write_map(C, pss)
+        assert (k0, n0) == {6: (16, 1), 102: (112, 2), 198: (208, 4),
+                            390: (400, 7), 1542: (1552, 25)}[C]
+        # every byte pair once in the pass
+        assert all(len(v) == 1 for v in writes.values())
+        got = {v[0]: off for off, v in writes.items()}
+        k_lo = 64 * fm.PASS_SLABS * pss
+        k_hi = min(k0, k_lo + 64 * fm.PASS_SLABS)
+        want = {(w, row, k) for w in (0, 1) for row in range(RAYS_WG)
+                for k in range(k_lo, k_hi)}
+        assert set(got) == want
+        seen |= want
+        # the k-steps a warpgroup's descriptor reads in the pass: slab
+        # (k - k_lo) // 64 at + that * A_SLAB from its base, the slab
+        # swizzle inside
+        for (w, row, k), off in got.items():
+            assert off == (w * n_p * A_SLAB + ((k - k_lo) // 64) * A_SLAB
+                           + swizzled_offset(row, k % 64))
+        # the two warpgroups' regions do not overlap and fit the buffer
+        assert max(writes) < 2 * n_p * A_SLAB
+    # the passes together cover every (warpgroup, row, k) of the input
+    assert seen == {(w, row, k) for w in (0, 1) for row in range(RAYS_WG)
+                    for k in range(-(-C // 16) * 16)}
 
 
 def acc_element(t, i):
