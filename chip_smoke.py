@@ -6,9 +6,11 @@ It needs a CUDA device and ``nvcc`` and fails without them; nothing here
 falls back to the CPU. Phases, each printing one JSON line:
 
 1. ``device``   card name and power limit (nvidia-smi), torch/CUDA versions;
-2. ``build``    compiles ``pronerf_tpu_torch/kernels/csrc/*.cu`` (one nvcc per
-                source, started together) and reads ``ptxas -v``'s report of
-                the three ``wgmma`` kernels: it fails if any of their
+2. ``build``    builds the host runtime (``pronerf_tpu_torch/native``, g++)
+                and compiles ``pronerf_tpu_torch/kernels/csrc/*.cu`` (one
+                nvcc per source, started together) and reads ``ptxas
+                -v``'s report of the three ``wgmma`` kernels: it fails if
+                any of their
                 products was serialized or if one spills, and if the int8
                 kernel's SASS holds more conversion instructions (I2F, F2I,
                 FRND, ...; not I2FP) than the bf16 NeRF kernel's, whose only
@@ -59,14 +61,32 @@ falls back to the CPU. Phases, each printing one JSON line:
                 of 5 after 2) and peak memory for the NeRF step at n_mult =
                 1 and 8, the sampler step and the stage-2 step, at 4096
                 rays; one step of each kind on the card held against the
-                same step on CPU tensors (``TRAIN_TOL``).
+                same step on CPU tensors (``TRAIN_TOL``);
+6. ``cli``      the command line (``pronerf_tpu_torch.cli.main``, in process)
+                on an LLFF capture of fern's shape written by the port's
+                fixtures (the consistent scene, 20 views, ``images_4`` PNGs of
+                504x378, ``poses_bounds.npy`` at the raw scale, a binary
+                COLMAP model): ``train-stage1`` (``fern_epi.txt``, 4 steps),
+                ``train-stage2`` (``fern_refine.txt``, 2 steps, from that
+                expdir), ``eval --use-trt`` on the 3 held-out views and
+                ``infer --use-trt -- --quant int8``, each with the counters
+                zeroed just before and read just after: training runs no
+                kernel and the native pool twice; eval the sampler, refine
+                and raw NeRF kernels, int8 the int8 one; the native COLMAP
+                scan once each; losses and frames finite, PNGs written;
+                ``i_ref`` equal to the Python path's greedy pick; the eval
+                frame equal to a render from the checkpoint's params passed
+                in directly. A ``cli_timings`` line: seconds to write, load
+                and decode the capture (and a Paeth-filtered PNG), to build
+                the pool natively and in NumPy, ms per eval frame, with the
+                card's name and power limit.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line with
 the roofline bound of each kernel beside its measured time, and last
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero and no result line is printed.
 
-``--only build|kernels|frame|train`` runs a subset while developing,
+``--only build|kernels|frame|train|cli`` runs a subset while developing,
 ``--rays N`` shrinks the kernel phase, ``--profile`` adds ``profile`` lines (device time
 by kernel name over a few frames of the fused-composite, the int8 and the
 transposed frame; the launches of the MinMax and the int8 NeRF kernel
@@ -81,6 +101,7 @@ import dataclasses
 import json
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1460,11 +1481,205 @@ def phase_train(device, profile=False):
     return report
 
 
+# ------------------------------------------------------------------ cli ----
+
+CLI_VIEWS, CLI_FACTOR, CLI_REPS = 20, 4, 2
+
+
+def paeth_png(path, img):
+    """``img`` (uint8 [H, W, 3]) as a PNG whose every row carries the Paeth
+    filter, the costliest for a reader to undo (PIL's encoder picks it for
+    most rows of a photo); for timing ``read_png`` on such a file."""
+    import zlib
+
+    from pronerf_tpu_torch.utils import png
+
+    x = img.astype(np.int32)
+    a, b, c = (np.zeros_like(x) for _ in range(3))
+    a[:, 1:], b[1:], c[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = ((x - pred) & 255).astype(np.uint8).reshape(len(img), -1)
+    raw = np.concatenate([np.full((len(img), 1), 4, np.uint8), rows], 1)
+    h, w = img.shape[:2]
+    with open(path, "wb") as fh:
+        fh.write(png._SIGNATURE)
+        fh.write(png._chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0,
+                                                 0)))
+        fh.write(png._chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
+        fh.write(png._chunk(b"IEND", b""))
+
+
+def drive_cli(argv):
+    """One run of ``cli.main``: counters zeroed just before, read just
+    after."""
+    from pronerf_tpu_torch import cli
+
+    reset_counters()
+    t0 = time.perf_counter()
+    result = cli.main(argv)
+    torch.cuda.synchronize()
+    return result, read_counters(), time.perf_counter() - t0
+
+
+def phase_cli(device):
+    """The slice's main path: the command line on an LLFF capture of fern's
+    shape (the consistent synthetic scene, 20 views, ``images_4`` PNGs of
+    504x378, ``poses_bounds.npy`` at the raw scale, a binary COLMAP model
+    with projected visibility): train-stage1, train-stage2 from its expdir,
+    eval --use-trt through the kernels, infer --use-trt with int8."""
+    from pronerf_tpu_torch import native
+    from pronerf_tpu_torch.config import Config
+    from pronerf_tpu_torch.data.colmap import greedy_reference_views
+    from pronerf_tpu_torch.data.llff import load_llff_data
+    from pronerf_tpu_torch.render import infer
+    from pronerf_tpu_torch.render.raygen import build_ray_pool, prepare_scene
+    from pronerf_tpu_torch.render.renderer import make_frame_renderer
+    from pronerf_tpu_torch.train import checkpoint
+    from pronerf_tpu_torch.utils.fixtures import write_llff_scene
+    from pronerf_tpu_torch.utils.png import read_png
+    from pronerf_tpu_torch.utils.synthetic import make_consistent_scene
+
+    timings = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        root = Path(tmp) / "fern"
+        t0 = time.perf_counter()
+        sc = make_consistent_scene(seed=0, W=W_IMG, H=H, n_views=CLI_VIEWS)
+        timings["make_scene_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        write_llff_scene(root, sc, factor=CLI_FACTOR)
+        timings["write_capture_s"] = time.perf_counter() - t0
+        pngs = sorted((root / f"images_{CLI_FACTOR}").glob("*.png"))
+        t0 = time.perf_counter()
+        decoded = [read_png(p) for p in pngs]
+        timings["decode_pngs_s"] = time.perf_counter() - t0
+        paeth_png(Path(tmp) / "paeth.png", decoded[0])
+        t0 = time.perf_counter()
+        paeth = read_png(Path(tmp) / "paeth.png")
+        timings["decode_paeth_png_s"] = time.perf_counter() - t0
+        if len(pngs) != CLI_VIEWS or not np.array_equal(paeth, decoded[0]):
+            raise SystemExit(f"capture: {len(pngs)} PNGs, Paeth decode "
+                             f"equal {np.array_equal(paeth, decoded[0])}")
+        t0 = time.perf_counter()
+        images, poses, _, _, _ = load_llff_data(root, factor=CLI_FACTOR)
+        timings["load_capture_s"] = time.perf_counter() - t0
+        if images.shape != (CLI_VIEWS, H, W_IMG, 3):
+            raise SystemExit(f"loaded capture of shape {images.shape}")
+
+        def common(expname):
+            return ["--", "--datadir", str(root), "--basedir", tmp,
+                    "--expname", expname, "--i_print", "1", "--i_weights",
+                    "1000", "--i_img", "0", "--i_testset", "0", "--i_video",
+                    "0"]
+
+        # ---- training: the pool (native) and the steps; no kernel runs
+        pools = native.build_ray_pool_native.calls
+        (s1, exp1), c1, wall1 = drive_cli(
+            ["train-stage1", "--config",
+             str(ROOT / "configs/llff/fern/fern_epi.txt"), "--max-steps",
+             str(TRAIN_STEPS[1])] + common("cli_s1"))
+        (s2, exp2), c2, wall2 = drive_cli(
+            ["train-stage2", "--config",
+             str(ROOT / "configs/llff/fern/fern_refine.txt"), "--max-steps",
+             str(TRAIN_STEPS[2]), "--pretrain-path", str(exp1)]
+            + common("cli_s2"))
+        expect_counts("cli training", c1)
+        expect_counts("cli training", c2)
+        losses = list(read_losses(exp1).values()) + list(
+            read_losses(exp2).values())
+        if native.build_ray_pool_native.calls != pools + 2 or \
+                s2["global_step"] != TRAIN_STEPS[2] or \
+                not all(np.isfinite(losses)):
+            raise SystemExit(f"cli training: native pools "
+                             f"{native.build_ray_pool_native.calls - pools}"
+                             f", losses {losses}")
+        ck2 = checkpoint.latest_checkpoint(exp2)
+
+        # ---- serving through the kernels: eval (bf16), infer (int8)
+        vis = native.colmap_visibility_native.calls
+        ev, c_ev, wall_ev = drive_cli(
+            ["eval", "--use-trt", "--checkpoint", ck2, "--timing-reps",
+             str(CLI_REPS)] + common("cli_eval"))
+        q, c_q, wall_q = drive_cli(
+            ["infer", "--use-trt", "--checkpoint", ck2]
+            + common("cli_int8") + ["--quant", "int8"])
+        n_ev, n_q = len(ev["rgbs1"]) * (1 + CLI_REPS), len(q["rgbs1"])
+        expect_counts("cli eval", c_ev, sampler=n_ev, refine=n_ev,
+                      fused_nerf_raw_t=n_ev)
+        expect_counts("cli int8 infer", c_q, sampler=n_q, refine=n_q,
+                      fused_nerf_raw_tq=n_q)
+        all_finite({"eval": ev["rgbs1"], "int8": q["rgbs1"],
+                    "psnr": np.array(ev["psnrs"] + q["psnrs"])})
+        saved = sorted(p.name for p in
+                       (Path(tmp) / "cli_eval" / "renderonly_test").iterdir())
+        if native.colmap_visibility_native.calls != vis + 2 or \
+                len(ev["rgbs1"]) != 3 or ev["rgbs1"].shape[1:] != (
+                    H, W_IMG, 3) or "002.png" not in saved:
+            raise SystemExit(f"cli serving: visibility scans "
+                             f"{native.colmap_visibility_native.calls - vis}"
+                             f", frames {ev['rgbs1'].shape}, PNGs {saved}")
+
+        # ---- the reference views: the native pick is the Python path's;
+        # the served frame equals a render from the checkpoint's params
+        cfg = Config.from_file(
+            ROOT / "configs/llff/fern/fern_trt.txt", datadir=str(root),
+            use_trt=True, tile_rays=0, use_pallas=True, basedir=tmp)
+        data = infer.load_inference_data(cfg)
+        i_train = [i for i in range(CLI_VIEWS) if i not in data["i_test"]]
+        python_pick = greedy_reference_views(root / "sparse/0", i_train,
+                                             cfg.num_neighbor, native=False)
+        if not np.array_equal(data["i_ref"], python_pick):
+            raise SystemExit(f"i_ref {data['i_ref']} against the Python "
+                             f"path's {python_pick}")
+        scene = prepare_scene(
+            data["images"][data["i_ref"]], data["poses"][data["i_ref"]],
+            data["K"], pack_corners="u8", device=device)
+        render = make_frame_renderer(infer._infer_statics(cfg, True), H,
+                                     W_IMG, data["K"], 0, device=device)
+        with torch.no_grad():
+            direct = render(infer.load_params_for_inference(ck2, cfg, device),
+                            scene, data["poses"][data["i_test"][0]])["rgb1"]
+        served_err = max_err(torch.from_numpy(ev["rgbs1"][0]).to(device),
+                             direct)
+        if served_err != 0.0:
+            raise SystemExit(f"eval frame against the checkpoint's params: "
+                             f"{served_err}")
+
+        # ---- host times of the pool, native and NumPy
+        for native_pool in (True, False):
+            t0 = time.perf_counter()
+            build_ray_pool(images, poses[:, :3, :4], data["K"], i_train,
+                           cfg.num_neighbor, np.random.default_rng(0),
+                           native=native_pool)
+            timings[f"pool_{'native' if native_pool else 'numpy'}_s"] = \
+                time.perf_counter() - t0
+        timings["native_build"] = dict(native.build_info)
+        timings["eval_ms_per_frame"] = statistics.median(ev["times_ms"])
+        timings["card"] = nvidia_smi_line()
+        report = {
+            "capture": {"views": CLI_VIEWS, "factor": CLI_FACTOR,
+                        "size": [W_IMG, H], "i_test": data["i_test"].tolist(),
+                        "i_ref": data["i_ref"].tolist()},
+            "train": {"wall_s": {"stage1": wall1, "stage2": wall2},
+                      "losses": losses, "native_pools": 2},
+            "eval": {"launches": c_ev, "frames": n_ev, "wall_s": wall_ev,
+                     "psnr": ev["psnrs"], "times_ms": ev["times_ms"],
+                     "served_vs_direct_max_err": served_err,
+                     "visibility_scans_native": 2},
+            "int8": {"launches": c_q, "frames": n_q, "wall_s": wall_q,
+                     "psnr": q["psnrs"]},
+        }
+    say({"cli": report})
+    say({"cli_timings": timings})
+    return report
+
+
 # ---------------------------------------------------------------- main ----
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("build", "kernels", "frame", "train"))
+    ap.add_argument("--only",
+                    choices=("build", "kernels", "frame", "train", "cli"))
     ap.add_argument("--rays", type=int, default=FRAME_RAYS)
     ap.add_argument("--verbose-build", action="store_true",
                     help="print the compiler's output of every source")
@@ -1493,9 +1708,14 @@ def main(argv=None):
     if args.verbose_build:
         for name in build.sources():
             print(f"--- nvcc {name}\n{build.ptxas_log(name)}", flush=True)
+    from pronerf_tpu_torch import native
+
+    if not native.is_available():
+        raise SystemExit("the host runtime's library (g++) did not build")
     say({"build": {"seconds": seconds, "built": sorted(logs),
                    "sources": build.sources(), "ptxas": check_build(),
-                   "conversions": conversion_counts()}})
+                   "conversions": conversion_counts(),
+                   "native": native.build_info}})
 
     rows, launches = [], {}
     if args.only in (None, "kernels"):
@@ -1504,6 +1724,8 @@ def main(argv=None):
         launches = phase_frame(device, args.profile)
     if args.only in (None, "train"):
         phase_train(device, args.profile)
+    if args.only in (None, "cli"):
+        phase_cli(device)
 
     print(smi, flush=True)
     contract = []

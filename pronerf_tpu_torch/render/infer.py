@@ -1,17 +1,20 @@
 """Inference / eval entry points on the eager PyTorch renderer.
 
-- the per-pose neighbors are the nearest num_neighbor reference views,
-  deterministically;
+- reference views come from greedy COLMAP visibility selection
+  (``data.llff.load_llff_data_infer``) and the per-pose neighbors are the
+  nearest num_neighbor of those, deterministically;
 - bounds are near=0, far=1 in NDC; density corrections always applied;
 - ``use_trt`` (kept for surface parity with the reference's script) selects
   the bf16 fast path;
 - metrics: PSNR (always), SSIM, and LPIPS when the optional package exists.
 
-Counterpart of ``pronerf_tpu/render/infer.py``. Weights come from the
-port's own checkpoints (``train/checkpoint.py``: ``ft_path``, else the
-newest ``*.ckpt`` of the expdir). Not ported yet: the LLFF / COLMAP data
-branch (ROADMAP A.12), the reader of the JAX package's msgpack checkpoints
-(A.11; they raise), ``export`` and the ``render-path`` video verb.
+Counterpart of ``pronerf_tpu/render/infer.py``. Data: an LLFF capture
+(``datadir`` holding ``poses_bounds.npy``, ``images_{factor}`` and
+``sparse/0``), or the synthetic stand-in (``datadir = synthetic[:WxHxV]``).
+Weights come from a checkpoint of the port or of the JAX package
+(``train/checkpoint.py``: ``ft_path``, else the newest ``*.ckpt`` of the
+expdir). Not ported yet: ``export`` (ROADMAP A.16) and the ``render-path``
+video verb (A.15).
 """
 
 from __future__ import annotations
@@ -47,34 +50,47 @@ def setup_expdir(cfg: Config) -> Path:
 
 
 def load_inference_data(cfg: Config):
-    """The synthetic stand-in scene (``datadir = synthetic[:WxHxV]``).
+    """LLFF infer data (COLMAP reference views) or the synthetic stand-in.
 
     Also enforces the flag contract (every inference entry point loads data
     first, so rejected/vestigial flags are reported before any work)."""
     enforce_flag_contract(cfg)
-    if not cfg.datadir.startswith("synthetic"):
-        raise NotImplementedError(
-            f"datadir={cfg.datadir!r}: the LLFF / COLMAP loaders are not "
-            "ported to pronerf_tpu_torch yet (the data slice); use "
-            "datadir='synthetic' or 'synthetic:WxHxV'"
+    if cfg.datadir.startswith("synthetic"):
+        from pronerf_tpu_torch.utils.synthetic import (
+            make_consistent_scene,
+            parse_synthetic_spec,
         )
-    from pronerf_tpu_torch.utils.synthetic import (
-        make_consistent_scene,
-        parse_synthetic_spec,
-    )
 
-    sc = make_consistent_scene(seed=cfg.seed,
-                               **parse_synthetic_spec(cfg.datadir))
-    images = sc["images"]
-    H, W, focal = sc["hwf"]
-    poses = sc["poses"]
-    i_test = np.arange(len(images))[:: cfg.llffhold]
-    i_train = np.array([i for i in range(len(images)) if i not in i_test])
-    i_ref = i_train[: cfg.num_neighbor]
+        sc = make_consistent_scene(seed=cfg.seed,
+                                   **parse_synthetic_spec(cfg.datadir))
+        images = sc["images"]
+        H, W, focal = sc["hwf"]
+        poses = sc["poses"]
+        i_test = np.arange(len(images))[:: cfg.llffhold]
+        i_train = np.array([i for i in range(len(images))
+                            if i not in i_test])
+        i_ref = i_train[: cfg.num_neighbor]
+        return {
+            "images": images, "poses": poses, "i_test": i_test,
+            "i_ref": i_ref, "H": H, "W": W, "focal": focal, "K": sc["K"],
+            "render_poses": poses[i_train][:6],
+        }
+    from pronerf_tpu_torch.data.llff import load_llff_data_infer
+
+    images, poses, _, render_poses, i_test, i_ref = load_llff_data_infer(
+        cfg.datadir, factor=cfg.factor, recenter=True, bd_factor=0.75,
+        spherify=cfg.spherify, num_neighbor=cfg.num_neighbor,
+        llffhold=cfg.llffhold,
+    )
+    hwf = poses[0, :3, -1]
+    H, W, focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
+    K = np.array(
+        [[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]], np.float32
+    )
     return {
-        "images": images, "poses": poses, "i_test": i_test,
-        "i_ref": i_ref, "H": H, "W": W, "focal": focal, "K": sc["K"],
-        "render_poses": poses[i_train][:6],
+        "images": images, "poses": poses[:, :3, :4], "i_test": i_test,
+        "i_ref": i_ref, "H": H, "W": W, "focal": focal, "K": K,
+        "render_poses": np.asarray(render_poses)[:, :3, :4],
     }
 
 
@@ -118,8 +134,9 @@ def _init_params(cfg: Config, generator: torch.Generator, device):
 
 
 def load_params_for_inference(ckpt_file, cfg: Config, device):
-    """The three nets of a port checkpoint of either stage: the NeRF from
-    ``network_fine`` (stage 2) if present, else ``network_fn`` (stage 1)."""
+    """The three nets of a checkpoint of either stage, of the port or of the
+    JAX package: the NeRF from ``network_fine`` (stage 2) if present, else
+    ``network_fn`` (stage 1)."""
     ck = load_checkpoint(ckpt_file)
     params = _init_params(cfg, torch.Generator().manual_seed(cfg.seed),
                           device)

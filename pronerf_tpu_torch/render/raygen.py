@@ -94,7 +94,7 @@ def rays_from_pool(batch_rays, pose_ids, H: int, W: int, focal: float):
 
 
 def build_ray_pool(images, poses, K, i_train, num_neighbor: int,
-                   rng: np.random.Generator):
+                   rng: np.random.Generator, native: bool = True):
     """Host-side precompute of the shuffled training ray pool: all rays of
     all training views with their target colors, shuffled once.
 
@@ -103,13 +103,24 @@ def build_ray_pool(images, poses, K, i_train, num_neighbor: int,
       view_ids: [M] int32 index INTO THE TRAIN SUBSET (0..len(i_train)-1),
       perm-shuffled consistently.
 
-    The NumPy form of the JAX package's ``build_ray_pool``. Its first draw
-    from ``rng`` seeds the JAX package's native (C++) pool; it is drawn here
-    too, so the same Generator state gives the same pool, bit for bit. (The
-    native pool itself is not ported.)
+    The JAX package's ``build_ray_pool``, with its rule: the C++ builder of
+    the host runtime (``native/``: rays by the views' threads, an mt19937_64
+    Fisher-Yates shuffle seeded by the first draw from ``rng``) whenever its
+    library loads, the NumPy form (``rng.permutation`` after that draw)
+    otherwise. So one Generator state gives both packages the same pool, bit
+    for bit, on one machine. ``native=False`` takes the NumPy form.
     """
     del num_neighbor  # the neighbors are chosen per batch, in render_rays
-    rng.integers(0, 2**63 - 1)
+    seed = int(rng.integers(0, 2**63 - 1))
+    if native:
+        from pronerf_tpu_torch.native import build_ray_pool_native
+
+        idx = list(i_train)
+        pool = build_ray_pool_native(
+            np.asarray(images)[idx], np.asarray(poses)[idx][:, :3, :4], K,
+            seed=seed)
+        if pool is not None:
+            return pool
     H, W = images.shape[1:3]
     all_rays, all_ids = [], []
     for local_id, idx in enumerate(i_train):

@@ -19,9 +19,15 @@ equal its own step for step; the device draws come from a
 up to its step, so it continues the uninterrupted run exactly (the JAX loop
 restarts the stream at a resume).
 
+Data: an LLFF capture (``data/llff.py``) or the synthetic stand-in. The ray
+pool is the host runtime's (``native/``) whenever its library loads, as in
+the JAX package, so one seed gives both trainers the same batches.
+Checkpoints of the JAX package are read too (``train/checkpoint.py``), for
+``pretrain_path`` and for auto-resume.
+
 Not ported: ``scan_steps > 1`` (the JAX package's ``train/fast_loop.py``,
 ROADMAP A.14b) and ``i_video`` (``save_video``, ROADMAP A.15); both raise
-before the first step. The LLFF loader raises too (ROADMAP A.12).
+before the first step.
 """
 
 from __future__ import annotations
@@ -56,8 +62,8 @@ N_ITERS_DEFAULT = 500_000
 # ---------------------------------------------------------------- data --
 
 def load_training_data(cfg: Config):
-    """The synthetic stand-in scene (``datadir = synthetic[:WxHxV]``) and
-    its train/test split + intrinsics."""
+    """Load LLFF data (or the synthetic stand-in when ``datadir =
+    synthetic[:WxHxV]``) and derive the train/test split + intrinsics."""
     if cfg.dataset_type != "llff":
         raise ValueError("Only dataset_type=llff is supported")
     if cfg.no_ndc:
@@ -69,20 +75,27 @@ def load_training_data(cfg: Config):
         raise NotImplementedError(
             "no_batching/full_image single-image sampling is not part of the "
             "release path (training always uses the shuffled ray pool)")
-    if not cfg.datadir.startswith("synthetic"):
-        raise NotImplementedError(
-            f"datadir={cfg.datadir!r}: the LLFF / COLMAP loaders are not "
-            "ported to pronerf_tpu_torch yet (ROADMAP A.12); use "
-            "datadir='synthetic' or 'synthetic:WxHxV'")
-    from pronerf_tpu_torch.utils.synthetic import (
-        make_consistent_scene,
-        parse_synthetic_spec,
-    )
+    if cfg.datadir.startswith("synthetic"):
+        from pronerf_tpu_torch.utils.synthetic import (
+            make_consistent_scene,
+            parse_synthetic_spec,
+        )
 
-    sc = make_consistent_scene(seed=cfg.seed,
-                               **parse_synthetic_spec(cfg.datadir))
-    images = sc["images"]
-    H, W, focal = sc["hwf"]
+        sc = make_consistent_scene(seed=cfg.seed,
+                                   **parse_synthetic_spec(cfg.datadir))
+        images = sc["images"]
+        H, W, focal = sc["hwf"]
+        poses = sc["poses"][:, :3, :4]
+        render_poses = poses[:4].copy()
+    else:
+        from pronerf_tpu_torch.data.llff import load_llff_data
+
+        images, poses, _, render_poses, _ = load_llff_data(
+            cfg.datadir, factor=cfg.factor, recenter=True, bd_factor=0.75,
+            spherify=cfg.spherify)
+        H, W, focal = poses[0, :3, -1]
+        poses = poses[:, :3, :4]
+        render_poses = np.asarray(render_poses)[:, :3, :4]
     H, W, focal = int(H), int(W), float(focal)
     if cfg.llffhold > 0:
         i_test = np.arange(images.shape[0])[:: cfg.llffhold]
@@ -91,9 +104,8 @@ def load_training_data(cfg: Config):
     i_train = np.array([i for i in range(images.shape[0]) if i not in i_test])
     K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]],
                  np.float32)
-    poses = sc["poses"][:, :3, :4]
     return {
-        "images": images, "poses": poses, "render_poses": poses[:4].copy(),
+        "images": images, "poses": poses, "render_poses": render_poses,
         "i_train": i_train, "i_test": i_test,
         "H": H, "W": W, "focal": focal, "K": K,
     }

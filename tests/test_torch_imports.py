@@ -29,19 +29,28 @@ def test_port_has_the_expected_modules():
                  "kernels.packing", "render.raygen", "render.renderer",
                  "render.infer", "utils.synthetic", "utils.profiling",
                  "utils.logging", "train.state", "train.stage1",
-                 "train.stage2", "train.checkpoint", "train.loop"):
+                 "train.stage2", "train.checkpoint", "train.loop",
+                 "data", "data.llff", "data.colmap", "native", "cli",
+                 "tools.ckpt", "utils.fixtures", "utils.png"):
         assert f"pronerf_tpu_torch.{want}" in mods
 
 
 def test_importing_the_port_loads_no_jax_in_a_fresh_process():
+    """... nor ``msgpack`` or an imaging package, and builds nothing: no
+    library of the kernels or of the host runtime was loaded or built."""
     code = (
         "import importlib, sys\n"
         f"mods = {port_modules()!r} + ['chip_smoke']\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'pronerf_tpu', 'triton'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'pronerf_tpu', 'triton', "
+        "'msgpack', 'PIL', 'imageio'))\n"
         "assert not bad, bad\n"
+        "import pronerf_tpu_torch.native as n\n"
+        "assert n._lib is None and not n._tried and not n.build_info\n"
+        "from pronerf_tpu_torch.kernels import build\n"
+        "assert not build._loaded\n"
         "import torch\n"
         "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
         "assert torch.backends.cudnn.allow_tf32 is False\n"
@@ -56,8 +65,8 @@ def test_importing_the_port_loads_no_jax_in_a_fresh_process():
 def test_no_port_source_names_the_jax_package_in_an_import():
     import re
 
-    pat = re.compile(r"^\s*(from|import)\s+(jax|flax|optax|pronerf_tpu)\b",
-                     re.M)
+    pat = re.compile(
+        r"^\s*(from|import)\s+(jax|flax|optax|msgpack|pronerf_tpu)\b", re.M)
     files = list((ROOT / "pronerf_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20

@@ -249,17 +249,33 @@ def test_run_inference_synthetic_on_cpu(tmp_path, capsys, use_kernels):
     assert saved[:2] == ["000.png", "001.png"] and "gt_001.png" in saved
     png = (tmp_path / cfg.expname / "renderonly_test" / "000.png").read_bytes()
     assert png[:8] == b"\x89PNG\r\n\x1a\n"
-    with pytest.raises(NotImplementedError, match="LLFF"):
+    # an LLFF datadir is read (tests/test_torch_data.py); a missing one
+    # raises, naming it
+    with pytest.raises(FileNotFoundError, match="data/nerf_llff_data/fern"):
         run_inference(cfg.replace(datadir="data/nerf_llff_data/fern"),
                       device="cpu")
-    # a checkpoint of the JAX package (flax msgpack) still raises, by the
-    # name of its reader (ROADMAP A.11); the port's own checkpoints are read
-    # (tests/test_torch_train_loop.py)
+    # a checkpoint of the JAX package (flax msgpack) is served: its nets are
+    # the ones rendered (tests/test_torch_checkpoint_jax.py holds the frame
+    # against the JAX render)
     from pronerf_tpu.train.checkpoint import save_checkpoint as j_save
 
-    j_ckpt = j_save(tmp_path / "370000.ckpt", {"global_step": np.int32(1)})
-    with pytest.raises(NotImplementedError, match="A.11"):
-        run_inference(cfg.replace(ft_path=j_ckpt), device="cpu")
+    jparams = jax.tree_util.tree_map(np.asarray, j_init(jax.random.PRNGKey(3)))
+    j_ckpt = j_save(tmp_path / "370000.ckpt", {
+        "global_step": np.int32(1), "network_fn": jparams["nerf"],
+        "mmr_network_fn": jparams["sampler"],
+        "refine_net": jparams["refine"]})
+    served = run_inference(cfg.replace(ft_path=j_ckpt, max_images=1),
+                           device="cpu")
+    assert "Loading weights from" in capsys.readouterr().out
+    from pronerf_tpu_torch.render.infer import load_params_for_inference
+
+    params = load_params_for_inference(j_ckpt, cfg, "cpu")
+    want = convert.params_from_numpy(jparams)
+    for net in ("nerf", "sampler", "refine"):
+        for k, v in want[net].state_dict().items():
+            assert torch.equal(params[net].state_dict()[k], v), (net, k)
+    assert np.all(np.isfinite(served["rgbs1"]))
+    assert not np.array_equal(served["rgbs1"], result["rgbs1"][:1])
 
 
 @pytest.mark.parametrize("name", ["fern_epi.txt", "fern_refine.txt",

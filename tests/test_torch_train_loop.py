@@ -1,8 +1,8 @@
 """The port's trainer end to end on the CPU: ``run_training`` for a few
 steps of each stage with its expdir, the port's checkpoints (round trip,
 resume, the stage-2 bootstrap, serving through ``run_inference``), and what
-still raises by name (a JAX msgpack checkpoint, ``scan_steps > 1``, an
-``i_video`` boundary, the LLFF loader).
+raises by name (a JAX msgpack checkpoint the port cannot map, ``scan_steps
+> 1``, an ``i_video`` boundary, a missing capture).
 
 Small nets (NeRF 3 x 32, sampler and refine 2 x 32), 64 rays a step, the
 24x18 synthetic scene of 9 views. On the CPU every run is deterministic, so
@@ -137,6 +137,8 @@ def test_checkpoint_round_trip_and_atomic_write(tmp_path):
 
 
 def test_jax_msgpack_checkpoint_raises_by_name(tmp_path):
+    """A JAX checkpoint is read (tests/test_torch_checkpoint_jax.py); one
+    whose layout the port cannot map raises, naming the key."""
     import jax.numpy as jnp
 
     from pronerf_tpu.train.checkpoint import save_checkpoint as j_save
@@ -144,14 +146,14 @@ def test_jax_msgpack_checkpoint_raises_by_name(tmp_path):
     path = tmp_path / "000001.ckpt"
     j_save(path, {"global_step": jnp.int32(1),
                   "network_fn": {"w": jnp.ones((2, 2))}})
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(ValueError, match="'network_fn'"):
         ckpt_mod.load_checkpoint(path)
     from pronerf_tpu_torch.render.infer import run_inference
 
     cfg = Config.from_file("configs/llff/fern/fern_trt.txt",
                            datadir="synthetic:24x18x9", basedir=str(tmp_path),
                            ft_path=str(path), tile_rays=0)
-    with pytest.raises(NotImplementedError, match="msgpack"):
+    with pytest.raises(ValueError, match="JAX checkpoint key 'network_fn'"):
         run_inference(cfg, device="cpu")
 
 
@@ -162,7 +164,9 @@ def test_what_is_not_ported_raises_before_any_step(tmp_path):
     with pytest.raises(NotImplementedError, match="A.15"):
         run_training(cfg_of(1, tmp_path, max_steps=4, i_video=2), 1,
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="A.12"):
+    # the LLFF loader is ported (tests/test_torch_cli.py trains on a
+    # capture); a missing capture raises, naming it
+    with pytest.raises(FileNotFoundError, match="data/nerf_llff_data/fern"):
         run_training(cfg_of(1, tmp_path, max_steps=2,
                             datadir="data/nerf_llff_data/fern"), 1,
                      device="cpu")

@@ -127,6 +127,9 @@ def test_rays_from_pool_matches_jax():
 
 
 def test_build_ray_pool_equals_jax_numpy_path_bit_for_bit(monkeypatch):
+    """Both packages forced onto their NumPy form: the JAX package by taking
+    its native builder away, the port by its own switch. (The default, native
+    form: tests/test_torch_native.py.)"""
     import pronerf_tpu.native
 
     monkeypatch.setattr(pronerf_tpu.native, "build_ray_pool_native",
@@ -138,7 +141,7 @@ def test_build_ray_pool_equals_jax_numpy_path_bit_for_bit(monkeypatch):
     want = j_raygen.build_ray_pool(sc["images"], sc["poses"], sc["K"], i_train,
                                    4, jrng)
     got = t_raygen.build_ray_pool(sc["images"], sc["poses"], sc["K"], i_train,
-                                  4, trng)
+                                  4, trng, native=False)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         np.testing.assert_array_equal(g, w)

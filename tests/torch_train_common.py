@@ -56,8 +56,9 @@ def Setup(pack="u8", seed=0):
 
 class _Setup:
     """Scene (both packages, one image form), params (JAX init, carried
-    across), and a batch of the ray pool (the NumPy form, which equals the
-    JAX package's bit for bit)."""
+    across), and a batch of the ray pool (the default form, native where
+    the host runtime's library loads, as the JAX trainer's; equal to the
+    JAX package's bit for bit, tests/test_torch_native.py)."""
 
     def __init__(self, pack, seed):
         sc = make_scene(n_views=VIEWS, H=H, W=W, seed=seed)
