@@ -25,8 +25,9 @@ falls back to the CPU. Phases, each printing one JSON line:
                 The MinMax kernel also with ``transpose_out=False``, with a
                 bf16 input and, for the refine shape, with the transposed
                 graph's permuted pack; the int8 kernel also against the bf16
-                kernel; and each kernel past its former limits (the refine
-                net at C = 198 and 1542 input rows, 128 samples a ray);
+                kernel; each kernel past its former limits (the refine
+                net at C = 198 and 1542 input rows, 128 samples a ray); and
+                each at the 762,048 rays of a 1008x756 frame;
 4. ``frame``    the serving path end to end, three times through
                 ``run_inference`` on the synthetic 504x378 scene with 17
                 views, release widths, bf16, whole frame in one tile, fused
@@ -47,6 +48,29 @@ falls back to the CPU. Phases, each printing one JSON line:
                 and refine are counted apart, and its untransposed form
                 apart again; the NeRF ones also by samples a ray) are zeroed
                 before and read after each drive;
+4b. ``fullres`` the serving path at 1008x756 (the reference engine's frame;
+                ``synthetic:1008x756x17``, ``fern_trt.txt``, 3 held-out
+                poses): the statics ``gather_tiles = -1`` resolves to
+                (printed; 8 ray tiles of 198-row windows), the default
+                (windowed) form through ``run_inference``, then the
+                windowed, unwindowed (``gather_tiles = 0``), transposed and
+                int8 forms through the frame renderer, each with ms a frame
+                (CUDA events, median of 9 after a warm-up frame a pose),
+                launches and peak memory; a split frame equal to the
+                windowed one bit for bit; on the first pose's own points the
+                share the windows miss, the windowed colours equal to the
+                unwindowed ones wherever the window hits, the transposed
+                emit and the split fetch equal to the row form, and each
+                gather's ms; the windowed frame equal to the unwindowed one
+                on every ray no window missed, the transposed frame against
+                the row-major one, int8 against bf16; a tile of the frame
+                against the kernel-free bf16 path and the plain versions;
+4c. ``gathers`` at 504x378: a ``gather_split`` frame equal to the default
+                frame bit for bit, ``warp_interp = nearest`` served through
+                ``run_inference``, the per-view training gather equal to the
+                all-views one on a batch's points (both timed) and a stage-1
+                sampler step with ``train_gather = 1`` against the same step
+                with the all-views gather (``TRAIN_TOL``);
 5. ``train``    the training slice at release widths (``fern_epi.txt``,
                 ``fern_refine.txt``) on the same scene (14 train views):
                 ``run_training`` for 4 steps of stage 1 (2 pairs, writing an
@@ -62,6 +86,10 @@ falls back to the CPU. Phases, each printing one JSON line:
                 1 and 8, the sampler step and the stage-2 step, at 4096
                 rays; one step of each kind on the card held against the
                 same step on CPU tensors (``TRAIN_TOL``);
+5b. ``donerf``  ``netarch = donerf`` at D = 8, W = 256: one 504x378 frame
+                through ``run_inference`` (no kernel runs: they implement
+                the NeRF MLP) and one stage-1 NeRF step on the card against
+                the same step on CPU tensors (``TRAIN_TOL``);
 6. ``cli``      the command line (``pronerf_tpu_torch.cli.main``, in process)
                 on an LLFF capture of fern's shape written by the port's
                 fixtures (the consistent scene, 20 views, ``images_4`` PNGs of
@@ -76,21 +104,28 @@ falls back to the CPU. Phases, each printing one JSON line:
                 scan once each; losses and frames finite, PNGs written;
                 ``i_ref`` equal to the Python path's greedy pick; the eval
                 frame equal to a render from the checkpoint's params passed
-                in directly. A ``cli_timings`` line: seconds to write, load
-                and decode the capture (and a Paeth-filtered PNG), to build
-                the pool natively and in NumPy, ms per eval frame, with the
-                card's name and power limit.
+                in directly; ``render-path --use-trt --n-frames 6`` written
+                as a GIF (the port's own writer where imageio is absent),
+                read back, frame 0 against a direct render within the
+                palette's bound; a 4-step ``train-stage1`` with ``i_video =
+                2`` writing its spiral videos at steps 2 and 4. A
+                ``cli_timings`` line: seconds to write, load and decode the
+                capture (and a Paeth-filtered PNG), to build the pool
+                natively and in NumPy, ms per eval frame, the render-path
+                and i_video runs' seconds, with the card's name and power
+                limit.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line with
 the roofline bound of each kernel beside its measured time, and last
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero and no result line is printed.
 
-``--only build|kernels|frame|train|cli`` runs a subset while developing,
-``--rays N`` shrinks the kernel phase, ``--profile`` adds ``profile`` lines (device time
-by kernel name over a few frames of the fused-composite, the int8 and the
-transposed frame; the launches of the MinMax and the int8 NeRF kernel
-one by one).
+``--only build|kernels|frame|fullres|gathers|train|donerf|cli`` runs a
+subset while developing, ``--rays N`` shrinks the kernel phase,
+``--profile`` adds ``profile`` lines (device time by kernel name over a few
+frames of the fused-composite, the int8 and the transposed frame and of
+each 1008x756 form; the launches of the MinMax and the int8 NeRF kernel one
+by one).
 """
 
 from __future__ import annotations
@@ -114,6 +149,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 H, W_IMG, N_VIEWS = 378, 504, 17
 FRAME_RAYS = H * W_IMG
+FULL_H, FULL_W = 756, 1008   # the reference engine's frame (full res)
+FULL_RAYS = FULL_H * FULL_W
 CHUNK = 16384          # rays per call of a plain version
 RAGGED = 16384 - 37    # not a multiple of any kernel tile
 TINY = 100             # NeRF and MinMax kernels: one ragged tile, one block
@@ -476,11 +513,38 @@ KERNELS = (
     ("fused_nerf_raw_tq[S=128]",
      "pronerf_tpu_torch/kernels/csrc/fused_nerf_q.cu",
      "pronerf_tpu/kernels/fused_nerf_q.py:351"),
+    # every kernel at the 762,048 rays of one 1008x756 frame (phase
+    # fullres), the size the reference's engine serves
+    ("fused_minmax_t[sampler,N=762048]",
+     "pronerf_tpu_torch/kernels/csrc/fused_minmax.cu",
+     "pronerf_tpu/kernels/fused_minmax.py:125"),
+    ("fused_minmax_t[refine,N=762048]",
+     "pronerf_tpu_torch/kernels/csrc/fused_minmax.cu",
+     "pronerf_tpu/kernels/fused_minmax.py:125"),
+    ("fused_nerf_raw_t[N=762048]",
+     "pronerf_tpu_torch/kernels/csrc/fused_nerf.cu",
+     "pronerf_tpu/kernels/fused_nerf.py:196"),
+    ("fused_nerf_composite_t[N=762048]",
+     "pronerf_tpu_torch/kernels/csrc/fused_nerf.cu",
+     "pronerf_tpu/kernels/fused_nerf.py:302"),
+    ("fused_nerf_raw_tq[N=762048]",
+     "pronerf_tpu_torch/kernels/csrc/fused_nerf_q.cu",
+     "pronerf_tpu/kernels/fused_nerf_q.py:351"),
 )
+# the rows at a full-resolution frame's rays: the shape of the row they
+# repeat, at FULL_RAYS / FRAME_RAYS (4) times the rays; their main path
+# instantiation only
+FULL = {"fused_minmax_t[sampler,N=762048]": "fused_minmax_t[sampler]",
+        "fused_minmax_t[refine,N=762048]": "fused_minmax_t[refine]",
+        "fused_nerf_raw_t[N=762048]": "fused_nerf_raw_t",
+        "fused_nerf_composite_t[N=762048]": "fused_nerf_composite_t",
+        "fused_nerf_raw_tq[N=762048]": "fused_nerf_raw_tq"}
 # the instantiations each kernel has; the first is the one its main path runs
 DTYPES = {"fused_nerf_raw_tq": ("int8",), "fused_nerf_raw_tq[S=128]": ("int8",),
           "fused_minmax_t[refine,C=198]": ("bfloat16",),
-          "fused_minmax_t[refine,C=1542]": ("bfloat16",)}
+          "fused_minmax_t[refine,C=1542]": ("bfloat16",)} | {
+              name: ("int8",) if base == "fused_nerf_raw_tq" else (
+                  "bfloat16",) for name, base in FULL.items()}
 BOTH = ("bfloat16", "float32")
 TINY_TOO = ("fused_minmax_t[sampler]", "fused_minmax_t[refine]",
             "fused_nerf_raw_t", "fused_nerf_composite_t", "fused_nerf_raw_tq")
@@ -512,6 +576,7 @@ def wide_refine(S, views, device):
 
 
 def make_case(name, nets, n_rays, dtype, device, seed):
+    name = FULL.get(name, name)
     if name == "fused_minmax_t[sampler]":
         return minmax_case(nets["sampler"], 48, 6, n_rays, dtype, device,
                            seed)
@@ -624,6 +689,8 @@ def phase_kernels(device, n_rays):
     rows = []
     for name, source, replaces in KERNELS:
         rays = min(n_rays, WIDE[name][1]) if name in WIDE else n_rays
+        if name in FULL:
+            rays = n_rays * (FULL_RAYS // FRAME_RAYS)
         for dname in DTYPES.get(name, BOTH):
             dtype = getattr(torch, dname)
             tol = TOL[dname]
@@ -830,12 +897,13 @@ def profile_frames(render, frames):
     }
 
 
-def serve(what, cfg, reps):
+def serve(what, cfg, reps, shape=(H, W_IMG)):
     """One drive of the serving entry point: counters zeroed just before,
     read just after; the frames must be finite and of the frame's shape."""
     from pronerf_tpu_torch.render import infer
 
     reset_counters()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     result = infer.run_inference(cfg, timing_reps=reps)
     torch.cuda.synchronize()
@@ -843,13 +911,14 @@ def serve(what, cfg, reps):
     counts = read_counters()
     n_poses = len(result["rgbs1"])
     all_finite({k: result[k] for k in ("rgbs1", "rgbs0", "depths")})
-    if result["rgbs1"].shape != (n_poses, H, W_IMG, 3):
+    if result["rgbs1"].shape != (n_poses, *shape, 3):
         raise SystemExit(f"{what}: frame shape {result['rgbs1'].shape}")
     if not all(np.isfinite(result["psnrs"])):
         raise SystemExit(f"{what}: PSNRs {result['psnrs']}")
     return {"result": result, "counts": counts, "wall_s": wall,
             "frames": n_poses * (1 + reps), "poses": n_poses,
-            "ms_per_frame": statistics.median(result["times_ms"])}
+            "ms_per_frame": statistics.median(result["times_ms"]),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
 
 
 def first_frame(drive, device):
@@ -1111,6 +1180,457 @@ def phase_frame(device, profile=False):
     }
 
 
+# ----------------------------------------------------- fullres phase ------
+
+FULL_REPS = 3        # timed frames a pose after its warm-up frame: 9 in all
+# the JAX package's resolution of gather_tiles = -1 at 1008x756 with the
+# whole frame in one call (render.renderer.resolve_gather_statics): 8 ray
+# tiles, windows of 198 source rows
+FULL_GATHER = (8, 198)
+FRAME_KEYS = ("rgb1", "rgb0", "depth", "mm_rgb", "depth0")
+
+
+def event_ms(fn) -> float:
+    """One call of ``fn`` in ms by CUDA events."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def drive_renderer(render, params, scene, poses, reps=FULL_REPS):
+    """Frames of one form through its frame renderer, timed as
+    ``run_inference`` times them: each pose once (its warm-up), then
+    ``reps`` times by CUDA events. Counters zeroed just before and read just
+    after; peak memory over the drive."""
+    reset_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, first = [], None
+    for c2w in poses:
+        out = render(params, scene, c2w)
+        first = out if first is None else first
+        for _ in range(reps):
+            times.append(event_ms(lambda: render(params, scene, c2w)))
+    torch.cuda.synchronize()
+    counts = read_counters()
+    all_finite({k: v for k, v in first.items()})
+    return {"first": first, "counts": counts,
+            "frames": len(poses) * (1 + reps),
+            "ms_per_frame": statistics.median(times), "ms_all": times,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def frame_depths(params, rays, statics):
+    """The candidate 3D depths of ``rays`` as ``render_rays`` computes them
+    before its gather (sampler kernel, stable sort, NDC to 3D), so that the
+    gathers can be held against each other on a frame's own points."""
+    from pronerf_tpu_torch.kernels.fused_minmax import fused_minmax_t
+    from pronerf_tpu_torch.ops.encoding import plucker
+    from pronerf_tpu_torch.ops.sampling import ndc_to_3d_depth
+
+    S = statics.N_samples
+    sig_t = plucker(rays["ndc_o"], rays["ndc_d"]).T.contiguous()
+    mm = fused_minmax_t(params["sampler_packed"], sig_t)[:, :S]
+    depth = torch.sigmoid(mm) * (statics.far - statics.near) + statics.near
+    depth = torch.sort(depth, dim=-1, stable=True)[0]
+    return ndc_to_3d_depth(depth, statics.ndc_eps)
+
+
+def nan_equal(a, b) -> bool:
+    return torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+def window_readings(scene, rays, z3d, nearest, n_tiles, window_rows):
+    """The gathers on one frame's own points: the share of points the
+    windows miss (valid unwindowed, invalid windowed), and the forms held
+    against each other: no point valid only windowed, the windowed colours
+    equal to the unwindowed ones wherever the window hits, the transposed
+    emit and the split fetch equal to the row form bit for bit, the
+    transposed graph's windowed gather against the row form: its projection
+    is written out as scalar products, so the lerp weights differ in the
+    last bits (colours by ~1e-7) and a point on a pixel or image border may
+    flip; at most PLAIN_SHARE of the points may change validity or differ
+    by more than 1e-5. Also each gather's ms (median of 5 by CUDA events,
+    bf16 emit as served)."""
+    from pronerf_tpu_torch.ops import warp
+
+    args = (scene["images"], scene["fused_mats"], scene["K"], nearest,
+            rays["or_o"], rays["or_d"], z3d)
+    full = warp.epipolar_colors_shared(*args)
+    win = warp.epipolar_colors_shared_windowed(*args, n_tiles, window_rows)
+    V, S = win.shape[1:3]
+    valid_full, valid_win = full.sum(-1) > 0, win.sum(-1) > 0
+    missed = valid_full & ~valid_win
+    t_emit = warp.epipolar_colors_shared_windowed(
+        *args, n_tiles, window_rows, transposed_out=True)
+    split = warp.epipolar_colors_shared_windowed(
+        *args, n_tiles, window_rows, split=True)
+    graph_t = warp.epipolar_colors_shared_t(
+        scene["images"], scene["fused_mats"], scene["K"], nearest,
+        rays["or_o"].T.contiguous(), rays["or_d"].T.contiguous(),
+        z3d.T.contiguous(), n_tiles=n_tiles, window_rows=window_rows)
+    win_t = win.permute(1, 3, 2, 0)  # [V, 3, S, N], the graph's layout
+    graph_diff = (graph_t - win_t).abs()
+    readings = {
+        "points": missed.numel(),
+        "share_invalid_unwindowed": float((~valid_full).float().mean()),
+        "share_missed": float(missed.float().mean()),
+        "share_of_valid_missed": float(missed.sum() / valid_full.sum()),
+        "share_rays_with_a_miss": float(missed.any(2).any(1).float().mean()),
+        "points_valid_only_windowed": int((valid_win & ~valid_full).sum()),
+        "hit_colours_equal": torch.equal(win[valid_win], full[valid_win]),
+        "transposed_emit_equal": torch.equal(
+            t_emit, win.permute(1, 2, 3, 0).reshape(V, S * 3, -1)),
+        "split_equal": torch.equal(split, win),
+        "transposed_graph_share_not_bit_equal": float(
+            (graph_diff > 0).float().mean()),
+        "transposed_graph_share_over_1e-5": float(
+            (graph_diff > 1e-5).float().mean()),
+        "transposed_graph_max_diff": float(graph_diff.max()),
+        "transposed_graph_share_validity_differing": float(
+            ((graph_t.sum(1) > 0) != (win_t.sum(1) > 0)).float().mean()),
+    }
+    del t_emit, split, graph_t, win_t, graph_diff
+    bf16 = {"out_dtype": torch.bfloat16}
+    readings["gather_ms"] = {
+        "unwindowed": cuda_ms(
+            lambda: warp.epipolar_colors_shared(*args, **bf16), 5),
+        "windowed": cuda_ms(lambda: warp.epipolar_colors_shared_windowed(
+            *args, n_tiles, window_rows, **bf16), 5),
+    }
+    if not (readings["points_valid_only_windowed"] == 0
+            and readings["hit_colours_equal"]
+            and readings["transposed_emit_equal"] and readings["split_equal"]
+            and readings["transposed_graph_share_over_1e-5"] <= PLAIN_SHARE
+            and readings["transposed_graph_share_validity_differing"]
+            <= PLAIN_SHARE):
+        raise SystemExit(f"windowed gather at {FULL_W}x{FULL_H}: {readings}")
+    return readings, missed.any(2).any(1)
+
+
+@torch.no_grad()
+def phase_fullres(device, profile=False):
+    """The serving path at 1008x756 (the reference engine's frame): the
+    default (windowed) form through ``run_inference``, then the unwindowed,
+    transposed and int8 forms and a split frame through the frame renderer,
+    each timed, counted and measured; the gathers on the frame's own
+    points; the frames held against each other; a tile against the
+    kernel-free bf16 path and the plain versions on the CPU."""
+    from pronerf_tpu_torch.config import Config
+    from pronerf_tpu_torch.kernels.packing import pack_serving_params
+    from pronerf_tpu_torch.models.pronerf import _nearest_views, render_rays
+    from pronerf_tpu_torch.render import infer
+    from pronerf_tpu_torch.render.raygen import prepare_scene, rays_for_pose
+    from pronerf_tpu_torch.render.renderer import (
+        make_frame_renderer,
+        resolve_gather_statics,
+    )
+
+    shape = (FULL_H, FULL_W)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fullres_") as tmp:
+        cfg = Config.from_file(
+            ROOT / "configs/llff/fern/fern_trt.txt",
+            datadir=f"synthetic:{FULL_W}x{FULL_H}x{N_VIEWS}", use_trt=True,
+            tile_rays=0, use_pallas=True, basedir=tmp, ft_path="",
+        )
+        statics = infer._infer_statics(cfg, use_bf16=True)
+        resolved = resolve_gather_statics(statics, *shape, FULL_RAYS)
+        tiles, rows = resolved.gather_tiles, resolved.gather_window_rows
+        say({"fullres_statics": {"gather_tiles": tiles,
+                                 "gather_window_rows": rows,
+                                 "expected": list(FULL_GATHER)}})
+
+        # ---- the server answers the held-out poses in the default form
+        main = serve("fullres default (windowed)", cfg, FULL_REPS, shape)
+        expect_counts("fullres default", main["counts"],
+                      sampler=main["frames"], refine=main["frames"],
+                      fused_nerf_raw_t=main["frames"])
+
+        # ---- every form through the frame renderer, the same protocol
+        data = infer.load_inference_data(cfg)
+        params = infer._load_params(cfg, infer.setup_expdir(cfg), device)
+        scene = prepare_scene(
+            data["images"][data["i_ref"]], data["poses"][data["i_ref"]],
+            data["K"], pack_corners="u8", device=device)
+        K = data["K"]
+        poses = [data["poses"][i][:3, :4] for i in data["i_test"]]
+        forms = {
+            "windowed": statics,
+            "unwindowed": dataclasses.replace(statics, gather_tiles=0),
+            "transposed": dataclasses.replace(statics, transposed=True),
+            "int8": dataclasses.replace(statics, quant="int8"),
+        }
+        renderers = {name: make_frame_renderer(st, *shape, K, 0,
+                                               device=device)
+                     for name, st in forms.items()}
+        drives = {}
+        for name, render in renderers.items():
+            drives[name] = drive_renderer(render, params, scene, poses)
+            torch.cuda.empty_cache()
+        n = drives["windowed"]["frames"]
+        for name in ("windowed", "unwindowed"):
+            expect_counts(f"fullres {name}", drives[name]["counts"],
+                          sampler=n, refine=n, fused_nerf_raw_t=n)
+        expect_counts("fullres transposed", drives["transposed"]["counts"],
+                      sampler=n, refine=n, untransposed=2 * n,
+                      fused_nerf_composite_t=n)
+        expect_counts("fullres int8", drives["int8"]["counts"], sampler=n,
+                      refine=n, fused_nerf_raw_tq=n)
+        fw, fu = drives["windowed"]["first"], drives["unwindowed"]["first"]
+        served = first_frame(main, device)
+        served_err = max(max_err(served[k], fw[k]) for k in served)
+        # the split fetch: the same colours, so the same frame
+        split = make_frame_renderer(
+            dataclasses.replace(statics, gather_split=True), *shape, K, 0,
+            device=device)(params, scene, poses[0])
+        split_equal = {k: nan_equal(split[k], fw[k]) for k in FRAME_KEYS}
+        if served_err != 0.0 or not all(split_equal.values()):
+            raise SystemExit(f"fullres: served frame against the renderer's "
+                             f"{served_err}; split frame equal "
+                             f"{split_equal}")
+
+        # ---- the gathers on the first pose's own points
+        rays = rays_for_pose(*shape, K, poses[0], device=device)
+        packed = pack_serving_params(params, resolved)
+        z3d = frame_depths(packed, rays, resolved)
+        controls = {"target_t": torch.as_tensor(
+            poses[0][:3, 3], dtype=torch.float32, device=device)}
+        nearest = _nearest_views(resolved, scene, controls)
+        windows, ray_missed = window_readings(scene, rays, z3d, nearest,
+                                              tiles, rows)
+        torch.cuda.empty_cache()
+
+        # ---- the frames against each other: windowed against unwindowed
+        # (equal on every ray no window missed), transposed against
+        # row-major (bulk and tail), int8 against bf16 (the JAX bounds)
+        hit = ~ray_missed.reshape(shape)
+        windowed_vs = {}
+        for k in FRAME_KEYS:
+            d = (fw[k].float() - fu[k].float()).abs()
+            d = d if d.dim() == 2 else d.amax(-1)
+            windowed_vs[k] = {"equal_where_no_miss": nan_equal(
+                fw[k][hit], fu[k][hit]),
+                "max_diff_missed_rays": float(d[~hit].max())
+                if (~hit).any() else 0.0,
+                "share_pixels_differing": float((d > 0).float().mean())}
+        if not all(v["equal_where_no_miss"] for v in windowed_vs.values()):
+            raise SystemExit(f"fullres windowed against unwindowed frame: "
+                             f"{windowed_vs}")
+        trans_vs = bulk_and_tail(
+            "fullres transposed frame against the row-major frame",
+            drives["transposed"]["first"], fw, FRAME_KEYS)
+        fq = drives["int8"]["first"]
+        mse = float(((fq["rgb1"].double() - fw["rgb1"].double()) ** 2)
+                    .mean())
+        int8_vs = {"psnr_rgb1_db": -10.0 * float(np.log10(max(mse, 1e-12))),
+                   "depth_max_abs": max_err(fq["depth"], fw["depth"])}
+        if not (int8_vs["psnr_rgb1_db"] > QUANT_PSNR_DB
+                and int8_vs["depth_max_abs"] <= QUANT_DEPTH):
+            raise SystemExit(f"fullres int8 frame against bf16: {int8_vs}")
+
+        # ---- a tile of the frame's rays (its own 8 ray tiles and windows)
+        # through the kernels, the kernel-free bf16 path and the plain
+        # versions on CPU tensors
+        lo = (FULL_H // 2) * FULL_W
+        tile = {k: v[lo:lo + CHUNK].contiguous() for k, v in rays.items()}
+        with_k = render_rays(packed, tile, scene, controls, resolved)
+        without = render_rays(params, tile, scene, controls,
+                              dataclasses.replace(resolved,
+                                                  use_kernels=False))
+        keys = tuple(k for k in NINE_KEYS if k != "sigma")
+        paths = rel_errs(with_k, without, PATHS_REL, keys)
+        hold("fullres tile: kernel path against kernel-free bf16 path",
+             paths, PATHS_REL)
+        cpu = torch.device("cpu")
+        scene_cpu = prepare_scene(
+            data["images"][data["i_ref"]], data["poses"][data["i_ref"]],
+            K, pack_corners="u8", device=cpu)
+        on_cpu = render_rays(
+            {k: copy.deepcopy(m).to(cpu) for k, m in params.items()},
+            {k: v.to(cpu) for k, v in tile.items()}, scene_cpu,
+            {k: v.to(cpu) for k, v in controls.items()}, resolved)
+        plain = rel_errs(with_k, {k: v.to(device) for k, v in on_cpu.items()},
+                         PLAIN_REL)
+        hold("fullres tile: kernel path against the plain versions on the "
+             "CPU", plain, PLAIN_REL, PLAIN_SHARE)
+
+        profiles = {}
+        if profile:
+            for name, render in renderers.items():
+                profiles[name] = profile_frames(
+                    lambda: render(params, scene, poses[0]), 3)
+                say({"profile": {"path": f"fullres {name}"}
+                     | profiles[name]})
+
+    say({"fullres": {
+        "H": FULL_H, "W": FULL_W, "views": N_VIEWS, "poses": len(poses),
+        "gather_tiles": tiles, "gather_window_rows": rows,
+        "run_inference": {"frames": main["frames"],
+                          "ms_per_frame": main["ms_per_frame"],
+                          "wall_s": main["wall_s"],
+                          "peak_mem_bytes": main["peak_mem_bytes"],
+                          "launches": main["counts"],
+                          "psnr": main["result"]["psnrs"]},
+        "forms": {name: {k: d[k] for k in ("frames", "ms_per_frame",
+                                           "ms_all", "peak_mem_bytes",
+                                           "counts")}
+                  for name, d in drives.items()},
+        "device_busy_ms_per_frame": {
+            name: p["device_busy_ms_per_frame"]
+            for name, p in profiles.items()} or "run with --profile",
+        "kernels_per_frame": {name: p["device_kernels_per_frame"]
+                              for name, p in profiles.items()}
+        or "run with --profile",
+        "served_vs_renderer_max_err": served_err,
+        "split_frame_equal": split_equal,
+        "windows": windows,
+        "windowed_vs_unwindowed_frame": windowed_vs,
+        "transposed_vs_row_major_frame": trans_vs,
+        "int8_vs_bf16_frame": int8_vs,
+        "tile_kernel_vs_kernel_free_bf16": paths,
+        "tile_kernel_vs_plain_versions_on_cpu": plain,
+    }})
+    return {
+        "fused_minmax_t[sampler,N=762048]":
+            main["counts"]["fused_minmax_t[sampler]"],
+        "fused_minmax_t[refine,N=762048]":
+            main["counts"]["fused_minmax_t[refine]"],
+        "fused_nerf_raw_t[N=762048]": main["counts"]["fused_nerf_raw_t"],
+        "fused_nerf_composite_t[N=762048]":
+            drives["transposed"]["counts"]["fused_nerf_composite_t"],
+        "fused_nerf_raw_tq[N=762048]":
+            drives["int8"]["counts"]["fused_nerf_raw_tq"],
+    }
+
+
+# ----------------------------------------------------- gathers phase ------
+
+def phase_gathers(device):
+    """The other gathers on the card at 504x378: a ``gather_split`` frame
+    equal to the default frame bit for bit; ``warp_interp = nearest``
+    served through ``run_inference``; the per-view training gather
+    (``train_gather = 1``) equal to the all-views gather on a batch's
+    points, each timed, and a stage-1 sampler step with it against the same
+    step with the all-views gather (TRAIN_TOL)."""
+    from pronerf_tpu_torch.config import Config
+    from pronerf_tpu_torch.models.pronerf import _select_neighbors
+    from pronerf_tpu_torch.ops import warp
+    from pronerf_tpu_torch.render import infer
+    from pronerf_tpu_torch.render.raygen import prepare_scene, rays_from_pool
+    from pronerf_tpu_torch.render.renderer import make_frame_renderer
+
+    report = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gathers_") as tmp:
+        cfg = Config.from_file(
+            ROOT / "configs/llff/fern/fern_trt.txt",
+            datadir=f"synthetic:{W_IMG}x{H}x{N_VIEWS}", use_trt=True,
+            tile_rays=0, use_pallas=True, basedir=tmp, ft_path="")
+        data = infer.load_inference_data(cfg)
+        params = infer._load_params(cfg, infer.setup_expdir(cfg), device)
+        scene = prepare_scene(
+            data["images"][data["i_ref"]], data["poses"][data["i_ref"]],
+            data["K"], pack_corners="u8", device=device)
+        statics = infer._infer_statics(cfg, use_bf16=True)
+        c2w = data["poses"][data["i_test"][0]][:3, :4]
+        with torch.no_grad():
+            base = make_frame_renderer(statics, H, W_IMG, data["K"], 0,
+                                       device=device)(params, scene, c2w)
+            reset_counters()
+            split = make_frame_renderer(
+                dataclasses.replace(statics, gather_split=True), H, W_IMG,
+                data["K"], 0, device=device)(params, scene, c2w)
+            torch.cuda.synchronize()
+        expect_counts("gather_split frame", read_counters(), sampler=1,
+                      refine=1, fused_nerf_raw_t=1)
+        report["split_frame_equal"] = {k: nan_equal(split[k], base[k])
+                                       for k in split}
+        if not all(report["split_frame_equal"].values()):
+            raise SystemExit(f"gather_split frame: "
+                             f"{report['split_frame_equal']}")
+
+        near = serve("warp_interp=nearest",
+                     cfg.replace(warp_interp="nearest", max_images=1), 1)
+        expect_counts("warp_interp=nearest", near["counts"],
+                      sampler=near["frames"], refine=near["frames"],
+                      fused_nerf_raw_t=near["frames"])
+        near_frame = torch.from_numpy(near["result"]["rgbs1"][0]).to(device)
+        report["nearest"] = {"frames": near["frames"],
+                             "ms_per_frame": near["ms_per_frame"],
+                             "psnr": near["result"]["psnrs"],
+                             "max_diff_from_bilinear": max_err(
+                                 near_frame, base["rgb1"])}
+        if report["nearest"]["max_diff_from_bilinear"] == 0.0:
+            raise SystemExit("warp_interp=nearest served the bilinear frame")
+
+        # ---- train_gather = 1: the gather on a batch's points, then a step
+        tcfg = train_config(1, tmp)
+        shared = training_data(tcfg)
+        tdata = shared[0]
+        tscene, _, batch, ids = step_setup(tcfg, shared, device, tcfg.N_rand)
+        ctl = step_controls(tcfg, len(tdata["i_train"]), device, tcfg.N_rand,
+                            3, 64, seed=5)
+        rays = rays_from_pool(batch[:, :2], ids, tdata["H"], tdata["W"],
+                              tdata["focal"])
+        z3d = torch.from_numpy(np.random.default_rng(5).uniform(
+            1.0, 8.0, (tcfg.N_rand, tcfg.N_samples)).astype(np.float32)).to(
+                device)
+        view_idx = _select_neighbors(rays, tscene, ctl)
+        args = (tscene["images"], tscene["fused_mats"], tscene["K"],
+                view_idx, rays["or_o"], rays["or_d"], z3d)
+        all_views = warp.epipolar_colors(*args)
+        per_view = warp.epipolar_colors_per_view(*args)
+        report["per_view_gather"] = {
+            "equal_to_all_views": torch.equal(per_view, all_views),
+            "share_valid": float((all_views.sum(-1) > 0).float().mean()),
+            "ms_all_views": cuda_ms(lambda: warp.epipolar_colors(*args), 5),
+            "ms_per_view": cuda_ms(
+                lambda: warp.epipolar_colors_per_view(*args), 5),
+            "rays": tcfg.N_rand, "train_views": len(tdata["i_train"])}
+        if not report["per_view_gather"]["equal_to_all_views"]:
+            raise SystemExit("per-view gather differs from the all-views one")
+        steps = [one_step("sampler", 3, 64, train_config(1, tmp,
+                                                          train_gather=tg),
+                          shared, device, tcfg.N_rand, seed=6)
+                 for tg in (1, -1)]
+        report["train_gather_1_step"] = steps_agree(
+            "stage-1 sampler step, train_gather=1 against all views", *steps)
+    say({"gathers": report})
+    return report
+
+
+# ------------------------------------------------------ donerf phase ------
+
+def phase_donerf(device):
+    """``netarch = donerf`` at D = 8, W = 256 on the card: one 504x378 frame
+    through ``run_inference`` (the fused kernels implement the NeRF MLP, so
+    none runs), and one stage-1 NeRF step against the same step on CPU
+    tensors (TRAIN_TOL)."""
+    from pronerf_tpu_torch.config import Config
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_donerf_") as tmp:
+        cfg = Config.from_file(
+            ROOT / "configs/llff/fern/fern_trt.txt",
+            datadir=f"synthetic:{W_IMG}x{H}x{N_VIEWS}", use_trt=True,
+            tile_rays=0, use_pallas=True, basedir=tmp, ft_path="",
+            netarch="donerf", max_images=1)
+        drive = serve("netarch=donerf", cfg, 1)
+        expect_counts("netarch=donerf", drive["counts"])
+        shared = training_data(train_config(1, tmp))
+        vs_cpu = card_against_cpu(tmp, shared, device, (STEP_KINDS[1],),
+                                  netarch="donerf")
+        report = {"netdepth": cfg.netdepth, "netwidth": cfg.netwidth,
+                  "frames": drive["frames"],
+                  "ms_per_frame": drive["ms_per_frame"],
+                  "peak_mem_bytes": drive["peak_mem_bytes"],
+                  "psnr": drive["result"]["psnrs"], "card_vs_cpu": vs_cpu}
+    say({"donerf": report})
+    return report
+
+
 # ------------------------------------------------------- train phase ------
 
 # Release widths of the two training configs (NeRF 8x256 + 128 view branch,
@@ -1291,57 +1811,68 @@ def time_steps(tmp, shared, device, profile=False):
     return rows
 
 
-def card_against_cpu(tmp, shared, device):
-    """One step of each kind on the card and on CPU tensors, from the same
-    params, batch, controls and noise (TRAIN_TOL)."""
+def one_step(kind, n_mult, width, cfg, shared, device, rays, seed):
+    """One step of ``kind`` from the seed's params on the first ``rays``
+    rays of the pool, with the controls (``n_mult`` set) and the noise (of
+    ``width`` columns) of ``seed``: its loss, Adam's first moment and the
+    params' change, on the CPU."""
     from pronerf_tpu_torch.train.state import named_params
 
     cpu = torch.device("cpu")
+    scene, params, batch, ids = step_setup(cfg, shared, device, rays)
+    p0 = {k: v.detach().clone() for k, v in named_params(params).items()}
+    step, init = make_step(kind, cfg, shared[0])
+    state = init(params, cfg.weight_decay)
+    ctl = step_controls(cfg, len(shared[0]["i_train"]), device, rays,
+                        n_mult, width, seed)
+    state, m = step(state, scene, batch, ids, ctl, 5e-4)
+    return {
+        "loss": float(m["loss"]),
+        "mu": {k: v.to(cpu) for k, v in state[OPT_KEY[kind]]["mu"].items()},
+        "dp": {k: (v.detach() - p0[k]).to(cpu) for k, v in
+               named_params(state["params"]).items()},
+    }
+
+
+def steps_agree(what, c, h):
+    """Step ``c`` against step ``h`` (``one_step``'s results) under
+    ``TRAIN_TOL``; fails outside it."""
+    loss_rel = abs(c["loss"] - h["loss"]) / abs(h["loss"])
+    norm_rel = max(float((c["mu"][k] - v).norm() / v.norm())
+                   for k, v in h["mu"].items())
+    max_rel = max(float((c["mu"][k] - v).abs().max() / v.abs().max())
+                  for k, v in h["mu"].items())
+    d = torch.cat([(c["dp"][k] - v).abs().flatten()
+                   for k, v in h["dp"].items()])
+    row = {"loss": c["loss"], "loss_ref": h["loss"],
+           "loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+           "grad_max_rel": max_rel,
+           "param_max_over_lr": float(d.max()) / 5e-4,
+           "param_share_within": float((d <= TRAIN_TOL["param_lr"] * 5e-4)
+                                       .float().mean())}
+    if not (loss_rel <= TRAIN_TOL["loss_rel"]
+            and norm_rel <= TRAIN_TOL["grad_norm_rel"]
+            and max_rel <= TRAIN_TOL["grad_max_rel"]
+            # a sanity check that also catches a non-finite update: after
+            # one Adam step from zero moments |u| <= 1 on both sides, so a
+            # finite difference is at most 2 lr
+            and row["param_max_over_lr"] <= 2
+            and row["param_share_within"] >= TRAIN_TOL["param_share"]):
+        raise SystemExit(f"{what}: {row} (bounds {TRAIN_TOL})")
+    return row
+
+
+def card_against_cpu(tmp, shared, device, kinds=STEP_KINDS[1:], **cfg_kw):
+    """One step of each kind on the card and on CPU tensors, from the same
+    params, batch, controls and noise (TRAIN_TOL)."""
     out = {}
-    for name, kind, n_mult, width in STEP_KINDS[1:]:
-        cfg = train_config(1 if kind != "stage2" else 2, tmp)
-        res = {}
-        for side, dev in (("card", device), ("cpu", cpu)):
-            scene, params, batch, ids = step_setup(cfg, shared, dev, CPU_RAYS)
-            p0 = {k: v.detach().clone() for k, v in
-                  named_params(params).items()}
-            step, init = make_step(kind, cfg, shared[0])
-            state = init(params, cfg.weight_decay)
-            ctl = step_controls(cfg, len(shared[0]["i_train"]), dev,
-                                CPU_RAYS, n_mult, width, seed=4)
-            state, m = step(state, scene, batch, ids, ctl, 5e-4)
-            res[side] = {
-                "loss": float(m["loss"]),
-                "mu": {k: v.to(cpu) for k, v in state[OPT_KEY[kind]]["mu"]
-                       .items()},
-                "dp": {k: (v.detach() - p0[k]).to(cpu) for k, v in
-                       named_params(state["params"]).items()},
-            }
-        c, h = res["card"], res["cpu"]
-        loss_rel = abs(c["loss"] - h["loss"]) / abs(h["loss"])
-        norm_rel = max(float((c["mu"][k] - v).norm() / v.norm())
-                       for k, v in h["mu"].items())
-        max_rel = max(float((c["mu"][k] - v).abs().max() / v.abs().max())
-                      for k, v in h["mu"].items())
-        d = torch.cat([(c["dp"][k] - v).abs().flatten()
-                       for k, v in h["dp"].items()])
-        row = {"loss_card": c["loss"], "loss_cpu": h["loss"],
-               "loss_rel": loss_rel, "grad_norm_rel": norm_rel,
-               "grad_max_rel": max_rel, "param_max_over_lr": float(d.max())
-               / 5e-4,
-               "param_share_within": float((d <= TRAIN_TOL["param_lr"] * 5e-4)
-                                           .float().mean())}
-        out[name] = row
-        if not (loss_rel <= TRAIN_TOL["loss_rel"]
-                and norm_rel <= TRAIN_TOL["grad_norm_rel"]
-                and max_rel <= TRAIN_TOL["grad_max_rel"]
-                # a sanity check that also catches a non-finite update:
-                # after one Adam step from zero moments |u| <= 1 on both
-                # sides, so a finite difference is at most 2 lr
-                and row["param_max_over_lr"] <= 2
-                and row["param_share_within"] >= TRAIN_TOL["param_share"]):
-            raise SystemExit(f"train step {name}: card against CPU {row} "
-                             f"(bounds {TRAIN_TOL})")
+    for name, kind, n_mult, width in kinds:
+        cfg = train_config(1 if kind != "stage2" else 2, tmp, **cfg_kw)
+        card, host = (one_step(kind, n_mult, width, cfg, shared, dev,
+                               CPU_RAYS, seed=4)
+                      for dev in (device, torch.device("cpu")))
+        out[name] = steps_agree(f"train step {name}: card against CPU", card,
+                                host)
     return out
 
 
@@ -1484,6 +2015,7 @@ def phase_train(device, profile=False):
 # ------------------------------------------------------------------ cli ----
 
 CLI_VIEWS, CLI_FACTOR, CLI_REPS = 20, 4, 2
+CLI_PATH_FRAMES = 6    # render-path: the spiral's first poses
 
 
 def paeth_png(path, img):
@@ -1527,7 +2059,10 @@ def phase_cli(device):
     shape (the consistent synthetic scene, 20 views, ``images_4`` PNGs of
     504x378, ``poses_bounds.npy`` at the raw scale, a binary COLMAP model
     with projected visibility): train-stage1, train-stage2 from its expdir,
-    eval --use-trt through the kernels, infer --use-trt with int8."""
+    eval --use-trt through the kernels, infer --use-trt with int8,
+    render-path --use-trt to a GIF (frame 0 against a direct render, within
+    the palette's bound), and a stage-1 run with i_video = 2 that writes
+    its spiral videos."""
     from pronerf_tpu_torch import native
     from pronerf_tpu_torch.config import Config
     from pronerf_tpu_torch.data.colmap import greedy_reference_views
@@ -1536,6 +2071,8 @@ def phase_cli(device):
     from pronerf_tpu_torch.render.raygen import build_ray_pool, prepare_scene
     from pronerf_tpu_torch.render.renderer import make_frame_renderer
     from pronerf_tpu_torch.train import checkpoint
+    from pronerf_tpu_torch.ops.metrics import to8b
+    from pronerf_tpu_torch.utils import gif
     from pronerf_tpu_torch.utils.fixtures import write_llff_scene
     from pronerf_tpu_torch.utils.png import read_png
     from pronerf_tpu_torch.utils.synthetic import make_consistent_scene
@@ -1636,14 +2173,62 @@ def phase_cli(device):
             data["K"], pack_corners="u8", device=device)
         render = make_frame_renderer(infer._infer_statics(cfg, True), H,
                                      W_IMG, data["K"], 0, device=device)
+        params2 = infer.load_params_for_inference(ck2, cfg, device)
         with torch.no_grad():
-            direct = render(infer.load_params_for_inference(ck2, cfg, device),
-                            scene, data["poses"][data["i_test"][0]])["rgb1"]
+            direct = render(params2, scene,
+                            data["poses"][data["i_test"][0]])["rgb1"]
         served_err = max_err(torch.from_numpy(ev["rgbs1"][0]).to(device),
                              direct)
         if served_err != 0.0:
             raise SystemExit(f"eval frame against the checkpoint's params: "
                              f"{served_err}")
+
+        # ---- render-path through the kernels: the spiral's first poses,
+        # written as a GIF (the port's own writer where imageio is absent)
+        rp, c_rp, wall_rp = drive_cli(
+            ["render-path", "--use-trt", "--checkpoint", ck2, "--n-frames",
+             str(CLI_PATH_FRAMES)] + common("cli_rp"))
+        expect_counts("cli render-path", c_rp, sampler=CLI_PATH_FRAMES,
+                      refine=CLI_PATH_FRAMES,
+                      fused_nerf_raw_t=CLI_PATH_FRAMES)
+        if not rp.endswith(".gif"):
+            raise SystemExit(f"render-path wrote {rp}, not a GIF")
+        t0 = time.perf_counter()
+        rp_frames, rp_delays = gif.read_gif(rp)
+        timings["read_gif_s"] = time.perf_counter() - t0
+        with torch.no_grad():
+            d8 = to8b(render(params2, scene, data["render_poses"][0])["rgb1"]
+                      .cpu().numpy())
+        rp_err = np.abs(rp_frames[0].astype(int) - d8).max(axis=(0, 1))
+        render_path_report = {
+            "path": Path(rp).name, "frames": len(rp_frames),
+            "delays_cs": rp_delays, "launches": c_rp, "wall_s": wall_rp,
+            "frame0_max_err_per_channel": rp_err.tolist(),
+            "palette_bound": list(gif.PALETTE_MAX_ERR),
+            "frame0_is_palette_of_direct": bool(np.array_equal(
+                rp_frames[0], gif.palette()[gif.quantize(d8)])),
+        }
+        if rp_frames.shape != (CLI_PATH_FRAMES, H, W_IMG, 3) or not all(
+                e <= b for e, b in zip(rp_err, gif.PALETTE_MAX_ERR)):
+            raise SystemExit(f"render-path GIF: {render_path_report}")
+
+        # ---- i_video: a 4-step stage-1 run writes its spiral at steps 2
+        # and 4 (the stage's eval statics: no kernel runs), each of the
+        # capture's 120 spiral poses rendered as one tile (24 times fewer
+        # launches than the configs' 8,192-ray tiles on the plain f32 path)
+        (_, exp_v), c_v, wall_v = drive_cli(
+            ["train-stage1", "--config",
+             str(ROOT / "configs/llff/fern/fern_epi.txt"), "--max-steps",
+             str(TRAIN_STEPS[1])] + common("cli_video")
+            + ["--i_video", "2", "--tile_rays", "0"])
+        expect_counts("cli i_video", c_v)
+        videos = sorted(p.name for p in Path(exp_v).glob("spiral_*"))
+        spiral, _ = gif.read_gif(Path(exp_v) / videos[-1])
+        video_report = {"videos": videos, "frames": len(spiral),
+                        "wall_s": wall_v, "launches": c_v}
+        if videos != ["spiral_000002.gif", "spiral_000004.gif"] or \
+                spiral.shape != (len(data["render_poses"]), H, W_IMG, 3):
+            raise SystemExit(f"i_video: {video_report}")
 
         # ---- host times of the pool, native and NumPy
         for native_pool in (True, False):
@@ -1655,6 +2240,8 @@ def phase_cli(device):
                 time.perf_counter() - t0
         timings["native_build"] = dict(native.build_info)
         timings["eval_ms_per_frame"] = statistics.median(ev["times_ms"])
+        timings["render_path_wall_s"] = wall_rp
+        timings["i_video_run_wall_s"] = wall_v
         timings["card"] = nvidia_smi_line()
         report = {
             "capture": {"views": CLI_VIEWS, "factor": CLI_FACTOR,
@@ -1668,6 +2255,8 @@ def phase_cli(device):
                      "visibility_scans_native": 2},
             "int8": {"launches": c_q, "frames": n_q, "wall_s": wall_q,
                      "psnr": q["psnrs"]},
+            "render_path": render_path_report,
+            "i_video": video_report,
         }
     say({"cli": report})
     say({"cli_timings": timings})
@@ -1679,15 +2268,16 @@ def phase_cli(device):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only",
-                    choices=("build", "kernels", "frame", "train", "cli"))
+                    choices=("build", "kernels", "frame", "fullres",
+                             "gathers", "train", "donerf", "cli"))
     ap.add_argument("--rays", type=int, default=FRAME_RAYS)
     ap.add_argument("--verbose-build", action="store_true",
                     help="print the compiler's output of every source")
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel name for the "
                          "fused-composite, the int8 and the transposed "
-                         "frame, and for each training step "
-                         "(torch.profiler)")
+                         "frame, each 1008x756 form, and each training "
+                         "step (torch.profiler)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1722,8 +2312,14 @@ def main(argv=None):
         rows = phase_kernels(device, args.rays)
     if args.only in (None, "frame"):
         launches = phase_frame(device, args.profile)
+    if args.only in (None, "fullres"):
+        launches |= phase_fullres(device, args.profile)
+    if args.only in (None, "gathers"):
+        phase_gathers(device)
     if args.only in (None, "train"):
         phase_train(device, args.profile)
+    if args.only in (None, "donerf"):
+        phase_donerf(device)
     if args.only in (None, "cli"):
         phase_cli(device)
 

@@ -8,11 +8,14 @@ overrides (e.g. ``-- --i_weights 2``). ``--use-trt`` selects the serving
 path: bf16 and, unless the passthrough sets them, the whole frame in one
 tile (``tile_rays = 0``) through the fused CUDA kernels (``use_pallas``).
 
+``render-path`` renders the spiral camera path to a video (mp4 where
+imageio has a backend for it, else a GIF).
+
 ``--device`` (default ``cuda``) is the port's own: every verb runs on the
 card and raises without one, unless ``--device cpu`` is given. The JAX
 package's compilation cache and platform switches have no counterpart.
-``export``, ``render-path`` and ``train-multi`` are not ported yet: they
-raise by their ROADMAP items (A.16, A.15, A.18).
+``export`` and ``train-multi`` are not ported yet: they raise by their
+ROADMAP items (A.16, A.18).
 """
 
 from __future__ import annotations
@@ -28,8 +31,7 @@ DEFAULT_STAGE2_CONFIG = REPO_ROOT / "configs/llff/fern/fern_refine.txt"
 DEFAULT_TRT_CONFIG = REPO_ROOT / "configs/llff/fern/fern_trt.txt"
 
 # verbs of the JAX package's command line that the port does not have yet
-UNPORTED = {"export": "A.16", "export-trt": "A.16", "render-path": "A.15",
-            "train-multi": "A.18"}
+UNPORTED = {"export": "A.16", "export-trt": "A.16", "train-multi": "A.18"}
 
 
 def _parse_extra(extra: list[str]) -> dict:
@@ -112,6 +114,14 @@ def cmd_eval(args):
     return cmd_infer(args)
 
 
+def cmd_render_path(args):
+    from pronerf_tpu_torch.render.infer import run_render_path
+
+    return run_render_path(
+        _build_cfg(args, DEFAULT_TRT_CONFIG, serving=True),
+        n_frames=args.n_frames, fps=args.fps, device=args.device)
+
+
 def _add_common(p):
     p.add_argument("--config", default=None)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -164,6 +174,16 @@ def build_parser() -> argparse.ArgumentParser:
                        help="timed re-renders per pose (reference uses 20)")
         _add_common(p)
         p.set_defaults(func=func)
+
+    p = sub.add_parser("render-path",
+                       help="render the spiral camera path to video")
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--use-trt", action="store_true", dest="use_trt",
+                   help="the bf16 serving path through the fused kernels")
+    p.add_argument("--n-frames", type=int, default=None, dest="n_frames")
+    p.add_argument("--fps", type=int, default=30)
+    _add_common(p)
+    p.set_defaults(func=cmd_render_path)
 
     for name, item in UNPORTED.items():
         sub.add_parser(name, help=f"not ported yet (ROADMAP {item})")

@@ -9,6 +9,9 @@ Layout of the JAX parameter pytree::
      'sampler': {'layers': [{'w', 'b'} x 6], 'out'},
      'refine':  {'layers': [{'w', 'b'} x 6], 'out'}}
 
+and with ``netarch = 'donerf'`` the radiance net is ``{'layers': [{'w',
+'b'} x D]}`` (``models.donerf``), told apart by its keys.
+
 There ``w`` is stored ``[in, out]`` (``y = x @ w + b``). The port's nets are
 ``nn.Linear``s, whose ``weight`` is stored ``[out, in]`` (``y = x @
 weight.T + b``), so every ``w`` is transposed on the way in. Both then
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from pronerf_tpu_torch.models.donerf import DoNeRFMLP
 from pronerf_tpu_torch.models.mlp import MinMaxMLP, NeRFMLP
 from pronerf_tpu_torch.render.raygen import prepare_scene
 
@@ -60,6 +64,33 @@ def nerf_from_numpy(tree, device="cpu") -> NeRFMLP:
     return net
 
 
+def donerf_from_numpy(tree, device="cpu") -> DoNeRFMLP:
+    """A DoNeRF tree ``{'layers': [{'w', 'b'} x D]}``: widths from the
+    first and last layers, the view width from the one layer that takes
+    more inputs than its predecessor gives (it must sit where the 'auto'
+    rule puts the skip, D * 7 // 8)."""
+    layers = tree["layers"]
+    shapes = [np.asarray(p["w"]).shape for p in layers]
+    D, (pos_ch, W), n_out = len(shapes), shapes[0], shapes[-1][1]
+    grown = [i for i in range(1, D) if shapes[i][0] != shapes[i - 1][1]]
+    if len(grown) != 1 or grown[0] != D * 7 // 8:
+        raise ValueError(f"DoNeRF layers of shapes {shapes}: the view "
+                         f"features must enter at layer {D * 7 // 8} alone")
+    dir_ch = shapes[grown[0]][0] - shapes[grown[0] - 1][1]
+    net = DoNeRFMLP(D, W, pos_ch, dir_ch, n_out, device=device)
+    for lin, p in zip(net.layers, layers):
+        _load_linear(lin, p, device)
+    return net
+
+
+def radiance_from_numpy(tree, device="cpu"):
+    """The radiance net of either family, by its keys: the NeRF MLP
+    (``pts``, heads) or DoNeRF (``layers`` alone)."""
+    if "pts" not in tree and "layers" in tree:
+        return donerf_from_numpy(tree, device)
+    return nerf_from_numpy(tree, device)
+
+
 def minmax_from_numpy(tree, device="cpu") -> MinMaxMLP:
     layers = tree["layers"]
     W = np.asarray(layers[0]["w"]).shape[1]
@@ -77,7 +108,7 @@ def params_from_numpy(tree, device="cpu"):
     """The JAX package's parameter pytree (numpy leaves, ``w`` as
     [in, out]) as the port's ``{'nerf', 'sampler', 'refine'}`` modules."""
     return {
-        "nerf": nerf_from_numpy(tree["nerf"], device),
+        "nerf": radiance_from_numpy(tree["nerf"], device),
         "sampler": minmax_from_numpy(tree["sampler"], device),
         "refine": minmax_from_numpy(tree["refine"], device),
     }

@@ -33,6 +33,7 @@ from typing import Dict, Optional
 
 import torch
 
+from pronerf_tpu_torch.models.donerf import DoNeRFMLP
 from pronerf_tpu_torch.models.mlp import (
     MinMaxMLP,
     NeRFMLP,
@@ -54,7 +55,9 @@ from pronerf_tpu_torch.ops.sampling import (
 )
 from pronerf_tpu_torch.ops.warp import (
     epipolar_colors,
+    epipolar_colors_per_view,
     epipolar_colors_shared,
+    epipolar_colors_shared_windowed,
     is_u8_pack,
     mean_fill_invalid,
     mean_fill_invalid_sct,
@@ -69,9 +72,8 @@ class RenderStatics:
     Factory helpers below derive the (stage, branch) behavior matrix; every
     epsilon that differs between stages is explicit. The fields are those of
     the JAX package's ``RenderStatics``, with ``use_kernels`` in the place of
-    ``use_pallas``; fields that select paths not ported yet are carried as
-    data and checked by ``render_rays``. ``transposed`` is read by the frame
-    renderer, which then takes ``models.pronerf_t.render_rays_t``.
+    ``use_pallas``. ``transposed`` is read by the frame renderer, which then
+    takes ``models.pronerf_t.render_rays_t``.
     """
 
     N_samples: int = 8
@@ -104,19 +106,23 @@ class RenderStatics:
                                   # device memory
     pallas_block_rays: int = 4096  # carried for config parity; the CUDA
                                    # kernels fix their tile at build time
-    gather_tiles: int = 0      # windowed epipolar gather (not ported; 0/-1)
-    gather_window_rows: int = 0
+    gather_tiles: int = 0      # windowed epipolar gather: contiguous ray
+                               # tiles a call (0 = off; -1 = auto, resolved
+                               # by render.renderer.resolve_gather_statics)
+    gather_window_rows: int = 0  # source-row band height per tile window
     gather_bf16: int = -1  # cast the deterministic-path epipolar colors to
                            # bf16 as they are gathered. -1 auto (= on when
                            # the fused MinMax kernels serve), 0 off, 1 force
-    gather_split: bool = False   # not ported
+    gather_split: bool = False   # u8 gathers as three word fetches a
+                                 # point (the same values as the row fetch)
     gather_transposed: int = -1  # emit the epipolar colors directly in the
                                  # kernels' transposed layout: -1 auto
                                  # (= off), 0 off, 1 force
     train_gather: int = -1       # training-path warp: -1 auto (= the
                                  # all-views gather), 0 all-views, 1 the
-                                 # per-view form (not ported)
-    netarch: str = "nerf"     # radiance-field family; 'donerf' not ported
+                                 # per-view form (u8 pack)
+    netarch: str = "nerf"     # radiance-field family: 'nerf' | 'donerf'
+                              # (donerf runs without the kernels)
     transposed: bool = False  # fully transposed serving graph
                               # (models/pronerf_t.py)
     quant: str = "none"       # 'int8': run the fused NeRF kernel with int8
@@ -193,19 +199,22 @@ def init_pronerf_params(
 
     Head widths: sampler in=6*48=288 out=3*S+3=27; refine in=6*S + 3*V*S=144
     out=4*S+3=35. Weights are drawn on the CPU from ``generator`` (nerf, then
-    sampler, then refine) and moved to ``device``.
+    sampler, then refine) and moved to ``device``. ``netarch='donerf'``
+    makes the radiance net a ``models.donerf.DoNeRFMLP`` (Kaiming-normal,
+    ``netskips`` unused).
     """
-    if netarch != "nerf":
-        raise NotImplementedError(
-            f"netarch={netarch!r}: only 'nerf' is ported so far (donerf "
-            "comes with the off-main-path serving variants)"
-        )
     g = generator if generator is not None else torch.Generator()
-    return {
-        "nerf": NeRFMLP(
+    if netarch == "donerf":
+        nerf = DoNeRFMLP(netdepth, netwidth, posenc_dim(3, multires),
+                         posenc_dim(3, multires_views), 4, generator=g,
+                         device=device)
+    else:
+        nerf = NeRFMLP(
             netdepth, netwidth, posenc_dim(3, multires),
             posenc_dim(3, multires_views), tuple(netskips), g, device,
-        ),
+        )
+    return {
+        "nerf": nerf,
         "sampler": MinMaxMLP(
             mmnetdepth, mmnetwidth, 6 * N_point_ray_enc, 3 * N_samples + 3,
             tuple(mmnetskips), g, device,
@@ -256,24 +265,19 @@ def view_contribution(nerf: NeRFMLP, d_pe, pack_dtype):
     return wv.to(pack_dtype).float() @ d_pe.to(pack_dtype).float().T
 
 
-def _check_ported(statics: RenderStatics):
-    later = []
-    if statics.netarch != "nerf":
-        later.append("netarch='donerf': the off-main-path serving variants")
+def _check_statics(statics: RenderStatics):
+    if statics.netarch not in ("nerf", "donerf"):
+        raise ValueError(
+            f"netarch must be 'nerf' or 'donerf', got {statics.netarch!r}")
     if statics.quant not in ("none", "int8"):
         raise ValueError(
             f"quant must be 'none' or 'int8', got {statics.quant!r}")
-    if statics.gather_tiles > 0 or statics.gather_split \
-            or statics.train_gather == 1:
-        later.append("the windowed / split / per-view gathers (ROADMAP "
-                     "A.10)")
+    if statics.use_kernels and statics.netarch != "nerf":
+        raise ValueError("the fused kernels implement the NeRF MLP; "
+                         "netarch='donerf' runs without them")
     if statics.randomize and statics.use_kernels:
         raise ValueError("the fused kernels serve the deterministic path "
                          "only (no gradient flows through them)")
-    if later:
-        raise NotImplementedError(
-            "not ported to pronerf_tpu_torch yet: " + "; ".join(later)
-        )
 
 
 def render_rays(params, rays, scene, controls, statics: RenderStatics):
@@ -308,7 +312,7 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
     Returns: dict with rgb0 (refine aux rgb), rgb1 (composited NeRF rgb),
       depth, disp, acc, mm_rgb, depth0, weights, sigma.
     """
-    _check_ported(statics)
+    _check_statics(statics)
     S = statics.N_samples
     near, far = statics.near, statics.far
     cdt = torch.bfloat16 if statics.compute_dtype == "bfloat16" else None
@@ -376,42 +380,53 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
             or (statics.gather_bf16 == -1 and mm_kernel))
         else None
     )
+    imgs = scene["images"]
+    u8 = is_u8_pack(imgs)
     # Transposed emit: produce the fused kernels' rays-minor layout directly
     # at the gather instead of transposing epi_flat below.
     t_emit = (
-        not statics.randomize and mm_kernel and is_u8_pack(scene["images"])
+        not statics.randomize and mm_kernel and u8
         and not statics.gather_split and statics.gather_transposed == 1
+    )
+    # Full-resolution serving: tile the ray batch and gather through source
+    # row windows (statics resolved by render.renderer.resolve_gather_statics)
+    windowed = (
+        statics.gather_tiles > 0 and statics.gather_window_rows > 0 and u8
     )
     z3d = z3d.detach()
     with torch.no_grad():
         if statics.randomize:
             view_idx = _select_neighbors(rays, scene, controls)
-            if statics.train_gather == -1 and \
-                    per_view_gather_auto(scene["images"]):
-                raise NotImplementedError(
-                    "not ported to pronerf_tpu_torch yet: the per-view "
-                    "gather (ROADMAP A.10)")
-            colors = epipolar_colors(
-                scene["images"], scene["fused_mats"], scene["K"], view_idx,
+            per_view = (statics.train_gather == 1 and u8) or (
+                statics.train_gather == -1 and per_view_gather_auto(imgs))
+            gather = epipolar_colors_per_view if per_view else epipolar_colors
+            colors = gather(
+                imgs, scene["fused_mats"], scene["K"], view_idx,
                 rays["or_o"], rays["or_d"], z3d,
+                split=statics.gather_split and u8,
             )  # [N, V, S, 3]
             colors = mean_fill_invalid(colors)
-        elif t_emit:
-            nearest = _nearest_views(statics, scene, controls)
-            epi_v = epipolar_colors_shared(
-                scene["images"], scene["fused_mats"], scene["K"], nearest,
-                rays["or_o"], rays["or_d"], z3d, out_dtype=gdt,
-                transposed_out=True,
-            )  # [V, S*3, N]
-            n_views = epi_v.shape[0]
-            epi_v = mean_fill_invalid_sct(epi_v.reshape(n_views, S, 3, n_rays))
         else:
             nearest = _nearest_views(statics, scene, controls)
-            colors = epipolar_colors_shared(
-                scene["images"], scene["fused_mats"], scene["K"], nearest,
-                rays["or_o"], rays["or_d"], z3d, out_dtype=gdt,
-            )  # [N, V, S, 3]
-            colors = mean_fill_invalid(colors)
+            args = (imgs, scene["fused_mats"], scene["K"], nearest,
+                    rays["or_o"], rays["or_d"], z3d)
+            if windowed:
+                colors = epipolar_colors_shared_windowed(
+                    *args, statics.gather_tiles, statics.gather_window_rows,
+                    split=statics.gather_split, out_dtype=gdt,
+                    transposed_out=t_emit,
+                )
+            else:
+                colors = epipolar_colors_shared(
+                    *args, split=statics.gather_split and u8, out_dtype=gdt,
+                    transposed_out=t_emit,
+                )
+            if t_emit:  # [V, S*3, N]
+                n_views = colors.shape[0]
+                epi_v = mean_fill_invalid_sct(
+                    colors.reshape(n_views, S, 3, n_rays))
+            else:  # [N, V, S, 3]
+                colors = mean_fill_invalid(colors)
     if t_emit:
         epi_flat = None
         if statics.epi_layout == "svc":
@@ -547,9 +562,9 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
             query_pts = query_pts + statics.offset_scale * points_offset
         x_pe = positional_encoding(query_pts, statics.multires)
         d_pe = positional_encoding(rays["viewdirs"], statics.multires_views)
-        if cdt is None:
-            # The parity path broadcasts dirs per point; the serving path
-            # hands the module the per-ray encoding.
+        if cdt is None or statics.netarch == "donerf":
+            # The parity path (and donerf) broadcasts dirs per point; the
+            # serving path hands the NeRF module the per-ray encoding.
             d_pe = d_pe[:, None, :].expand(n_rays, n_s, d_pe.shape[-1])
         raw = params["nerf"](x_pe, d_pe, cdt)
 

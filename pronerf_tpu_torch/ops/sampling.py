@@ -8,8 +8,8 @@ n_mult), and slots with j >= S * n_mult are parked at ``far`` and masked out
 of compositing. In eager PyTorch n_mult is a host integer, so the trainer
 may pick the width per step (``explore_buckets``).
 
-``sample_pdf`` (hierarchical sampling, never run by the release configs) is
-not ported yet.
+``sample_pdf`` is the classic hierarchical (inverse-CDF) sampler, kept for
+API parity: the release configs run ``N_importance = 0``.
 """
 
 from __future__ import annotations
@@ -140,3 +140,46 @@ def gap_jitter(z_vals, near, far, direction_up: bool, max_noise: float,
     if direction_up:
         return z_vals + mag * torch.abs(z_vals - next_z)
     return z_vals - mag * torch.abs(z_vals - prev_z)
+
+
+def sample_pdf(bins, weights, n_samples: int, det: bool = False,
+               generator=None):
+    """Hierarchical inverse-CDF sampling (the classic NeRF importance
+    sampler).
+
+    Args:
+      bins: [N, B] bin edges (sorted).
+      weights: [N, B-1] unnormalized weights.
+      n_samples: samples to draw per ray.
+      det: deterministic (evenly spaced quantiles) instead of uniform
+        draws from ``generator`` (a ``torch.Generator`` on the bins'
+        device).
+
+    Returns: [N, n_samples] samples.
+    """
+    weights = weights + 1e-5
+    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
+
+    shape = (*cdf.shape[:-1], n_samples)
+    if det:
+        u = torch.linspace(0.0, 1.0, n_samples, dtype=cdf.dtype,
+                           device=cdf.device).expand(shape).contiguous()
+    else:
+        u = torch.rand(shape, generator=generator, dtype=cdf.dtype,
+                       device=cdf.device)
+
+    inds = torch.searchsorted(cdf.contiguous(), u, right=True)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=cdf.shape[-1] - 1)
+
+    cdf_b = torch.gather(cdf, -1, below)
+    cdf_a = torch.gather(cdf, -1, above)
+    bin_b = torch.gather(bins, -1, below)
+    bin_a = torch.gather(bins, -1, above)
+
+    denom = cdf_a - cdf_b
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_b) / denom
+    return bin_b + t * (bin_a - bin_b)

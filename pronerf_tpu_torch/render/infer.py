@@ -13,8 +13,8 @@ Counterpart of ``pronerf_tpu/render/infer.py``. Data: an LLFF capture
 ``sparse/0``), or the synthetic stand-in (``datadir = synthetic[:WxHxV]``).
 Weights come from a checkpoint of the port or of the JAX package
 (``train/checkpoint.py``: ``ft_path``, else the newest ``*.ckpt`` of the
-expdir). Not ported yet: ``export`` (ROADMAP A.16) and the ``render-path``
-video verb (A.15).
+expdir). ``run_render_path`` renders the spiral camera path to a video
+(``render-path``). Not ported yet: ``export`` (ROADMAP A.16).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import torch
 from pronerf_tpu_torch.config import Config, enforce_flag_contract
 from pronerf_tpu_torch.models.pronerf import RenderStatics, init_pronerf_params
 from pronerf_tpu_torch.render.raygen import prepare_scene
-from pronerf_tpu_torch.render.renderer import render_path
+from pronerf_tpu_torch.render.renderer import render_path, save_video
 from pronerf_tpu_torch.train.checkpoint import (
     latest_checkpoint,
     load_checkpoint,
@@ -100,8 +100,7 @@ def _infer_statics(cfg: Config, use_bf16: bool) -> RenderStatics:
         compute_dtype="bfloat16" if use_bf16 else cfg.compute_dtype,
         use_kernels=use_kernels,
         quant=cfg.quant if use_kernels else "none",
-        # -1 (auto) resolves to off: the windowed gather is not ported
-        gather_tiles=max(cfg.gather_tiles, 0),
+        gather_tiles=cfg.gather_tiles,
         gather_bf16=cfg.gather_bf16,
         gather_split=cfg.gather_split,
         gather_transposed=cfg.gather_transposed,
@@ -157,6 +156,16 @@ def _load_params(cfg: Config, expdir, device):
     return _init_params(cfg, torch.Generator().manual_seed(cfg.seed), device)
 
 
+def _serving_scene(cfg: Config, data, device):
+    """The reference views, u8-packed: the corner pack, or the whole-pixel
+    pack with ``warp_interp = 'nearest'``."""
+    return prepare_scene(
+        data["images"][data["i_ref"]], data["poses"][data["i_ref"]], data["K"],
+        pack_corners="u8-nearest" if cfg.warp_interp == "nearest" else "u8",
+        device=device,
+    )
+
+
 def run_inference(cfg: Config, timing_reps: int = 0, device="cuda"):
     """``infer`` / ``eval``: render the held-out test poses, report metrics.
 
@@ -167,14 +176,7 @@ def run_inference(cfg: Config, timing_reps: int = 0, device="cuda"):
     expdir = setup_expdir(cfg)
     params = _load_params(cfg, expdir, device)
 
-    if cfg.warp_interp == "nearest":
-        raise NotImplementedError(
-            "warp_interp='nearest' is not ported to pronerf_tpu_torch yet"
-        )
-    scene = prepare_scene(
-        data["images"][data["i_ref"]], data["poses"][data["i_ref"]], data["K"],
-        pack_corners="u8", device=device,
-    )
+    scene = _serving_scene(cfg, data, device)
     statics = _infer_statics(cfg, use_bf16=cfg.use_trt)
 
     i_test = data["i_test"]
@@ -234,3 +236,28 @@ def run_inference(cfg: Config, timing_reps: int = 0, device="cuda"):
               f"({data['H'] * data['W'] / rf / rf / ms * 1e3 / 1e6:.2f} "
               f"Mrays/s)")
     return result
+
+
+def run_render_path(cfg: Config, n_frames: int | None = None, fps: int = 30,
+                    device="cuda"):
+    """``render-path``: render the spiral camera path (``render_poses``; the
+    first ``n_frames`` of it) and save it as a video under the expdir
+    (``save_video``: mp4, or a GIF). Returns the path written. Runs on the
+    card by default; ``device='cpu'`` runs the plain versions."""
+    device = resolve_device(device)
+    data = load_inference_data(cfg)
+    expdir = setup_expdir(cfg)
+    params = _load_params(cfg, expdir, device)
+    scene = _serving_scene(cfg, data, device)
+    statics = _infer_statics(cfg, use_bf16=cfg.use_trt)
+    poses = data["render_poses"]
+    if n_frames is not None:
+        poses = poses[:n_frames]
+    result = render_path(
+        poses, params, scene, statics, data["H"], data["W"], data["K"],
+        savedir=None, tile_rays=cfg.tile_rays,
+        render_factor=cfg.render_factor, device=device,
+    )
+    out = save_video(result["rgbs1"], expdir / "render_path.mp4", fps=fps)
+    print(f"Saved render path video: {out} ({len(poses)} frames)")
+    return out

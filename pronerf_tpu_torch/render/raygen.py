@@ -16,6 +16,7 @@ from pronerf_tpu_torch.ops.rays import get_rays, get_rays_np, ndc_rays
 from pronerf_tpu_torch.ops.warp import (
     build_corner_stack,
     build_corner_stack_u8,
+    build_rgb_word_u8,
     fuse_projection,
 )
 from pronerf_tpu_torch.utils.tensors import as_f32, resolve_device
@@ -31,9 +32,11 @@ def prepare_scene(images, poses, K, pack_corners: str | bool = "u8",
       K: [3, 3] shared intrinsics.
       pack_corners: epipolar-gather layout: 'u8' (default; 2x2 corners
         quantized to 8-bit and packed 4-per-int32 word, exact for 8-bit
-        source images), 'f32' / True (12-channel float corner stack,
-        lossless for float scenes), or False (plain images, four fetches
-        per sample). 'u8-nearest' is not ported yet.
+        source images), 'u8-nearest' (whole-pixel pack, one word a point,
+        nearest-neighbor sampling: the ``warp_interp = 'nearest'`` speed
+        knob, not reference parity), 'f32' / True (12-channel float corner
+        stack, lossless for float scenes), or False (plain images, four
+        fetches per sample).
       device: where the bundle lives; the default is the card.
     """
     device = resolve_device(device)
@@ -42,9 +45,7 @@ def prepare_scene(images, poses, K, pack_corners: str | bool = "u8",
     if pack_corners == "u8":
         images = build_corner_stack_u8(images)
     elif pack_corners == "u8-nearest":
-        raise NotImplementedError(
-            "pack_corners='u8-nearest' is not ported to pronerf_tpu_torch yet"
-        )
+        images = build_rgb_word_u8(images)
     elif pack_corners:
         images = build_corner_stack(images)
     return {

@@ -1,8 +1,13 @@
 """Full-frame rendering over fixed-size ray tiles, in eager PyTorch.
 
 - a frame is H*W rays cut into tiles of ``tile_rays`` (the last one may be
-  short: the kernels mask a ragged edge themselves, so nothing is padded); a
-  Python loop over the tiles keeps peak memory flat;
+  short: the kernels mask a ragged edge themselves; with the windowed
+  gather on it is padded with zero rays to ``tile_rays``, as the JAX
+  renderer pads every frame, because the windows depend on where a call's
+  ray tiles begin); a Python loop over the tiles keeps peak memory flat;
+- ``gather_tiles = -1`` (auto) is resolved here, by the JAX package's rule
+  (``resolve_gather_statics``): the windowed gather whenever a u8-packed
+  source view exceeds ``GATHER_CLIFF_BYTES``;
 - everything per-pose (ray generation, neighbor selection) happens inside
   the one ``render_frame`` call, under ``torch.no_grad()``;
 - ``compute_dtype='bfloat16'`` runs the three MLPs with bf16 operands and
@@ -13,6 +18,7 @@
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 from typing import Optional
 
@@ -25,6 +31,33 @@ from pronerf_tpu_torch.render.raygen import rays_for_pose
 from pronerf_tpu_torch.utils.tensors import as_f32, resolve_device
 
 _FRAME_KEYS = ("rgb1", "rgb0", "depth", "mm_rgb", "depth0")
+
+# The JAX package's threshold, measured there on a TPU (its gather emitter
+# stages a table of up to ~2.3 MB in fast memory): one 504x378 u8-packed
+# view (2.29 MB) is under it, one 1008x756 view (9.1 MB) is not. Copied as
+# it is, because it decides which samples a window marks invalid, so it is
+# part of what ``gather_tiles = -1`` computes.
+GATHER_CLIFF_BYTES = 2.4e6
+
+
+def resolve_gather_statics(
+    statics: RenderStatics, H: int, W: int, rays_per_call: int
+) -> RenderStatics:
+    """Resolve ``gather_tiles == -1`` (auto): enable the windowed epipolar
+    gather when a packed source view exceeds ``GATHER_CLIFF_BYTES``
+    (full-res serving), sized so each window sits under it with ~half the
+    band left for disparity spread. No-op below the cliff or when set
+    explicitly."""
+    if statics.gather_tiles != -1:
+        return statics
+    if H * W * 12 <= GATHER_CLIFF_BYTES:
+        return dataclasses.replace(statics, gather_tiles=0)
+    window_rows = max(64, int(GATHER_CLIFF_BYTES // (W * 12)))
+    rows_per_call = max(1, rays_per_call // W)
+    n_tiles = max(1, round(rows_per_call / max(window_rows // 2, 1)))
+    return dataclasses.replace(
+        statics, gather_tiles=n_tiles, gather_window_rows=window_rows
+    )
 
 
 def make_frame_renderer(
@@ -45,6 +78,9 @@ def make_frame_renderer(
     With ``statics.transposed`` the tiles go through the transposed serving
     graph (``models.pronerf_t.render_rays_t``) where it implements the
     statics exactly (``transposed_eligible``), else through ``render_rays``.
+    ``gather_tiles = -1`` is resolved for ``tile_rays`` rays a call
+    (``resolve_gather_statics``); the renderer's ``statics`` attribute holds
+    the resolved statics.
 
     Returns tensors on ``device``: rgb1, rgb0, mm_rgb [H, W, 3]; depth,
     depth0 [H, W].
@@ -53,6 +89,10 @@ def make_frame_renderer(
     K = np.asarray(K)
     if not tile_rays or tile_rays >= H * W:
         tile_rays = H * W
+    statics = resolve_gather_statics(statics, H, W, tile_rays)
+    # the windows depend on where a call's ray tiles begin: a short last
+    # call is padded to the nominal size, as the JAX renderer pads it
+    pad_last = statics.gather_tiles > 0 and statics.gather_window_rows > 0
     packed_for = {}
 
     @torch.no_grad()
@@ -77,8 +117,12 @@ def make_frame_renderer(
         outs = []
         for lo in range(0, H * W, tile_rays):
             tile = {k: v[lo:lo + tile_rays] for k, v in rays.items()}
+            n = tile["ndc_o"].shape[0]
+            if pad_last and n < tile_rays:
+                tile = {k: torch.cat([v, v.new_zeros(
+                    (tile_rays - n, *v.shape[1:]))]) for k, v in tile.items()}
             out = rr_fn(packed, tile, scene, controls, statics)
-            outs.append({k: out[k] for k in _FRAME_KEYS})
+            outs.append({k: out[k][:n] for k in _FRAME_KEYS})
         flat = {
             k: outs[0][k] if len(outs) == 1
             else torch.cat([o[k] for o in outs], dim=0)
@@ -92,6 +136,7 @@ def make_frame_renderer(
             "depth0": flat["depth0"].reshape(H, W),
         }
 
+    render_frame.statics = statics
     return render_frame
 
 
@@ -197,3 +242,28 @@ def render_path(
         print(psnrs0)
         print(f"Mean Test PSNR {float(np.mean(psnrs0))}")
     return result
+
+
+def save_video(frames, path, fps: int = 30) -> str:
+    """Write a [N, H, W, 3] float stack as a video; returns the path
+    written. Where imageio imports, the JAX package's calls: mp4, and a GIF
+    beside it when no mp4 backend is there. Without imageio, the port's own
+    GIF writer (``utils.gif``, a fixed 252-colour palette). Used by the
+    ``render-path`` verb and the trainer's ``i_video``."""
+    from pronerf_tpu_torch.ops.metrics import to8b
+
+    frames8 = [to8b(f) for f in np.asarray(frames)]
+    path = str(path)
+    gif = path.rsplit(".", 1)[0] + ".gif"
+    try:
+        import imageio.v2 as imageio
+    except ImportError:
+        from pronerf_tpu_torch.utils.gif import write_gif
+
+        return write_gif(gif, frames8, fps)
+    try:
+        imageio.mimwrite(path, frames8, fps=fps, quality=8)
+        return path
+    except (ValueError, RuntimeError, OSError):  # no mp4 backend
+        imageio.mimwrite(gif, frames8, duration=1.0 / fps)
+        return gif

@@ -252,13 +252,16 @@ def _adam_state(tree):
 def _named_moments(tree) -> dict:
     """A moment pytree (of all three nets, or of the NeRF alone) as
     {'<net>.<parameter name>': tensor}, the port's optimizer keys."""
-    from pronerf_tpu_torch.convert import nerf_from_numpy, params_from_numpy
+    from pronerf_tpu_torch.convert import (
+        params_from_numpy,
+        radiance_from_numpy,
+    )
     from pronerf_tpu_torch.train.state import named_params
 
     if isinstance(tree, dict) and set(tree) == {"nerf", "sampler", "refine"}:
         nets = params_from_numpy(tree)
     else:
-        nets = {"nerf": nerf_from_numpy(tree)}
+        nets = {"nerf": radiance_from_numpy(tree)}
     return {k: v.detach() for k, v in named_params(nets).items()}
 
 
@@ -266,7 +269,10 @@ def from_jax_state(tree: dict, path="") -> dict:
     """A JAX checkpoint's pytree (numpy leaves, lists restored) in the
     port's checkpoint form. A key or a layout it cannot map raises
     ``ValueError`` naming the key."""
-    from pronerf_tpu_torch.convert import minmax_from_numpy, nerf_from_numpy
+    from pronerf_tpu_torch.convert import (
+        minmax_from_numpy,
+        radiance_from_numpy,
+    )
 
     out = {"format": JAX_FORMAT}
     for key, value in tree.items():
@@ -274,7 +280,7 @@ def from_jax_state(tree: dict, path="") -> dict:
             if key == "global_step":
                 out[key] = int(value)
             elif key in _NERF_KEYS:
-                out[key] = _net_state(nerf_from_numpy(value))
+                out[key] = _net_state(radiance_from_numpy(value))
             elif key in _MINMAX_KEYS:
                 out[key] = _net_state(minmax_from_numpy(value))
             elif key in _OPT_KEYS:

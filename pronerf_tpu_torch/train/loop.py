@@ -7,7 +7,9 @@ Counterpart of ``pronerf_tpu/train/loop.py``:
   schedule (with the /2) for both optimizers;
 - expdir contract: ``basedir/expname/args.txt``, ``config.txt``,
   ``%06d.ckpt`` every i_weights and at the end, test-set renders every
-  i_testset under ``testset_%06d``, ``metrics.jsonl``, ``imgs/`` (i_img);
+  i_testset under ``testset_%06d``, a spiral video every i_video
+  (``spiral_%06d.mp4``, or ``.gif``), ``metrics.jsonl``, ``imgs/``
+  (i_img);
 - auto-resume from the newest checkpoint unless ``no_reload``; stage 2
   bootstraps from ``pretrain_path`` (a file or a stage-1 expdir);
 - a non-finite loss at a print step fails fast.
@@ -26,8 +28,7 @@ Checkpoints of the JAX package are read too (``train/checkpoint.py``), for
 ``pretrain_path`` and for auto-resume.
 
 Not ported: ``scan_steps > 1`` (the JAX package's ``train/fast_loop.py``,
-ROADMAP A.14b) and ``i_video`` (``save_video``, ROADMAP A.15); both raise
-before the first step.
+ROADMAP A.14b) raises before the first step.
 """
 
 from __future__ import annotations
@@ -43,7 +44,11 @@ from pronerf_tpu_torch.config import Config, enforce_flag_contract
 from pronerf_tpu_torch.models.pronerf import RenderStatics
 from pronerf_tpu_torch.render.infer import _init_params, setup_expdir
 from pronerf_tpu_torch.render.raygen import build_ray_pool, prepare_scene
-from pronerf_tpu_torch.render.renderer import make_frame_renderer, render_path
+from pronerf_tpu_torch.render.renderer import (
+    make_frame_renderer,
+    render_path,
+    save_video,
+)
 from pronerf_tpu_torch.train.checkpoint import (
     checkpoint_path,
     latest_checkpoint,
@@ -203,8 +208,8 @@ def _draw_controls(rng: np.random.Generator, n_train: int, cfg: Config,
 
 
 def _eval_statics(cfg: Config, stage: int) -> RenderStatics:
-    """Deterministic render statics for in-training eval (testset / i_img),
-    matching the training stage's behavior matrix."""
+    """Deterministic render statics for in-training eval (testset / i_img /
+    i_video), matching the training stage's behavior matrix."""
     statics = (
         RenderStatics.stage1_sampler(randomize=False)
         if stage == 1 else RenderStatics.stage2(randomize=False)
@@ -227,20 +232,25 @@ def _resolve_pretrain(path) -> str:
     return str(pre)
 
 
-def _check_ported(cfg: Config, start: int, n_iters: int):
+def _check_ported(cfg: Config):
     """What the port's loop does not do yet raises before the first step."""
     if cfg.scan_steps > 1:
         raise NotImplementedError(
             f"scan_steps={cfg.scan_steps}: several steps per dispatch (the "
             "JAX package's train/fast_loop.py) are not ported to "
             "pronerf_tpu_torch yet (ROADMAP A.14b); use scan_steps=1")
-    if cfg.i_video > 0 and any(
-            i % cfg.i_video == 0 and i > start + 1
-            for i in range(start + 1, n_iters)):
-        raise NotImplementedError(
-            f"i_video={cfg.i_video}: a spiral video falls inside this run, "
-            "and save_video is not ported to pronerf_tpu_torch yet (ROADMAP "
-            "A.15); set i_video=0 or past the last step")
+
+
+def _spiral_video(cfg: Config, stage: int, i: int, expdir, data, scene,
+                  params, H, W, K, device):
+    """``i_video``: the spiral path (``render_poses``) rendered with the
+    stage's eval statics and saved as ``spiral_%06d`` video."""
+    res = render_path(
+        data["render_poses"], params, scene, _eval_statics(cfg, stage),
+        H, W, K, savedir=None, tile_rays=cfg.tile_rays, device=device,
+    )
+    out = save_video(res["rgbs1"], expdir / f"spiral_{i:06d}.mp4")
+    print(f"Saved spiral video {out}")
 
 
 def run_training(cfg: Config, stage: int, device="cuda"):
@@ -302,7 +312,7 @@ def run_training(cfg: Config, stage: int, device="cuda"):
     n_iters = N_ITERS_DEFAULT + 1
     if cfg.max_steps is not None:
         n_iters = start + cfg.max_steps + 1
-    _check_ported(cfg, start, n_iters)
+    _check_ported(cfg)
 
     rng = np.random.default_rng(cfg.seed)
     pool, pool_ids = build_ray_pool(
@@ -377,6 +387,10 @@ def run_training(cfg: Config, stage: int, device="cuda"):
                 tile_rays=cfg.tile_rays, device=device,
             )
             print("Saved test set")
+
+        if cfg.i_video > 0 and i % cfg.i_video == 0 and i > start + 1:
+            _spiral_video(cfg, stage, i, expdir, data, scene,
+                          state["params"], H, W, K, device)
 
     logger.close()
     # a final checkpoint, so that a short run always leaves one behind

@@ -164,9 +164,9 @@ def test_jax_and_port_command_lines_pick_the_same_pool_and_views(
 
 def test_verbs_not_ported_and_bad_input_raise(llff_root, tmp_path,
                                               monkeypatch):
+    # render-path is ported (tests/test_torch_video.py)
     for argv, item in ((["export", "--checkpoint", "x"], "A.16"),
                        (["export-trt"], "A.16"),
-                       (["render-path", "--n-frames", "3"], "A.15"),
                        (["train-multi", "--stage", "2"], "A.18")):
         with pytest.raises(NotImplementedError, match=item):
             main(argv)

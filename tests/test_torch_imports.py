@@ -31,7 +31,8 @@ def test_port_has_the_expected_modules():
                  "utils.logging", "train.state", "train.stage1",
                  "train.stage2", "train.checkpoint", "train.loop",
                  "data", "data.llff", "data.colmap", "native", "cli",
-                 "tools.ckpt", "utils.fixtures", "utils.png"):
+                 "tools.ckpt", "utils.fixtures", "utils.png",
+                 "models.donerf", "utils.gif"):
         assert f"pronerf_tpu_torch.{want}" in mods
 
 

@@ -154,26 +154,39 @@ def test_render_rays_on_the_jax_tests_own_fixture():
 
 
 def test_unported_branches_raise_by_name():
+    """Every branch of ``render_rays`` is ported: the windowed, split,
+    per-view and nearest gathers and DoNeRF run
+    (tests/test_torch_gathers.py, tests/test_torch_donerf.py). What still
+    raises is what the JAX package cannot run either, by name: an unknown
+    ``quant`` or ``netarch``, the fused kernels on a training branch or on
+    DoNeRF (they implement the NeRF MLP), the transposed emit of a split
+    or non-u8 gather."""
     fx_statics = RenderStatics.infer()
-    for kw, word in ((dict(gather_tiles=4), "windowed"),
-                     (dict(gather_tiles=4, gather_transposed=1), "windowed"),
-                     (dict(netarch="donerf"), "donerf")):
-        with pytest.raises(NotImplementedError, match=word):
+    for kw, err, word in (
+            (dict(quant="int4"), ValueError, "quant"),
+            (dict(netarch="mip"), ValueError, "netarch"),
+            (dict(netarch="donerf", use_kernels=True), ValueError,
+             "donerf")):
+        with pytest.raises(err, match=word):
             render_rays({}, {}, {}, {}, dataclasses.replace(fx_statics, **kw))
-    # the windowed form of the transposed graph's own gather
-    from pronerf_tpu_torch.ops.warp import epipolar_colors_shared_t
+    from pronerf_tpu_torch.ops.warp import (
+        epipolar_colors_shared,
+        epipolar_colors_shared_windowed,
+    )
 
-    with pytest.raises(NotImplementedError, match="windowed"):
-        epipolar_colors_shared_t(None, None, None, None, None, None, None,
-                                 n_tiles=4, window_rows=8)
-    # the training branches run now (tests/test_torch_train_render.py);
-    # what still raises on them is the per-view gather, and the fused
-    # kernels take no training branch
+    for split, images in ((True, torch.zeros(4, H, W, 3, dtype=torch.int32)),
+                          (False, torch.zeros(4, H, W, 3))):
+        with pytest.raises(ValueError, match="transposed_out"):
+            epipolar_colors_shared(images, None, None, None, None, None,
+                                   None, split=split, transposed_out=True)
+    with pytest.raises(ValueError, match="u8"):
+        epipolar_colors_shared_windowed(torch.zeros(4, H, W, 3), None, None,
+                                        None, None, None, None, 4, 8)
+    # the training branches run (tests/test_torch_train_render.py, the
+    # per-view gather tests/test_torch_gathers.py); the fused kernels take
+    # no training branch
     for factory in (RenderStatics.stage1_nerf, RenderStatics.stage1_sampler,
                     RenderStatics.stage2):
-        with pytest.raises(NotImplementedError, match="per-view"):
-            render_rays({}, {}, {}, {},
-                        dataclasses.replace(factory(), train_gather=1))
         with pytest.raises(ValueError, match="deterministic"):
             render_rays({}, {}, {}, {},
                         dataclasses.replace(factory(), use_kernels=True))

@@ -2,7 +2,8 @@
 steps of each stage with its expdir, the port's checkpoints (round trip,
 resume, the stage-2 bootstrap, serving through ``run_inference``), and what
 raises by name (a JAX msgpack checkpoint the port cannot map, ``scan_steps
-> 1``, an ``i_video`` boundary, a missing capture).
+> 1``, a missing capture). The spiral video of ``i_video`` is held in
+tests/test_torch_video.py.
 
 Small nets (NeRF 3 x 32, sampler and refine 2 x 32), 64 rays a step, the
 24x18 synthetic scene of 9 views. On the CPU every run is deterministic, so
@@ -161,9 +162,6 @@ def test_what_is_not_ported_raises_before_any_step(tmp_path):
     with pytest.raises(NotImplementedError, match="A.14b"):
         run_training(cfg_of(1, tmp_path, max_steps=2, scan_steps=4), 1,
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="A.15"):
-        run_training(cfg_of(1, tmp_path, max_steps=4, i_video=2), 1,
-                     device="cpu")
     # the LLFF loader is ported (tests/test_torch_cli.py trains on a
     # capture); a missing capture raises, naming it
     with pytest.raises(FileNotFoundError, match="data/nerf_llff_data/fern"):
@@ -172,10 +170,12 @@ def test_what_is_not_ported_raises_before_any_step(tmp_path):
                      device="cpu")
     # nothing was trained or saved
     assert not list((tmp_path / "s1").glob("*.ckpt"))
-    # an i_video boundary past the last step is fine
+    # an i_video boundary inside the run no longer raises (the spiral video
+    # is ported): one past the last step writes no video
     state, _ = run_training(cfg_of(1, tmp_path, max_steps=1, i_video=5), 1,
                             device="cpu")
     assert state["global_step"] == 1
+    assert not list((tmp_path / "s1").glob("spiral_*"))
 
 
 def test_entry_point_defaults_to_the_card(tmp_path, monkeypatch):

@@ -228,17 +228,27 @@ def test_mean_fill_invalid_sct_matches_jax_and_the_row_major_fill():
 
 
 def test_windowed_transposed_gather_raises_by_name(fx):
+    """The windowed form of the transposed gather is ported: a covering
+    window (7 ray tiles, H source rows) equals the unwindowed gather bit for
+    bit and JAX's windowed gather; the transposed graph renders with
+    windows on (tests/test_torch_gathers.py holds it against JAX with
+    windows that miss). What raises by name is a scene that is not the u8
+    corner pack."""
     or_o, or_d, z3d, view_ids = gather_inputs(fx, n=60)
-    with pytest.raises(NotImplementedError, match="windowed"):
-        t_warp.epipolar_colors_shared_t(
-            fx.scene["images"], fx.scene["fused_mats"], fx.scene["K"],
-            T(view_ids), T(or_o.T), T(or_d.T), T(z3d.T), n_tiles=7,
-            window_rows=H)
+    args = (fx.scene["images"], fx.scene["fused_mats"], fx.scene["K"],
+            T(view_ids), T(or_o.T), T(or_d.T), T(z3d.T))
+    got = t_warp.epipolar_colors_shared_t(*args, n_tiles=7, window_rows=H)
+    assert torch.equal(got, t_warp.epipolar_colors_shared_t(*args))
+    want = j_warp.epipolar_colors_shared_t(
+        fx.jscene["images"], fx.jscene["fused_mats"], fx.jscene["K"],
+        jnp.asarray(view_ids), jnp.asarray(or_o.T), jnp.asarray(or_d.T),
+        jnp.asarray(z3d.T), n_tiles=7, window_rows=H)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
     statics = RenderStatics.infer(compute_dtype="bfloat16", use_kernels=True,
                                   transposed=True, gather_tiles=4,
                                   gather_window_rows=8)
-    with pytest.raises(NotImplementedError, match="windowed"):
-        fx.port(t_pt.render_rays_t, statics)
+    out = fx.port(t_pt.render_rays_t, statics)
+    assert all(np.isfinite(v).all() for k, v in out.items() if k != "disp")
     with pytest.raises(ValueError, match="u8"):
         t_warp.epipolar_colors_shared_t(
             torch.zeros(4, H, W, 3), fx.scene["fused_mats"], fx.scene["K"],
