@@ -86,10 +86,28 @@ falls back to the CPU. Phases, each printing one JSON line:
                 1 and 8, the sampler step and the stage-2 step, at 4096
                 rays; one step of each kind on the card held against the
                 same step on CPU tensors (``TRAIN_TOL``);
+5a. ``scan``    several training steps a dispatch (``train/fast_loop.py``)
+                at release widths on the training scene: a stage-1 chunk of
+                8 steps (4 pairs) and a stage-2 chunk of 8 from one state,
+                each step kind a CUDA graph, held against the eager steps fed
+                the controls and noise the chunk drew (``TRAIN_TOL``); ms a
+                step eager against each graph's replay and a whole chunk
+                (median of 5), device busy ms and kernels a step (profiler),
+                the capture's seconds, peak memory, the floors; an odd
+                stage-1 resume taking the per-step loop with its note; a NaN
+                state raising FloatingPointError at its first chunk's end;
 5b. ``donerf``  ``netarch = donerf`` at D = 8, W = 256: one 504x378 frame
                 through ``run_inference`` (no kernel runs: they implement
                 the NeRF MLP) and one stage-1 NeRF step on the card against
                 the same step on CPU tensors (``TRAIN_TOL``);
+5c. ``export`` the exported renderer (``render/export.py``):
+                ``run_export`` at 1008x756 with the ``--use-trt`` statics
+                (the windows resolved, checked), then ``quant = int8`` and
+                ``transposed = True`` at 504x378, each program loaded back
+                and its frames on 3 held-out poses (9 timed a pose) equal to
+                the live renderer's bit for bit, with the same launches a
+                frame (the kernels' ops counted inside the program); export
+                and load seconds, artifact bytes, ms a frame both ways;
 6. ``cli``      the command line (``pronerf_tpu_torch.cli.main``, in process)
                 on an LLFF capture of fern's shape written by the port's
                 fixtures (the consistent scene, 20 views, ``images_4`` PNGs of
@@ -108,7 +126,12 @@ falls back to the CPU. Phases, each printing one JSON line:
                 as a GIF (the port's own writer where imageio is absent),
                 read back, frame 0 against a direct render within the
                 palette's bound; a 4-step ``train-stage1`` with ``i_video =
-                2`` writing its spiral videos at steps 2 and 4. A
+                2`` writing its spiral videos at steps 2 and 4;
+                ``train-stage1`` / ``train-stage2 -- --scan_steps 4`` for 8
+                steps each (CUDA graphs; ``000008.ckpt``); ``export
+                --use-trt`` at 504x378 from the stage-2 checkpoint and
+                ``infer --from-export --max-images 1 --timing-reps 3``,
+                its PNG equal to the eval frame's. A
                 ``cli_timings`` line: seconds to write, load and decode the
                 capture (and a Paeth-filtered PNG), to build the pool
                 natively and in NumPy, ms per eval frame, the render-path
@@ -116,11 +139,13 @@ falls back to the CPU. Phases, each printing one JSON line:
                 limit.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line with
-the roofline bound of each kernel beside its measured time, and last
+the roofline bound of each kernel beside its measured time (and its
+launches on the main path and in the export phase's programs), and last
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero and no result line is printed.
 
-``--only build|kernels|frame|fullres|gathers|train|donerf|cli`` runs a
+``--only build|kernels|frame|fullres|gathers|train|scan|donerf|export|cli``
+runs a
 subset while developing, ``--rays N`` shrinks the kernel phase,
 ``--profile`` adds ``profile`` lines (device time by kernel name over a few
 frames of the fused-composite, the int8 and the transposed frame and of
@@ -2016,6 +2041,404 @@ def phase_train(device, profile=False):
 
 CLI_VIEWS, CLI_FACTOR, CLI_REPS = 20, 4, 2
 CLI_PATH_FRAMES = 6    # render-path: the spiral's first poses
+CLI_SCAN = 4           # scan_steps of the verbs' chunked runs (2 chunks)
+CLI_EXPORT_REPS = 3    # infer --from-export --timing-reps
+
+
+SCAN_K = 8         # steps a chunk in phase scan (4 stage-1 pairs)
+SCAN_CHUNKS = 5    # chunks timed (median) after the capture and a warm-up
+
+
+def chunk_against_eager(what, cfg, shared, scene, stage, ex, state0,
+                        state, pool_d, ids_d, i_batch0, losses):
+    """The chunk's result (``state``, its per-step ``losses``) against the
+    eager per-step steps from ``state0`` on the same batches, fed the
+    controls and noise the chunk drew (read back after it), with host
+    values where the per-step loop has them. ``TRAIN_TOL``: every step's
+    loss within ``loss_rel``; each optimizer's moments within
+    ``grad_norm_rel`` in norm and ``grad_max_rel`` at an element, nu
+    doubled (it holds squares); the params within ``param_lr`` of a step's
+    lr on a ``param_share`` of elements and within 2 lr of each Adam step
+    everywhere."""
+    from pronerf_tpu_torch.train.state import named_params
+
+    data = shared[0]
+    kinds = ex._kinds()
+    fns = {}
+    if stage == 1:
+        fns["nerf"], fns["sampler"] = make_step("nerf", cfg, data)[0], \
+            make_step("sampler", cfg, data)[0]
+    else:
+        fns["joint"] = make_step("stage2", cfg, data)[0]
+    eager_losses, lrs = [], []
+    n = cfg.N_rand
+    n_batches = max(pool_d.shape[0] // n, 1)
+    for k, c in enumerate(ex.chunk_controls()):
+        lr = c.pop("lr")
+        lrs.append(lr)
+        c["n_mult"] = int(c["n_mult"])
+        c["dir_expand"], c["dir_jitter"] = bool(c["dir_expand"]), \
+            bool(c["dir_jitter"])
+        lo = i_batch0 + (k % n_batches) * n
+        _, m = fns[kinds[k]](state0, scene, pool_d[lo:lo + n],
+                             ids_d[lo:lo + n], c, lr)
+        eager_losses.append(float(m["loss"]))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, eager_losses))
+    row = {"losses": losses, "eager_losses": eager_losses,
+           "loss_rel": loss_rel, "steps": len(losses)}
+    opts = ("opt_nerf", "opt_s") if stage == 1 else ("opt",)
+    for o in opts:
+        for part, power in (("mu", 1), ("nu", 2)):
+            g, h = state[o][part], state0[o][part]
+            norm = max(float((g[k] - v).norm() / v.norm())
+                       for k, v in h.items() if float(v.norm()) > 0)
+            top = max(float((g[k] - v).abs().max() / v.abs().max())
+                      for k, v in h.items() if float(v.abs().max()) > 0)
+            row[f"{o}.{part}"] = {"norm_rel": norm, "max_rel": top}
+            if norm > power * TRAIN_TOL["grad_norm_rel"] \
+                    or top > power * TRAIN_TOL["grad_max_rel"]:
+                raise SystemExit(f"{what}: {o}.{part} {row} ({TRAIN_TOL})")
+        if state[o]["count"] != state0[o]["count"]:
+            raise SystemExit(f"{what}: {o} counts {state[o]['count']} "
+                             f"against {state0[o]['count']}")
+    d = torch.cat([(a.detach() - b.detach()).abs().flatten() for a, b in zip(
+        named_params(state["params"]).values(),
+        named_params(state0["params"]).values())])
+    lr = min(lrs)
+    row["param_max_over_lr"] = float(d.max()) / lr
+    row["param_share_within"] = float(
+        (d <= TRAIN_TOL["param_lr"] * lr).float().mean())
+    if not (loss_rel <= TRAIN_TOL["loss_rel"]
+            and row["param_max_over_lr"] <= 2 * len(losses)
+            and row["param_share_within"] >= TRAIN_TOL["param_share"]):
+        raise SystemExit(f"{what}: {row} (bounds {TRAIN_TOL})")
+    if state["global_step"] != state0["global_step"]:
+        raise SystemExit(f"{what}: global_step {state['global_step']} "
+                         f"against {state0['global_step']}")
+    return row
+
+
+def event_chunk_ms(fn, reps):
+    """CUDA events around each of ``reps`` calls of ``fn``: the list of ms."""
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return out
+
+
+def phase_scan(device, profile=False):
+    """Several training steps a dispatch (``train/fast_loop.py``) at release
+    widths on the training scene: a stage-1 chunk of SCAN_K steps (4 pairs)
+    and a stage-2 chunk of SCAN_K from one state, each held against the
+    eager per-step steps fed the controls and noise the chunk drew; ms a
+    step per-step (eager, host controls) against the graph replay of each
+    step kind and against a whole chunk, with the capture's seconds, device
+    busy ms and kernels a step (profiler), peak memory and the floors; an
+    odd stage-1 resume taking the per-step loop with its note; a NaN state
+    raising FloatingPointError at the end of its first chunk. No kernel of
+    the port runs in training: every counter stays 0."""
+    import contextlib
+    import io
+
+    from pronerf_tpu_torch.config import Config
+    from pronerf_tpu_torch.train.checkpoint import (
+        latest_checkpoint,
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from pronerf_tpu_torch.train.fast_loop import make_scan_executor
+    from pronerf_tpu_torch.train.loop import run_training
+
+    out = {"K": SCAN_K}
+    reset_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg1, cfg2 = train_config(1, tmp), train_config(2, tmp)
+        shared = training_data(cfg1)
+        data, pool, ids = shared
+        n_train = len(data["i_train"])
+        scene, params0, _, _ = step_setup(cfg1, shared, device, cfg1.N_rand)
+        pool_d = torch.from_numpy(pool).to(device)
+        ids_d = torch.from_numpy(ids).to(device)
+        seed = cfg1.seed + 987654321
+        for stage, cfg in ((1, cfg1), (2, cfg2)):
+            _, init = make_step("nerf" if stage == 1 else "stage2", cfg, data)
+            fresh = lambda: init(copy.deepcopy(params0), cfg.weight_decay)
+            ex = make_scan_executor(cfg, data["H"], data["W"], data["focal"],
+                                    n_train, stage, SCAN_K)
+            state, state0 = fresh(), fresh()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, m = ex(state, scene, pool_d, ids_d, 0, seed)
+            losses = ex.buf["losses"].tolist()
+            capture_s = time.perf_counter() - t0
+            name = f"stage{stage}"
+            row = {"first_chunk_s_with_capture": capture_s,
+                   "graphs": [list(k) for k in ex.graphs],
+                   "mean_loss": float(m["mean_loss"]),
+                   "against_eager": chunk_against_eager(
+                       f"scan {name}", cfg, shared, scene, stage, ex, state0,
+                       state, pool_d, ids_d, 0, losses)}
+            # a whole chunk a call (draws, fill, replays, the mean), then
+            # each step kind's graph alone
+            i_batch = SCAN_K * cfg.N_rand
+
+            def chunk():
+                ex(state, scene, pool_d, ids_d, i_batch, seed)
+
+            chunk()
+            times = event_chunk_ms(chunk, SCAN_CHUNKS)
+            row["chunk_ms"] = times
+            row["ms_a_step_chunk"] = statistics.median(times) / SCAN_K
+            row["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+            for kw, graph in ex.graphs.items():
+                def replay(graph=graph):
+                    ex.buf["k"].zero_()
+                    graph.replay()
+
+                replay()
+                t = event_chunk_ms(replay, SCAN_CHUNKS)
+                kind = kw[0]
+                w = kw[1] or cfg.N_samples
+                flops = step_flops("nerf" if kind == "nerf" else "joint",
+                                   cfg.N_rand, w)
+                prof = profile_frames(replay, 3)
+                row[f"{kind}[{w}]"] = {
+                    "ms_graph": statistics.median(t), "ms_graph_all": t,
+                    "bound_ms": flops / PEAK_F32 * 1e3,
+                    "device_busy_ms": prof["device_busy_ms_per_frame"],
+                    "kernels_a_step": prof["device_kernels_per_frame"]}
+                if profile:
+                    say({"profile": {"path": f"scan {name} graph {kind}[{w}]"}
+                         | prof})
+            # the same step kinds eager, with host controls, as the per-step
+            # loop runs them
+            ctl = ex.chunk_controls()
+            for k0, kind in ((0, ex._kinds()[0]), (1, ex._kinds()[1])):
+                c = dict(ctl[k0])
+                lr = c.pop("lr")
+                c["n_mult"] = int(c["n_mult"])
+                c["dir_expand"] = bool(c["dir_expand"])
+                c["dir_jitter"] = bool(c["dir_jitter"])
+                fn = make_step({"nerf": "nerf", "sampler": "sampler",
+                                "joint": "stage2"}[kind], cfg, data)[0]
+                b, bi = pool_d[:cfg.N_rand], ids_d[:cfg.N_rand]
+
+                def eager():
+                    fn(state, scene, b, bi, c, lr)
+
+                eager()
+                t = event_chunk_ms(eager, SCAN_CHUNKS)
+                prof = profile_frames(eager, 3)
+                w = ex.widths[0] if kind == "nerf" else cfg.N_samples
+                row[f"{kind}[{w}]"] |= {
+                    "ms_eager": statistics.median(t), "ms_eager_all": t,
+                    "device_busy_ms_eager": prof["device_busy_ms_per_frame"],
+                    "kernels_a_step_eager": prof["device_kernels_per_frame"]}
+            out[name] = row
+            del ex, state, state0
+            torch.cuda.empty_cache()
+
+        # explore_buckets: one graph a NeRF-step width, chosen on the host
+        # from the chunk's n_mult (one read a chunk)
+        cfg_b = train_config(1, tmp, explore_buckets=True)
+        _, init = make_step("nerf", cfg_b, data)
+        ex = make_scan_executor(cfg_b, data["H"], data["W"], data["focal"],
+                                n_train, 1, SCAN_K)
+        state = init(copy.deepcopy(params0), cfg_b.weight_decay)
+        state0 = init(copy.deepcopy(params0), cfg_b.weight_decay)
+        state, m = ex(state, scene, pool_d, ids_d, 0, seed)
+        row = {"graphs": [list(k) for k in ex.graphs],
+               "widths_drawn": [w for (k, w) in ex.graphs if k == "nerf"],
+               "against_eager": chunk_against_eager(
+                   "scan stage1 explore_buckets", cfg_b, shared, scene, 1,
+                   ex, state0, state, pool_d, ids_d, 0,
+                   ex.buf["losses"].tolist())}
+
+        def chunk():
+            ex(state, scene, pool_d, ids_d, SCAN_K * cfg_b.N_rand, seed)
+
+        times = event_chunk_ms(chunk, SCAN_CHUNKS)
+        row["ms_a_step_chunk"] = statistics.median(times) / SCAN_K
+        row["graphs_after_timing"] = [list(k) for k in ex.graphs]
+        out["stage1_explore_buckets"] = row
+        del ex, state, state0
+        torch.cuda.empty_cache()
+        expect_counts("scan (training runs no kernel)", read_counters())
+
+        # an odd stage-1 resume takes the per-step loop, with its note
+        base = dict(datadir=cfg1.datadir, basedir=tmp, expname="odd",
+                    i_print=1, i_weights=1000, i_img=0, i_testset=0,
+                    i_video=0, pretrain_path="")
+        run_training(Config.from_file(
+            ROOT / "configs/llff/fern/fern_epi.txt", max_steps=3,
+            **base), 1, device=device)
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            run_training(Config.from_file(
+                ROOT / "configs/llff/fern/fern_epi.txt", max_steps=4,
+                scan_steps=4, **base), 1, device=device)
+        if "requires an even resume step" not in log.getvalue():
+            raise SystemExit(f"odd resume: no note in {log.getvalue()!r}")
+        last = Path(latest_checkpoint(Path(tmp) / "odd")).name
+        if last != "000007.ckpt":
+            raise SystemExit(f"odd resume: last checkpoint {last}")
+        out["odd_resume"] = {"note": True, "last_checkpoint": last}
+
+        # a NaN state stops at the end of its first chunk
+        ck_file = latest_checkpoint(Path(tmp) / "odd")
+        ck = load_checkpoint(ck_file)
+        w0 = next(k for k in ck["network_fn"] if k.endswith("weight"))
+        ck["network_fn"][w0] = torch.full_like(ck["network_fn"][w0],
+                                               float("nan"))
+        ck["global_step"] = 8
+        save_checkpoint(Path(ck_file).with_name("000008.ckpt"), ck)
+        try:
+            run_training(Config.from_file(
+                ROOT / "configs/llff/fern/fern_epi.txt", max_steps=8,
+                scan_steps=4, **(base | {"i_print": 1000000})), 1,
+                device=device)
+        except FloatingPointError as e:
+            if "chunk" not in str(e):
+                raise
+            out["nan_chunk"] = {"raised": str(e)}
+        else:
+            raise SystemExit("a NaN state trained on without raising")
+    out["floors_ms"] = {"nerf[64]": step_flops("nerf", 4096, 64) / PEAK_F32
+                        * 1e3, "joint[8]": step_flops("joint", 4096, 8)
+                        / PEAK_F32 * 1e3}
+    out["card"] = nvidia_smi_line()
+    say({"scan": out})
+    return out
+
+
+EXPORT_REPS = 9   # timed frames a pose of the exported and live renderer
+
+
+def export_case(what, cfg, height, width, device, tmp):
+    """``run_export`` of ``cfg`` at height x width, the program loaded
+    back, and its frames on the 3 held-out poses against the live
+    ``make_frame_renderer`` of the manifest's statics with the same params
+    and scene: equal bit for bit, the same launches a frame (counters zeroed
+    before and read after a frame a pose of each), then both timed in turns
+    by CUDA events (EXPORT_REPS a pose each)."""
+    from pronerf_tpu_torch.render import infer
+    from pronerf_tpu_torch.render.export import (
+        load_exported_renderer,
+        statics_from_manifest,
+    )
+    from pronerf_tpu_torch.render.renderer import make_frame_renderer
+
+    cfg = cfg.replace(basedir=tmp, expname=what)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    paths = infer.run_export(cfg, height=height, width=width)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    call, params, scene, manifest = load_exported_renderer(
+        paths["executable"])
+    load_s = time.perf_counter() - t0
+    statics = statics_from_manifest(manifest)
+    live = make_frame_renderer(statics, height, width,
+                               np.asarray(manifest["K"], np.float32),
+                               manifest["tile_rays"], device=device)
+    data = infer.load_inference_data(cfg)
+    poses = [data["poses"][i][:3, :4] for i in data["i_test"][:3]]
+    def frames(render):
+        """A frame a pose; the launches (counters zeroed just before, read
+        just after) and the peak memory."""
+        reset_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        outs = [render(params, scene, c2w) for c2w in poses]
+        torch.cuda.synchronize()
+        all_finite(outs[0])
+        return outs, read_counters(), torch.cuda.max_memory_allocated()
+
+    with torch.no_grad():
+        exp, exp_counts, exp_peak = frames(call)
+        ref, ref_counts, _ = frames(live)
+        # timed in turns (exported, live, live, exported, ...): a
+        # host-bound frame's time drifts within a run
+        t_exp, t_live = [], []
+        for c2w in poses:
+            for r in range(EXPORT_REPS):
+                pair = ((call, t_exp), (live, t_live))
+                for fn, out in (pair if r % 2 == 0 else pair[::-1]):
+                    out.append(event_ms(lambda: fn(params, scene, c2w)))
+    if exp_counts != ref_counts or not any(exp_counts.values()):
+        raise SystemExit(f"{what}: the exported program's launches "
+                         f"{exp_counts}, the live renderer's {ref_counts}")
+    unequal = sorted({k for a, b in zip(exp, ref) for k in a
+                      if not nan_equal(a[k], b[k])})
+    if unequal:
+        raise SystemExit(f"{what}: exported frames differ from live ones "
+                         f"in {unequal}")
+    n = len(poses)
+    return {
+        "H": height, "W": width, "statics": {
+            k: manifest["statics"][k] for k in (
+                "compute_dtype", "use_kernels", "quant", "transposed",
+                "gather_tiles", "gather_window_rows", "fuse_composite")},
+        "manifest_keys": sorted(manifest), "platforms": manifest["platforms"],
+        "export_s": export_s, "load_s": load_s,
+        "artifact_bytes": {k: p.stat().st_size for k, p in paths.items()},
+        "frames_compared": n, "equal_bit_for_bit": True,
+        "launches_a_frame": {k: v / n for k, v in exp_counts.items() if v},
+        "launches": exp_counts,
+        "ms_per_frame_exported": statistics.median(t_exp),
+        "ms_per_frame_live": statistics.median(t_live),
+        "ms_all_exported": t_exp, "ms_all_live": t_live,
+        "peak_mem_bytes_exported": exp_peak,
+    }
+
+
+def phase_export(device):
+    """The exported renderer (``render/export.py``): ``run_export`` at
+    1008x756 with the ``--use-trt`` serving statics (the windowed gather
+    resolved as the manifest records it), then ``quant = int8`` and
+    ``transposed = True`` at 504x378; each loaded back and held against the
+    live renderer (``export_case``). Its drive's launches count on the
+    kernels line."""
+    from pronerf_tpu_torch.config import Config
+
+    def cfg_of(w, h, **kw):
+        return Config.from_file(
+            ROOT / "configs/llff/fern/fern_trt.txt",
+            datadir=f"synthetic:{w}x{h}x{N_VIEWS}", use_trt=True,
+            tile_rays=0, use_pallas=True, ft_path="", **kw)
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
+        out["default_1008x756"] = export_case(
+            "export_full", cfg_of(FULL_W, FULL_H), FULL_H, FULL_W, device,
+            tmp)
+        st = out["default_1008x756"]["statics"]
+        if (st["gather_tiles"], st["gather_window_rows"]) != \
+                FULL_GATHER:
+            raise SystemExit(f"export at 1008x756 resolved the windows to "
+                             f"{st}, not {FULL_GATHER}")
+        out["int8_504x378"] = export_case(
+            "export_int8", cfg_of(W_IMG, H, quant="int8"), H, W_IMG, device,
+            tmp)
+        out["transposed_504x378"] = export_case(
+            "export_t", cfg_of(W_IMG, H, transposed=True), H, W_IMG, device,
+            tmp)
+    out["card"] = nvidia_smi_line()
+    say({"export": out})
+    launches = {}
+    for case in out.values():
+        if isinstance(case, dict):
+            for k, v in case["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    return launches
 
 
 def paeth_png(path, img):
@@ -2212,6 +2635,57 @@ def phase_cli(device):
                 e <= b for e, b in zip(rp_err, gif.PALETTE_MAX_ERR)):
             raise SystemExit(f"render-path GIF: {render_path_report}")
 
+        # ---- several steps a dispatch through the verbs: chunks of 4
+        # (CUDA graphs of the steps), checkpoints at the last step
+        (s1s, exp1s), c1s, wall1s = drive_cli(
+            ["train-stage1", "--config",
+             str(ROOT / "configs/llff/fern/fern_epi.txt"), "--max-steps",
+             str(2 * CLI_SCAN)] + common("cli_s1_scan")
+            + ["--scan_steps", str(CLI_SCAN)])
+        (s2s, exp2s), c2s, wall2s = drive_cli(
+            ["train-stage2", "--config",
+             str(ROOT / "configs/llff/fern/fern_refine.txt"), "--max-steps",
+             str(2 * CLI_SCAN), "--pretrain-path", str(exp1s)]
+            + common("cli_s2_scan") + ["--scan_steps", str(CLI_SCAN)])
+        expect_counts("cli scan training", c1s)
+        expect_counts("cli scan training", c2s)
+        scan_ckpts = [Path(checkpoint.latest_checkpoint(e)).name
+                      for e in (exp1s, exp2s)]
+        scan_losses = list(read_losses(exp1s).values()) + list(
+            read_losses(exp2s).values())
+        if scan_ckpts != [f"{2 * CLI_SCAN:06d}.ckpt"] * 2 or not all(
+                np.isfinite(scan_losses)):
+            raise SystemExit(f"cli scan training: checkpoints {scan_ckpts}, "
+                             f"losses {scan_losses}")
+        scan_report = {"scan_steps": CLI_SCAN, "steps": 2 * CLI_SCAN,
+                       "wall_s": {"stage1": wall1s, "stage2": wall2s},
+                       "losses": scan_losses, "checkpoints": scan_ckpts}
+
+        # ---- export at the capture's size, then serve from it: the PNG
+        # equals the eval frame's
+        paths, c_x, wall_x = drive_cli(
+            ["export", "--use-trt", "--checkpoint", ck2, "--height", str(H),
+             "--width", str(W_IMG)] + common("cli_export"))
+        expect_counts("cli export (traced, no launch)", c_x)
+        fx, c_fx, wall_fx = drive_cli(
+            ["infer", "--from-export", str(paths["executable"].parent),
+             "--max-images", "1", "--timing-reps", str(CLI_EXPORT_REPS)]
+            + common("cli_export"))
+        n_fx = 1 + CLI_EXPORT_REPS + max(2, CLI_EXPORT_REPS)
+        expect_counts("cli infer --from-export", c_fx, sampler=n_fx,
+                      refine=n_fx, fused_nerf_raw_t=n_fx)
+        png = read_png(Path(fx["savedir"]) / "000.png")
+        if not np.array_equal(png, to8b(ev["rgbs1"][0])):
+            raise SystemExit("infer --from-export: its PNG differs from the "
+                             "eval frame's")
+        export_report = {
+            "export_wall_s": wall_x, "serve_wall_s": wall_fx,
+            "launches": c_fx, "frames": n_fx, "psnr": fx["psnrs"],
+            "times_ms": fx["times_ms"], "pipelined_ms": fx["pipelined_ms"],
+            "artifact_bytes": {k: p.stat().st_size
+                               for k, p in paths.items()},
+            "png_equals_eval_frame": True}
+
         # ---- i_video: a 4-step stage-1 run writes its spiral at steps 2
         # and 4 (the stage's eval statics: no kernel runs), each of the
         # capture's 120 spiral poses rendered as one tile (24 times fewer
@@ -2257,6 +2731,8 @@ def phase_cli(device):
                      "psnr": q["psnrs"]},
             "render_path": render_path_report,
             "i_video": video_report,
+            "scan": scan_report,
+            "export": export_report,
         }
     say({"cli": report})
     say({"cli_timings": timings})
@@ -2269,7 +2745,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only",
                     choices=("build", "kernels", "frame", "fullres",
-                             "gathers", "train", "donerf", "cli"))
+                             "gathers", "train", "scan", "donerf", "export",
+                             "cli"))
     ap.add_argument("--rays", type=int, default=FRAME_RAYS)
     ap.add_argument("--verbose-build", action="store_true",
                     help="print the compiler's output of every source")
@@ -2318,8 +2795,13 @@ def main(argv=None):
         phase_gathers(device)
     if args.only in (None, "train"):
         phase_train(device, args.profile)
+    if args.only in (None, "scan"):
+        phase_scan(device, args.profile)
     if args.only in (None, "donerf"):
         phase_donerf(device)
+    export_launches = {}
+    if args.only in (None, "export"):
+        export_launches = phase_export(device)
     if args.only in (None, "cli"):
         phase_cli(device)
 
@@ -2332,7 +2814,8 @@ def main(argv=None):
             k: r[k] for k in ("name", "route", "source", "replaces",
                               "max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")
-        } | {"launches": launches.get(r["name"], 0)})
+        } | {"launches": launches.get(r["name"], 0),
+             "launches_exported": export_launches.get(r["name"], 0)})
     if args.only is None:
         idle = [c["name"] for c in contract if c["launches"] < 1]
         if launches.get(UNTRANSPOSED, 0) < 1:

@@ -1,5 +1,6 @@
 """Command line of the port: ``python -m pronerf_tpu_torch.cli
-{train-stage1, train-stage2, infer, eval}``.
+{train-stage1, train-stage2, infer, eval, render-path, export,
+export-trt}``.
 
 Counterpart of ``pronerf_tpu/cli.py``, with its verbs, flags and defaults:
 kebab-case flags mapped onto the config's snake_case fields, defaults
@@ -11,11 +12,14 @@ tile (``tile_rays = 0``) through the fused CUDA kernels (``use_pallas``).
 ``render-path`` renders the spiral camera path to a video (mp4 where
 imageio has a backend for it, else a GIF).
 
+``export`` / ``export-trt`` trace and save the whole-frame renderer
+(``render/export.py``; ``--height``/``--width``, default 1008x756) and
+``infer --from-export DIR`` serves the test views from it.
+
 ``--device`` (default ``cuda``) is the port's own: every verb runs on the
 card and raises without one, unless ``--device cpu`` is given. The JAX
 package's compilation cache and platform switches have no counterpart.
-``export`` and ``train-multi`` are not ported yet: they raise by their
-ROADMAP items (A.16, A.18).
+``train-multi`` is not ported yet: it raises by its ROADMAP item (A.18).
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ DEFAULT_STAGE2_CONFIG = REPO_ROOT / "configs/llff/fern/fern_refine.txt"
 DEFAULT_TRT_CONFIG = REPO_ROOT / "configs/llff/fern/fern_trt.txt"
 
 # verbs of the JAX package's command line that the port does not have yet
-UNPORTED = {"export": "A.16", "export-trt": "A.16", "train-multi": "A.18"}
+UNPORTED = {"train-multi": "A.18"}
 
 
 def _parse_extra(extra: list[str]) -> dict:
@@ -103,6 +107,12 @@ def cmd_train_stage2(args):
 
 
 def cmd_infer(args):
+    if getattr(args, "from_export", None):
+        from pronerf_tpu_torch.render.infer import run_inference_from_export
+
+        return run_inference_from_export(
+            _build_cfg(args, DEFAULT_TRT_CONFIG), args.from_export,
+            timing_reps=args.timing_reps, device=args.device)
     from pronerf_tpu_torch.render.infer import run_inference
 
     return run_inference(_build_cfg(args, DEFAULT_TRT_CONFIG, serving=True),
@@ -120,6 +130,17 @@ def cmd_render_path(args):
     return run_render_path(
         _build_cfg(args, DEFAULT_TRT_CONFIG, serving=True),
         n_frames=args.n_frames, fps=args.fps, device=args.device)
+
+
+def cmd_export(args):
+    from pronerf_tpu_torch.render.infer import run_export
+
+    if args.onnx_only:
+        print("--onnx-only: note - this framework exports one torch.export "
+              "program; there is no intermediate ONNX stage.")
+    return run_export(_build_cfg(args, DEFAULT_TRT_CONFIG, serving=True),
+                      height=args.height, width=args.width,
+                      device=args.device)
 
 
 def _add_common(p):
@@ -172,6 +193,10 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--timing-reps", type=int, default=0,
                        dest="timing_reps",
                        help="timed re-renders per pose (reference uses 20)")
+        if name == "infer":
+            p.add_argument("--from-export", default=None, dest="from_export",
+                           metavar="DIR", help="serve from an export directory (or any "
+                                "file in it) instead of a checkpoint")
         _add_common(p)
         p.set_defaults(func=func)
 
@@ -184,6 +209,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fps", type=int, default=30)
     _add_common(p)
     p.set_defaults(func=cmd_render_path)
+
+    for name in ("export", "export-trt"):
+        p = sub.add_parser(
+            name, help="trace and save the whole-frame renderer")
+        p.add_argument("--checkpoint", default=None)
+        p.add_argument("--onnx-only", action="store_true", dest="onnx_only")
+        p.add_argument("--use-trt", action="store_true", dest="use_trt",
+                       help="export the bf16 serving graph (fused kernels)")
+        p.add_argument("--height", type=int, default=756)
+        p.add_argument("--width", type=int, default=1008)
+        _add_common(p)
+        p.set_defaults(func=cmd_export)
 
     for name, item in UNPORTED.items():
         sub.add_parser(name, help=f"not ported yet (ROADMAP {item})")

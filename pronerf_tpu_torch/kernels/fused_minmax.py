@@ -15,8 +15,12 @@ to the pack dtype; the bias is added in the pack dtype; ELU is
 ``exp(min(x, 0)) - 1`` evaluated in f32 on the rounded value and rounded
 again; the head is returned as f32.
 
-Dispatch is by the tensor's device: a CUDA ``x_t`` launches the kernel (or
-raises), a CPU ``x_t`` takes :func:`fused_minmax_plain`.
+The kernel is the ``torch.library`` op ``pronerf::fused_minmax``, so that a
+traced program can name it: its CUDA implementation launches the kernel (or
+raises) and counts the launch, its CPU implementation is
+:func:`fused_minmax_plain`, its fake one gives the shape. The blobs the
+kernel reads are built at pack time (``attach_blobs``) and handed to the op
+as tensors.
 """
 
 from __future__ import annotations
@@ -58,7 +62,8 @@ def pack_minmax_params(net, reps: int, dtype=torch.bfloat16, c_rep: int = 6,
 
     Returns a dict with the same keys, shapes and values as the JAX pack:
     ``w{i}_t [256, in]``, ``b{i} [256, 1]``, ``wout_t [out_pad, 256]``,
-    ``bout [out_pad, 1]`` in ``dtype``. (The folded columns are a sum of
+    ``bout [out_pad, 1]`` in ``dtype``, and on the card the kernel's blobs
+    (``attach_blobs``). (The folded columns are a sum of
     ``reps`` f32 terms, so they agree with another framework's pack to the
     last bits of that sum, not bit for bit; everything else is a copy.)
     """
@@ -101,7 +106,7 @@ def pack_minmax_params(net, reps: int, dtype=torch.bfloat16, c_rep: int = 6,
     for i, layer in enumerate(layers[1:], start=1):
         packed[f"w{i}_t"] = layer.weight.detach().contiguous().to(dtype)
         packed[f"b{i}"] = bias(layer.bias)
-    return packed
+    return attach_blobs(packed)
 
 
 def _depth(packed) -> int:
@@ -197,7 +202,7 @@ def _blob(packed):
 # ``out`` and running the whole trunk.
 _SMEM_LIMIT = 232448 - 1024
 _RING_STAGE = 32768
-_PARTS_KEY = "_kernel_head_parts"
+BLOBS_KEY = "_kernel_blobs"
 
 
 def _wg_fits(C: int, depth: int, out_pad: int) -> bool:
@@ -223,22 +228,61 @@ def head_parts(C: int, depth: int, out_pad: int):
 
 def _parts(packed, C):
     """``head_parts`` with the pack of each part (the trunk's panels, the
-    part's head rows), built once and kept in ``packed``."""
-    parts = packed.get(_PARTS_KEY)
-    if parts is None:
-        out_pad = packed["wout_t"].shape[0]
-        ranges = head_parts(C, _depth(packed), out_pad)
-        if len(ranges) == 1:
-            parts = ((0, out_pad, packed),)
-        else:
-            trunk = {k: v for k, v in packed.items()
-                     if not k.startswith("_") and k not in ("wout_t", "bout")}
-            parts = tuple(
-                (c0, c1, trunk | {"wout_t": packed["wout_t"][c0:c1].clone(),
-                                  "bout": packed["bout"][c0:c1].clone()})
-                for c0, c1 in ranges)
-        packed[_PARTS_KEY] = parts
-    return parts
+    part's head rows)."""
+    out_pad = packed["wout_t"].shape[0]
+    ranges = head_parts(C, _depth(packed), out_pad)
+    if len(ranges) == 1:
+        return ((0, out_pad, packed),)
+    trunk = {k: v for k, v in packed.items()
+             if not k.startswith("_") and k not in ("wout_t", "bout")}
+    return tuple(
+        (c0, c1, trunk | {"wout_t": packed["wout_t"][c0:c1].clone(),
+                          "bout": packed["bout"][c0:c1].clone()})
+        for c0, c1 in ranges)
+
+
+def panel_names(depth: int):
+    """The pack's panels in the order the op takes them."""
+    return tuple(n for i in range(depth) for n in (f"w{i}_t", f"b{i}")) + (
+        "wout_t", "bout")
+
+
+def attach_blobs(packed):
+    """Build the kernel's blobs (one a head part for bf16 panels, see
+    ``head_parts``) and keep them in ``packed`` under ``BLOBS_KEY``: at pack
+    time, so that no traced or captured call builds them. Only a pack on the
+    card gets them (the plain version reads the panels); returns ``packed``.
+    """
+    w0 = packed["w0_t"]
+    if w0.device.type == "cuda" and BLOBS_KEY not in packed:
+        parts = (_parts(packed, w0.shape[1]) if w0.dtype == torch.bfloat16
+                 else ((0, packed["wout_t"].shape[0], packed),))
+        packed[BLOBS_KEY] = [_blob(part) for _, _, part in parts]
+    return packed
+
+
+def _blobs(packed):
+    """The blobs the op hands the kernel: those of the pack, built now for
+    a pack on the card that has none."""
+    return attach_blobs(packed).get(BLOBS_KEY, [])
+
+
+def _check_launch(panels, blobs, x_t):
+    w0 = panels[0]
+    if x_t.dim() != 2 or x_t.shape[0] != w0.shape[1]:
+        raise ValueError(
+            f"x_t must be [C={w0.shape[1]}, N], got {tuple(x_t.shape)}"
+        )
+    if x_t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x_t must be float32 or bfloat16, got {x_t.dtype}")
+    if w0.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"pack dtype {w0.dtype} has no kernel")
+    if not x_t.is_contiguous():
+        raise ValueError("x_t must be contiguous")
+    if w0.device != x_t.device:
+        raise ValueError(f"panels on {w0.device}, x_t on {x_t.device}")
+    if not blobs:
+        raise ValueError("the pack has no kernel blob (attach_blobs)")
 
 
 _fn = None
@@ -257,57 +301,35 @@ def _kernel():
     return _fn
 
 
-def fused_minmax_t(packed, x_t, transpose_out: bool = True):
-    """Fused MinMax MLP forward (no autograd; inference path).
-
-    Args:
-      packed: :func:`pack_minmax_params` output (bf16 or f32 panels).
-      x_t: [C, N] transposed input, float32 or bfloat16, contiguous.
-      transpose_out: True returns row-major [N, out_pad]; False returns
-        [out_pad, N].
-
-    The JAX wrapper's ``rays_per_block`` is dropped: the CUDA kernel's tile
-    is fixed at build time and it masks a ragged last tile itself. bf16
-    panels run ``minmax_wg_kernel`` (``wgmma``; layer 0 in passes of 128
-    input rows where C > 128; a head too large for its shared memory in
-    parts, one launch each, see ``head_parts``), f32 panels the exact FMA
-    kernel.
-
-    Returns float32; the caller slices its true output width (pad columns are
-    exact zero-weight products).
-    """
-    if x_t.device.type != "cuda":
-        return fused_minmax_plain(packed, x_t, transpose_out)
-    w0 = packed["w0_t"]
-    if x_t.dim() != 2 or x_t.shape[0] != w0.shape[1]:
-        raise ValueError(
-            f"x_t must be [C={w0.shape[1]}, N], got {tuple(x_t.shape)}"
-        )
-    if x_t.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x_t must be float32 or bfloat16, got {x_t.dtype}")
-    if w0.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"pack dtype {w0.dtype} has no kernel")
-    if not x_t.is_contiguous():
-        raise ValueError("x_t must be contiguous")
-    if w0.device != x_t.device:
-        raise ValueError(f"panels on {w0.device}, x_t on {x_t.device}")
+@torch.library.custom_op("pronerf::fused_minmax", mutates_args=(),
+                         device_types="cuda")
+def fused_minmax_op(panels: list[torch.Tensor], blobs: list[torch.Tensor],
+                    x_t: torch.Tensor, transpose_out: bool) -> torch.Tensor:
+    """The op ``pronerf::fused_minmax`` on the card: launches
+    ``minmax_wg_kernel`` (bf16 panels; one launch a head part) or the f32
+    kernel, or raises. ``panels`` in ``panel_names`` order, ``blobs`` as
+    ``attach_blobs`` builds them."""
+    _check_launch(panels, blobs, x_t)
+    depth = (len(panels) - 2) // 2
+    w0 = panels[0]
     C, N = x_t.shape
-    out_pad = packed["wout_t"].shape[0]
+    out_pad = panels[-2].shape[0]
     is_bf16 = w0.dtype == torch.bfloat16
-    parts = _parts(packed, C) if is_bf16 else ((0, out_pad, packed),)
+    ranges = head_parts(C, depth, out_pad) if is_bf16 else ((0, out_pad),)
+    if len(ranges) != len(blobs):
+        raise ValueError(f"{len(blobs)} blobs for {len(ranges)} head parts")
     if transpose_out:
         out = torch.empty(N, out_pad, dtype=torch.float32, device=x_t.device)
         strides, col = (out_pad, 1), 1
     else:
         out = torch.empty(out_pad, N, dtype=torch.float32, device=x_t.device)
         strides, col = (1, N), N
-    for c0, c1, part in parts:
-        blob = _blob(part)
+    for (c0, c1), blob in zip(ranges, blobs):
         with torch.cuda.device(x_t.device):
             err = _kernel()(
                 x_t.data_ptr(), int(x_t.dtype == torch.bfloat16),
                 blob.data_ptr(), blob.numel(),
-                out.data_ptr() + 4 * c0 * col, N, C, _depth(packed),
+                out.data_ptr() + 4 * c0 * col, N, C, depth,
                 c1 - c0, strides[0], strides[1], int(is_bf16),
                 torch.cuda.current_stream().cuda_stream,
             )
@@ -325,10 +347,50 @@ def fused_minmax_t(packed, x_t, transpose_out: bool = True):
     return out
 
 
-# Launches of the kernel: all of them, and by input width C (the sampler and
-# the refine net go through this one wrapper and differ in C); those with
-# ``transpose_out=False`` (the transposed serving graph's form) are also
-# counted apart, by width too.
+@fused_minmax_op.register_kernel("cpu")
+def _(panels, blobs, x_t, transpose_out):
+    depth = (len(panels) - 2) // 2
+    packed = dict(zip(panel_names(depth), panels))
+    return fused_minmax_plain(packed, x_t, transpose_out).contiguous()
+
+
+@fused_minmax_op.register_fake
+def _(panels, blobs, x_t, transpose_out):
+    n, out_pad = x_t.shape[1], panels[-2].shape[0]
+    shape = (n, out_pad) if transpose_out else (out_pad, n)
+    return x_t.new_empty(shape, dtype=torch.float32)
+
+
+def fused_minmax_t(packed, x_t, transpose_out: bool = True):
+    """Fused MinMax MLP forward (no autograd; inference path).
+
+    Args:
+      packed: :func:`pack_minmax_params` output (bf16 or f32 panels).
+      x_t: [C, N] transposed input, float32 or bfloat16, contiguous.
+      transpose_out: True returns row-major [N, out_pad]; False returns
+        [out_pad, N].
+
+    Calls the op ``pronerf::fused_minmax``: on a CUDA ``x_t`` it launches
+    the kernel or raises, on a CPU one it runs :func:`fused_minmax_plain`.
+    The JAX wrapper's ``rays_per_block`` is dropped: the CUDA kernel's tile
+    is fixed at build time and it masks a ragged last tile itself. bf16
+    panels run ``minmax_wg_kernel`` (``wgmma``; layer 0 in passes of 128
+    input rows where C > 128; a head too large for its shared memory in
+    parts, one launch each, see ``head_parts``), f32 panels the exact FMA
+    kernel.
+
+    Returns float32; the caller slices its true output width (pad columns are
+    exact zero-weight products).
+    """
+    panels = [packed[n] for n in panel_names(_depth(packed))]
+    blobs = _blobs(packed) if x_t.device.type == "cuda" else []
+    return fused_minmax_op(panels, blobs, x_t, transpose_out)
+
+
+# Launches of the kernel (counted where the op launches it): all of them,
+# and by input width C (the sampler and the refine net go through this one
+# op and differ in C); those with ``transpose_out=False`` (the transposed
+# serving graph's form) are also counted apart, by width too.
 fused_minmax_t.launches = 0
 fused_minmax_t.launches_by_width = {}
 fused_minmax_t.launches_untransposed = {}

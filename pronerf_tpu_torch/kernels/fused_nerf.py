@@ -16,8 +16,12 @@ pack dtype; layer 5 adds two separately rounded dots; ``vcon`` is cast to the
 pack dtype before it is added; the heads are returned as f32 and all
 compositing arithmetic is f32.
 
-Dispatch is by the tensor's device: CUDA tensors launch the kernel (or
-raise), CPU tensors take the plain version.
+Each kernel is a ``torch.library`` op (``pronerf::fused_nerf_raw``,
+``pronerf::fused_nerf_composite``) that a traced program can name: its CUDA
+implementation launches the kernel (or raises) and counts the launch, its
+CPU implementation is the plain version, its fake one gives the shapes. The
+blob the kernel reads is built at pack time (``attach_blobs``) and handed to
+the op as a tensor.
 """
 
 from __future__ import annotations
@@ -114,7 +118,7 @@ def pack_nerf_params(net, dtype=torch.bfloat16):
     for i in (1, 2, 3, 4, 6, 7):
         packed[f"w{i}_t"] = wt(w_in_out(pts[i]))
         packed[f"b{i}"] = bias(pts[i].bias)
-    return packed
+    return attach_blobs(packed)
 
 
 _WEIGHT_ORDER = (
@@ -339,27 +343,45 @@ def _launch_error(err: int) -> str:
     return f"CUDA error {err}"
 
 
-def fused_nerf_raw_t(packed, pts24_t, vcon_t, n_samples: int = 8):
-    """Fused PE -> NeRF MLP forward (no autograd; inference path).
+BLOBS_KEY = "_kernel_blobs"
 
-    Args:
-      packed: :func:`pack_nerf_params` output (bf16 or f32 panels).
-      pts24_t: [S*3, N] float32 query points, row 3*s + c = coordinate c of
-        sample s (offsets applied).
-      vcon_t: [128, N] float32 per-ray view-direction contribution.
-      n_samples: S.
 
-    The JAX wrapper's ``rays_per_block`` is dropped: the CUDA kernel's tile
-    is fixed at build time and it masks a ragged last tile itself.
+def attach_blobs(packed):
+    """Build the kernel's blob and keep it in ``packed`` under
+    ``BLOBS_KEY`` (a list of one): at pack time, so that no traced or
+    captured call builds it. Only a pack on the card gets it (the plain
+    version reads the panels); returns ``packed``."""
+    if packed["w1_t"].device.type == "cuda" and BLOBS_KEY not in packed:
+        packed[BLOBS_KEY] = [_blob(packed)]
+    return packed
 
-    Returns: raw [N, S, 4] float32 (rgb logits, sigma), ready for
-    ``ops.composite``.
-    """
-    if pts24_t.device.type != "cuda":
-        return fused_nerf_raw_plain(packed, pts24_t, vcon_t, n_samples)
+
+def _op_args(packed, device):
+    """(panels in ``_WEIGHT_ORDER``, blobs) as the ops take them."""
+    panels = [packed[n] for n in _WEIGHT_ORDER]
+    blobs = (attach_blobs(packed)[BLOBS_KEY] if device.type == "cuda"
+             else [])
+    return panels, blobs
+
+
+def _launch_args(panels, blobs, tensors):
+    """Checks of a launch on the card; (pack dict, blob, is_bf16)."""
+    packed = dict(zip(_WEIGHT_ORDER, panels))
+    if len(blobs) != 1:
+        raise ValueError("the pack has no kernel blob (attach_blobs)")
+    return packed, blobs[0], _check_cuda(packed, **tensors)
+
+
+@torch.library.custom_op("pronerf::fused_nerf_raw", mutates_args=(),
+                         device_types="cuda")
+def fused_nerf_raw_op(panels: list[torch.Tensor], blobs: list[torch.Tensor],
+                      pts24_t: torch.Tensor, vcon_t: torch.Tensor,
+                      n_samples: int) -> torch.Tensor:
+    """The op ``pronerf::fused_nerf_raw`` on the card: launches
+    ``nerf_wg_kernel<false>`` (bf16 panels) or the f32 kernel, or raises."""
+    packed, blob, is_bf16 = _launch_args(
+        panels, blobs, dict(pts24_t=pts24_t, vcon_t=vcon_t))
     N = _check_common(packed, pts24_t, vcon_t, n_samples)
-    is_bf16 = _check_cuda(packed, pts24_t=pts24_t, vcon_t=vcon_t)
-    blob = _blob(packed)
     raw = torch.empty(N, n_samples, 4, dtype=torch.float32,
                       device=pts24_t.device)
     with torch.cuda.device(pts24_t.device):
@@ -376,40 +398,69 @@ def fused_nerf_raw_t(packed, pts24_t, vcon_t, n_samples: int = 8):
     return raw
 
 
+@fused_nerf_raw_op.register_kernel("cpu")
+def _(panels, blobs, pts24_t, vcon_t, n_samples):
+    return fused_nerf_raw_plain(dict(zip(_WEIGHT_ORDER, panels)), pts24_t,
+                                vcon_t, n_samples).contiguous()
+
+
+@fused_nerf_raw_op.register_fake
+def _(panels, blobs, pts24_t, vcon_t, n_samples):
+    return pts24_t.new_empty((pts24_t.shape[1], n_samples, 4),
+                             dtype=torch.float32)
+
+
+def fused_nerf_raw_t(packed, pts24_t, vcon_t, n_samples: int = 8):
+    """Fused PE -> NeRF MLP forward (no autograd; inference path).
+
+    Args:
+      packed: :func:`pack_nerf_params` output (bf16 or f32 panels).
+      pts24_t: [S*3, N] float32 query points, row 3*s + c = coordinate c of
+        sample s (offsets applied).
+      vcon_t: [128, N] float32 per-ray view-direction contribution.
+      n_samples: S.
+
+    Calls the op ``pronerf::fused_nerf_raw``: on CUDA tensors it launches
+    the kernel or raises, on CPU tensors it runs the plain version. The JAX
+    wrapper's ``rays_per_block`` is dropped: the CUDA kernel's tile is fixed
+    at build time and it masks a ragged last tile itself.
+
+    Returns: raw [N, S, 4] float32 (rgb logits, sigma), ready for
+    ``ops.composite``.
+    """
+    panels, blobs = _op_args(packed, pts24_t.device)
+    return fused_nerf_raw_op(panels, blobs, pts24_t, vcon_t, n_samples)
+
+
 def _count_samples(fn, n_samples):
     fn.launches_by_samples[n_samples] = (
         fn.launches_by_samples.get(n_samples, 0) + 1)
 
 
-# Launches of each kernel: all of them, and by samples a ray
+# Launches of each kernel (counted where the op launches it): all of them,
+# and by samples a ray
 fused_nerf_raw_t.launches = 0
 fused_nerf_raw_t.launches_by_samples = {}
 
+_COMPOSITE_KEYS = ("rgb", "depth", "disp", "acc", "weights", "sigma")
 
-def fused_nerf_composite_t(packed, pts24_t, vcon_t, z_t, mm_add_t, mm_mul_t,
-                           dnorm_t, n_samples: int = 8,
-                           white_bkgd: bool = False):
-    """Fused PE -> NeRF MLP -> alpha COMPOSITE (no autograd; inference path).
 
-    Semantics mirror ``ops.composite`` with the density corrections and no
-    noise, clamp or ``num_valid`` (the inference variant). The raw [N, S, 4]
-    never reaches device memory.
-
-    Args:
-      packed, pts24_t, vcon_t, n_samples: as :func:`fused_nerf_raw_t`.
-      z_t: [S, N] float32 sorted bin-constrained sample depths.
-      mm_add_t, mm_mul_t: [S, N] float32 sampler density corrections.
-      dnorm_t: [1, N] float32 per-ray ||ndc_d|| interval scale.
-
-    Returns: dict(rgb [N, 3], depth [N], disp [N], acc [N],
-      weights [N, S], sigma [N, S]), float32.
-    """
-    if pts24_t.device.type != "cuda":
-        return fused_nerf_composite_plain(
-            packed, pts24_t, vcon_t, z_t, mm_add_t, mm_mul_t, dnorm_t,
-            n_samples, white_bkgd,
-        )
+@torch.library.custom_op("pronerf::fused_nerf_composite", mutates_args=(),
+                         device_types="cuda")
+def fused_nerf_composite_op(
+        panels: list[torch.Tensor], blobs: list[torch.Tensor],
+        pts24_t: torch.Tensor, vcon_t: torch.Tensor, z_t: torch.Tensor,
+        mm_add_t: torch.Tensor, mm_mul_t: torch.Tensor,
+        dnorm_t: torch.Tensor, n_samples: int, white_bkgd: bool,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor, torch.Tensor]:
+    """The op ``pronerf::fused_nerf_composite`` on the card: launches
+    ``nerf_wg_kernel<true>`` (bf16 panels) or the f32 kernel, or raises.
+    Returns the outputs in ``_COMPOSITE_KEYS`` order."""
     S = n_samples
+    packed, blob, is_bf16 = _launch_args(panels, blobs, dict(
+        pts24_t=pts24_t, vcon_t=vcon_t, z_t=z_t, mm_add_t=mm_add_t,
+        mm_mul_t=mm_mul_t, dnorm_t=dnorm_t))
     N = _check_common(packed, pts24_t, vcon_t, S)
     for name, t in (("z_t", z_t), ("mm_add_t", mm_add_t),
                     ("mm_mul_t", mm_mul_t)):
@@ -417,28 +468,13 @@ def fused_nerf_composite_t(packed, pts24_t, vcon_t, z_t, mm_add_t, mm_mul_t,
             raise ValueError(f"{name} must be [{S}, {N}], got {tuple(t.shape)}")
     if tuple(dnorm_t.shape) != (1, N):
         raise ValueError(f"dnorm_t must be [1, {N}], got {tuple(dnorm_t.shape)}")
-    is_bf16 = _check_cuda(
-        packed, pts24_t=pts24_t, vcon_t=vcon_t, z_t=z_t, mm_add_t=mm_add_t,
-        mm_mul_t=mm_mul_t, dnorm_t=dnorm_t,
-    )
-    blob = _blob(packed)
-    dev = pts24_t.device
-
-    def empty(*shape):
-        return torch.empty(*shape, dtype=torch.float32, device=dev)
-
-    out = {
-        "rgb": empty(N, 3), "depth": empty(N), "disp": empty(N),
-        "acc": empty(N), "weights": empty(N, S), "sigma": empty(N, S),
-    }
-    with torch.cuda.device(dev):
+    out = _composite_empty(pts24_t, N, S)
+    with torch.cuda.device(pts24_t.device):
         err = _kernels().pn_fused_nerf_composite(
             pts24_t.data_ptr(), vcon_t.data_ptr(), z_t.data_ptr(),
             mm_add_t.data_ptr(), mm_mul_t.data_ptr(), dnorm_t.data_ptr(),
             blob.data_ptr(), blob.numel(),
-            out["rgb"].data_ptr(), out["depth"].data_ptr(),
-            out["disp"].data_ptr(), out["acc"].data_ptr(),
-            out["weights"].data_ptr(), out["sigma"].data_ptr(),
+            *(t.data_ptr() for t in out),
             N, S, int(white_bkgd), is_bf16,
             torch.cuda.current_stream().cuda_stream,
         )
@@ -449,6 +485,56 @@ def fused_nerf_composite_t(packed, pts24_t, vcon_t, z_t, mm_add_t, mm_mul_t,
     fused_nerf_composite_t.launches += 1
     _count_samples(fused_nerf_composite_t, S)
     return out
+
+
+def _composite_empty(like, N, S):
+    def empty(*shape):
+        return like.new_empty(shape, dtype=torch.float32)
+
+    return (empty(N, 3), empty(N), empty(N), empty(N), empty(N, S),
+            empty(N, S))
+
+
+@fused_nerf_composite_op.register_kernel("cpu")
+def _(panels, blobs, pts24_t, vcon_t, z_t, mm_add_t, mm_mul_t, dnorm_t,
+      n_samples, white_bkgd):
+    out = fused_nerf_composite_plain(
+        dict(zip(_WEIGHT_ORDER, panels)), pts24_t, vcon_t, z_t, mm_add_t,
+        mm_mul_t, dnorm_t, n_samples, white_bkgd)
+    return tuple(out[k].contiguous() for k in _COMPOSITE_KEYS)
+
+
+@fused_nerf_composite_op.register_fake
+def _(panels, blobs, pts24_t, vcon_t, z_t, mm_add_t, mm_mul_t, dnorm_t,
+      n_samples, white_bkgd):
+    return _composite_empty(pts24_t, pts24_t.shape[1], n_samples)
+
+
+def fused_nerf_composite_t(packed, pts24_t, vcon_t, z_t, mm_add_t, mm_mul_t,
+                           dnorm_t, n_samples: int = 8,
+                           white_bkgd: bool = False):
+    """Fused PE -> NeRF MLP -> alpha COMPOSITE (no autograd; inference path).
+
+    Semantics mirror ``ops.composite`` with the density corrections and no
+    noise, clamp or ``num_valid`` (the inference variant). The raw [N, S, 4]
+    never reaches device memory. Calls the op
+    ``pronerf::fused_nerf_composite`` (the kernel on CUDA tensors, the plain
+    version on CPU ones).
+
+    Args:
+      packed, pts24_t, vcon_t, n_samples: as :func:`fused_nerf_raw_t`.
+      z_t: [S, N] float32 sorted bin-constrained sample depths.
+      mm_add_t, mm_mul_t: [S, N] float32 sampler density corrections.
+      dnorm_t: [1, N] float32 per-ray ||ndc_d|| interval scale.
+
+    Returns: dict(rgb [N, 3], depth [N], disp [N], acc [N],
+      weights [N, S], sigma [N, S]), float32.
+    """
+    panels, blobs = _op_args(packed, pts24_t.device)
+    out = fused_nerf_composite_op(panels, blobs, pts24_t, vcon_t, z_t,
+                                  mm_add_t, mm_mul_t, dnorm_t, n_samples,
+                                  white_bkgd)
+    return dict(zip(_COMPOSITE_KEYS, out))
 
 
 fused_nerf_composite_t.launches = 0

@@ -32,8 +32,10 @@ integers everywhere: ``|acc| <= 256 * 127 * 127 < 2^24``, so the plain
 version's float32 product of the codes is exact in any order of summation
 (TF32 must be off, which is checked), and so is int32 -> float32.
 
-Dispatch is by the tensor's device: CUDA tensors launch the kernel (or
-raise), CPU tensors take the plain version.
+The kernel is the ``torch.library`` op ``pronerf::fused_nerf_raw_q``: its
+CUDA implementation launches the kernel (or raises) and counts the launch,
+its CPU implementation is the plain version. The blob is built at pack time
+(``attach_blobs``) and handed to the op as a tensor.
 """
 
 from __future__ import annotations
@@ -249,7 +251,7 @@ def pack_nerf_params_int8(net, ranges=None, pe_dtype=torch.bfloat16):
     b_rgb = w5.new_zeros(8)
     b_rgb[:3] = net.rgb.bias.detach()
     fold_into("r", w_rgb.T, b_rgb, s_hv, m_hv)
-    return packed
+    return attach_blobs(packed)
 
 
 _ORDER = (
@@ -450,25 +452,28 @@ def _kernel():
     return _fn
 
 
-def fused_nerf_raw_tq(packed, pts24_t, vcon_t, n_samples: int = 8):
-    """INT8 fused PE -> NeRF MLP forward (no autograd; inference path).
+BLOBS_KEY = "_kernel_blobs"
+PANELS = _ORDER + ("vcon_scale",)
 
-    Args:
-      packed: :func:`pack_nerf_params_int8` output.
-      pts24_t: [S*3, N] float32 query points, row 3*s + c = coordinate c of
-        sample s (offsets applied).
-      vcon_t: [128, N] float32 per-ray view-direction contribution, NOT yet
-        scaled by ``packed["vcon_scale"]``.
-      n_samples: S.
 
-    The JAX wrapper's ``rays_per_block`` is dropped: the CUDA kernel's tile
-    is fixed at build time and it masks a ragged last tile itself.
+def attach_blobs(packed):
+    """Build the kernel's blob and keep it in ``packed`` under
+    ``BLOBS_KEY`` (a list of one): at pack time, so that no traced or
+    captured call builds it (``k_perm`` and the 2^-8 scaling are applied
+    there). Only a pack on the card gets it; returns ``packed``."""
+    if packed["w1q"].device.type == "cuda" and BLOBS_KEY not in packed:
+        packed[BLOBS_KEY] = [_blob(packed)]
+    return packed
 
-    Returns: raw [N, S, 4] float32 (rgb logits, sigma), ready for
-    ``ops.composite``.
-    """
-    if pts24_t.device.type != "cuda":
-        return fused_nerf_raw_q_plain(packed, pts24_t, vcon_t, n_samples)
+
+@torch.library.custom_op("pronerf::fused_nerf_raw_q", mutates_args=(),
+                         device_types="cuda")
+def fused_nerf_raw_q_op(panels: list[torch.Tensor], blobs: list[torch.Tensor],
+                        pts24_t: torch.Tensor, vcon_t: torch.Tensor,
+                        n_samples: int) -> torch.Tensor:
+    """The op ``pronerf::fused_nerf_raw_q`` on the card: launches
+    ``nerf_q_wg_kernel`` or raises. ``panels`` in ``PANELS`` order."""
+    packed = dict(zip(PANELS, panels))
     N = _check_common(packed, pts24_t, vcon_t, n_samples)
     dev = packed["w1q"].device
     for name, t in (("pts24_t", pts24_t), ("vcon_t", vcon_t)):
@@ -478,7 +483,9 @@ def fused_nerf_raw_tq(packed, pts24_t, vcon_t, n_samples: int = 8):
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    blob = _blob(packed)
+    if len(blobs) != 1:
+        raise ValueError("the pack has no kernel blob (attach_blobs)")
+    blob = blobs[0]
     raw = torch.empty(N, n_samples, 4, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _kernel()(
@@ -495,6 +502,44 @@ def fused_nerf_raw_tq(packed, pts24_t, vcon_t, n_samples: int = 8):
     return raw
 
 
-# Launches of the kernel: all of them, and by samples a ray
+@fused_nerf_raw_q_op.register_kernel("cpu")
+def _(panels, blobs, pts24_t, vcon_t, n_samples):
+    return fused_nerf_raw_q_plain(dict(zip(PANELS, panels)), pts24_t,
+                                  vcon_t, n_samples).contiguous()
+
+
+@fused_nerf_raw_q_op.register_fake
+def _(panels, blobs, pts24_t, vcon_t, n_samples):
+    return pts24_t.new_empty((pts24_t.shape[1], n_samples, 4),
+                             dtype=torch.float32)
+
+
+def fused_nerf_raw_tq(packed, pts24_t, vcon_t, n_samples: int = 8):
+    """INT8 fused PE -> NeRF MLP forward (no autograd; inference path).
+
+    Args:
+      packed: :func:`pack_nerf_params_int8` output.
+      pts24_t: [S*3, N] float32 query points, row 3*s + c = coordinate c of
+        sample s (offsets applied).
+      vcon_t: [128, N] float32 per-ray view-direction contribution, NOT yet
+        scaled by ``packed["vcon_scale"]``.
+      n_samples: S.
+
+    Calls the op ``pronerf::fused_nerf_raw_q``: on CUDA tensors it launches
+    the kernel or raises, on CPU tensors it runs the plain version. The JAX
+    wrapper's ``rays_per_block`` is dropped: the CUDA kernel's tile is fixed
+    at build time and it masks a ragged last tile itself.
+
+    Returns: raw [N, S, 4] float32 (rgb logits, sigma), ready for
+    ``ops.composite``.
+    """
+    panels = [packed[n] for n in PANELS]
+    blobs = (attach_blobs(packed)[BLOBS_KEY]
+             if pts24_t.device.type == "cuda" else [])
+    return fused_nerf_raw_q_op(panels, blobs, pts24_t, vcon_t, n_samples)
+
+
+# Launches of the kernel (counted where the op launches it): all of them,
+# and by samples a ray
 fused_nerf_raw_tq.launches = 0
 fused_nerf_raw_tq.launches_by_samples = {}

@@ -265,6 +265,13 @@ def view_contribution(nerf: NeRFMLP, d_pe, pack_dtype):
     return wv.to(pack_dtype).float() @ d_pe.to(pack_dtype).float().T
 
 
+def _coin(c):
+    """A direction coin as the ops take it: a 0-d tensor stays on its device
+    (the ops choose with ``torch.where``, no host sync), anything else is a
+    host bool."""
+    return c if torch.is_tensor(c) else bool(c)
+
+
 def _check_statics(statics: RenderStatics):
     if statics.netarch not in ("nerf", "donerf"):
         raise ValueError(
@@ -291,8 +298,9 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
         pose_id ([N] train-view id; read when ``randomize``).
       scene: dict: images [T, H, W, 3], fused_mats [T, 3, 4], K [3, 3],
         poses_t [T, 3].
-      controls: dict. Eval: target_t [3]. Training: n_mult (int), dir_expand,
-        dir_jitter (bool), neighbor_subset [V] (ints), rng (a
+      controls: dict. Eval: target_t [3]. Training: n_mult (int, or a 0-d
+        integer tensor on the rays' device), dir_expand, dir_jitter (bool,
+        or 0-d bool tensors there), neighbor_subset [V] (ints), rng (a
         ``torch.Generator`` on the rays' device, for the draws that are not
         given), and optionally the pre-drawn N(0, 1) noise raw_noise and
         jitter_noise ([N, >= width]; the first ``width`` columns are used,
@@ -476,11 +484,11 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
     gen = controls.get("rng")
     if statics.explore:
         z_vals, num_valid = explore_expand(
-            z_vals, controls["n_mult"], bool(controls["dir_expand"]), near,
+            z_vals, controls["n_mult"], _coin(controls["dir_expand"]), near,
             far, statics.max_expand,
         )
         jittered = gap_jitter(
-            z_vals, near, far, bool(controls["dir_jitter"]), 0.99,
+            z_vals, near, far, _coin(controls["dir_jitter"]), 0.99,
             noise=controls.get("jitter_noise"), generator=gen,
         )
         idx = torch.arange(statics.max_expand, device=z_vals.device)
@@ -488,7 +496,7 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
                              torch.full_like(jittered, far))
     elif statics.jitter:
         z_vals = gap_jitter(
-            z_vals, near, far, bool(controls["dir_jitter"]), 1.0 - 2e-6,
+            z_vals, near, far, _coin(controls["dir_jitter"]), 1.0 - 2e-6,
             noise=controls.get("jitter_noise"), generator=gen,
         )
     n_s = z_vals.shape[-1]

@@ -18,6 +18,32 @@ import torch
 _INF_DIST = 1e10
 
 
+class _CumprodNonzero(torch.autograd.Function):
+    """``torch.cumprod`` along the last axis of an input with no zero
+    element. Its backward is the formula PyTorch's own takes for such an
+    input, ``reversed_cumsum(output * grad) / input``, without the device
+    read (``(input == 0).any().item()``) by which PyTorch's decides: that
+    read is a host sync, which a CUDA graph of a training step cannot hold.
+    The transmittance factors ``1 - alpha + 1e-10`` are never 0 in f32."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return (out * grad).flip(-1).cumsum(-1).flip(-1) / x
+
+
+def _cumprod_nonzero(x):
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _CumprodNonzero.apply(x)
+    return torch.cumprod(x, dim=-1)
+
+
 def composite(
     raw,
     z_vals,
@@ -77,7 +103,7 @@ def composite(
         alpha = torch.where(idx < num_valid, alpha, torch.zeros_like(alpha))
 
     # Exclusive cumulative transmittance T_i = prod_{j<i} (1 - alpha_j + 1e-10).
-    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
+    trans = _cumprod_nonzero(1.0 - alpha + 1e-10)
     trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], -1)
     weights = alpha * trans
 

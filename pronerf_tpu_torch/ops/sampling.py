@@ -5,8 +5,9 @@ Stage-1 exploration multiplies the S refined samples by a per-step random
 integer n_mult in [1, max_total // S]. It is laid out at a fixed width
 ``max_total``: slot j maps to (sample s = j // n_mult, multiplier m = j %
 n_mult), and slots with j >= S * n_mult are parked at ``far`` and masked out
-of compositing. In eager PyTorch n_mult is a host integer, so the trainer
-may pick the width per step (``explore_buckets``).
+of compositing. n_mult is a host integer in the per-step loop (so the trainer
+may pick the width per step, ``explore_buckets``) or a 0-d device tensor in
+a captured step (``train/fast_loop.py``); the two forms agree bit for bit.
 
 ``sample_pdf`` is the classic hierarchical (inverse-CDF) sampler, kept for
 API parity: the release configs run ``N_importance = 0``.
@@ -76,7 +77,20 @@ def _per_slot(x, n_mult: int, max_total: int):
         [rep, x[:, -1:].expand(N, max_total - S * n_mult)], dim=-1)
 
 
-def explore_expand(z_vals, n_mult: int, direction_up: bool, near, far,
+def _per_slot_index(x, n_mult, max_total: int):
+    """``x[:, min(j // n_mult, S - 1)]`` for slot j < max_total with
+    ``n_mult`` a 0-d device tensor (as the JAX package indexes), with no
+    host sync. No gradient flows here on the training path (the stage-1 NeRF
+    step runs the sampler and refine nets frozen); where one did, the
+    index's backward would sum each sample's copies with atomics on the
+    card."""
+    S = x.shape[1]
+    j = torch.arange(max_total, device=x.device)
+    s = torch.clamp(torch.div(j, n_mult, rounding_mode="floor"), max=S - 1)
+    return x.index_select(1, s)
+
+
+def explore_expand(z_vals, n_mult, direction_up, near, far,
                    max_total: int = 64):
     """Fixed-width sample multiplication for the stage-1 NeRF exploration.
 
@@ -89,27 +103,42 @@ def explore_expand(z_vals, n_mult: int, direction_up: bool, near, far,
 
     Args:
       z_vals: [N, S] refined depths (sorted).
-      n_mult: host integer in [1, max_total // S].
-      direction_up: host bool (one coin per training step).
+      n_mult: a host integer in [1, max_total // S], or a 0-d integer tensor
+        on z's device (the form a captured step takes; no host sync, and
+        equal to the host form bit for bit).
+      direction_up: a host bool, or a 0-d bool tensor on z's device (both
+        directions are computed and one is chosen with ``torch.where``).
       near, far: scalars.
 
     Returns:
       z_expanded: [N, max_total] sorted, invalid slots == far.
-      num_valid: S * n_mult.
+      num_valid: S * n_mult (a 0-d tensor for a tensor n_mult).
     """
     N, S = z_vals.shape
-    n_mult = int(n_mult)
     j = torch.arange(max_total, device=z_vals.device)
-    # linspace(0, 1 - 1/n, n) == m / n, divided in the dtype of z
-    frac = (j % n_mult).to(z_vals.dtype) / float(n_mult)
     next_z, prev_z = _neighbors(z_vals, near, far)
-    base = _per_slot(z_vals, n_mult, max_total)
-    if direction_up:
-        offset = frac[None, :] * _per_slot(torch.abs(z_vals - next_z), n_mult,
-                                           max_total)
+    if torch.is_tensor(n_mult):
+        # linspace(0, 1 - 1/n, n) == m / n, divided in the dtype of z
+        frac = (j % n_mult).to(z_vals.dtype) / n_mult.to(z_vals.dtype)
+        per_slot = _per_slot_index
     else:
-        offset = -frac[None, :] * _per_slot(torch.abs(z_vals - prev_z),
-                                            n_mult, max_total)
+        n_mult = int(n_mult)
+        frac = (j % n_mult).to(z_vals.dtype) / float(n_mult)
+        per_slot = _per_slot
+    base = per_slot(z_vals, n_mult, max_total)
+
+    def up():
+        return frac[None, :] * per_slot(torch.abs(z_vals - next_z), n_mult,
+                                        max_total)
+
+    def down():
+        return -frac[None, :] * per_slot(torch.abs(z_vals - prev_z), n_mult,
+                                         max_total)
+
+    if torch.is_tensor(direction_up):  # a device coin: both, then choose
+        offset = torch.where(direction_up, up(), down())
+    else:
+        offset = up() if direction_up else down()
     valid = (j < S * n_mult)[None, :]
     z_exp = torch.where(valid, base + offset, torch.full_like(base, far))
     z_exp, _ = torch.sort(z_exp, dim=-1, stable=True)
@@ -124,7 +153,7 @@ def gap_jitter(z_vals, near, far, direction_up: bool, max_noise: float,
     noise = min(|N(0,1)| / 5, max_noise); moved toward the next sample
     (direction_up) or the previous one, scaled by that gap, so ordering is
     preserved. Invalid (parked-at-far) slots see zero up-gap and are restored
-    by the caller.
+    by the caller. ``direction_up`` is a host bool or a 0-d bool tensor.
 
     ``noise`` supplies the N(0,1) draw ([N, >= S]; its first S columns are
     used); without it the draw comes from ``generator`` (a
@@ -137,6 +166,10 @@ def gap_jitter(z_vals, near, far, direction_up: bool, max_noise: float,
     else:
         noise = noise[..., : z_vals.shape[-1]].to(z_vals.dtype)
     mag = torch.clamp(torch.abs(noise) / 5.0, max=max_noise)
+    if torch.is_tensor(direction_up):  # a device coin: both, then choose
+        return torch.where(direction_up,
+                           z_vals + mag * torch.abs(z_vals - next_z),
+                           z_vals - mag * torch.abs(z_vals - prev_z))
     if direction_up:
         return z_vals + mag * torch.abs(z_vals - next_z)
     return z_vals - mag * torch.abs(z_vals - prev_z)

@@ -152,12 +152,22 @@ def _lanes(words):
             for shift in (0, 8, 16, 24)]
 
 
+def _index(c, n: int):
+    """A pixel index from a coordinate already clipped to [0, n - 1],
+    clipped again as an integer: a NaN coordinate (a diverged state's
+    point) clips to NaN, and its integer is undefined; clipped, it fetches
+    a pixel in the image (the point is out of bounds all the same, so its
+    colour is masked) instead of faulting. A no-op for every finite
+    coordinate."""
+    return torch.clamp(c.to(torch.int64), 0, n - 1)
+
+
 def _pixel_coords(xn, yn, H: int, W: int):
     inb = (xn >= -1.0) & (xn <= 1.0) & (yn >= -1.0) & (yn <= 1.0)
     u = torch.clamp((xn + 1.0) * 0.5 * (W - 1), 0.0, W - 1)
     v = torch.clamp((yn + 1.0) * 0.5 * (H - 1), 0.0, H - 1)
-    x0 = torch.floor(u).to(torch.int64)
-    y0 = torch.floor(v).to(torch.int64)
+    x0 = _index(torch.floor(u), W)
+    y0 = _index(torch.floor(v), H)
     return inb, x0, y0, u - x0.to(u.dtype), v - y0.to(v.dtype)
 
 
@@ -213,8 +223,8 @@ def nearest_sample_packed_u8(packed, view_idx, xn, yn):
     inb = (xn >= -1.0) & (xn <= 1.0) & (yn >= -1.0) & (yn <= 1.0)
     u = torch.clamp((xn + 1.0) * 0.5 * (W - 1), 0.0, W - 1)
     v = torch.clamp((yn + 1.0) * 0.5 * (H - 1), 0.0, H - 1)
-    x0 = torch.round(u).to(torch.int64)
-    y0 = torch.round(v).to(torch.int64)
+    x0 = _index(torch.round(u), W)
+    y0 = _index(torch.round(v), H)
     words = packed.reshape(T * H * W)[
         view_idx.to(torch.int64) * (H * W) + y0 * W + x0]
     out = torch.stack([(words >> shift) & 0xFF for shift in (0, 8, 16)],

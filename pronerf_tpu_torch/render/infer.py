@@ -14,13 +14,16 @@ Counterpart of ``pronerf_tpu/render/infer.py``. Data: an LLFF capture
 Weights come from a checkpoint of the port or of the JAX package
 (``train/checkpoint.py``: ``ft_path``, else the newest ``*.ckpt`` of the
 expdir). ``run_render_path`` renders the spiral camera path to a video
-(``render-path``). Not ported yet: ``export`` (ROADMAP A.16).
+(``render-path``). ``run_export`` traces and saves the frame renderer
+(``render/export.py``) and ``run_inference_from_export`` serves the test
+views from the saved program (``export`` / ``infer --from-export``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import shutil
+import time
 from pathlib import Path
 
 import numpy as np
@@ -147,6 +150,13 @@ def load_params_for_inference(ckpt_file, cfg: Config, device):
     return params
 
 
+def _arch(cfg: Config) -> dict:
+    """The nets' widths and depths, which an export bundles to rebuild
+    them."""
+    return dict(netdepth=cfg.netdepth, netwidth=cfg.netwidth,
+                mmnetdepth=cfg.mmnetdepth, mmnetwidth=cfg.mmnetwidth)
+
+
 def _load_params(cfg: Config, expdir, device):
     ckpt = cfg.ft_path or latest_checkpoint(expdir)
     if ckpt:
@@ -261,3 +271,101 @@ def run_render_path(cfg: Config, n_frames: int | None = None, fps: int = 30,
     out = save_video(result["rgbs1"], expdir / "render_path.mp4", fps=fps)
     print(f"Saved render path video: {out} ({len(poses)} frames)")
     return out
+
+
+def run_export(cfg: Config, height: int = 756, width: int = 1008,
+               device="cuda"):
+    """``export``: trace and save the whole-frame renderer at the target
+    resolution (default 1008x756, the reference engine's frame) with the
+    params of ``cfg``'s checkpoint and its reference views, the
+    intrinsics scaled from the data resolution. The program runs on the
+    device type it is traced on: the card by default. Returns the artifact
+    paths."""
+    from pronerf_tpu_torch.render.export import export_renderer
+
+    device = resolve_device(device)
+    data = load_inference_data(cfg)
+    expdir = setup_expdir(cfg)
+    params = _load_params(cfg, expdir, device)
+    scene = _serving_scene(cfg, data, device)
+    sx, sy = width / data["W"], height / data["H"]
+    K = np.array([[data["K"][0][0] * sx, 0, 0.5 * width],
+                  [0, data["K"][1][1] * sy, 0.5 * height],
+                  [0, 0, 1]], np.float32)
+    paths = export_renderer(
+        params, scene, expdir / "export", height, width, K,
+        tile_rays=cfg.tile_rays,
+        statics=_infer_statics(cfg, use_bf16=cfg.use_trt),
+        arch=_arch(cfg), device=device,
+    )
+    print(f"Exported renderer to {paths['executable']}")
+    return paths
+
+
+def run_inference_from_export(cfg: Config, export_dir, timing_reps: int = 0,
+                              device="cuda"):
+    """``infer --from-export``: serve the test views from a saved program
+    (no renderer is built here: the program is loaded and called with the
+    bundled params and reference views), write ``export_test/{k:03d}.png``
+    and report PSNR where the export's resolution is the data's.
+
+    ``timing_reps > 0`` times each pose that many times (``Render path
+    time:``, CUDA events on the card) and, on the first pose, ``timing_reps``
+    calls queued back to back and synchronised once, less one null dispatch
+    (``Pipelined render ms/frame``). Runs on the card by default."""
+    from pronerf_tpu_torch.ops.metrics import to8b
+    from pronerf_tpu_torch.render.export import load_exported_renderer
+    from pronerf_tpu_torch.utils.png import write_png
+    from pronerf_tpu_torch.utils.profiling import (
+        null_dispatch_ms,
+        readback,
+        timed_ms,
+    )
+
+    device = resolve_device(device)
+    call, params, scene, manifest = load_exported_renderer(export_dir, device)
+    H, W = manifest["H"], manifest["W"]
+    print(f"Serving {H}x{W} frames from {export_dir} "
+          f"({manifest['compute_dtype']}, tile_rays={manifest['tile_rays']})")
+    data = load_inference_data(cfg)
+    expdir = setup_expdir(cfg)
+    i_test = data["i_test"]
+    if cfg.max_images is not None:
+        i_test = i_test[: cfg.max_images]
+    savedir = expdir / "export_test"
+    savedir.mkdir(parents=True, exist_ok=True)
+
+    same_res = (H == data["H"] and W == data["W"])
+    psnrs, times_ms, pipelined = [], [], None
+    null_ms = null_dispatch_ms(device) if timing_reps > 0 else None
+    for k, idx in enumerate(np.asarray(i_test)):
+        c2w = data["poses"][idx][:3, :4]
+        out = call(params, scene, c2w)
+        readback(out["rgb1"])
+        for _ in range(timing_reps):
+            ms = timed_ms(lambda: call(params, scene, c2w), device)
+            times_ms.append(ms)
+            print(f"Render path time: {ms:.3f}")
+        if timing_reps > 0 and k == 0:
+            # steady state: calls queued back to back, one sync
+            reps = max(2, timing_reps)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                last = call(params, scene, c2w)
+            readback(last["rgb1"])
+            pipelined = ((time.perf_counter() - t0) * 1e3 - null_ms) / reps
+            print(f"Pipelined render ms/frame (x{reps} async minus "
+                  f"{null_ms:.3f} ms null dispatch): {pipelined:.3f}")
+        rgb1 = out["rgb1"].cpu().numpy()
+        write_png(savedir / f"{k:03d}.png", to8b(rgb1))
+        if same_res:
+            gt = np.asarray(data["images"][idx])
+            psnrs.append(float(-10.0 * np.log10(np.mean((rgb1 - gt) ** 2))))
+    if psnrs:
+        print(psnrs)
+        print(f"Mean Test PSNR {float(np.mean(psnrs))}")
+    elif not same_res:
+        print(f"(export res {W}x{H} != data res {data['W']}x{data['H']}; "
+              "PSNR skipped)")
+    return {"psnrs": psnrs, "times_ms": times_ms,
+            "pipelined_ms": pipelined, "savedir": str(savedir)}

@@ -59,10 +59,14 @@ def prepare_scene(images, poses, K, pack_corners: str | bool = "u8",
 def rays_for_pose(H: int, W: int, K, c2w, device="cuda"):
     """Full-image ray bundle for one camera pose. Returns dict of [H*W, ...]."""
     device = resolve_device(device)
+    # the focal length read on the host from a host K (no device read, so
+    # the frame traces under torch.export)
+    focal = float(K[0, 0]) if torch.is_tensor(K) \
+        else float(np.asarray(K, np.float32)[0, 0])
     K = as_f32(K, device)
     rays_o, rays_d = get_rays(H, W, K, c2w, device)
     viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-    ndc_o, ndc_d = ndc_rays(H, W, float(K[0, 0]), 1.0, rays_o, rays_d)
+    ndc_o, ndc_d = ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
 
     def flat(x):
         return x.reshape(-1, 3).to(torch.float32).contiguous()

@@ -28,6 +28,7 @@ import torch
 from pronerf_tpu_torch.kernels.packing import pack_serving_params
 from pronerf_tpu_torch.models.pronerf import RenderStatics, render_rays
 from pronerf_tpu_torch.render.raygen import rays_for_pose
+from pronerf_tpu_torch.utils.profiling import timed_ms
 from pronerf_tpu_torch.utils.tensors import as_f32, resolve_device
 
 _FRAME_KEYS = ("rgb1", "rgb0", "depth", "mm_rgb", "depth0")
@@ -83,7 +84,10 @@ def make_frame_renderer(
     the resolved statics.
 
     Returns tensors on ``device``: rgb1, rgb0, mm_rgb [H, W, 3]; depth,
-    depth0 [H, W].
+    depth0 [H, W]. The renderer's ``frame`` attribute is the frame body
+    ``(packed params, scene, c2w tensor) -> frame dict``, which the export
+    traces; the renderer packs the params (once per parameter set) and calls
+    it under ``torch.no_grad()``.
     """
     device = resolve_device(device)
     K = np.asarray(K)
@@ -93,27 +97,22 @@ def make_frame_renderer(
     # the windows depend on where a call's ray tiles begin: a short last
     # call is padded to the nominal size, as the JAX renderer pads it
     pad_last = statics.gather_tiles > 0 and statics.gather_window_rows > 0
-    packed_for = {}
+    if statics.transposed:
+        from pronerf_tpu_torch.models.pronerf_t import (
+            render_rays_t,
+            transposed_eligible,
+        )
 
-    @torch.no_grad()
-    def render_frame(params, scene, c2w):
-        # pack once per parameter set, outside the tile loop
-        if packed_for.get("source") is not params:
-            packed_for["source"] = params
-            packed_for["packed"] = pack_serving_params(params, statics)
-        packed = packed_for["packed"]
-        c2w = as_f32(c2w, device)
+    def frame(packed, scene, c2w):
+        """The frame itself, from packed params and a [3, 4] f32 pose on the
+        device: no host read and no data-dependent shape, so that
+        ``torch.export`` traces it (``render/export.py``)."""
         rays = rays_for_pose(H, W, K, c2w, device)
         controls = {"target_t": c2w[:3, 3]}
-        rr_fn = render_rays
-        if statics.transposed:
-            from pronerf_tpu_torch.models.pronerf_t import (
-                render_rays_t,
-                transposed_eligible,
-            )
-
-            if transposed_eligible(statics, scene["images"]):
-                rr_fn = render_rays_t
+        fn = render_rays
+        if statics.transposed and transposed_eligible(statics,
+                                                      scene["images"]):
+            fn = render_rays_t
         outs = []
         for lo in range(0, H * W, tile_rays):
             tile = {k: v[lo:lo + tile_rays] for k, v in rays.items()}
@@ -121,7 +120,7 @@ def make_frame_renderer(
             if pad_last and n < tile_rays:
                 tile = {k: torch.cat([v, v.new_zeros(
                     (tile_rays - n, *v.shape[1:]))]) for k, v in tile.items()}
-            out = rr_fn(packed, tile, scene, controls, statics)
+            out = fn(packed, tile, scene, controls, statics)
             outs.append({k: out[k][:n] for k in _FRAME_KEYS})
         flat = {
             k: outs[0][k] if len(outs) == 1
@@ -136,27 +135,20 @@ def make_frame_renderer(
             "depth0": flat["depth0"].reshape(H, W),
         }
 
+    packed_for = {}
+
+    @torch.no_grad()
+    def render_frame(params, scene, c2w):
+        # pack once per parameter set, outside the frame (and so outside a
+        # traced program)
+        if packed_for.get("source") is not params:
+            packed_for["source"] = params
+            packed_for["packed"] = pack_serving_params(params, statics)
+        return frame(packed_for["packed"], scene, as_f32(c2w, device))
+
     render_frame.statics = statics
+    render_frame.frame = frame
     return render_frame
-
-
-def _timed_ms(fn, device) -> float:
-    """One call of ``fn`` in ms: CUDA events around it on the card, the host
-    clock on the CPU."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize(device)
-        return start.elapsed_time(end)
-    import time
-
-    t0 = time.perf_counter()
-    fn()
-    return (time.perf_counter() - t0) * 1e3
 
 
 def render_path(
@@ -199,7 +191,7 @@ def render_path(
         c2w = c2w[:3, :4]
         out = renderer(params, scene, c2w)
         for _ in range(timing_reps):
-            ms = _timed_ms(lambda: renderer(params, scene, c2w), device)
+            ms = timed_ms(lambda: renderer(params, scene, c2w), device)
             times_ms.append(ms)
             print(f"Render path time: {ms:.3f}")
         rgb1 = out["rgb1"].cpu().numpy()

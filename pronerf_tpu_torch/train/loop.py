@@ -27,8 +27,13 @@ the JAX package, so one seed gives both trainers the same batches.
 Checkpoints of the JAX package are read too (``train/checkpoint.py``), for
 ``pretrain_path`` and for auto-resume.
 
-Not ported: ``scan_steps > 1`` (the JAX package's ``train/fast_loop.py``,
-ROADMAP A.14b) raises before the first step.
+``scan_steps > 1`` runs the JAX package's scan branch: chunks of that many
+steps through ``train/fast_loop.py``'s executor (CUDA graphs of the steps on
+the card), the pool reshuffled on the device between chunks, one read a
+chunk (the NaN guard on the chunk-mean loss), print / checkpoint / testset /
+video events at the chunk that crosses their boundary (checkpoints named by
+the actual step), and the per-step loop for the tail. Stage 1 needs an even
+resume step there, else it takes the per-step loop with a note.
 """
 
 from __future__ import annotations
@@ -54,6 +59,10 @@ from pronerf_tpu_torch.train.checkpoint import (
     latest_checkpoint,
     load_checkpoint,
     save_checkpoint,
+)
+from pronerf_tpu_torch.train.fast_loop import (
+    device_reshuffle,
+    make_scan_executor,
 )
 from pronerf_tpu_torch.train.stage1 import init_stage1_state, make_stage1_steps
 from pronerf_tpu_torch.train.stage2 import init_stage2_state, make_stage2_step
@@ -232,15 +241,6 @@ def _resolve_pretrain(path) -> str:
     return str(pre)
 
 
-def _check_ported(cfg: Config):
-    """What the port's loop does not do yet raises before the first step."""
-    if cfg.scan_steps > 1:
-        raise NotImplementedError(
-            f"scan_steps={cfg.scan_steps}: several steps per dispatch (the "
-            "JAX package's train/fast_loop.py) are not ported to "
-            "pronerf_tpu_torch yet (ROADMAP A.14b); use scan_steps=1")
-
-
 def _spiral_video(cfg: Config, stage: int, i: int, expdir, data, scene,
                   params, H, W, K, device):
     """``i_video``: the spiral path (``render_poses``) rendered with the
@@ -297,6 +297,16 @@ def run_training(cfg: Config, stage: int, device="cuda"):
             save_checkpoint(path, stage2_ckpt(state, vestigial_nerf))
         print(f"Saved checkpoints at {path}")
 
+    def testset(step):
+        render_path(
+            data["poses"][i_test], state["params"], scene,
+            _eval_statics(cfg, stage), H, W, K,
+            gt_imgs=data["images"][i_test],
+            savedir=expdir / f"testset_{step:06d}",
+            tile_rays=cfg.tile_rays, device=device,
+        )
+        print("Saved test set")
+
     # auto-resume
     start = 0
     ckpt_file = cfg.ft_path or latest_checkpoint(expdir)
@@ -312,30 +322,110 @@ def run_training(cfg: Config, stage: int, device="cuda"):
     n_iters = N_ITERS_DEFAULT + 1
     if cfg.max_steps is not None:
         n_iters = start + cfg.max_steps + 1
-    _check_ported(cfg)
 
     rng = np.random.default_rng(cfg.seed)
     pool, pool_ids = build_ray_pool(
         data["images"], data["poses"], K, list(i_train), cfg.num_neighbor, rng)
     i_batch = 0
-    # a resumed run replays the host stream (reshuffles and controls) up to
-    # its step, so that it sees the batches the uninterrupted run saw
-    for i in range(1, start + 1):
-        if i_batch + cfg.N_rand > pool.shape[0]:
-            perm = rng.permutation(pool.shape[0])
-            pool, pool_ids = pool[perm], pool_ids[perm]
-            i_batch = 0
-        i_batch += cfg.N_rand
-        _draw_controls(rng, len(i_train), cfg, i)
-    pool_d = torch.from_numpy(pool).to(device)
-    ids_d = torch.from_numpy(pool_ids).to(device)
+
+    # Several steps a dispatch (train/fast_loop.py): chunks of scan_steps,
+    # then the per-step loop for the tail.
+    chunk = cfg.scan_steps
+    pool_batches = pool.shape[0] // cfg.N_rand
+    if chunk > pool_batches > 0:
+        # the executor wraps the in-chunk batch index modulo the pool's
+        # batch capacity: each chunk cycles the reshuffled pool
+        print(f"[TRAIN] note: ray pool holds only {pool_batches} batches "
+              f"of {cfg.N_rand}; each {chunk}-step scan chunk cycles the "
+              f"reshuffled pool ~{chunk / pool_batches:.1f}x (in-chunk "
+              f"epoch wrap)")
+    if stage == 1:
+        chunk -= chunk % 2  # the stage-1 executor runs step pairs
+    use_scan = cfg.scan_steps > 1 and chunk >= 2
+    if use_scan and stage == 1 and start % 2 != 0:
+        print("[TRAIN] note: stage-1 scan executor requires an even resume "
+              "step (pair-scan alternation); using the per-step loop")
+        use_scan = False
+    stride = chunk * cfg.N_rand
+
+    def reshuffle_pool(pool_d, ids_d):
+        # on the device, keyed from the host stream
+        return device_reshuffle(pool_d, ids_d,
+                                int(rng.integers(0, 2**63 - 1)))
+
+    if use_scan:
+        pool_d = torch.from_numpy(pool).to(device)
+        ids_d = torch.from_numpy(pool_ids).to(device)
+        # a resumed run replays the chunks' reshuffles up to its step (the
+        # draws of a step depend on the seed and the step alone)
+        for _ in range(start // chunk):
+            if i_batch + stride > pool.shape[0]:
+                reshuffle_pool(pool_d, ids_d)
+                i_batch = 0
+            i_batch += stride
+    else:
+        # a resumed run replays the host stream (reshuffles and controls)
+        # up to its step, so that it sees the batches the uninterrupted run
+        # saw
+        for i in range(1, start + 1):
+            if i_batch + cfg.N_rand > pool.shape[0]:
+                perm = rng.permutation(pool.shape[0])
+                pool, pool_ids = pool[perm], pool_ids[perm]
+                i_batch = 0
+            i_batch += cfg.N_rand
+            _draw_controls(rng, len(i_train), cfg, i)
+        pool_d = torch.from_numpy(pool).to(device)
+        ids_d = torch.from_numpy(pool_ids).to(device)
 
     logger = MetricsLogger(expdir)
     print(f"Begin stage {stage}: iters [{start + 1}, {n_iters}) "
           f"res {W}x{H} train views {len(i_train)} test views {len(i_test)} "
           f"on {device}")
     t_start = time.time()
-    for i in range(start + 1, n_iters):
+    i = start
+    if use_scan:
+        executor = make_scan_executor(cfg, H, W, focal, len(i_train), stage,
+                                      chunk)
+        seed = cfg.seed + 987654321
+
+        def crossed(period, a, b):
+            return period and period > 0 and (a // period) != (b // period)
+
+        while n_iters - 1 - i >= chunk:
+            if i_batch + stride > pool.shape[0]:
+                reshuffle_pool(pool_d, ids_d)
+                i_batch = 0
+            state, metrics = executor(state, scene, pool_d, ids_d, i_batch,
+                                      seed)
+            i_prev, i = i, i + chunk
+            i_batch += stride
+
+            # one read a chunk: a divergence inside a chunk stops at its end
+            loss_val = float(metrics["mean_loss"])
+            if not np.isfinite(loss_val):
+                raise FloatingPointError(
+                    f"Non-finite chunk-mean loss {loss_val} at iter {i}")
+            if crossed(cfg.i_print, i_prev, i):
+                psnr_val = float(metrics["mean_psnr"])
+                rate = (i - start) / max(time.time() - t_start, 1e-9)
+                print(f"[TRAIN] Iter: {i} Loss: {loss_val:.6f} "
+                      f"PSNR: {psnr_val:.3f} (chunk means) "
+                      f"lr: {lr_fn(i - 1):.3e} it/s: {rate:.2f}")
+                logger.log(i, loss=loss_val, psnr=psnr_val, it_per_s=rate,
+                           mode="scan")
+            # events fire chunk-aligned (at most chunk-1 steps late;
+            # checkpoints are named by the actual step)
+            if crossed(cfg.i_weights, i_prev, i):
+                save(i)
+            if cfg.i_testset > 0 and crossed(cfg.i_testset, i_prev, i) \
+                    and i > start + chunk:
+                testset(i)
+            if cfg.i_video > 0 and crossed(cfg.i_video, i_prev, i) \
+                    and i > start + chunk:
+                _spiral_video(cfg, stage, i, expdir, data, scene,
+                              state["params"], H, W, K, device)
+
+    for i in range(i + 1, n_iters):
         if i_batch + cfg.N_rand > pool.shape[0]:
             perm = rng.permutation(pool.shape[0])
             pool, pool_ids = pool[perm], pool_ids[perm]
@@ -379,14 +469,7 @@ def run_training(cfg: Config, stage: int, device="cuda"):
             save_image_log(expdir, i, "test0", out["rgb1"].cpu().numpy())
 
         if cfg.i_testset > 0 and i % cfg.i_testset == 0 and i > start + 1:
-            render_path(
-                data["poses"][i_test], state["params"], scene,
-                _eval_statics(cfg, stage), H, W, K,
-                gt_imgs=data["images"][i_test],
-                savedir=expdir / f"testset_{i:06d}",
-                tile_rays=cfg.tile_rays, device=device,
-            )
-            print("Saved test set")
+            testset(i)
 
         if cfg.i_video > 0 and i % cfg.i_video == 0 and i > start + 1:
             _spiral_video(cfg, stage, i, expdir, data, scene,

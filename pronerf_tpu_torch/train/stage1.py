@@ -71,6 +71,29 @@ def explore_widths(cfg, max_expand: int):
     return widths + [max_expand]
 
 
+def explore_width(widths, n_samples: int, n_mult: int) -> int:
+    """The smallest width of ``widths`` covering ``n_samples * n_mult``."""
+    return next(w for w in widths
+                if w // n_samples >= n_mult or w == widths[-1])
+
+
+def step_width(controls, widths, n_samples: int) -> int:
+    """A NeRF step's width, known on the host: ``controls['width']`` where
+    the caller read it (the scan executor reads a chunk's n_mult once),
+    the one width without ``explore_buckets``, else the one covering the
+    host integer ``controls['n_mult']``. A device n_mult is never read here
+    (that would be a host sync a step)."""
+    if controls.get("width") is not None:
+        return controls["width"]
+    if len(widths) == 1:
+        return widths[0]
+    n_mult = controls["n_mult"]
+    if torch.is_tensor(n_mult):
+        raise ValueError("explore_buckets with a device n_mult: pass the "
+                         "step's width as controls['width']")
+    return explore_width(widths, n_samples, n_mult)
+
+
 def make_stage1_steps(cfg, H: int, W: int, focal: float):
     """The two stage-1 steps, each
 
@@ -78,7 +101,11 @@ def make_stage1_steps(cfg, H: int, W: int, focal: float):
         -> (state, metrics {'loss', 'psnr'} as 0-d tensors)
 
     updating ``state`` in place (its params, the stepped optimizer, the
-    step count)."""
+    step count). ``controls`` as ``render_rays`` takes them, host values
+    (the per-step loop) or 0-d device tensors (the scan executor, which also
+    gives ``width`` and the Adam step count ``adam_count``); ``lr`` a float
+    or a 0-d device tensor. With tensors a step makes no host sync, so a
+    CUDA graph can capture it."""
     statics_nerf = RenderStatics.stage1_nerf(noise_std=cfg.raw_noise_std,
                                               **net_statics(cfg))
     statics_sampler = RenderStatics.stage1_sampler(**net_statics(cfg))
@@ -97,17 +124,14 @@ def make_stage1_steps(cfg, H: int, W: int, focal: float):
             if ctl.get(key) is None:
                 ctl[key] = torch.randn(n, me, generator=ctl.get("rng"),
                                        device=target.device)
-        # the smallest width covering S * n_mult
-        n_mult = int(controls["n_mult"])
-        width = next(w for w in widths
-                     if w // cfg.N_samples >= n_mult or w == widths[-1])
+        width = step_width(controls, widths, cfg.N_samples)
         statics = dataclasses.replace(statics_nerf, max_expand=width)
         named = named_params(params, ["nerf"])
         out = render_rays(params, rays, scene, ctl, statics)
         loss = img2mse(out["rgb1"], target)
         grads = torch.autograd.grad(loss, list(named.values()))
         adam_step(state["opt_nerf"], named, grads, lr,
-                  state["weight_decay"])
+                  state["weight_decay"], controls.get("adam_count"))
         state["global_step"] += 1
         loss = loss.detach()
         return state, {"loss": loss, "psnr": mse2psnr(loss)}
@@ -122,7 +146,8 @@ def make_stage1_steps(cfg, H: int, W: int, focal: float):
         total = img_loss + img2mse(out["rgb0"], target) \
             + img2mse(out["mm_rgb"], target)
         grads = torch.autograd.grad(total, list(named.values()))
-        adam_step(state["opt_s"], named, grads, lr, state["weight_decay"])
+        adam_step(state["opt_s"], named, grads, lr, state["weight_decay"],
+                  controls.get("adam_count"))
         state["global_step"] += 1
         return state, {"loss": total.detach(),
                        "psnr": mse2psnr(img_loss.detach())}

@@ -49,7 +49,8 @@ def make_stage2_step(cfg, H: int, W: int, focal: float):
         aux = img2mse(out["rgb0"], target) + img2mse(out["mm_rgb"], target)
         loss = img_loss + a_mmrgb * aux
         grads = torch.autograd.grad(loss, list(named.values()))
-        adam_step(state["opt"], named, grads, lr, state["weight_decay"])
+        adam_step(state["opt"], named, grads, lr, state["weight_decay"],
+                  controls.get("adam_count"))
         state["global_step"] += 1
         return state, {"loss": loss.detach(),
                        "psnr": mse2psnr(img_loss.detach())}

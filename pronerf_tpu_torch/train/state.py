@@ -45,19 +45,38 @@ def adam_init(named: Dict[str, torch.Tensor]) -> dict:
     }
 
 
+def bias_corrections(count, device):
+    """``(1 - b1 ** count, 1 - b2 ** count)`` as 0-d f32 tensors on
+    ``device``, optax's ``decay ** count`` in f32. ``count`` is a host int or
+    a 0-d f32 tensor there (a captured step's); both go through the same
+    tensor ``pow``, so the two forms agree bit for bit."""
+    if not torch.is_tensor(count):
+        count = torch.full((), float(count), dtype=torch.float32,
+                           device=device)
+    b1 = torch.full((), B1, dtype=torch.float32, device=device)
+    b2 = torch.full((), B2, dtype=torch.float32, device=device)
+    return 1.0 - b1 ** count, 1.0 - b2 ** count
+
+
 @torch.no_grad()
-def adam_step(state: dict, named: Dict[str, torch.Tensor], grads, lr: float,
-              weight_decay: float = 0.0) -> None:
+def adam_step(state: dict, named: Dict[str, torch.Tensor], grads, lr,
+              weight_decay: float = 0.0, count=None) -> None:
     """One update of ``scale_by_adam`` (after ``add_decayed_weights`` when
     ``weight_decay > 0``) and ``p <- p - lr * u``, for every named parameter
     with its gradient in ``grads`` (same order as ``named``). The moments
     and the parameters are updated in place (the JAX package returns new
-    arrays; in place saves a copy of every tensor)."""
-    count = state["count"] + 1
+    arrays; in place saves a copy of every tensor, and keeps the addresses
+    that a captured step reads).
+
+    ``lr`` is a float or a 0-d f32 tensor on the parameters' device;
+    ``count`` (default: the state's count + 1) this update's step count, a
+    host int or a 0-d f32 tensor there. Either tensor form needs no host
+    sync, which a CUDA graph of the step requires. The state's host count
+    advances by one either way."""
     dev = next(iter(named.values())).device
-    # the bias corrections in f32, as optax takes decay ** count
-    bc1 = 1.0 - torch.tensor(B1, dtype=torch.float32, device=dev) ** count
-    bc2 = 1.0 - torch.tensor(B2, dtype=torch.float32, device=dev) ** count
+    state["count"] += 1
+    bc1, bc2 = bias_corrections(state["count"] if count is None else count,
+                                dev)
     for (name, p), g in zip(named.items(), grads):
         if weight_decay and weight_decay > 0.0:
             g = g + weight_decay * p
@@ -67,11 +86,12 @@ def adam_step(state: dict, named: Dict[str, torch.Tensor], grads, lr: float,
         nu.copy_((1.0 - B2) * (g * g) + B2 * nu)
         u = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
         p.copy_(p - lr * u)
-    state["count"] = count
 
 
 def stage1_lr(global_step, lrate: float, lrate_decay: int):
-    """lrate * 0.1 ** ((global_step / 2) / (lrate_decay * 1000))."""
+    """lrate * 0.1 ** ((global_step / 2) / (lrate_decay * 1000)); a number
+    or a tensor of steps (the scan executor evaluates a chunk's steps at
+    once, in float64, and hands the steps their f32 values)."""
     return lrate * 0.1 ** ((global_step / 2.0) / (lrate_decay * 1000.0))
 
 

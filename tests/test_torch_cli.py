@@ -164,12 +164,20 @@ def test_jax_and_port_command_lines_pick_the_same_pool_and_views(
 
 def test_verbs_not_ported_and_bad_input_raise(llff_root, tmp_path,
                                               monkeypatch):
-    # render-path is ported (tests/test_torch_video.py)
-    for argv, item in ((["export", "--checkpoint", "x"], "A.16"),
-                       (["export-trt"], "A.16"),
-                       (["train-multi", "--stage", "2"], "A.18")):
-        with pytest.raises(NotImplementedError, match=item):
-            main(argv)
+    # render-path is ported (tests/test_torch_video.py), and so are export
+    # and export-trt (tests/test_torch_export.py): export-trt's --onnx-only
+    # prints the JAX package's note and exports all the same
+    paths = main(["export-trt", "--onnx-only", "--use-trt", "--height", "16",
+                  "--width", "20", "--device", "cpu"]
+                 + _common(llff_root, tmp_path, "trt")
+                 + ["--mmnetdepth", "2", "--ft_path", ""])
+    assert paths["executable"].name == "render_frame.pt2"
+    assert all(p.exists() for p in paths.values())
+    with pytest.raises(FileNotFoundError, match="no_such_checkpoint"):
+        main(["export", "--checkpoint", str(tmp_path / "no_such_checkpoint"),
+              "--device", "cpu"] + _common(llff_root, tmp_path, "exp"))
+    with pytest.raises(NotImplementedError, match="A.18"):
+        main(["train-multi", "--stage", "2"])
     with pytest.raises(SystemExit):
         main(["train-stage1", "--no-such-flag"])
     with pytest.raises(SystemExit, match="Unknown config flag --no_such"):

@@ -32,7 +32,8 @@ def test_port_has_the_expected_modules():
                  "train.stage2", "train.checkpoint", "train.loop",
                  "data", "data.llff", "data.colmap", "native", "cli",
                  "tools.ckpt", "utils.fixtures", "utils.png",
-                 "models.donerf", "utils.gif"):
+                 "models.donerf", "utils.gif", "train.fast_loop",
+                 "render.export"):
         assert f"pronerf_tpu_torch.{want}" in mods
 
 
@@ -107,6 +108,18 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         run_training(Config(datadir="synthetic"), 1)
+    from pronerf_tpu_torch.render.export import load_exported_renderer
+    from pronerf_tpu_torch.render.infer import (
+        run_export,
+        run_inference_from_export,
+    )
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_export(Config(datadir="synthetic"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_inference_from_export(Config(datadir="synthetic"), "nowhere")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_exported_renderer("nowhere")
 
 
 def test_chip_smoke_fails_without_a_card():
