@@ -108,6 +108,21 @@ falls back to the CPU. Phases, each printing one JSON line:
                 the live renderer's bit for bit, with the same launches a
                 frame (the kernels' ops counted inside the program); export
                 and load seconds, artifact bytes, ms a frame both ways;
+5d. ``multi``  several scenes, ranks and the frame as a CUDA graph:
+                ``train-multi`` through ``cli.main`` on 8 synthetic scenes of
+                504x378x17 (``fern_epi.txt``: 2 steps, resumed for 2 more
+                with one held-out render a scene; stage 2 from that expdir
+                for 2 steps), per-scene checkpoints, no kernel launched; the
+                multi-scene step as one CUDA graph of the scenes' steps at
+                1, 2 and 8 scenes against each scene's eager step
+                (``TRAIN_TOL``), ms a step both ways and peak memory; in a
+                world of one over NCCL, the sharded frame renderer at
+                504x378 (default, ``fuse_composite``, int8, transposed) and
+                1008x756 equal to the live renderer bit for bit with the
+                same launches (the slice's kernel path), the frame body as
+                a CUDA graph replayed equal to the eager frame, the
+                steady-state ms/frame (``amortized_timer``) beside the eager
+                frame and its busy time;
 6. ``cli``      the command line (``pronerf_tpu_torch.cli.main``, in process)
                 on an LLFF capture of fern's shape written by the port's
                 fixtures (the consistent scene, 20 views, ``images_4`` PNGs of
@@ -131,7 +146,8 @@ falls back to the CPU. Phases, each printing one JSON line:
                 steps each (CUDA graphs; ``000008.ckpt``); ``export
                 --use-trt`` at 504x378 from the stage-2 checkpoint and
                 ``infer --from-export --max-images 1 --timing-reps 3``,
-                its PNG equal to the eval frame's. A
+                its PNG equal to the eval frame's; ``infer --use-trt
+                --timing-reps 3`` printing the steady-state line. A
                 ``cli_timings`` line: seconds to write, load and decode the
                 capture (and a Paeth-filtered PNG), to build the pool
                 natively and in NumPy, ms per eval frame, the render-path
@@ -140,11 +156,12 @@ falls back to the CPU. Phases, each printing one JSON line:
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line with
 the roofline bound of each kernel beside its measured time (and its
-launches on the main path and in the export phase's programs), and last
+launches on the main path, in the export phase's programs, on the sharded
+renderer's drives and in the frame graphs' captures), and last
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero and no result line is printed.
 
-``--only build|kernels|frame|fullres|gathers|train|scan|donerf|export|cli``
+``--only build|kernels|frame|fullres|gathers|train|scan|donerf|export|multi|cli``
 runs a
 subset while developing, ``--rays N`` shrinks the kernel phase,
 ``--profile`` adds ``profile`` lines (device time by kernel name over a few
@@ -156,8 +173,10 @@ by one).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import re
 import statistics
@@ -922,9 +941,19 @@ def profile_frames(render, frames):
     }
 
 
+def steady_frames(reps):
+    """Frames that ``render_path``'s steady-state timing adds to a drive's
+    launches on the card: a CUDA graph of ``max(2, min(reps, 6))`` frames,
+    warmed up once and captured once (a replay calls no wrapper)."""
+    return 2 * max(2, min(reps, 6)) if reps > 0 else 0
+
+
 def serve(what, cfg, reps, shape=(H, W_IMG)):
     """One drive of the serving entry point: counters zeroed just before,
-    read just after; the frames must be finite and of the frame's shape."""
+    read just after; the frames must be finite and of the frame's shape.
+    ``frames`` counts the frames whose kernels were launched from Python:
+    a warm-up and ``reps`` timed frames a pose, and the steady-state
+    graph's (``steady_frames``)."""
     from pronerf_tpu_torch.render import infer
 
     reset_counters()
@@ -941,8 +970,10 @@ def serve(what, cfg, reps, shape=(H, W_IMG)):
     if not all(np.isfinite(result["psnrs"])):
         raise SystemExit(f"{what}: PSNRs {result['psnrs']}")
     return {"result": result, "counts": counts, "wall_s": wall,
-            "frames": n_poses * (1 + reps), "poses": n_poses,
+            "frames": n_poses * (1 + reps) + steady_frames(reps),
+            "poses": n_poses,
             "ms_per_frame": statistics.median(result["times_ms"]),
+            "steady_ms_per_frame": result["amortized_ms"],
             "peak_mem_bytes": torch.cuda.max_memory_allocated()}
 
 
@@ -2037,12 +2068,394 @@ def phase_train(device, profile=False):
     return report
 
 
+# ---------------------------------------------------------------- multi ----
+
+MULTI_SCENES = 8          # train-multi: all 8 LLFF scenes' count
+MULTI_S = (1, 2, 8)       # scenes a step, graph against eager
+MULTI_REPS = 5            # timed calls (median) after a warm-up
+STEADY_ITERS = 6          # frames a replay of the steady-state graph
+# the kernels of the slice's path (the sharded and the graph frame)
+MULTI_PATH = ("fused_minmax_t[sampler]", "fused_minmax_t[refine]",
+              "fused_nerf_raw_t", "fused_nerf_composite_t",
+              "fused_nerf_raw_tq")
+
+
+def multi_cli(argv):
+    """``drive_cli`` with its standard output kept: ``(result, counts,
+    wall s, text)``."""
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        result, counts, wall = drive_cli(argv)
+    return result, counts, wall, log.getvalue()
+
+
+def multi_losses(text):
+    """Each ``[TRAIN-MULTI] Iter:`` line's per-scene losses."""
+    out = {}
+    for ln in text.splitlines():
+        m = re.match(r"\[TRAIN-MULTI\] Iter: (\d+) it/s: \S+ loss (.*)", ln)
+        if m:
+            out[int(m.group(1))] = [float(x.split(":")[1])
+                                    for x in m.group(2).split()]
+    return out
+
+
+def multi_training(tmp):
+    """``train-multi`` through the command line on MULTI_SCENES synthetic
+    scenes of the release size: stage 1 for 2 steps, resumed for 2 more
+    with one held-out render a scene, then stage 2 for 2 steps from that
+    expdir; per-scene checkpoints; no kernel launched (training and the
+    stage's eval statics run none)."""
+    scenes = ",".join([f"synthetic:{W_IMG}x{H}x{N_VIEWS}"] * MULTI_SCENES)
+    names = [f"synthetic{i}" for i in range(MULTI_SCENES)]
+    epi = str(ROOT / "configs/llff/fern/fern_epi.txt")
+    refine = str(ROOT / "configs/llff/fern/fern_refine.txt")
+
+    def common(expname, testset):
+        return ["--scenes", scenes, "--", "--basedir", tmp, "--expname",
+                expname, "--i_print", "1", "--i_weights", "1000", "--i_img",
+                "0", "--i_video", "0", "--i_testset", str(testset),
+                "--max_images", "1"]
+
+    torch.cuda.reset_peak_memory_stats()
+    half = TRAIN_STEPS[1] // 2
+    runs = {}
+    (_, _, exp1), c1, w1, t1 = multi_cli(
+        ["train-multi", "--config", epi, "--no-reload", "--max-steps",
+         str(half)] + common("multi_s1", 0))
+    (s1, _, _), c1r, w1r, t1r = multi_cli(
+        ["train-multi", "--config", epi, "--max-steps", str(half)]
+        + common("multi_s1", TRAIN_STEPS[1]))
+    (s2, _, exp2), c2, w2, t2 = multi_cli(
+        ["train-multi", "--stage", "2", "--config", refine, "--no-reload",
+         "--max-steps", str(TRAIN_STEPS[2]), "--pretrain-path", str(exp1)]
+        + common("multi_s2", 0))
+    peak = torch.cuda.max_memory_allocated()
+    for what, c in (("stage 1", c1), ("resume", c1r), ("stage 2", c2)):
+        expect_counts(f"train-multi {what}", c)
+    losses = {"stage1": multi_losses(t1) | multi_losses(t1r),
+              "stage2": multi_losses(t2)}
+    psnr = [ln for ln in t1r.splitlines() if "per-scene test PSNR" in ln]
+    ckpts = {f"{stage}/{n}": sorted(p.name for p in
+                                    (Path(e) / f"scene_{n}").glob("*.ckpt"))
+             for stage, e in (("s1", exp1), ("s2", exp2)) for n in names}
+    renders = [n for n in names if (Path(exp1) / f"scene_{n}" /
+                                    f"testset_{TRAIN_STEPS[1]:06d}" /
+                                    "000.png").exists()]
+    ok = (f"resumed {MULTI_SCENES} scenes at step {half}" in t1r
+          and t2.count("stage-2 bootstrap from") == MULTI_SCENES
+          and len(psnr) == 1 and all(f"{n}:" in psnr[0] for n in names)
+          and renders == names
+          and sorted(losses["stage1"]) == list(range(1, TRAIN_STEPS[1] + 1))
+          and sorted(losses["stage2"]) == list(range(1, TRAIN_STEPS[2] + 1))
+          and all(len(v) == MULTI_SCENES and np.all(np.isfinite(v))
+                  for d in losses.values() for v in d.values())
+          and [st["global_step"] for st in s1] == [TRAIN_STEPS[1]]
+          * MULTI_SCENES
+          and [st["global_step"] for st in s2] == [TRAIN_STEPS[2]]
+          * MULTI_SCENES
+          and all(v[-1] == f"{TRAIN_STEPS[1]:06d}.ckpt"
+                  for k, v in ckpts.items() if k.startswith("s1"))
+          and all(v[-1] == f"{TRAIN_STEPS[2]:06d}.ckpt"
+                  for k, v in ckpts.items() if k.startswith("s2")))
+    runs = {"scenes": MULTI_SCENES, "size": [W_IMG, H, N_VIEWS],
+            "wall_s": {"stage1": w1, "stage1_resumed": w1r, "stage2": w2},
+            "losses": losses, "test_psnr_line": psnr,
+            "checkpoints_s1": ckpts[f"s1/{names[0]}"],
+            "checkpoints_s2": ckpts[f"s2/{names[0]}"],
+            "peak_mem_bytes": peak, "launches": c1}
+    if not ok:
+        raise SystemExit(f"train-multi: {runs}\n{t1r[-2000:]}")
+    return runs
+
+
+def multi_steps(tmp, device, profile=False):
+    """The multi-scene step of each kind at S = 1, 2 and 8 scenes: one
+    graph step (the capture) from seeded states against each scene's eager
+    single-scene step fed the same controls and noise (TRAIN_TOL, one Adam
+    step each); then ms a step of both by CUDA events (median of
+    MULTI_REPS after a warm-up; the graph's with the fill of its buffers
+    and its noise draws), the graph's replay alone, the capture's seconds,
+    and peak memory."""
+    from pronerf_tpu_torch.parallel.multi_scene import (
+        make_multi_scene_pooled_step,
+        make_scene_mesh,
+    )
+    from pronerf_tpu_torch.render.infer import _init_params
+    from pronerf_tpu_torch.render.raygen import prepare_scene
+    from pronerf_tpu_torch.train.loop import _draw_controls
+    from pronerf_tpu_torch.train.state import named_params
+
+    cfgs = {1: train_config(1, tmp), 2: train_config(2, tmp)}
+    shared = training_data(cfgs[1])
+    data, pool, ids = shared
+    i_train = data["i_train"]
+    scene = prepare_scene(data["images"][i_train], data["poses"][i_train],
+                          data["K"], device=device)
+    pool_d = torch.from_numpy(pool).to(device)
+    ids_d = torch.from_numpy(ids).to(device)
+    mesh = make_scene_mesh(1, 1)
+    lr, out = 5e-4, {}
+    for S in MULTI_S:
+        pools = pool_d[None].repeat(S, 1, 1, 1)
+        pool_ids = ids_d[None].repeat(S, 1)
+        for kind, stage in (("nerf", 1), ("sampler", 1), ("joint", 2)):
+            cfg = cfgs[stage]
+            n = cfg.N_rand
+            name = "stage2" if kind == "joint" else kind
+            fn, init = make_step(name, cfg, data)
+
+            def fresh(s, cfg=cfg, init=init):
+                return init(_init_params(
+                    cfg, torch.Generator().manual_seed(cfg.seed + s),
+                    device), cfg.weight_decay)
+
+            graph_states = [fresh(s) for s in range(S)]
+            eager_states = [fresh(s) for s in range(S)]
+            p0 = [{k: v.detach().clone() for k, v in
+                   named_params(st["params"]).items()} for st in eager_states]
+            controls = _draw_controls(np.random.default_rng(S), len(i_train),
+                                      cfg, 1, device)
+            step = make_multi_scene_pooled_step(
+                cfg, data["H"], data["W"], data["focal"], mesh, stage, kind)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            _, m = step(graph_states, [scene] * S, pools, pool_ids, 0,
+                        controls, lr)
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            noise = [step.scene_noise(controls, s, n, device)
+                     for s in range(S)]
+            host = {k: v for k, v in controls.items() if k != "rng"}
+
+            def eager():
+                return [fn(eager_states[s], scene, pools[s, :n],
+                           pool_ids[s, :n], dict(host, **noise[s]), lr)[1]
+                        for s in range(S)]
+
+            e_losses = [float(em["loss"]) for em in eager()]
+            opt = OPT_KEY[name]
+            agree = []
+            for s in range(S):
+                def result(st, loss):
+                    return {"loss": loss, "mu": {
+                        k: v.cpu() for k, v in st[opt]["mu"].items()},
+                        "dp": {k: (v.detach() - p0[s][k]).cpu() for k, v in
+                               named_params(st["params"]).items()}}
+
+                agree.append(steps_agree(
+                    f"multi-scene graph step {kind} S={S} scene {s}",
+                    result(graph_states[s], float(m["loss"][s])),
+                    result(eager_states[s], e_losses[s])))
+                if graph_states[s]["global_step"] != 1 or \
+                        graph_states[s][opt]["count"] != 1:
+                    raise SystemExit(f"multi-scene graph step {kind}: host "
+                                     f"counters {graph_states[s]['global_step']}")
+            peak_capture = torch.cuda.max_memory_allocated()
+
+            def graph_step():
+                step(graph_states, [scene] * S, pools, pool_ids, n,
+                     controls, lr)
+
+            graph = next(iter(step.graphs.values()))
+            graph_step()
+            t_graph = event_chunk_ms(graph_step, MULTI_REPS)
+            t_replay = event_chunk_ms(graph.replay, MULTI_REPS)
+            torch.cuda.reset_peak_memory_stats()
+            t_eager = event_chunk_ms(eager, MULTI_REPS)
+            peak_eager = torch.cuda.max_memory_allocated()
+            row = {"ms_graph": statistics.median(t_graph),
+                   "ms_graph_replay": statistics.median(t_replay),
+                   "ms_eager": statistics.median(t_eager),
+                   "ms_graph_all": t_graph, "ms_eager_all": t_eager,
+                   "capture_s": capture_s,
+                   "peak_mem_bytes_graph": peak_capture,
+                   "peak_mem_bytes_eager": peak_eager,
+                   "against_eager": agree}
+            if S == MULTI_S[-1]:
+                prof = profile_frames(graph.replay, 2)
+                row["device_busy_ms_graph"] = prof["device_busy_ms_per_frame"]
+                row["kernels_a_step_graph"] = prof["device_kernels_per_frame"]
+                if profile:
+                    say({"profile": {"path": f"multi {kind} S={S} graph"}
+                         | prof})
+            out[f"{kind}[S={S}]"] = row
+            del step, graph, graph_states, eager_states, p0, noise
+            torch.cuda.empty_cache()
+        del pools, pool_ids
+        torch.cuda.empty_cache()
+    return out
+
+
+@torch.no_grad()
+def multi_frames(tmp, device, profile=False):
+    """The slice's kernel path. The sharded frame renderer in a world of one
+    over NCCL, and the frame body as a CUDA graph, at 504x378 (the default
+    statics, fuse_composite, int8, transposed) and 1008x756 (the default,
+    windowed): sharded frames equal the live renderer's bit for bit with
+    the same launches (counters zeroed just before each, read just after);
+    a captured frame (launches counted at its warm-up and capture) replayed
+    equal to the eager frame bit for bit; ms a frame sharded and live in
+    turns, the steady-state ms/frame (``amortized_timer``: one graph of
+    STEADY_ITERS frames, replayed), the graph's replay alone, the eager
+    frame (``timed_ms``) and its profiled busy time. Returns the report and
+    the launches of the sharded drives and of the captures."""
+    from pronerf_tpu_torch.config import Config
+    from pronerf_tpu_torch.parallel import launch
+    from pronerf_tpu_torch.parallel.data_parallel import make_ray_mesh
+    from pronerf_tpu_torch.parallel.render_parallel import (
+        make_sharded_frame_renderer,
+    )
+    from pronerf_tpu_torch.render import infer
+    from pronerf_tpu_torch.render.renderer import make_frame_renderer
+    from pronerf_tpu_torch.utils.profiling import (
+        amortized_timer,
+        cuda_graph,
+        null_dispatch_ms,
+        timed_ms,
+    )
+    from pronerf_tpu_torch.utils.tensors import as_f32
+
+    backend = launch.init_group(device)
+    report = {"backend": backend, "world": launch.world()}
+    sharded_counts, graph_counts = {}, {}
+
+    def add(total, counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    try:
+        mesh = make_ray_mesh()
+        null_ms = null_dispatch_ms(device)
+        report["null_ms"] = null_ms
+        for w, h in ((W_IMG, H), (FULL_W, FULL_H)):
+            cfg = Config.from_file(
+                ROOT / "configs/llff/fern/fern_trt.txt",
+                datadir=f"synthetic:{w}x{h}x{N_VIEWS}", use_trt=True,
+                tile_rays=0, use_pallas=True, ft_path="", basedir=tmp)
+            data = infer.load_inference_data(cfg)
+            params = infer._init_params(
+                cfg, torch.Generator().manual_seed(cfg.seed), device)
+            scene = infer._serving_scene(cfg, data, device)
+            st = infer._infer_statics(cfg, use_bf16=True)
+            forms = {"default": st}
+            if w == W_IMG:
+                forms |= {
+                    "fuse_composite": dataclasses.replace(
+                        st, fuse_composite=True),
+                    "int8": dataclasses.replace(st, quant="int8"),
+                    "transposed": dataclasses.replace(st, transposed=True)}
+            c2w = data["poses"][data["i_test"][0]][:3, :4]
+            c2w_d = as_f32(c2w, device)
+            for form, statics in forms.items():
+                what = f"{form} {w}x{h}"
+                live = make_frame_renderer(statics, h, w, data["K"], 0,
+                                           device=device)
+                shard = make_sharded_frame_renderer(statics, h, w, data["K"],
+                                                    mesh, device=device)
+                frames, counts = [], []
+                for r in (live, shard):
+                    reset_counters()
+                    frames.append(r(params, scene, c2w))
+                    torch.cuda.synchronize()
+                    counts.append(read_counters())
+                unequal = [k for k in frames[0]
+                           if not nan_equal(frames[0][k], frames[1][k])]
+                if unequal or counts[0] != counts[1] or \
+                        not any(counts[0].values()):
+                    raise SystemExit(f"sharded frame {what}: differs in "
+                                     f"{unequal}; launches {counts}")
+                add(sharded_counts, counts[1])
+                all_finite(frames[1])
+                # the frame body as a CUDA graph: replayed, it equals the
+                # eager frame bit for bit
+                packed = live.pack(params)
+                reset_counters()
+                graph, g_out = cuda_graph(
+                    lambda: live.frame(packed, scene, c2w_d))
+                g_counts = read_counters()
+                graph.replay()
+                torch.cuda.synchronize()
+                unequal = [k for k in frames[0]
+                           if not nan_equal(frames[0][k], g_out[k])]
+                if unequal or g_counts != {k: 2 * v for k, v in
+                                           counts[0].items()}:
+                    raise SystemExit(f"graph frame {what}: differs in "
+                                     f"{unequal}; launches {g_counts} for "
+                                     f"a warm-up and a capture of "
+                                     f"{counts[0]}")
+                add(graph_counts, g_counts)
+                t_live, t_shard = [], []
+                for rep_ in range(MULTI_REPS):
+                    pair = ((live, t_live), (shard, t_shard))
+                    for fn, ts in (pair if rep_ % 2 == 0 else pair[::-1]):
+                        ts.append(event_ms(lambda: fn(params, scene, c2w)))
+                replay = event_chunk_ms(graph.replay, MULTI_REPS)
+                del graph, g_out
+
+                def frame_step(c):
+                    o = live.frame(packed, scene, c2w_d + 1e-7 * c)
+                    return c + o["rgb1"][0, 0, 0] * 1e-9
+
+                reset_counters()
+                steady = amortized_timer(frame_step,
+                                         torch.zeros((), device=device),
+                                         iters=STEADY_ITERS, reps=MULTI_REPS,
+                                         null_ms=null_ms)
+                add(graph_counts, read_counters())
+                eager = [timed_ms(lambda: live(params, scene, c2w), device)
+                         for _ in range(MULTI_REPS)]
+                prof = profile_frames(lambda: live(params, scene, c2w), 3)
+                if profile:
+                    say({"profile": {"path": f"multi frame {what}"} | prof})
+                report[what] = {
+                    "ms_sharded": statistics.median(t_shard),
+                    "ms_live": statistics.median(t_live),
+                    "ms_sharded_all": t_shard, "ms_live_all": t_live,
+                    "steady_ms_per_frame": steady,
+                    "ms_graph_replay": statistics.median(replay),
+                    "ms_eager_timed": statistics.median(eager),
+                    "device_busy_ms": prof["device_busy_ms_per_frame"],
+                    "kernels_a_frame": prof["device_kernels_per_frame"],
+                    "launches_a_frame": {k: v for k, v in counts[0].items()
+                                         if v},
+                    "sharded_equal_bit_for_bit": True,
+                    "graph_equal_bit_for_bit": True,
+                    "statics_windows": [shard.statics.gather_tiles,
+                                        shard.statics.gather_window_rows]}
+            torch.cuda.empty_cache()
+    finally:
+        launch.close_group()
+    idle = [k for k in MULTI_PATH if sharded_counts.get(k, 0) < 1]
+    if idle:
+        raise SystemExit(f"kernels never launched on the sharded path: "
+                         f"{idle}")
+    return report, sharded_counts, graph_counts
+
+
+def phase_multi(device, profile=False):
+    """Several scenes in one run, the sharded renderer, the frame as a CUDA
+    graph (``multi_training``, ``multi_steps``, ``multi_frames``)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multi_") as tmp:
+        report = {"train_multi": multi_training(tmp)}
+        say({"multi": report})
+        report["steps"] = multi_steps(tmp, device, profile)
+        say({"multi": {"steps": report["steps"]}})
+        frames, sharded, graphs = multi_frames(tmp, device, profile)
+    report["frames"] = frames
+    report["card"] = nvidia_smi_line()
+    say({"multi": {"frames": frames, "card": report["card"]}})
+    return sharded, graphs
+
+
 # ------------------------------------------------------------------ cli ----
 
 CLI_VIEWS, CLI_FACTOR, CLI_REPS = 20, 4, 2
 CLI_PATH_FRAMES = 6    # render-path: the spiral's first poses
 CLI_SCAN = 4           # scan_steps of the verbs' chunked runs (2 chunks)
 CLI_EXPORT_REPS = 3    # infer --from-export --timing-reps
+CLI_STEADY_REPS = 3    # infer --timing-reps: the steady-state line
 
 
 SCAN_K = 8         # steps a chunk in phase scan (4 stage-1 pairs)
@@ -2144,9 +2557,6 @@ def phase_scan(device, profile=False):
     odd stage-1 resume taking the per-step loop with its note; a NaN state
     raising FloatingPointError at the end of its first chunk. No kernel of
     the port runs in training: every counter stays 0."""
-    import contextlib
-    import io
-
     from pronerf_tpu_torch.config import Config
     from pronerf_tpu_torch.train.checkpoint import (
         latest_checkpoint,
@@ -2563,7 +2973,8 @@ def phase_cli(device):
         q, c_q, wall_q = drive_cli(
             ["infer", "--use-trt", "--checkpoint", ck2]
             + common("cli_int8") + ["--quant", "int8"])
-        n_ev, n_q = len(ev["rgbs1"]) * (1 + CLI_REPS), len(q["rgbs1"])
+        n_ev = len(ev["rgbs1"]) * (1 + CLI_REPS) + steady_frames(CLI_REPS)
+        n_q = len(q["rgbs1"])
         expect_counts("cli eval", c_ev, sampler=n_ev, refine=n_ev,
                       fused_nerf_raw_t=n_ev)
         expect_counts("cli int8 infer", c_q, sampler=n_q, refine=n_q,
@@ -2578,6 +2989,29 @@ def phase_cli(device):
             raise SystemExit(f"cli serving: visibility scans "
                              f"{native.colmap_visibility_native.calls - vis}"
                              f", frames {ev['rgbs1'].shape}, PNGs {saved}")
+        # the steady-state line of infer --timing-reps (a CUDA graph of the
+        # frame, replayed), as the JAX command line prints it
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            st, c_st, wall_st = drive_cli(
+                ["infer", "--use-trt", "--checkpoint", ck2, "--max-images",
+                 "1", "--timing-reps", str(CLI_STEADY_REPS)]
+                + common("cli_steady"))
+        steady_lines = [ln for ln in log.getvalue().splitlines()
+                        if ln.startswith("Steady-state render ms/frame (scan "
+                                         f"x{CLI_STEADY_REPS} minus ")]
+        n_st = 1 + CLI_STEADY_REPS + steady_frames(CLI_STEADY_REPS)
+        expect_counts("cli infer --timing-reps", c_st, sampler=n_st,
+                      refine=n_st, fused_nerf_raw_t=n_st)
+        if len(steady_lines) != 1 or not st["amortized_ms"] > 0:
+            raise SystemExit(f"infer --timing-reps {CLI_STEADY_REPS}: "
+                             f"steady-state lines {steady_lines}")
+        print(steady_lines[0], flush=True)
+        steady_report = {"line": steady_lines[0],
+                         "amortized_ms": st["amortized_ms"],
+                         "null_ms": st["null_ms"],
+                         "times_ms": st["times_ms"], "launches": c_st,
+                         "wall_s": wall_st}
 
         # ---- the reference views: the native pick is the Python path's;
         # the served frame equals a render from the checkpoint's params
@@ -2729,6 +3163,7 @@ def phase_cli(device):
                      "visibility_scans_native": 2},
             "int8": {"launches": c_q, "frames": n_q, "wall_s": wall_q,
                      "psnr": q["psnrs"]},
+            "steady_state": steady_report,
             "render_path": render_path_report,
             "i_video": video_report,
             "scan": scan_report,
@@ -2746,7 +3181,7 @@ def main(argv=None):
     ap.add_argument("--only",
                     choices=("build", "kernels", "frame", "fullres",
                              "gathers", "train", "scan", "donerf", "export",
-                             "cli"))
+                             "multi", "cli"))
     ap.add_argument("--rays", type=int, default=FRAME_RAYS)
     ap.add_argument("--verbose-build", action="store_true",
                     help="print the compiler's output of every source")
@@ -2802,6 +3237,9 @@ def main(argv=None):
     export_launches = {}
     if args.only in (None, "export"):
         export_launches = phase_export(device)
+    sharded_launches, graph_launches = {}, {}
+    if args.only in (None, "multi"):
+        sharded_launches, graph_launches = phase_multi(device, args.profile)
     if args.only in (None, "cli"):
         phase_cli(device)
 
@@ -2815,7 +3253,9 @@ def main(argv=None):
                               "max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")
         } | {"launches": launches.get(r["name"], 0),
-             "launches_exported": export_launches.get(r["name"], 0)})
+             "launches_exported": export_launches.get(r["name"], 0),
+             "launches_sharded": sharded_launches.get(r["name"], 0),
+             "launches_graph": graph_launches.get(r["name"], 0)})
     if args.only is None:
         idle = [c["name"] for c in contract if c["launches"] < 1]
         if launches.get(UNTRANSPOSED, 0) < 1:

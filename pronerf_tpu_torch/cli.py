@@ -1,5 +1,5 @@
 """Command line of the port: ``python -m pronerf_tpu_torch.cli
-{train-stage1, train-stage2, infer, eval, render-path, export,
+{train-stage1, train-stage2, train-multi, infer, eval, render-path, export,
 export-trt}``.
 
 Counterpart of ``pronerf_tpu/cli.py``, with its verbs, flags and defaults:
@@ -16,10 +16,13 @@ imageio has a backend for it, else a GIF).
 (``render/export.py``; ``--height``/``--width``, default 1008x756) and
 ``infer --from-export DIR`` serves the test views from it.
 
+``train-multi`` trains several scenes in one run (``train/multi_loop.py``;
+``--scenes`` comma-separated datadirs, else ``--n-synthetic`` synthetic
+ones; ``--stage 2`` from ``--pretrain-path``, a stage-1 multi expdir).
+
 ``--device`` (default ``cuda``) is the port's own: every verb runs on the
 card and raises without one, unless ``--device cpu`` is given. The JAX
 package's compilation cache and platform switches have no counterpart.
-``train-multi`` is not ported yet: it raises by its ROADMAP item (A.18).
 """
 
 from __future__ import annotations
@@ -33,10 +36,6 @@ REPO_ROOT = Path(__file__).resolve().parents[1]
 DEFAULT_STAGE1_CONFIG = REPO_ROOT / "configs/llff/fern/fern_epi.txt"
 DEFAULT_STAGE2_CONFIG = REPO_ROOT / "configs/llff/fern/fern_refine.txt"
 DEFAULT_TRT_CONFIG = REPO_ROOT / "configs/llff/fern/fern_trt.txt"
-
-# verbs of the JAX package's command line that the port does not have yet
-UNPORTED = {"train-multi": "A.18"}
-
 
 def _parse_extra(extra: list[str]) -> dict:
     """``-- --key value`` / ``-- --flag`` passthrough onto Config fields."""
@@ -104,6 +103,18 @@ def cmd_train_stage2(args):
 
     return run_training(_build_cfg(args, DEFAULT_STAGE2_CONFIG), stage=2,
                         device=args.device)
+
+
+def cmd_train_multi(args):
+    from pronerf_tpu_torch.train.multi_loop import run_multi_training
+
+    default = (DEFAULT_STAGE2_CONFIG if args.stage == 2
+               else DEFAULT_STAGE1_CONFIG)
+    cfg = _build_cfg(args, default)
+    datadirs = args.scenes.split(",") if args.scenes else [
+        f"synthetic{i}" for i in range(args.n_synthetic)]
+    return run_multi_training(cfg, datadirs, n_ray_shards=args.ray_shards,
+                              stage=args.stage, device=args.device)
 
 
 def cmd_infer(args):
@@ -178,6 +189,24 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common(p)
     p.set_defaults(func=cmd_train_stage2)
 
+    p = sub.add_parser("train-multi",
+                       help="training of several scenes in one run")
+    p.add_argument("--stage", type=int, default=1, choices=(1, 2),
+                   help="1 = alternating stage-1, 2 = joint stage-2")
+    p.add_argument("--pretrain-path", default=None, dest="pretrain_path",
+                   help="stage-2: stage-1 multi expdir holding per-scene "
+                        "scene_{name} checkpoints")
+    p.add_argument("--scenes", default=None,
+                   help="comma-separated datadirs (same resolution)")
+    p.add_argument("--n-synthetic", type=int, default=2, dest="n_synthetic",
+                   help="number of synthetic scenes when --scenes is unset")
+    p.add_argument("--ray-shards", type=int, default=1, dest="ray_shards",
+                   help="ray shards a scene over the process group's ranks")
+    p.add_argument("--no-reload", action="store_true", dest="no_reload")
+    p.add_argument("--max-steps", type=int, default=None, dest="max_steps")
+    _add_common(p)
+    p.set_defaults(func=cmd_train_multi)
+
     for name, func, help_ in (
             ("infer", cmd_infer, "render held-out/test views"),
             ("eval", cmd_eval, "render the test split through inference")):
@@ -221,9 +250,6 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--width", type=int, default=1008)
         _add_common(p)
         p.set_defaults(func=cmd_export)
-
-    for name, item in UNPORTED.items():
-        sub.add_parser(name, help=f"not ported yet (ROADMAP {item})")
     return parser
 
 
@@ -231,10 +257,6 @@ def main(argv=None):
     """Run one verb; returns what its entry point returned."""
     parser = build_parser()
     args, unknown = parser.parse_known_args(argv)
-    if args.command in UNPORTED:
-        raise NotImplementedError(
-            f"{args.command} is not ported to pronerf_tpu_torch yet (ROADMAP "
-            f"{UNPORTED[args.command]})")
     if unknown:
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")
     return args.func(args)

@@ -26,13 +26,22 @@ def get_rays(H: int, W: int, K, c2w, device=None):
     Returns:
       (rays_o, rays_d), each [H, W, 3] float32 on ``device``.
     """
-    K = as_f32(K, device)
+    if torch.is_tensor(K):
+        K = as_f32(K, device)
+        device = K.device
+    else:
+        # a host K: its entries become device scalars by fill kernels, not
+        # by a copy from host memory, which a CUDA graph cannot capture
+        k = np.asarray(K, np.float32)
+        device = torch.device(device) if device is not None else (
+            c2w.device if torch.is_tensor(c2w) else torch.device("cpu"))
+        K = [[torch.full((), float(k[r, c]), device=device)
+              for c in range(3)] for r in range(2)]
     c2w = as_f32(c2w, device)
-    device = K.device
     i = torch.arange(W, dtype=torch.float32, device=device)[None, :].expand(H, W)
     j = torch.arange(H, dtype=torch.float32, device=device)[:, None].expand(H, W)
     dirs = torch.stack(
-        [(i - K[0, 2]) / K[0, 0], -(j - K[1, 2]) / K[1, 1],
+        [(i - K[0][2]) / K[0][0], -(j - K[1][2]) / K[1][1],
          -torch.ones_like(i)],
         dim=-1,
     )

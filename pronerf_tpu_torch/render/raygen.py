@@ -63,7 +63,8 @@ def rays_for_pose(H: int, W: int, K, c2w, device="cuda"):
     # the frame traces under torch.export)
     focal = float(K[0, 0]) if torch.is_tensor(K) \
         else float(np.asarray(K, np.float32)[0, 0])
-    K = as_f32(K, device)
+    # a host K stays on the host: get_rays makes its entries on the device
+    # by fill kernels, which a CUDA graph can capture
     rays_o, rays_d = get_rays(H, W, K, c2w, device)
     viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     ndc_o, ndc_d = ndc_rays(H, W, focal, 1.0, rays_o, rays_d)

@@ -61,6 +61,22 @@ def resolve_gather_statics(
     )
 
 
+def params_packer(statics: RenderStatics):
+    """``pack(params)``: the packed params of a parameter set for
+    ``statics`` (the kernels' panels and blobs), packed once per parameter
+    set, outside the frame (and so outside a traced program or a captured
+    graph)."""
+    packed_for = {}
+
+    def pack(params):
+        if packed_for.get("source") is not params:
+            packed_for["source"] = params
+            packed_for["packed"] = pack_serving_params(params, statics)
+        return packed_for["packed"]
+
+    return pack
+
+
 def make_frame_renderer(
     statics: RenderStatics,
     H: int,
@@ -86,8 +102,9 @@ def make_frame_renderer(
     Returns tensors on ``device``: rgb1, rgb0, mm_rgb [H, W, 3]; depth,
     depth0 [H, W]. The renderer's ``frame`` attribute is the frame body
     ``(packed params, scene, c2w tensor) -> frame dict``, which the export
-    traces; the renderer packs the params (once per parameter set) and calls
-    it under ``torch.no_grad()``.
+    traces and a CUDA graph captures (``render_path``'s steady-state
+    timing); the renderer packs the params (once per parameter set; its
+    ``pack`` attribute) and calls it under ``torch.no_grad()``.
     """
     device = resolve_device(device)
     K = np.asarray(K)
@@ -135,19 +152,15 @@ def make_frame_renderer(
             "depth0": flat["depth0"].reshape(H, W),
         }
 
-    packed_for = {}
+    pack = params_packer(statics)
 
     @torch.no_grad()
     def render_frame(params, scene, c2w):
-        # pack once per parameter set, outside the frame (and so outside a
-        # traced program)
-        if packed_for.get("source") is not params:
-            packed_for["source"] = params
-            packed_for["packed"] = pack_serving_params(params, statics)
-        return frame(packed_for["packed"], scene, as_f32(c2w, device))
+        return frame(pack(params), scene, as_f32(c2w, device))
 
     render_frame.statics = statics
     render_frame.frame = frame
+    render_frame.pack = pack
     return render_frame
 
 
@@ -174,9 +187,17 @@ def render_path(
     ``timing_reps > 0`` re-renders each pose that many times and prints
     ``Render path time:`` per rep, timed by CUDA events around the frame
     after a synchronise (the first render of each pose is the warm-up).
+    It also measures a steady-state ms/frame once, as the JAX package does:
+    ``amortized_timer`` over ``max(2, min(timing_reps, 6))`` frames a call
+    (on the card one CUDA graph of the frame body, replayed), minus the
+    null-dispatch floor, printed as ``Steady-state render ms/frame``.
     """
     from pronerf_tpu_torch.ops.metrics import to8b
     from pronerf_tpu_torch.utils.png import write_png
+    from pronerf_tpu_torch.utils.profiling import (
+        amortized_timer,
+        null_dispatch_ms,
+    )
 
     device = resolve_device(device)
     if render_factor != 0:
@@ -186,14 +207,33 @@ def render_path(
 
     renderer = make_frame_renderer(statics, H, W, K, tile_rays, device)
     rgbs0, rgbs1, depths, psnrs, psnrs0, times_ms = [], [], [], [], [], []
+    null_ms = amortized_ms = None
 
     for i, c2w in enumerate(np.asarray(render_poses)):
         c2w = c2w[:3, :4]
         out = renderer(params, scene, c2w)
+        if timing_reps > 0 and null_ms is None:
+            null_ms = null_dispatch_ms(device)
         for _ in range(timing_reps):
             ms = timed_ms(lambda: renderer(params, scene, c2w), device)
             times_ms.append(ms)
             print(f"Render path time: {ms:.3f}")
+        if timing_reps > 0 and amortized_ms is None:
+            # measured once: the frame's work does not depend on the pose
+            iters = max(2, min(timing_reps, 6))
+            packed = renderer.pack(params)
+            c2w_d = as_f32(c2w, device)
+
+            def frame_step(c):
+                o = renderer.frame(packed, scene, c2w_d + 1e-7 * c)
+                return c + o["rgb1"][0, 0, 0] * 1e-9
+
+            with torch.no_grad():
+                amortized_ms = amortized_timer(
+                    frame_step, torch.zeros((), device=device), iters=iters,
+                    null_ms=null_ms)
+            print(f"Steady-state render ms/frame (scan x{iters} minus "
+                  f"{null_ms:.1f} ms null dispatch): {amortized_ms:.3f}")
         rgb1 = out["rgb1"].cpu().numpy()
         rgb0 = out["rgb0"].cpu().numpy()
         depth = out["depth"].cpu().numpy()
@@ -226,6 +266,8 @@ def render_path(
         "psnrs": psnrs,
         "psnrs0": psnrs0,
         "times_ms": times_ms,
+        "amortized_ms": amortized_ms,
+        "null_ms": null_ms,
     }
     if psnrs:
         print(psnrs)

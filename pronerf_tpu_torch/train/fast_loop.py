@@ -41,11 +41,40 @@ from pronerf_tpu_torch.train.stage1 import (
 )
 from pronerf_tpu_torch.train.stage2 import make_stage2_step
 from pronerf_tpu_torch.train.state import stage1_lr, stage2_lr
+from pronerf_tpu_torch.utils.profiling import cuda_graph
 
 # Warm-up runs of each step before its capture (on a side stream, as
 # PyTorch's CUDA-graph notes ask): they make the lazy allocations and the
 # library handles outside the capture. The state they change is restored.
 WARMUP = 2
+
+
+def state_tensors(state, opts):
+    """Every tensor a training step updates in place: the nets' params and
+    the moments of the optimizers ``opts``."""
+    out = []
+    for net in state["params"].values():
+        out += list(net.parameters())
+    for opt in opts:
+        for part in ("mu", "nu"):
+            out += list(state[opt][part].values())
+    return out
+
+
+def capture_step_graph(run, mutables, pool=None, reset=None):
+    """A CUDA graph of ``run()`` (training steps, which update tensors in
+    place; ``utils/profiling.cuda_graph`` with WARMUP warm-ups): the
+    tensors in ``mutables`` (params, moments) are put back afterwards, so
+    that neither the warm-ups nor the capture move the state. ``reset()``
+    runs before each warm-up and the capture, outside the graph (e.g. to
+    zero a device step index). The caller puts back the host counters the
+    steps advanced."""
+    saved = [t.detach().clone() for t in mutables]
+    graph, _ = cuda_graph(run, WARMUP, pool, before=reset)
+    with torch.no_grad():
+        for t, v in zip(mutables, saved):
+            t.copy_(v)
+    return graph
 
 
 def _step_seed(seed: int, step: int) -> int:
@@ -229,36 +258,16 @@ class _ScanExecutor:
         k.add_(1)
 
     def _mutables(self, state):
-        """Every tensor a step updates in place: params and moments."""
-        out = []
-        for net in state["params"].values():
-            out += list(net.parameters())
-        for opt in self._opts():
-            for part in ("mu", "nu"):
-                out += list(state[opt][part].values())
-        return out
+        return state_tensors(state, self._opts())
 
     def _capture(self, kind, width, state, scene):
         """A CUDA graph of one step: warm-up runs on a side stream, then
         the capture; the state the warm-ups changed is put back."""
-        mut = self._mutables(state)
-        saved = [t.detach().clone() for t in mut]
         host = {"global_step": state["global_step"],
                 **{o: state[o]["count"] for o in self._opts()}}
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP):
-                self.buf["k"].zero_()
-                self._step(kind, width, state, scene)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        self.buf["k"].zero_()
-        with torch.cuda.graph(graph, pool=self.mempool):
-            self._step(kind, width, state, scene)
-        with torch.no_grad():
-            for t, v in zip(mut, saved):
-                t.copy_(v)
+        graph = capture_step_graph(
+            lambda: self._step(kind, width, state, scene),
+            self._mutables(state), self.mempool, self.buf["k"].zero_)
         state["global_step"] = host["global_step"]
         for o in self._opts():
             state[o]["count"] = host[o]

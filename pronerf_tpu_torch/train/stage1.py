@@ -94,7 +94,7 @@ def step_width(controls, widths, n_samples: int) -> int:
     return explore_width(widths, n_samples, n_mult)
 
 
-def make_stage1_steps(cfg, H: int, W: int, focal: float):
+def make_stage1_steps(cfg, H: int, W: int, focal: float, reduce=None):
     """The two stage-1 steps, each
 
       (state, scene, batch_rays [N, 3, 3], pose_ids [N], controls, lr)
@@ -105,7 +105,12 @@ def make_stage1_steps(cfg, H: int, W: int, focal: float):
     (the per-step loop) or 0-d device tensors (the scan executor, which also
     gives ``width`` and the Adam step count ``adam_count``); ``lr`` a float
     or a 0-d device tensor. With tensors a step makes no host sync, so a
-    CUDA graph can capture it."""
+    CUDA graph can capture it.
+
+    ``reduce`` (``parallel/data_parallel.py:mean_all_reduce``) combines a
+    shard's losses and gradients with the other shards' before the update,
+    where the batch is split over ranks: ``(losses, grads) -> (losses,
+    grads)``."""
     statics_nerf = RenderStatics.stage1_nerf(noise_std=cfg.raw_noise_std,
                                               **net_statics(cfg))
     statics_sampler = RenderStatics.stage1_sampler(**net_statics(cfg))
@@ -130,10 +135,12 @@ def make_stage1_steps(cfg, H: int, W: int, focal: float):
         out = render_rays(params, rays, scene, ctl, statics)
         loss = img2mse(out["rgb1"], target)
         grads = torch.autograd.grad(loss, list(named.values()))
+        loss = loss.detach()
+        if reduce is not None:
+            (loss,), grads = reduce([loss], grads)
         adam_step(state["opt_nerf"], named, grads, lr,
                   state["weight_decay"], controls.get("adam_count"))
         state["global_step"] += 1
-        loss = loss.detach()
         return state, {"loss": loss, "psnr": mse2psnr(loss)}
 
     def sampler_step(state, scene, batch_rays, pose_ids, controls, lr):
@@ -146,10 +153,12 @@ def make_stage1_steps(cfg, H: int, W: int, focal: float):
         total = img_loss + img2mse(out["rgb0"], target) \
             + img2mse(out["mm_rgb"], target)
         grads = torch.autograd.grad(total, list(named.values()))
+        total, img_loss = total.detach(), img_loss.detach()
+        if reduce is not None:
+            (total, img_loss), grads = reduce([total, img_loss], grads)
         adam_step(state["opt_s"], named, grads, lr, state["weight_decay"],
                   controls.get("adam_count"))
         state["global_step"] += 1
-        return state, {"loss": total.detach(),
-                       "psnr": mse2psnr(img_loss.detach())}
+        return state, {"loss": total, "psnr": mse2psnr(img_loss)}
 
     return nerf_step, sampler_step

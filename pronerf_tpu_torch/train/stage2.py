@@ -34,8 +34,9 @@ def init_stage2_state(params, weight_decay: float = 0.0) -> Dict[str, Any]:
     }
 
 
-def make_stage2_step(cfg, H: int, W: int, focal: float):
-    """The stage-2 step, with the signature of the stage-1 steps."""
+def make_stage2_step(cfg, H: int, W: int, focal: float, reduce=None):
+    """The stage-2 step, with the signature (and the ``reduce``) of the
+    stage-1 steps."""
     statics = RenderStatics.stage2(noise_std=cfg.raw_noise_std,
                                    **net_statics(cfg))
     a_mmrgb = float(cfg.a_mmrgb)
@@ -49,10 +50,12 @@ def make_stage2_step(cfg, H: int, W: int, focal: float):
         aux = img2mse(out["rgb0"], target) + img2mse(out["mm_rgb"], target)
         loss = img_loss + a_mmrgb * aux
         grads = torch.autograd.grad(loss, list(named.values()))
+        loss, img_loss = loss.detach(), img_loss.detach()
+        if reduce is not None:
+            (loss, img_loss), grads = reduce([loss, img_loss], grads)
         adam_step(state["opt"], named, grads, lr, state["weight_decay"],
                   controls.get("adam_count"))
         state["global_step"] += 1
-        return state, {"loss": loss.detach(),
-                       "psnr": mse2psnr(img_loss.detach())}
+        return state, {"loss": loss, "psnr": mse2psnr(img_loss)}
 
     return train_step

@@ -176,8 +176,19 @@ def test_verbs_not_ported_and_bad_input_raise(llff_root, tmp_path,
     with pytest.raises(FileNotFoundError, match="no_such_checkpoint"):
         main(["export", "--checkpoint", str(tmp_path / "no_such_checkpoint"),
               "--device", "cpu"] + _common(llff_root, tmp_path, "exp"))
-    with pytest.raises(NotImplementedError, match="A.18"):
-        main(["train-multi", "--stage", "2"])
+    # train-multi is ported too (tests/test_torch_multi_scene.py): both
+    # stages run on the CPU with --device cpu
+    states, names, exp = main(
+        ["train-multi", "--no-reload", "--max-steps", "1", "--device", "cpu",
+         "--scenes", f"{llff_root},{llff_root}"]
+        + _common(llff_root, tmp_path, "multi", small=True))
+    assert names == [llff_root.name] * 2 and len(states) == 2
+    states, _, _ = main(
+        ["train-multi", "--stage", "2", "--no-reload", "--max-steps", "1",
+         "--pretrain-path", str(exp), "--device", "cpu", "--scenes",
+         f"{llff_root},{llff_root}"]
+        + _common(llff_root, tmp_path, "multi2", small=True))
+    assert [s["global_step"] for s in states] == [1, 1]
     with pytest.raises(SystemExit):
         main(["train-stage1", "--no-such-flag"])
     with pytest.raises(SystemExit, match="Unknown config flag --no_such"):
@@ -190,3 +201,6 @@ def test_verbs_not_ported_and_bad_input_raise(llff_root, tmp_path,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["eval", "--use-trt"] + _common(llff_root, tmp_path, "card"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["train-multi", "--max-steps", "1"]
+             + _common(llff_root, tmp_path, "card_multi"))

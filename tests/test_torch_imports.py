@@ -33,7 +33,9 @@ def test_port_has_the_expected_modules():
                  "data", "data.llff", "data.colmap", "native", "cli",
                  "tools.ckpt", "utils.fixtures", "utils.png",
                  "models.donerf", "utils.gif", "train.fast_loop",
-                 "render.export"):
+                 "render.export", "parallel", "parallel.launch",
+                 "parallel.data_parallel", "parallel.multi_scene",
+                 "parallel.render_parallel", "train.multi_loop"):
         assert f"pronerf_tpu_torch.{want}" in mods
 
 
@@ -120,6 +122,17 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         run_inference_from_export(Config(datadir="synthetic"), "nowhere")
     with pytest.raises(RuntimeError, match="CUDA"):
         load_exported_renderer("nowhere")
+    from pronerf_tpu_torch.parallel.data_parallel import make_ray_mesh
+    from pronerf_tpu_torch.parallel.render_parallel import (
+        make_sharded_frame_renderer,
+    )
+    from pronerf_tpu_torch.train.multi_loop import run_multi_training
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_multi_training(Config(), ["synthetic0", "synthetic1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_sharded_frame_renderer(RenderStatics.infer(), 12, 16, K,
+                                    make_ray_mesh())
 
 
 def test_chip_smoke_fails_without_a_card():
