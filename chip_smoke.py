@@ -26,8 +26,9 @@ falls back to the CPU. Phases, each printing one JSON line:
                 bf16 input and, for the refine shape, with the transposed
                 graph's permuted pack; the int8 kernel also against the bf16
                 kernel; each kernel past its former limits (the refine
-                net at C = 198 and 1542 input rows, 128 samples a ray); and
-                each at the 762,048 rays of a 1008x756 frame;
+                net at C = 198 and 1542 input rows, 128 samples a ray); the
+                refine net of 2 neighbours (C = 54); and each at the 762,048
+                rays of a 1008x756 frame;
 4. ``frame``    the serving path end to end, three times through
                 ``run_inference`` on the synthetic 504x378 scene with 17
                 views, release widths, bf16, whole frame in one tile, fused
@@ -43,7 +44,8 @@ falls back to the CPU. Phases, each printing one JSON line:
                 one; then four more drives at the shapes past the kernels'
                 former limits: 16 samples a ray (refine C = 198), and 128
                 (refine C = 1542, its head in parts; the NeRF kernels at S =
-                128) in the default, the int8 and the transposed graph.
+                128) in the default, the int8 and the transposed graph, and
+                2 neighbours (refine C = 54) in the default graph.
                 Launch counters (the MinMax one by input width, so sampler
                 and refine are counted apart, and its untransposed form
                 apart again; the NeRF ones also by samples a ray) are zeroed
@@ -63,8 +65,13 @@ falls back to the CPU. Phases, each printing one JSON line:
                 emit and the split fetch equal to the row form, and each
                 gather's ms; the windowed frame equal to the unwindowed one
                 on every ray no window missed, the transposed frame against
-                the row-major one, int8 against bf16; a tile of the frame
-                against the kernel-free bf16 path and the plain versions;
+                the row-major one, int8 against bf16; the headline bench's
+                second point, 2 neighbours (refine C = 54), windowed: ms a
+                frame, launches, device busy ms and kernels a frame
+                (profiler), the frame against the same frame with the plain
+                versions on the card (tile by tile; no kernel launched); a
+                tile of the frame against the kernel-free bf16 path and the
+                plain versions;
 4c. ``gathers`` at 504x378: a ``gather_split`` frame equal to the default
                 frame bit for bit, ``warp_interp = nearest`` served through
                 ``run_inference``, the per-view training gather equal to the
@@ -363,10 +370,10 @@ def minmax_case(net, reps, C, n_rays, dtype, device, seed):
             "untransposed": (max_err(k_t, k.T), 0.0),
             "bf16_input": (max_err(k_b, pl_b), tol["head"]),
         }
-        if C == 102:
+        if C in (54, 102):
             # the transposed graph's pack: first-layer rows permuted, and
             # the input rows with them
-            perm = refine_rest_row_perm(4, 8)
+            perm = refine_rest_row_perm((C - 6) // 24, 8)
             packed_p = fm.pack_minmax_params(net, reps, dtype,
                                              rest_row_perm=perm)
             x_p = torch.cat([x_t[:6], x_t[6:][torch.as_tensor(
@@ -557,6 +564,14 @@ KERNELS = (
     ("fused_nerf_raw_tq[S=128]",
      "pronerf_tpu_torch/kernels/csrc/fused_nerf_q.cu",
      "pronerf_tpu/kernels/fused_nerf_q.py:351"),
+    # the refine net of the headline bench's second serving point,
+    # num_neighbor = 2 (C = 6 + 3 * 2 * 8 = 54: one layer-0 pass of 64
+    # k-rows, half of its second k-slab zero padding), at a 504x378 frame's
+    # rays and (below) a 1008x756 frame's; the frame phases serve frames of
+    # 2 neighbours at both sizes
+    ("fused_minmax_t[refine,C=54]",
+     "pronerf_tpu_torch/kernels/csrc/fused_minmax.cu",
+     "pronerf_tpu/kernels/fused_minmax.py:125"),
     # every kernel at the 762,048 rays of one 1008x756 frame (phase
     # fullres), the size the reference's engine serves
     ("fused_minmax_t[sampler,N=762048]",
@@ -574,6 +589,9 @@ KERNELS = (
     ("fused_nerf_raw_tq[N=762048]",
      "pronerf_tpu_torch/kernels/csrc/fused_nerf_q.cu",
      "pronerf_tpu/kernels/fused_nerf_q.py:351"),
+    ("fused_minmax_t[refine,C=54,N=762048]",
+     "pronerf_tpu_torch/kernels/csrc/fused_minmax.cu",
+     "pronerf_tpu/kernels/fused_minmax.py:125"),
 )
 # the rows at a full-resolution frame's rays: the shape of the row they
 # repeat, at FULL_RAYS / FRAME_RAYS (4) times the rays; their main path
@@ -582,18 +600,23 @@ FULL = {"fused_minmax_t[sampler,N=762048]": "fused_minmax_t[sampler]",
         "fused_minmax_t[refine,N=762048]": "fused_minmax_t[refine]",
         "fused_nerf_raw_t[N=762048]": "fused_nerf_raw_t",
         "fused_nerf_composite_t[N=762048]": "fused_nerf_composite_t",
-        "fused_nerf_raw_tq[N=762048]": "fused_nerf_raw_tq"}
+        "fused_nerf_raw_tq[N=762048]": "fused_nerf_raw_tq",
+        "fused_minmax_t[refine,C=54,N=762048]": "fused_minmax_t[refine,C=54]"}
 # the instantiations each kernel has; the first is the one its main path runs
 DTYPES = {"fused_nerf_raw_tq": ("int8",), "fused_nerf_raw_tq[S=128]": ("int8",),
+          "fused_minmax_t[refine,C=54]": ("bfloat16",),
           "fused_minmax_t[refine,C=198]": ("bfloat16",),
           "fused_minmax_t[refine,C=1542]": ("bfloat16",)} | {
               name: ("int8",) if base == "fused_nerf_raw_tq" else (
                   "bfloat16",) for name, base in FULL.items()}
 BOTH = ("bfloat16", "float32")
 TINY_TOO = ("fused_minmax_t[sampler]", "fused_minmax_t[refine]",
-            "fused_nerf_raw_t", "fused_nerf_composite_t", "fused_nerf_raw_tq")
+            "fused_nerf_raw_t", "fused_nerf_composite_t", "fused_nerf_raw_tq",
+            "fused_minmax_t[refine,C=54]")
 # the wide rows: (samples a ray, rays); a ray count that keeps them short
-WIDE = {"fused_minmax_t[refine,C=198]": (16, 16384),
+# (the num_neighbor = 2 refine net is a release shape: a frame's rays)
+WIDE = {"fused_minmax_t[refine,C=54]": (8, FRAME_RAYS),
+        "fused_minmax_t[refine,C=198]": (16, 16384),
         "fused_minmax_t[refine,C=1542]": (128, 16384),
         "fused_nerf_raw_t[S=128]": (128, 8192),
         "fused_nerf_composite_t[S=128]": (128, 8192),
@@ -793,6 +816,7 @@ def phase_kernels(device, n_rays):
 # ------------------------------------------------------- frame phase ------
 
 MINMAX_WIDTH = {"fused_minmax_t[sampler]": 6, "fused_minmax_t[refine]": 102,
+                "fused_minmax_t[refine,C=54]": 54,
                 "fused_minmax_t[refine,C=198]": 198,
                 "fused_minmax_t[refine,C=1542]": 1542}
 # the NeRF kernels' rows at 128 samples a ray, counted by the wrappers'
@@ -1023,7 +1047,9 @@ def phase_frame(device, profile=False):
         # transposed one, each answering every test pose once more after the
         # first. A MinMax head too large for the kernel's shared memory (the
         # sampler's 3 S + 3 and the refine net's 4 S + 3 rows at S = 128)
-        # runs in parts, one launch each (fused_minmax.head_parts).
+        # runs in parts, one launch each (fused_minmax.head_parts). And the
+        # headline bench's second serving point, 2 neighbours (the refine
+        # net's C = 6 + 3 * 2 * 8 = 54), in the default graph.
         def launches_a_frame(C, n_out):
             return len(fm.head_parts(C, cfg.mmnetdepth, -(-n_out // 8) * 8))
 
@@ -1041,10 +1067,14 @@ def phase_frame(device, profile=False):
                 (128, "N_samples=128,transposed=True", {"transposed": True},
                  {"fused_minmax_t[refine,C=1542]": None,
                   "fused_nerf_composite_t": 1,
-                  "fused_nerf_composite_t[S=128]": 1})):
+                  "fused_nerf_composite_t[S=128]": 1}),
+                (8, "num_neighbor=2", {"num_neighbor": 2},
+                 {"fused_minmax_t[refine,C=54]": None,
+                  "fused_nerf_raw_t": 1})):
             drive = serve(what, cfg.replace(N_samples=S, **over), 1)
             sampler = launches_a_frame(6, 3 * S + 3)
-            refine = launches_a_frame(6 + 3 * cfg.num_neighbor * S, 4 * S + 3)
+            views = over.get("num_neighbor", cfg.num_neighbor)
+            refine = launches_a_frame(6 + 3 * views * S, 4 * S + 3)
             want = {k: refine if n is None else n for k, n in kernels.items()}
             if over.get("transposed"):
                 want["untransposed"] = sampler + refine
@@ -1215,7 +1245,8 @@ def phase_frame(device, profile=False):
     # MinMax shapes and the raw kernel, the fuse_composite frame for the
     # composite kernel, the int8 drive for the int8 kernel, the transposed
     # drive for the MinMax kernel's untransposed form; the wide rows' on the
-    # drives of 16 and 128 samples a ray
+    # drives of 16 and 128 samples a ray, the C = 54 row's on the drive of 2
+    # neighbours
     w16, w128 = wide["N_samples=16"], wide["N_samples=128"]
     return {
         "fused_minmax_t[sampler]": main["counts"]["fused_minmax_t[sampler]"],
@@ -1224,6 +1255,8 @@ def phase_frame(device, profile=False):
         "fused_nerf_composite_t": counts_f["fused_nerf_composite_t"],
         "fused_nerf_raw_tq": quant["counts"]["fused_nerf_raw_tq"],
         UNTRANSPOSED: trans["counts"][UNTRANSPOSED],
+        "fused_minmax_t[refine,C=54]": wide["num_neighbor=2"]["counts"][
+            "fused_minmax_t[refine,C=54]"],
         "fused_minmax_t[refine,C=198]":
             w16["counts"]["fused_minmax_t[refine,C=198]"],
         "fused_minmax_t[refine,C=1542]":
@@ -1368,6 +1401,89 @@ def window_readings(scene, rays, z3d, nearest, n_tiles, window_rows):
     return readings, missed.any(2).any(1)
 
 
+@contextlib.contextmanager
+def plain_versions():
+    """The default graph's kernel wrappers (the MinMax and the raw NeRF
+    kernel) replaced by their plain versions, run on the card over tiles of
+    CHUNK rays (for memory), as the kernel phase runs them: a frame rendered
+    inside is the same frame with the plain versions, and launches no
+    kernel."""
+    from pronerf_tpu_torch.kernels import fused_minmax as fm
+    from pronerf_tpu_torch.kernels import fused_nerf as fn
+
+    def minmax(packed, x_t, transpose_out=True):
+        return torch.cat([
+            fm.fused_minmax_plain(packed, x_t[:, i:i + CHUNK].contiguous(),
+                                  transpose_out)
+            for i in range(0, x_t.shape[1], CHUNK)],
+            dim=0 if transpose_out else 1)
+
+    def raw(packed, pts24_t, vcon_t, n_samples=8):
+        return torch.cat([
+            fn.fused_nerf_raw_plain(packed, pts24_t[:, i:i + CHUNK]
+                                    .contiguous(),
+                                    vcon_t[:, i:i + CHUNK].contiguous(),
+                                    n_samples)
+            for i in range(0, pts24_t.shape[1], CHUNK)])
+
+    kept = fm.fused_minmax_t, fn.fused_nerf_raw_t
+    fm.fused_minmax_t, fn.fused_nerf_raw_t = minmax, raw
+    try:
+        yield
+    finally:
+        fm.fused_minmax_t, fn.fused_nerf_raw_t = kept
+
+
+@torch.no_grad()
+def fullres_two_neighbours(cfg, scene, K, poses, device):
+    """The headline bench's second serving point: 1008x756 frames of 2
+    neighbours (the refine net's C = 6 + 3 * 2 * 8 = 54), windowed as the
+    JAX rule resolves it, through the frame renderer: ms a frame and
+    launches as the other forms (``drive_renderer``), device busy ms and
+    kernels a frame (profiler, 3 frames), peak memory; the first pose's
+    frame held against the same frame with the plain versions on the card
+    (``plain_versions``: no kernel launched), every key, PLAIN_REL on at
+    least 1 - PLAIN_SHARE of its elements."""
+    from pronerf_tpu_torch.render import infer
+    from pronerf_tpu_torch.render.renderer import make_frame_renderer
+
+    cfg2 = cfg.replace(num_neighbor=2)
+    params = infer._load_params(cfg2, infer.setup_expdir(cfg2), device)
+    render = make_frame_renderer(infer._infer_statics(cfg2, use_bf16=True),
+                                 FULL_H, FULL_W, K, 0, device=device)
+    st = render.statics
+    windows = [st.gather_tiles, st.gather_window_rows]
+    if st.num_neighbor != 2 or windows != list(FULL_GATHER):
+        raise SystemExit(f"fullres num_neighbor=2: statics {st}")
+    drive = drive_renderer(render, params, scene, poses)
+    n = drive["frames"]
+    expect_counts("fullres num_neighbor=2", drive["counts"], sampler=n,
+                  fused_nerf_raw_t=n, **{"fused_minmax_t[refine,C=54]": n})
+    torch.cuda.empty_cache()
+    prof = profile_frames(lambda: render(params, scene, poses[0]), 3)
+    reset_counters()
+    with plain_versions():
+        plain = render(params, scene, poses[0])
+    torch.cuda.synchronize()
+    expect_counts("fullres num_neighbor=2 with the plain versions",
+                  read_counters())
+    errs = rel_errs(drive["first"], plain, PLAIN_REL, FRAME_KEYS)
+    hold("fullres num_neighbor=2 frame against the plain versions", errs,
+         PLAIN_REL, PLAIN_SHARE)
+    del plain
+    torch.cuda.empty_cache()
+    return {"statics_windows": windows,
+            "refine_kernel_rows": render.pack(params)["refine_packed"][
+                "w0_t"].shape[1],
+            "frames": n, "ms_per_frame": drive["ms_per_frame"],
+            "ms_all": drive["ms_all"],
+            "device_busy_ms_per_frame": prof["device_busy_ms_per_frame"],
+            "kernels_per_frame": prof["device_kernels_per_frame"],
+            "top": prof["top"][:8],
+            "peak_mem_bytes": drive["peak_mem_bytes"],
+            "launches": drive["counts"], "vs_plain_versions": errs}
+
+
 @torch.no_grad()
 def phase_fullres(device, profile=False):
     """The serving path at 1008x756 (the reference engine's frame): the
@@ -1487,6 +1603,7 @@ def phase_fullres(device, profile=False):
         if not (int8_vs["psnr_rgb1_db"] > QUANT_PSNR_DB
                 and int8_vs["depth_max_abs"] <= QUANT_DEPTH):
             raise SystemExit(f"fullres int8 frame against bf16: {int8_vs}")
+        two = fullres_two_neighbours(cfg, scene, K, poses, device)
 
         # ---- a tile of the frame's rays (its own 8 ray tiles and windows)
         # through the kernels, the kernel-free bf16 path and the plain
@@ -1547,6 +1664,7 @@ def phase_fullres(device, profile=False):
         "windowed_vs_unwindowed_frame": windowed_vs,
         "transposed_vs_row_major_frame": trans_vs,
         "int8_vs_bf16_frame": int8_vs,
+        "num_neighbor_2": two, "card": nvidia_smi_line(),
         "tile_kernel_vs_kernel_free_bf16": paths,
         "tile_kernel_vs_plain_versions_on_cpu": plain,
     }})
@@ -1560,6 +1678,8 @@ def phase_fullres(device, profile=False):
             drives["transposed"]["counts"]["fused_nerf_composite_t"],
         "fused_nerf_raw_tq[N=762048]":
             drives["int8"]["counts"]["fused_nerf_raw_tq"],
+        "fused_minmax_t[refine,C=54,N=762048]":
+            two["launches"]["fused_minmax_t[refine,C=54]"],
     }
 
 
@@ -2169,6 +2289,63 @@ def multi_training(tmp):
     return runs
 
 
+def same_tree(a, b) -> bool:
+    """Two checkpoints (nested dicts of tensors and numbers) equal bit for
+    bit."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_tree(a[k], b[k]) for k in a)
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def multi_world_of_one(tmp, device):
+    """``train-multi --nproc 1`` through the command line, which forms (and
+    closes) a world of one over NCCL, against ``run_multi_training`` called
+    in this process with no process group, on the same config (2 scenes of
+    the release size, 2 stage-1 steps): every checkpoint equal bit for
+    bit."""
+    from pronerf_tpu_torch import cli
+    from pronerf_tpu_torch.train import checkpoint
+    from pronerf_tpu_torch.train.multi_loop import run_multi_training
+
+    scenes = [f"synthetic:{W_IMG}x{H}x{N_VIEWS}"] * 2
+
+    def argv(expname):
+        return ["train-multi", "--config",
+                str(ROOT / "configs/llff/fern/fern_epi.txt"), "--no-reload",
+                "--max-steps", "2", "--nproc", "1", "--scenes",
+                ",".join(scenes), "--", "--basedir", tmp, "--expname",
+                expname, "--i_print", "1", "--i_weights", "1000", "--i_img",
+                "0", "--i_video", "0", "--i_testset", "0"]
+
+    (_, names, by_cli), counts, wall, text = multi_cli(argv("multi_nproc1"))
+    formed = "[TRAIN-MULTI] 1 rank over nccl" in text
+    args, _ = cli.build_parser().parse_known_args(argv("multi_direct"))
+    cfg = cli._build_cfg(args, cli.DEFAULT_STAGE1_CONFIG)
+    t0 = time.perf_counter()
+    _, _, direct = run_multi_training(cfg, scenes, device=device)
+    wall_direct = time.perf_counter() - t0
+    equal = {}
+    for name in names:
+        files = sorted(p.name for p in (by_cli / f"scene_{name}").glob(
+            "*.ckpt"))
+        equal[name] = files == ["000002.ckpt"] and all(same_tree(
+            checkpoint.load_checkpoint(by_cli / f"scene_{name}" / f),
+            checkpoint.load_checkpoint(direct / f"scene_{name}" / f))
+            for f in files)
+    expect_counts("train-multi --nproc 1", counts)
+    report = {"group_formed": formed,
+              "group_closed": not torch.distributed.is_initialized(),
+              "checkpoints_equal": equal,
+              "wall_s": {"cli_nproc_1": wall, "in_process": wall_direct}}
+    if not (formed and report["group_closed"] and len(equal) == 2
+            and all(equal.values())):
+        raise SystemExit(f"train-multi --nproc 1: {report}\n{text[-2000:]}")
+    return report
+
+
 def multi_steps(tmp, device, profile=False):
     """The multi-scene step of each kind at S = 1, 2 and 8 scenes: one
     graph step (the capture) from seeded states against each scene's eager
@@ -2438,7 +2615,8 @@ def phase_multi(device, profile=False):
     """Several scenes in one run, the sharded renderer, the frame as a CUDA
     graph (``multi_training``, ``multi_steps``, ``multi_frames``)."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_multi_") as tmp:
-        report = {"train_multi": multi_training(tmp)}
+        report = {"train_multi": multi_training(tmp),
+                  "world_of_one": multi_world_of_one(tmp, device)}
         say({"multi": report})
         report["steps"] = multi_steps(tmp, device, profile)
         say({"multi": {"steps": report["steps"]}})
@@ -2990,14 +3168,17 @@ def phase_cli(device):
                              f"{native.colmap_visibility_native.calls - vis}"
                              f", frames {ev['rgbs1'].shape}, PNGs {saved}")
         # the steady-state line of infer --timing-reps (a CUDA graph of the
-        # frame, replayed), as the JAX command line prints it
+        # frame, replayed), and the JAX command line's two summary lines
+        # after it: the timed eager frames under their own name, then
+        # "Median render ms/frame", which is the steady-state figure
         log = io.StringIO()
         with contextlib.redirect_stdout(log):
             st, c_st, wall_st = drive_cli(
                 ["infer", "--use-trt", "--checkpoint", ck2, "--max-images",
                  "1", "--timing-reps", str(CLI_STEADY_REPS)]
                 + common("cli_steady"))
-        steady_lines = [ln for ln in log.getvalue().splitlines()
+        lines = log.getvalue().splitlines()
+        steady_lines = [ln for ln in lines
                         if ln.startswith("Steady-state render ms/frame (scan "
                                          f"x{CLI_STEADY_REPS} minus ")]
         n_st = 1 + CLI_STEADY_REPS + steady_frames(CLI_STEADY_REPS)
@@ -3006,8 +3187,23 @@ def phase_cli(device):
         if len(steady_lines) != 1 or not st["amortized_ms"] > 0:
             raise SystemExit(f"infer --timing-reps {CLI_STEADY_REPS}: "
                              f"steady-state lines {steady_lines}")
-        print(steady_lines[0], flush=True)
-        steady_report = {"line": steady_lines[0],
+        steady = steady_lines[0].rsplit(": ", 1)[1]
+        summary = lines[-2:]
+        per_dispatch = (
+            "Median per-dispatch ms/frame (CUDA events around one eager "
+            f"frame on {torch.cuda.get_device_name(0)}): "
+            f"{statistics.median(st['times_ms']):.3f}")
+        if not (summary[0] == per_dispatch
+                and summary[1].startswith(f"Median render ms/frame: {steady} (")
+                and summary[1].endswith(" Mrays/s, steady-state)")
+                and sum(ln.startswith("Median") for ln in lines) == 2
+                and lines.index(steady_lines[0]) < len(lines) - 2):
+            raise SystemExit(f"infer --timing-reps {CLI_STEADY_REPS}: "
+                             f"summary lines {summary}, steady-state line "
+                             f"{steady_lines[0]}")
+        for ln in (steady_lines[0], *summary):
+            print(ln, flush=True)
+        steady_report = {"line": steady_lines[0], "summary": summary,
                          "amortized_ms": st["amortized_ms"],
                          "null_ms": st["null_ms"],
                          "times_ms": st["times_ms"], "launches": c_st,

@@ -18,7 +18,10 @@ imageio has a backend for it, else a GIF).
 
 ``train-multi`` trains several scenes in one run (``train/multi_loop.py``;
 ``--scenes`` comma-separated datadirs, else ``--n-synthetic`` synthetic
-ones; ``--stage 2`` from ``--pretrain-path``, a stage-1 multi expdir).
+ones; ``--stage 2`` from ``--pretrain-path``, a stage-1 multi expdir) over
+``--nproc`` ranks of this machine (default: every visible card; one process
+with ``--device cpu``), which ``--ray-shards`` and the scenes are laid out
+on as the JAX loop lays them on its devices.
 
 ``--device`` (default ``cuda``) is the port's own: every verb runs on the
 card and raises without one, unless ``--device cpu`` is given. The JAX
@@ -106,15 +109,16 @@ def cmd_train_stage2(args):
 
 
 def cmd_train_multi(args):
-    from pronerf_tpu_torch.train.multi_loop import run_multi_training
+    from pronerf_tpu_torch.train.multi_loop import launch_multi_training
 
     default = (DEFAULT_STAGE2_CONFIG if args.stage == 2
                else DEFAULT_STAGE1_CONFIG)
     cfg = _build_cfg(args, default)
     datadirs = args.scenes.split(",") if args.scenes else [
         f"synthetic{i}" for i in range(args.n_synthetic)]
-    return run_multi_training(cfg, datadirs, n_ray_shards=args.ray_shards,
-                              stage=args.stage, device=args.device)
+    return launch_multi_training(cfg, datadirs, n_ray_shards=args.ray_shards,
+                                 stage=args.stage, device=args.device,
+                                 nproc=args.nproc)
 
 
 def cmd_infer(args):
@@ -202,6 +206,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="number of synthetic scenes when --scenes is unset")
     p.add_argument("--ray-shards", type=int, default=1, dest="ray_shards",
                    help="ray shards a scene over the process group's ranks")
+    p.add_argument("--nproc", type=int, default=None,
+                   help="ranks on this machine (default: every visible card "
+                        "under --device cuda, NCCL; 1 under --device cpu, "
+                        "gloo); more than one are spawned")
     p.add_argument("--no-reload", action="store_true", dest="no_reload")
     p.add_argument("--max-steps", type=int, default=None, dest="max_steps")
     _add_common(p)

@@ -30,7 +30,11 @@ Over several ranks (``parallel/launch.py``) each rank trains its block of
 scenes, and the ranks of a scene row split its batches; the host stream
 runs the same on every rank. The first ray shard of each row writes its
 scenes' checkpoints and renders; rank 0 prints. Without a process group it
-is a world of one.
+is a world of one. ``launch_multi_training`` (the ``train-multi`` verb)
+forms the group as the JAX loop takes every local device: ``nproc`` ranks,
+by default one a visible card (one process on the CPU); a world of one in
+this process, or ``nproc`` spawned ranks (NCCL on ``cuda:<rank>``, gloo on
+the CPU).
 """
 
 from __future__ import annotations
@@ -43,7 +47,14 @@ import torch
 import torch.distributed as dist
 
 from pronerf_tpu_torch.config import Config, enforce_flag_contract
-from pronerf_tpu_torch.parallel.launch import world
+from pronerf_tpu_torch.parallel.launch import (
+    backend_for,
+    close_group,
+    init_group,
+    local_ranks,
+    spawn_local,
+    world,
+)
 from pronerf_tpu_torch.parallel.multi_scene import (
     make_multi_scene_pooled_step,
     make_scene_mesh,
@@ -81,11 +92,12 @@ def _scene_name(datadir: str, idx: int) -> str:
     return Path(datadir).name
 
 
-def layout(n_scene: int, n_ray_shards: int, n_dev: int) -> tuple:
+def mesh_layout(n_scene: int, n_ray_shards: int, n_dev: int):
     """The JAX loop's ``(scene rows, ray shards)`` for ``n_scene`` scenes x
-    ``n_ray_shards`` over ``n_dev`` ranks: scene rows that divide the
-    scenes, with a note where the request exceeds the ranks, and a
-    ``ValueError`` for more ray shards than ranks."""
+    ``n_ray_shards`` over ``n_dev`` ranks, and its note (``None`` where the
+    request fits): scene rows that divide the scenes, with a note where the
+    request exceeds the ranks, and a ``ValueError`` for more ray shards
+    than ranks."""
     if n_scene * n_ray_shards > n_dev:
         if n_ray_shards > n_dev:
             raise ValueError(
@@ -95,14 +107,13 @@ def layout(n_scene: int, n_ray_shards: int, n_dev: int) -> tuple:
         scene_rows = min(max(1, n_dev // n_ray_shards), n_scene)
         while n_scene % scene_rows:  # every row holds as many scenes
             scene_rows -= 1
-        print(
+        return (scene_rows, n_ray_shards), (
             f"[TRAIN-MULTI] note: {n_scene} scenes x {n_ray_shards} ray "
             f"shards > {n_dev} devices; using a ({scene_rows}, "
             f"{n_ray_shards}) mesh with scenes sharded over {scene_rows} "
-            f"rows"
-        )
-        return scene_rows, n_ray_shards
-    return min(n_scene, max(1, n_dev // max(1, n_ray_shards))), n_ray_shards
+            f"rows")
+    return (min(n_scene, max(1, n_dev // max(1, n_ray_shards))),
+            n_ray_shards), None
 
 
 def _all_scenes(mesh, values, n_scene, device):
@@ -159,7 +170,10 @@ def run_multi_training(cfg: Config, datadirs, n_ray_shards: int = 1,
     enforce_flag_contract(cfg)
     rank, n_dev = world()
     n_scene = len(datadirs)
-    mesh = make_scene_mesh(*layout(n_scene, n_ray_shards, n_dev))
+    shape, note = mesh_layout(n_scene, n_ray_shards, n_dev)
+    if note and rank == 0:
+        print(note)
+    mesh = make_scene_mesh(*shape)
     block = mesh.block(n_scene)
     writer = mesh.rays is not None and mesh.rays.rank == 0
     expdir = setup_expdir(cfg) if rank == 0 else \
@@ -330,3 +344,57 @@ def run_multi_training(cfg: Config, datadirs, n_ray_shards: int = 1,
     final = int(states[0]["global_step"]) if states else n_iters - 1
     save_all(final)
     return states, names, expdir
+
+
+def _train_rank(rank, world_size, init_method, cfg, datadirs, n_ray_shards,
+                stage, device_type, threads):
+    """One spawned rank of ``launch_multi_training``: joins the group on its
+    device, trains, and leaves the group."""
+    torch.set_num_threads(threads)
+    device = torch.device("cuda", rank) if device_type == "cuda" \
+        else torch.device("cpu")
+    init_group(device, world_size, rank, init_method)
+    try:
+        run_multi_training(cfg, datadirs, n_ray_shards, stage, device)
+    finally:
+        close_group()
+
+
+def launch_multi_training(cfg: Config, datadirs, n_ray_shards: int = 1,
+                          stage: int = 1, device="cuda",
+                          nproc: int | None = None):
+    """``run_multi_training`` over ``nproc`` ranks of this machine (default
+    ``launch.local_ranks``: every visible card, one process on the CPU).
+
+    The layout is checked before any rank starts (``mesh_layout``'s
+    ``ValueError``), and so is ``nproc`` against the visible cards. One
+    rank trains in this process, in a world of one formed and closed here
+    (NCCL on the card, gloo on the CPU), and returns what
+    ``run_multi_training`` returns. More are spawned with a ``file://``
+    rendezvous; each rank shares the host's CPU threads, and a failed rank
+    raises here. Their states stay in the ranks: this returns ``(None,
+    names, expdir)``, and the checkpoints under ``expdir`` are the
+    result."""
+    device = resolve_device(device)
+    if nproc is None:
+        nproc = local_ranks(device)
+    if nproc < 1:
+        raise ValueError(f"nproc={nproc}: a run needs at least one rank")
+    if device.type == "cuda" and nproc > torch.cuda.device_count():
+        raise ValueError(f"nproc={nproc} exceeds the "
+                         f"{torch.cuda.device_count()} visible CUDA devices")
+    mesh_layout(len(datadirs), n_ray_shards, nproc)
+    print(f"[TRAIN-MULTI] {nproc} rank{'s' if nproc > 1 else ''} over "
+          f"{backend_for(device)}")
+    if nproc == 1:
+        init_group(device)
+        try:
+            return run_multi_training(cfg, datadirs, n_ray_shards, stage,
+                                      device)
+        finally:
+            close_group()
+    spawn_local(_train_rank, nproc,
+                (cfg, list(datadirs), n_ray_shards, stage, device.type,
+                 max(1, torch.get_num_threads() // nproc)))
+    return (None, [_scene_name(d, i) for i, d in enumerate(datadirs)],
+            Path(cfg.basedir) / cfg.expname)

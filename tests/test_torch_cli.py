@@ -204,3 +204,29 @@ def test_verbs_not_ported_and_bad_input_raise(llff_root, tmp_path,
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["train-multi", "--max-steps", "1"]
              + _common(llff_root, tmp_path, "card_multi"))
+
+
+def test_infer_timing_reps_prints_the_jax_summary_lines(llff_root, tmp_path,
+                                                        capsys):
+    """``infer --timing-reps`` ends with the JAX command line's two lines,
+    in its order: the median of the timed eager frames under its own name
+    (how it was timed in the bracket), then ``Median render ms/frame``, the
+    steady-state frame of ``render_path``'s scan."""
+    result = main(["infer", "--use-trt", "--max-images", "1",
+                   "--timing-reps", "2", "--device", "cpu"]
+                  + _common(llff_root, tmp_path, "timing")
+                  + ["--ft_path", ""])
+    out = capsys.readouterr().out.splitlines()
+    ms = float(np.median(result["times_ms"]))
+    ams = result["amortized_ms"]
+    assert len(result["times_ms"]) == 2 and ams > 0
+    assert out[-2:] == [
+        "Median per-dispatch ms/frame (host clock around one eager frame on "
+        f"cpu): {ms:.3f}",
+        f"Median render ms/frame: {ams:.3f} "
+        f"({32 * 40 / ams * 1e3 / 1e6:.2f} Mrays/s, steady-state)"]
+    # the steady-state figure is the one of render_path's scan line
+    scan = [ln for ln in out if ln.startswith(
+        "Steady-state render ms/frame (scan x2 minus ")]
+    assert len(scan) == 1 and scan[0].endswith(f": {ams:.3f}")
+    assert sum(ln.startswith("Median") for ln in out) == 2

@@ -126,10 +126,15 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     from pronerf_tpu_torch.parallel.render_parallel import (
         make_sharded_frame_renderer,
     )
-    from pronerf_tpu_torch.train.multi_loop import run_multi_training
+    from pronerf_tpu_torch.train.multi_loop import (
+        launch_multi_training,
+        run_multi_training,
+    )
 
     with pytest.raises(RuntimeError, match="CUDA"):
         run_multi_training(Config(), ["synthetic0", "synthetic1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_multi_training(Config(), ["synthetic0", "synthetic1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         make_sharded_frame_renderer(RenderStatics.infer(), 12, 16, K,
                                     make_ray_mesh())

@@ -1,7 +1,8 @@
 """The kernel modules at the shapes past the CUDA kernels' former limits,
 against the JAX package's Pallas kernels, on the CPU: the NeRF kernels at
 S = 128 samples a ray (raw, composite, int8) and the MinMax kernel at C = 198
-(the refine net of 16 samples and 4 views), C = 390 (16 samples, 8 views)
+(the refine net of 16 samples and 4 views), C = 390 (16 samples, 8 views),
+C = 54 (8 samples, 2 views: the ``num_neighbor = 2`` serving point)
 and C = 1542 (128 samples, 4 views; its head of 515 -> 520 rows runs on the
 card in parts, one launch each) input rows.
 
@@ -9,8 +10,9 @@ Here the port's wrappers take their plain PyTorch versions (the tensors lie
 on the CPU) and the JAX kernels run in interpret mode with a small
 ``rays_per_block``, as the JAX package's own tests run them. The CUDA
 kernels are held against the same plain versions at these shapes on the
-card by ``chip_smoke.py`` (its kernel rows ``[S=128]``, ``[C=198]`` and
-``[C=1542]``, and its frames of 16 and 128 samples a ray).
+card by ``chip_smoke.py`` (its kernel rows ``[S=128]``, ``[C=198]``,
+``[C=54]`` and ``[C=1542]``, its frames of 16 and 128 samples a ray, and
+its 1008x756 frame of 2 neighbours).
 
 Tolerances: those of ``test_torch_kernels.py`` and
 ``test_torch_kernels_q.py`` for the same comparison at the shipped shapes
@@ -59,10 +61,17 @@ def T(a):
 
 # ------------------------------------------------------------- MinMax ----
 
+# views -> (samples a ray, input rows C, padded head): the refine nets of 16
+# samples and 4 or 8 views, and the headline bench's num_neighbor = 2 point
+# at 8 samples (C = 54: one layer-0 pass of 64 k-rows, half of its second
+# k-slab zero padding)
+WIDE_REFINE = {4: (16, 198, 72), 8: (16, 390, 72), 2: (8, 54, 40)}
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("views", [4, 8])
+@pytest.mark.parametrize("views", [4, 8, 2])
 def test_fused_minmax_wide_refine_against_jax_kernel(views, dtype):
-    S = 16
+    S, C, out_pad = WIDE_REFINE[views]
     rest, out_w = 3 * views * S, 4 * S + 3
     jp = j_mlp.init_minmax_mlp(jax.random.PRNGKey(3), 6, 256, 6 * S + rest,
                                out_w)
@@ -72,7 +81,7 @@ def test_fused_minmax_wide_refine_against_jax_kernel(views, dtype):
     rng = np.random.default_rng(views)
     x_t = np.concatenate([rng.normal(size=(6, n)), rng.random((rest, n))]
                          ).astype(np.float32)
-    assert x_t.shape[0] == {4: 198, 8: 390}[views]
+    assert x_t.shape[0] == C
     want = j_fm.fused_minmax_t(j_fm.pack_minmax_params(jp, S, jdt),
                                jnp.asarray(x_t), rays_per_block=32,
                                interpret=True)
@@ -80,7 +89,7 @@ def test_fused_minmax_wide_refine_against_jax_kernel(views, dtype):
     before = t_fm.fused_minmax_t.launches
     got = t_fm.fused_minmax_t(packed, T(x_t))
     assert t_fm.fused_minmax_t.launches == before  # CPU: the plain version
-    assert got.shape == (n, 72)
+    assert got.shape == (n, out_pad)
     atol = 2e-5 if dtype == "f32" else BF16_LOGITS
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol)
     assert np.all(got.numpy()[:, out_w:] == 0)

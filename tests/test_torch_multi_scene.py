@@ -15,6 +15,11 @@ program under parallel test workers).
   scene's permutation independent of the layout;
 - the layout arithmetic against JAX's ``_make_mesh`` over a grid of
   (scenes, shards, devices), with its note and its ``ValueError``;
+- ``train-multi`` over two gloo ranks through the command line (``--nproc
+  2 --ray-shards 2``, the arguments of JAX's smoke test): both scenes'
+  checkpoints, the layout note, the weights within the data-parallel bound
+  of a world of one (``--nproc 1``); layouts that cannot run raise before
+  any rank starts;
 - ``train-multi`` through both command lines at 2 scenes: the same pools,
   host draws, learning rates and batches step for step, per-scene
   checkpoints; the port's stage 2 bootstrapped from the JAX stage-1 multi
@@ -29,6 +34,11 @@ reasons stand there). The pooled step against the batch step: the JAX
 test's ``atol 1e-6`` on the losses (``tests/test_parallel.py:309``), and
 equal params. A resumed run against the uninterrupted one: bit for bit.
 """
+
+import contextlib
+import io
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -224,11 +234,12 @@ def test_layout_matches_jax(scenes, shards, n_dev, capsys):
     jout = capsys.readouterr().out
     if isinstance(want, ValueError):
         with pytest.raises(ValueError, match="ray_shards"):
-            t_loop.layout(scenes, shards, n_dev)
+            t_loop.mesh_layout(scenes, shards, n_dev)
         assert str(want).startswith(f"ray_shards={shards} exceeds")
         return
-    assert t_loop.layout(scenes, shards, n_dev) == want
-    assert capsys.readouterr().out == jout
+    shape, note = t_loop.mesh_layout(scenes, shards, n_dev)
+    assert shape == want
+    assert (note + "\n" if note else "") == jout
 
 
 # ------------------------------------------------------- the loops ------
@@ -409,3 +420,114 @@ def test_scenes_of_other_resolutions_raise(tmp_path):
         cli.main(["train-multi", "--max-steps", "1", "--device", "cpu",
                   "--scenes", "synthetic:24x18x6,synthetic:24x18x12"]
                  + _common(tmp_path, "bad"))
+
+
+# ------------------------------------- ranks from the command line ------
+
+# JAX's tests/test_train_smoke.py::test_train_multi_smoke, on the small nets
+SMOKE = ["train-multi", "--no-reload", "--max-steps", "4", "--n-synthetic",
+         "2", "--device", "cpu"]
+# a world of two against a world of one: tests/test_torch_parallel.py's
+# data-parallel bound on the weights (the JAX package's own bound for its
+# sharded step, tests/test_parallel.py:75-79)
+PARAM_ATOL = 2e-6
+
+
+def _smoke_tail(basedir, expname):
+    return ["--", "--basedir", str(basedir), "--expname", expname,
+            "--N_rand", "64", "--i_print", "2", "--i_weights", "4",
+            "--i_testset", "0"] + SMALL
+
+
+@contextlib.contextmanager
+def _fd_stdout(path):
+    """File descriptor 1 sent to ``path``: what spawned ranks print."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    try:
+        with open(path, "w") as fh:
+            os.dup2(fh.fileno(), 1)
+            yield
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+@pytest.fixture(scope="module")
+def cli_ranks(tmp_path_factory):
+    """``train-multi`` of JAX's smoke test over two gloo ranks (``--nproc 2
+    --ray-shards 2``) and in a world of one (``--nproc 1 --ray-shards
+    1``): ``(root, return values, what the parent and the ranks
+    printed)``."""
+    root = tmp_path_factory.mktemp("cli_ranks")
+    parent = io.StringIO()
+    with _fd_stdout(root / "ranks.log"), contextlib.redirect_stdout(parent):
+        two = cli.main(SMOKE + ["--ray-shards", "2", "--nproc", "2"]
+                       + _smoke_tail(root, "two"))
+    one = cli.main(SMOKE + ["--ray-shards", "1", "--nproc", "1"]
+                   + _smoke_tail(root, "one"))
+    return root, {"two": two, "one": one}, {
+        "parent": parent.getvalue(),
+        "ranks": (root / "ranks.log").read_text()}
+
+
+def test_train_multi_over_two_ranks_writes_every_scene(cli_ranks):
+    root, runs, out = cli_ranks
+    states, names, expdir = runs["two"]
+    assert states is None and names == ["synthetic0", "synthetic1"]
+    assert expdir == root / "two"
+    assert "[TRAIN-MULTI] 2 ranks over gloo" in out["parent"]
+    # rank 0 prints, and the layout note is layout(2, 2, 2)'s, once
+    _, note = t_loop.mesh_layout(2, 2, 2)
+    assert out["ranks"].count(note) == 1
+    assert "Multi-scene stage-1: 2 scenes on mesh {'scene': 1, 'rays': 2}" \
+        in out["ranks"]
+    assert out["ranks"].count("[TRAIN-MULTI] Iter: 4") == 1
+    for name in names:
+        assert sorted(p.name for p in (expdir / f"scene_{name}").glob(
+            "*.ckpt")) == ["000004.ckpt"], name
+
+
+def test_train_multi_over_two_ranks_equals_a_world_of_one(cli_ranks):
+    root, runs, _ = cli_ranks
+    states, names, expdir = runs["one"]
+    assert [s["global_step"] for s in states] == [4, 4]
+    assert not torch.distributed.is_initialized()  # the world was closed
+    for name in names:
+        a, b = (t_ckpt.load_checkpoint(t_ckpt.latest_checkpoint(
+            root / e / f"scene_{name}")) for e in ("one", "two"))
+        assert a["global_step"] == b["global_step"] == 4
+        for key in ("network_fn", "mmr_network_fn", "refine_net"):
+            assert a[key].keys() == b[key].keys()
+            for p, v in a[key].items():
+                np.testing.assert_allclose(b[key][p].numpy(), v.numpy(),
+                                           atol=PARAM_ATOL, rtol=0,
+                                           err_msg=f"{name} {key} {p}")
+    # each scene trained its own nets
+    a, b = (t_ckpt.load_checkpoint(root / "one" / f"scene_{name}" /
+                                   "000004.ckpt")["network_fn"]
+            for name in names)
+    assert any(not torch.equal(a[k], b[k]) for k in a)
+
+
+def test_train_multi_layouts_that_cannot_run_raise_before_any_rank(
+        tmp_path, monkeypatch):
+    def no_spawn(*args, **kwargs):
+        raise AssertionError("a rank was spawned")
+
+    monkeypatch.setattr(t_loop, "spawn_local", no_spawn)
+    with pytest.raises(ValueError, match="ray_shards=4 exceeds the 2"):
+        cli.main(SMOKE + ["--ray-shards", "4", "--nproc", "2"]
+                 + _smoke_tail(tmp_path, "bad"))
+    with pytest.raises(ValueError, match="at least one rank"):
+        cli.main(SMOKE + ["--nproc", "0"] + _smoke_tail(tmp_path, "bad"))
+    # on the card the default is every visible card, and no more may be
+    # asked for
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert t_loop.local_ranks("cuda") == 1 and t_loop.local_ranks("cpu") == 1
+    with pytest.raises(ValueError, match="nproc=2 exceeds the 1 visible"):
+        cli.main(["train-multi", "--nproc", "2", "--device", "cuda"]
+                 + _smoke_tail(tmp_path, "bad"))
+    assert not (tmp_path / "bad").exists()

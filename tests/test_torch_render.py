@@ -53,12 +53,12 @@ H, W = 16, 20
 
 
 class Fixture:
-    def __init__(self, ref):
+    def __init__(self, ref, **nets):
         sc = make_scene(n_views=5, H=H, W=W, seed=0)
         self.sc, self.pose = sc, sc["poses"][1]
         self.jscene = j_prepare_scene(sc["images"][ref], sc["poses"][ref],
                                       sc["K"])
-        self.jparams = j_init(jax.random.PRNGKey(0))
+        self.jparams = j_init(jax.random.PRNGKey(0), **nets)
         self.jrays = j_rays_for_pose(H, W, sc["K"], self.pose)
         self.jcontrols = {"rng": jax.random.PRNGKey(0),
                           "target_t": jnp.asarray(self.pose[:3, 3])}
@@ -231,6 +231,60 @@ def test_frame_renderer_whole_frame_tiled_and_jax(held_out, compute_dtype):
             v.numpy(), np.asarray(want[k], np.float32),
             atol=5e-4 if (k == "depth" and compute_dtype is None) else atol,
             err_msg=k)
+
+
+# The headline bench's second serving point: num_neighbor = 2 (bench.py),
+# whose refine net reads C = 6 + 3 * 2 * 8 = 54 rows, in the three forms
+# of the serving frame.
+V2_FORMS = {"default": {}, "fuse_composite": {"fuse_composite": True},
+            "transposed": {"transposed": True}}
+
+
+@pytest.fixture(scope="module")
+def two_views():
+    return Fixture(ref=[0, 2, 3, 4], num_neighbor=2)
+
+
+@pytest.mark.parametrize("form", list(V2_FORMS))
+def test_frame_renderer_two_neighbours_against_jax(two_views, form):
+    """The whole frame at ``num_neighbor = 2`` under the serving statics of
+    ``fern_trt.txt`` with ``use_trt`` (bf16, the fused kernels, the whole
+    frame in one tile) against the JAX package's frame: the bf16 bound of
+    the frame test above (0.02 on every key; the transposed frame's own
+    test has the same)."""
+    from pronerf_tpu.config import Config as JConfig
+    from pronerf_tpu.models import pronerf_t as j_pt
+    from pronerf_tpu.render.infer import _infer_statics as j_infer_statics
+    from pronerf_tpu_torch.config import Config
+    from pronerf_tpu_torch.models import pronerf_t as t_pt
+    from pronerf_tpu_torch.render.infer import _infer_statics
+
+    fx = two_views
+    over = dict(num_neighbor=2, use_trt=True, tile_rays=0, use_pallas=True)
+    statics = dataclasses.replace(_infer_statics(Config.from_file(
+        "configs/llff/fern/fern_trt.txt", **over), True), **V2_FORMS[form])
+    jstatics = dataclasses.replace(j_infer_statics(JConfig.from_file(
+        "configs/llff/fern/fern_trt.txt", **over), True),
+        pallas_block_rays=128, **V2_FORMS[form])
+    assert (statics.num_neighbor, statics.N_samples) == (2, 8)
+    assert statics.use_kernels and statics.compute_dtype == "bfloat16"
+    renderer = make_frame_renderer(statics, H, W, fx.sc["K"], 0,
+                                   device="cpu")
+    refine = renderer.pack(fx.params)["refine_packed"]
+    assert refine["w0_t"].shape == (256, 6 + 3 * 2 * 8)
+    if form == "transposed":
+        perm = t_pt.refine_rest_row_perm(2, 8)
+        assert perm == j_pt.refine_rest_row_perm(2, 8)
+        assert renderer.pack(fx.params)["refine_packed_t"]["w0_t"].shape \
+            == (256, 54)
+    got = renderer(fx.params, fx.scene, fx.pose)
+    want = j_make_renderer(jstatics, H, W, fx.sc["K"], tile_rays=0)(
+        fx.jparams, fx.jscene, jnp.asarray(fx.pose))
+    assert set(got) == set(want)
+    for k, v in got.items():
+        assert v.shape == want[k].shape, k
+        np.testing.assert_allclose(v.numpy(), np.asarray(want[k], np.float32),
+                                   atol=0.02, err_msg=k)
 
 
 def test_rays_for_pose_matches_jax(held_out):
