@@ -160,6 +160,26 @@ falls back to the CPU. Phases, each printing one JSON line:
                 natively and in NumPy, ms per eval frame, the render-path
                 and i_video runs' seconds, with the card's name and power
                 limit.
+7. ``protocols`` the twins of the JAX repo's measurement and release entry
+                points, each as a subprocess on the card, each printing its
+                JSON line, any non-zero exit failing the run: the headline
+                bench (``pronerf_tpu_torch.bench``, run in full by a child
+                ``chip_smoke.py --bench-child`` that zeroes the launch
+                counters before it and reads them after: the MinMax kernel
+                at C = 6, 102 and 54 and the raw NeRF kernel launched, no
+                plain version called), then one 504x378 bench frame
+                profiled here, its device busy time within 10% of the
+                bench's steady-state ms/frame; the training bench
+                (``bench_train``, in full), then its chained form here, 12
+                steps of each kind as one CUDA graph against the same 12
+                steps eagerly (``TRAIN_TOL``); ``tools.verify_fern
+                --fixture``; ``tools.bench_coldstart`` warm (after
+                ``build``) and ``--no-cache`` (a fresh build directory,
+                removed after); ``tools.rehearse_release`` from a raw
+                2016x1512x17 capture with the depth cut to ``--s1 8 --s2 4
+                --scan 4`` and PIL unimportable in every stage, then
+                ``images_4`` held against the port's resize of the raw
+                images, bit for bit.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line with
 the roofline bound of each kernel beside its measured time (and its
@@ -168,7 +188,7 @@ renderer's drives and in the frame graphs' captures), and last
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero and no result line is printed.
 
-``--only build|kernels|frame|fullres|gathers|train|scan|donerf|export|multi|cli``
+``--only build|kernels|frame|fullres|gathers|train|scan|donerf|export|multi|cli|protocols``
 runs a
 subset while developing, ``--rays N`` shrinks the kernel phase,
 ``--profile`` adds ``profile`` lines (device time by kernel name over a few
@@ -3370,6 +3390,303 @@ def phase_cli(device):
     return report
 
 
+# ----------------------------------------------------------- protocols ----
+
+BUSY_REL = 0.10          # the bench's steady-state frame against device busy
+REHEARSAL_CUT = ("--s1", "8", "--s2", "4", "--scan", "4")  # depth only
+RAW_H, RAW_W = 1512, 2016  # fern's raw capture
+TWIN_TIMEOUT_S = 600
+PLAIN_FNS = (("fused_minmax", "fused_minmax_plain"),
+             ("fused_nerf", "fused_nerf_raw_plain"),
+             ("fused_nerf", "fused_nerf_composite_plain"),
+             ("fused_nerf_q", "fused_nerf_raw_q_plain"))
+
+
+@contextlib.contextmanager
+def count_plain():
+    """Count the calls of the kernels' plain versions (the ops' CPU
+    implementations call them through their modules): yields the counts,
+    by function name."""
+    import importlib
+
+    counts, kept = {}, []
+    for mod_name, fn_name in PLAIN_FNS:
+        mod = importlib.import_module(f"pronerf_tpu_torch.kernels.{mod_name}")
+        fn = getattr(mod, fn_name)
+        counts[fn_name] = 0
+
+        def counted(*a, _fn=fn, _name=fn_name, **kw):
+            counts[_name] += 1
+            return _fn(*a, **kw)
+
+        kept.append((mod, fn_name, fn))
+        setattr(mod, fn_name, counted)
+    try:
+        yield counts
+    finally:
+        for mod, fn_name, fn in kept:
+            setattr(mod, fn_name, fn)
+
+
+def bench_child():
+    """``chip_smoke.py --bench-child``: ``python -m pronerf_tpu_torch.bench``
+    run in this process (``runpy``) with the launch counters zeroed just
+    before and read just after, and the plain versions' calls counted; then
+    one ``bench_launches`` line."""
+    import runpy
+
+    reset_counters()
+    argv = sys.argv
+    sys.argv = ["pronerf_tpu_torch.bench"]
+    try:
+        with count_plain() as plain:
+            runpy.run_module("pronerf_tpu_torch.bench", run_name="__main__")
+            torch.cuda.synchronize()
+    finally:
+        sys.argv = argv
+    say({"bench_launches": read_counters(), "plain_calls": plain})
+    return 0
+
+
+def json_lines(text):
+    out = []
+    for line in text.splitlines():
+        if line.startswith("{"):
+            try:
+                out.append(json.loads(line))
+            except ValueError:
+                pass
+    return out
+
+
+def run_twin(what, argv, env=None, timeout=TWIN_TIMEOUT_S):
+    """One twin as a subprocess on the card, from the checkout's root, with
+    ``env`` over this process's environment: fails if it exits non-zero.
+    Returns ``(its JSON lines, seconds)``."""
+    import os
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *argv], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout,
+                          env=None if env is None else os.environ | env)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-6000:], proc.stderr[-6000:], flush=True)
+        raise SystemExit(f"protocols: {what} exited {proc.returncode}")
+    return json_lines(proc.stdout), seconds
+
+
+def protocol_bench(device, env):
+    """The headline bench, in full, through its entry point in a child
+    process that reads the launch counters around it: the MinMax kernel at
+    C = 6, 102 and 54 and the raw NeRF kernel launched, no plain version
+    called. Then one 504x378 bench frame profiled here: the steady-state
+    ms/frame within BUSY_REL of the frame's device busy time."""
+    from pronerf_tpu_torch import bench
+
+    lines, seconds = run_twin("bench", ["chip_smoke.py", "--bench-child"],
+                              env)
+    line = next(x for x in lines if "metric" in x)
+    counts = next(x for x in lines if "bench_launches" in x)
+    say({"protocol": "bench", "line": line, "seconds": seconds})
+    launched = counts["bench_launches"]
+    need = ("fused_minmax_t[sampler]", "fused_minmax_t[refine]",
+            "fused_minmax_t[refine,C=54]", "fused_nerf_raw_t")
+    if any(launched[k] < 1 for k in need) or any(counts["plain_calls"].values()):
+        raise SystemExit(f"protocols: bench launches {launched}, plain "
+                         f"calls {counts['plain_calls']}")
+    extra = line["extra"]
+    keys = ("full_res_1008x756_ms", "fast_v2_1008x756_ms", "model_flop_util")
+    if (extra["device_kind"] != torch.cuda.get_device_name(0)
+            or any(k not in extra for k in keys)
+            or any(k.endswith("_error") for k in extra)):
+        raise SystemExit(f"protocols: bench line {line}")
+    s = bench.setup(device=device)
+    prof = profile_frames(
+        lambda: s["renderer"](s["params"], s["scene"], s["c2w"]), 3)
+    busy = prof["device_busy_ms_per_frame"]
+    rel = (line["value"] - busy) / busy
+    row = {"launches": launched, "plain_calls": counts["plain_calls"],
+           "steady_ms": line["value"], "busy_ms": busy, "steady_vs_busy": rel,
+           "kernels_per_frame": prof["device_kernels_per_frame"],
+           "top": prof["top"][:6]}
+    say({"protocol": "bench_profile"} | row)
+    if abs(rel) > BUSY_REL:
+        raise SystemExit(f"protocols: steady-state {line['value']} ms "
+                         f"against busy {busy} ms")
+    del s
+    torch.cuda.empty_cache()
+    return row
+
+
+def chain_against_eager(name, s):
+    """The bench's chained form of one step kind (a CUDA graph of ITERS
+    steps) against the same ITERS steps run eagerly from the same state:
+    every loss within ``loss_rel``, each optimizer's moments within the
+    gradient bounds (nu doubled), the params within ``param_lr`` of lr on a
+    ``param_share`` and within 2 lr a step everywhere (``TRAIN_TOL``)."""
+    from pronerf_tpu_torch import bench_train as bt
+    from pronerf_tpu_torch.train.state import named_params
+
+    step, init = s["steps"][name]
+    graph_state = init(bt.copy_params(s["params"]))
+    graph, out = bt.chained_graph(step, graph_state, s, bt.OPTS[name])
+    graph.replay()
+    eager_state = init(bt.copy_params(s["params"]))
+    eager = bt.chain(step, eager_state, s)
+    got, want = out.cpu().tolist(), eager.cpu().tolist()
+    row = {"losses": got, "eager_losses": want,
+           "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(got, want))}
+    bad = row["loss_rel"] > TRAIN_TOL["loss_rel"]
+    for o in bt.OPTS[name]:
+        for part, power in (("mu", 1), ("nu", 2)):
+            g, h = graph_state[o][part], eager_state[o][part]
+            norm = max(float((g[k] - v).norm() / v.norm())
+                       for k, v in h.items() if float(v.norm()) > 0)
+            top = max(float((g[k] - v).abs().max() / v.abs().max())
+                      for k, v in h.items() if float(v.abs().max()) > 0)
+            row[f"{o}.{part}"] = {"norm_rel": norm, "max_rel": top}
+            bad |= norm > power * TRAIN_TOL["grad_norm_rel"] \
+                or top > power * TRAIN_TOL["grad_max_rel"]
+    d = torch.cat([(a.detach() - b.detach()).abs().flatten() for a, b in zip(
+        named_params(graph_state["params"]).values(),
+        named_params(eager_state["params"]).values())])
+    row["param_max_over_lr"] = float(d.max()) / bt.LR
+    row["param_share_within"] = float(
+        (d <= TRAIN_TOL["param_lr"] * bt.LR).float().mean())
+    row["bit_for_bit"] = bool(d.max() == 0) and got == want
+    if bad or row["param_max_over_lr"] > 2 * bt.ITERS \
+            or row["param_share_within"] < TRAIN_TOL["param_share"]:
+        raise SystemExit(f"protocols: bench_train {name} graph against "
+                         f"eager: {row} ({TRAIN_TOL})")
+    return row
+
+
+def protocol_bench_train(device, env):
+    """The training bench, in full, through its entry point; then its
+    chained form held against eager steps here."""
+    from pronerf_tpu_torch import bench_train as bt
+
+    lines, seconds = run_twin("bench_train",
+                              ["-m", "pronerf_tpu_torch.bench_train"], env)
+    line = next(x for x in lines if "metric" in x)
+    say({"protocol": "bench_train", "line": line, "seconds": seconds})
+    want = set(bt.STEPS) | {"n_rand", "full_500k_train_minutes"}
+    if not want <= set(line["extra"]) or not all(
+            line["extra"][k] > 0 for k in bt.STEPS):
+        raise SystemExit(f"protocols: bench_train line {line}")
+    s = bt.setup(device)
+    rows = {name: chain_against_eager(name, s) for name in bt.STEPS}
+    say({"protocol": "bench_train_chain_against_eager"} | rows)
+    del s
+    torch.cuda.empty_cache()
+    return {"line": line, "chains": rows}
+
+
+def no_pil_env(tmp, env):
+    """``env`` and ``import PIL`` raising: a package ``PIL`` that raises
+    ImportError, first on ``PYTHONPATH``. Checked."""
+    import os
+
+    block = Path(tmp) / "no_pil" / "PIL"
+    block.mkdir(parents=True)
+    (block / "__init__.py").write_text(
+        "raise ImportError('PIL is blocked for this run')\n")
+    env = env | {"PYTHONPATH": os.pathsep.join(
+        filter(None, [str(block.parent), os.environ.get("PYTHONPATH")]))}
+    proc = subprocess.run([sys.executable, "-c", "import PIL"], cwd=ROOT,
+                          capture_output=True, text=True,
+                          env=os.environ | env)
+    if proc.returncode == 0 or "PIL is blocked" not in proc.stderr:
+        raise SystemExit("protocols: PIL could not be blocked")
+    return env
+
+
+def protocol_rehearsal(tmp, env):
+    """The release rehearsal from a raw 2016x1512x17 capture (depth cut to
+    REHEARSAL_CUT), with PIL unimportable in every stage; then ``images_4``
+    held against the port's resize of the raw images, bit for bit."""
+    from pronerf_tpu_torch.utils.png import read_png
+    from pronerf_tpu_torch.utils.resize import resize_lanczos
+
+    root, base = Path(tmp) / "rehearsal_capture", Path(tmp) / "rehearsal"
+    lines, seconds = run_twin(
+        "rehearse_release",
+        ["-m", "pronerf_tpu_torch.tools.rehearse_release", *REHEARSAL_CUT,
+         "--root", str(root), "--basedir", str(base)],
+        env=no_pil_env(tmp, env))
+    results = json.loads((base / "rehearsal_fern.json").read_text())
+    raw = sorted((root / "images").glob("*.png"))
+    small = sorted((root / "images_4").glob("*.png"))
+    if len(raw) != N_VIEWS or [p.name for p in small] != [p.name for p in raw]:
+        raise SystemExit(f"protocols: {len(raw)} raw images, images_4 "
+                         f"{[p.name for p in small]}")
+    for i in sorted({0, N_VIEWS // 2, N_VIEWS - 1}):
+        img = read_png(raw[i])
+        got = read_png(small[i])
+        if img.shape != (RAW_H, RAW_W, 3) or got.shape != (H, W_IMG, 3) \
+                or not np.array_equal(got, resize_lanczos(img, W_IMG, H)):
+            raise SystemExit(f"protocols: images_4/{small[i].name} is not "
+                             "the port's resize of the raw image")
+    need = ("eval_psnr_rgb1", "eval_ms_frame", "export_fullres_ms_frame",
+            "export_psnr_rgb1")
+    if any(results.get(k) is None for k in need):
+        raise SystemExit(f"protocols: rehearsal results {results}")
+    row = {"results": results, "seconds": seconds,
+           "images_4_checked": "3 of 17 equal to resize_lanczos"}
+    say({"protocol": "rehearse_release"} | row)
+    return row
+
+
+def phase_protocols(device):
+    """The twins of the JAX package's measurement and release entry
+    points, each as a subprocess on the card, each printing its JSON line:
+    the headline bench (its launches read, one frame profiled), the
+    training bench (chained graph against eager steps), ``verify_fern
+    --fixture``, ``bench_coldstart`` warm and ``--no-cache``, and
+    ``rehearse_release`` from a raw capture with PIL blocked.
+
+    The subprocesses share one bytecode cache (``PYTHONPYCACHEPREFIX``, in
+    the phase's temporary directory): where the installed packages hold no
+    compiled bytecode, every process would compile PyTorch's sources again
+    (8 s of a process's start, cProfile of ``bench_coldstart`` on an H100
+    host); the first process writes the cache and the others read it, as
+    an installation with bytecode would. The warm cold-start run comes
+    after it is written."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_protocols_") as tmp:
+        env = {"PYTHONPYCACHEPREFIX": f"{tmp}/pycache"}
+        report = {"bench": protocol_bench(device, env),
+                  "bench_train": protocol_bench_train(device, env)}
+        lines, seconds = run_twin(
+            "verify_fern", ["-m", "pronerf_tpu_torch.tools.verify_fern",
+                            "--fixture", "--basedir", f"{tmp}/verify_fern"],
+            env)
+        vf = next(x for x in lines if "verify_fern" in x)["verify_fern"]
+        if not np.isfinite(vf["psnr"]):
+            raise SystemExit(f"protocols: verify_fern {vf}")
+        say({"protocol": "verify_fern", "line": vf, "seconds": seconds})
+        report["verify_fern"] = vf
+
+        starts = {}
+        for kind, extra in (("warm", []), ("cold", ["--no-cache"])):
+            lines, seconds = run_twin(
+                f"bench_coldstart {kind}",
+                ["-m", "pronerf_tpu_torch.tools.bench_coldstart", *extra],
+                env)
+            starts[kind] = lines[-1]
+            say({"protocol": f"bench_coldstart_{kind}", "line": lines[-1],
+                 "seconds": seconds})
+        warm, cold = starts["warm"], starts["cold"]
+        if (warm["cold"] or not cold["cold"] or not cold["cache_mb"]
+                or Path(cold["cache"]).exists()
+                or cold["phases_s"]["kernel_load"]
+                <= warm["phases_s"]["kernel_load"]):
+            raise SystemExit(f"protocols: cold start {starts}")
+        report["bench_coldstart"] = starts
+        report["rehearse_release"] = protocol_rehearsal(tmp, env)
+    return report
+
+
 # ---------------------------------------------------------------- main ----
 
 def main(argv=None):
@@ -3377,7 +3694,9 @@ def main(argv=None):
     ap.add_argument("--only",
                     choices=("build", "kernels", "frame", "fullres",
                              "gathers", "train", "scan", "donerf", "export",
-                             "multi", "cli"))
+                             "multi", "cli", "protocols"))
+    ap.add_argument("--bench-child", action="store_true",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--rays", type=int, default=FRAME_RAYS)
     ap.add_argument("--verbose-build", action="store_true",
                     help="print the compiler's output of every source")
@@ -3394,6 +3713,8 @@ def main(argv=None):
     import pronerf_tpu_torch  # noqa: F401  (switches TF32 off)
     from pronerf_tpu_torch.kernels import build
 
+    if args.bench_child:
+        return bench_child()
     device = torch.device("cuda", 0)
     smi = nvidia_smi_line()
     say({"device": {"nvidia_smi": smi, "torch": torch.__version__,
@@ -3438,6 +3759,8 @@ def main(argv=None):
         sharded_launches, graph_launches = phase_multi(device, args.profile)
     if args.only in (None, "cli"):
         phase_cli(device)
+    if args.only in (None, "protocols"):
+        phase_protocols(device)
 
     print(smi, flush=True)
     contract = []

@@ -18,8 +18,9 @@ Fyusion/LLFF loader):
 PNGs are read by ``utils/png.py`` (8-bit RGB / RGBA), so a capture of PNGs
 loads without an imaging package; any other image (a raw capture's JPEGs)
 needs imageio or PIL. Missing downsampled sets (``images_{factor}``) are
-made in-process with PIL (Lanczos), as in the JAX package; a capture that
-already holds them needs no PIL.
+made in-process with PIL's Lanczos, as in the JAX package, but by the port's
+own copy of it (``utils/resize.py``, equal to PIL bit for bit), so a raw
+capture of PNGs needs no imaging package either.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from pathlib import Path
 import numpy as np
 
 from pronerf_tpu_torch.data.colmap import greedy_reference_views
-from pronerf_tpu_torch.utils.png import UnsupportedPNG, read_png
+from pronerf_tpu_torch.utils.png import UnsupportedPNG, read_png, write_png
+from pronerf_tpu_torch.utils.resize import resize_lanczos
 
 _IMG_EXTS = (".jpg", ".jpeg", ".png", ".JPG", ".PNG", ".JPEG")
 
@@ -66,20 +68,22 @@ def _imread(path) -> np.ndarray:
 
 
 def _minify(basedir, factor: int) -> Path:
-    """Create ``images_{factor}`` next to ``images`` if missing (PIL)."""
+    """Create ``images_{factor}`` next to ``images`` if missing: each image
+    resized by ``utils/resize.py`` (PIL's Lanczos, bit for bit) to
+    ``round(w / factor) x round(h / factor)`` and written as a PNG by
+    ``utils/png.py``, so no imaging package is needed (a JPEG source still
+    needs one to be read, see ``_imread``)."""
     basedir = Path(basedir)
     out = basedir / f"images_{factor}"
     if out.exists():
         return out
     src = _list_images(basedir / "images")
-    from PIL import Image as PILImage
-
     out.mkdir(parents=True)
     for p in src:
-        img = PILImage.open(p).convert("RGB")
-        w, h = img.size
-        img = img.resize((round(w / factor), round(h / factor)), PILImage.LANCZOS)
-        img.save(out / (p.stem + ".png"))
+        img = _imread(p)
+        h, w = img.shape[:2]
+        write_png(out / (p.stem + ".png"),
+                  resize_lanczos(img, round(w / factor), round(h / factor)))
     return out
 
 

@@ -14,6 +14,11 @@ every pointer and for the stream, or ctypes would cut them to 32 bits).
 Nothing happens at import: the first launch of a kernel calls :func:`load`,
 which builds if needed. :func:`build_all` starts one ``nvcc`` per source at
 once, for callers that want the whole set up front.
+
+The libraries live in ``_build/`` beside this file, or in the directory
+that ``PRONERF_KERNEL_CACHE`` names (read at each build or load; the
+counterpart of the JAX package's ``PRONERF_XLA_CACHE``): an empty directory
+there means a cold start, which builds every source.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+CACHE_ENV = "PRONERF_KERNEL_CACHE"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -67,8 +73,14 @@ def _digest() -> str:
     return h.hexdigest()[:12]
 
 
+def build_dir() -> Path:
+    """Where the libraries are built and loaded from: ``$PRONERF_KERNEL_CACHE``
+    if set, else ``BUILD_DIR``."""
+    return Path(os.environ.get(CACHE_ENV) or BUILD_DIR)
+
+
 def lib_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}-{_digest()}.so"
+    return build_dir() / f"lib{name}-{_digest()}.so"
 
 
 def log_path(name: str) -> Path:
@@ -119,7 +131,7 @@ def _finish(name: str, proc, tmp: Path, out: Path) -> str:
 def build_all() -> dict:
     """Build every missing library, all ``nvcc`` processes started together.
     Returns {name: compiler output} for the ones that were built."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     running = []
     for name in sources():
         out = lib_path(name)

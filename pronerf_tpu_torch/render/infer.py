@@ -306,7 +306,7 @@ def run_export(cfg: Config, height: int = 756, width: int = 1008,
         statics=_infer_statics(cfg, use_bf16=cfg.use_trt),
         arch=_arch(cfg), device=device,
     )
-    print(f"Exported renderer to {paths['executable']}")
+    print(f"Exported AOT renderer to {paths['executable']}")
     return paths
 
 

@@ -281,10 +281,12 @@ def render_path(
 def save_video(frames, path, fps: int = 30) -> str:
     """Write a [N, H, W, 3] float stack as a video; returns the path
     written. Where imageio imports, the JAX package's calls: mp4, and a GIF
-    beside it when no mp4 backend is there. Without imageio, the port's own
-    GIF writer (``utils.gif``, a fixed 252-colour palette). Used by the
+    beside it when no mp4 backend is there. Without imageio, or where its
+    GIF writer cannot import Pillow, the port's own GIF writer
+    (``utils.gif``, a fixed 252-colour palette). Used by the
     ``render-path`` verb and the trainer's ``i_video``."""
     from pronerf_tpu_torch.ops.metrics import to8b
+    from pronerf_tpu_torch.utils.gif import write_gif
 
     frames8 = [to8b(f) for f in np.asarray(frames)]
     path = str(path)
@@ -292,12 +294,14 @@ def save_video(frames, path, fps: int = 30) -> str:
     try:
         import imageio.v2 as imageio
     except ImportError:
-        from pronerf_tpu_torch.utils.gif import write_gif
-
         return write_gif(gif, frames8, fps)
     try:
         imageio.mimwrite(path, frames8, fps=fps, quality=8)
         return path
-    except (ValueError, RuntimeError, OSError):  # no mp4 backend
+    except (ValueError, RuntimeError, OSError, ImportError):  # no mp4 backend
+        pass
+    try:
         imageio.mimwrite(gif, frames8, duration=1.0 / fps)
         return gif
+    except ImportError:  # imageio's GIF writer is Pillow's
+        return write_gif(gif, frames8, fps)

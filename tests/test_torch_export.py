@@ -278,7 +278,7 @@ def test_export_then_infer_from_export_on_a_capture(llff_root, tmp_path,
                  + _common(llff_root, tmp_path, "exp"))
     export_dir = tmp_path / "exp" / "export"
     assert paths["executable"] == export_dir / "render_frame.pt2"
-    assert f"Exported renderer to {paths['executable']}" in \
+    assert f"Exported AOT renderer to {paths['executable']}" in \
         capsys.readouterr().out
     res = main(["infer", "--from-export", str(export_dir), "--max-images",
                 "1", "--timing-reps", "2"]

@@ -35,7 +35,9 @@ def test_port_has_the_expected_modules():
                  "models.donerf", "utils.gif", "train.fast_loop",
                  "render.export", "parallel", "parallel.launch",
                  "parallel.data_parallel", "parallel.multi_scene",
-                 "parallel.render_parallel", "train.multi_loop"):
+                 "parallel.render_parallel", "train.multi_loop",
+                 "bench", "bench_train", "utils.resize", "tools.verify_fern",
+                 "tools.bench_coldstart", "tools.rehearse_release"):
         assert f"pronerf_tpu_torch.{want}" in mods
 
 
@@ -138,6 +140,63 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     with pytest.raises(RuntimeError, match="CUDA"):
         make_sharded_frame_renderer(RenderStatics.infer(), 12, 16, K,
                                     make_ray_mesh())
+
+
+# the twins of the JAX package's measurement and release entry points
+TWINS = ("pronerf_tpu_torch.bench", "pronerf_tpu_torch.bench_train",
+         "pronerf_tpu_torch.utils.resize",
+         "pronerf_tpu_torch.tools.verify_fern",
+         "pronerf_tpu_torch.tools.bench_coldstart",
+         "pronerf_tpu_torch.tools.rehearse_release")
+
+
+def test_the_twins_load_no_jax_in_a_fresh_process():
+    """Each twin alone, in a fresh process: no ``jax``, ``flax``,
+    ``optax`` or ``pronerf_tpu`` (nor PIL or imageio) is loaded, and no
+    kernel library."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {TWINS!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'pronerf_tpu', 'PIL', "
+        "'imageio'))\n"
+        "assert not bad, bad\n"
+        "from pronerf_tpu_torch.kernels import build\n"
+        "assert not build._loaded\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.startswith("ok")
+
+
+def test_the_twins_default_to_the_card_and_raise_without_one(tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from pronerf_tpu_torch import bench, bench_train
+    from pronerf_tpu_torch.tools import (
+        bench_coldstart,
+        rehearse_release,
+        verify_fern,
+    )
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.run_bench(12, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_train.setup(h=12, w=16, n_views=5, n_rand=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_train.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_coldstart.main(["--res", "12x16"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        verify_fern.main(["--fixture", "--basedir", str(tmp_path)])
+    assert rehearse_release.build_parser().parse_args([]).device == "cuda"
 
 
 def test_chip_smoke_fails_without_a_card():

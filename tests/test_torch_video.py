@@ -115,6 +115,25 @@ def test_save_video_with_imageio_as_jax_and_without(tmp_path, monkeypatch):
                                   gif.palette()[gif.quantize(f8)])
 
 
+def test_save_video_with_imageio_but_no_pil_writes_its_own_gif(tmp_path,
+                                                               monkeypatch):
+    """imageio without Pillow (its GIF writer imports it): the port's own
+    GIF writer, as without imageio."""
+    from pronerf_tpu_torch.render.renderer import save_video
+
+    pytest.importorskip("imageio")
+    frames = frames_of().astype(np.float32) / 255.0
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "PIL.Image", None)
+    own = save_video(frames, tmp_path / "nopil.mp4", fps=30)
+    if own.endswith(".mp4"):  # an mp4 backend that needs no Pillow
+        return
+    assert own == str(tmp_path / "nopil.gif")
+    f8 = np.stack([to8b(f) for f in frames])
+    np.testing.assert_array_equal(gif.read_gif(own)[0],
+                                  gif.palette()[gif.quantize(f8)])
+
+
 @pytest.fixture(scope="module")
 def llff_root(tmp_path_factory):
     from pronerf_tpu.utils.fixtures import (
