@@ -167,9 +167,16 @@ falls back to the CPU. Phases, each printing one JSON line:
                 ``chip_smoke.py --bench-child`` that zeroes the launch
                 counters before it and reads them after: the MinMax kernel
                 at C = 6, 102 and 54 and the raw NeRF kernel launched, no
-                plain version called), then one 504x378 bench frame
-                profiled here, its device busy time within 10% of the
-                bench's steady-state ms/frame; the training bench
+                plain version called, ``torch._dynamo`` never imported),
+                then one 504x378 bench frame profiled here, its device busy
+                time within 10% of the bench's steady-state ms/frame; a
+                serving process's start (a child ``chip_smoke.py
+                --start-child``): the first frame of each serving form
+                (default, ``fuse_composite``, int8, transposed) at 504x378
+                and at 1008x756 (windowed), each timed, finite and
+                launching its form's kernels, with ``torch._dynamo`` never
+                imported (the kernels' ops are ``torch.library.Library``
+                ops, ``kernels/library.py``); the training bench
                 (``bench_train``, in full), then its chained form here, 12
                 steps of each kind as one CUDA graph against the same 12
                 steps eagerly (``TRAIN_TOL``); ``tools.verify_fern
@@ -3432,7 +3439,8 @@ def bench_child():
     """``chip_smoke.py --bench-child``: ``python -m pronerf_tpu_torch.bench``
     run in this process (``runpy``) with the launch counters zeroed just
     before and read just after, and the plain versions' calls counted; then
-    one ``bench_launches`` line."""
+    one ``bench_launches`` line, with whether ``torch._dynamo`` was
+    imported."""
     import runpy
 
     reset_counters()
@@ -3444,7 +3452,55 @@ def bench_child():
             torch.cuda.synchronize()
     finally:
         sys.argv = argv
-    say({"bench_launches": read_counters(), "plain_calls": plain})
+    say({"bench_launches": read_counters(), "plain_calls": plain,
+         "dynamo_imported": "torch._dynamo" in sys.modules})
+    return 0
+
+
+# The serving forms a fresh process starts in: the bench's statics and these
+# replacements, and the kernels a first frame of each launches (the MinMax
+# ones by their rows in read_counters)
+START_FORMS = {
+    "default": ({}, {"fused_nerf_raw_t"}),
+    "fuse_composite": ({"fuse_composite": True}, {"fused_nerf_composite_t"}),
+    "int8": ({"quant": "int8"}, {"fused_nerf_raw_tq"}),
+    "transposed": ({"transposed": True},
+                   {"fused_nerf_composite_t", UNTRANSPOSED}),
+}
+
+
+def start_child():
+    """``chip_smoke.py --start-child``: a serving process's first frames,
+    in a fresh process on the card: the bench's serving statics in each of
+    ``START_FORMS`` at 504x378 and at 1008x756 (the windowed gather), each
+    renderer's first frame (its params packed, its blobs built) timed to
+    the readback, the launch counters zeroed just before and read just
+    after. One ``start`` line, with whether ``torch._dynamo`` was imported
+    (no serving path needs it)."""
+    from pronerf_tpu_torch import bench
+    from pronerf_tpu_torch.render.renderer import make_frame_renderer
+    from pronerf_tpu_torch.utils.profiling import readback
+
+    rows, params = {}, None
+    for h, w in ((H, W_IMG), (FULL_H, FULL_W)):
+        s = bench.setup(h, w, device="cuda", params=params)
+        params = s["params"]
+        for form, (kw, _) in START_FORMS.items():
+            render = make_frame_renderer(
+                dataclasses.replace(s["statics"], **kw), h, w, s["sc"]["K"],
+                tile_rays=s["cfg"].tile_rays, device="cuda")
+            reset_counters()
+            t0 = time.perf_counter()
+            out = render(params, s["scene"], s["c2w"])
+            readback(out["rgb1"])
+            rows[f"{form} {w}x{h}"] = {
+                "first_frame_s": time.perf_counter() - t0,
+                "gather_tiles": render.statics.gather_tiles,
+                "finite": all(bool(torch.isfinite(v).all())
+                              for v in out.values()),
+                "launches": {k: v for k, v in read_counters().items() if v}}
+        del s
+    say({"start": rows, "dynamo_imported": "torch._dynamo" in sys.modules})
     return 0
 
 
@@ -3495,6 +3551,9 @@ def protocol_bench(device, env):
     if any(launched[k] < 1 for k in need) or any(counts["plain_calls"].values()):
         raise SystemExit(f"protocols: bench launches {launched}, plain "
                          f"calls {counts['plain_calls']}")
+    if counts["dynamo_imported"]:
+        raise SystemExit("protocols: the bench's process imported "
+                         "torch._dynamo")
     extra = line["extra"]
     keys = ("full_res_1008x756_ms", "fast_v2_1008x756_ms", "model_flop_util")
     if (extra["device_kind"] != torch.cuda.get_device_name(0)
@@ -3517,6 +3576,29 @@ def protocol_bench(device, env):
     del s
     torch.cuda.empty_cache()
     return row
+
+
+def protocol_start(env):
+    """The first frames of a fresh serving process in the four forms at
+    504x378 and 1008x756 (``chip_smoke.py --start-child``): each finite,
+    launching its form's kernels and no other, the 1008x756 ones through
+    the windowed gather, and ``torch._dynamo`` never imported."""
+    lines, seconds = run_twin("serving start",
+                              ["chip_smoke.py", "--start-child"], env)
+    line = next(x for x in lines if "start" in x)
+    say({"protocol": "serving_start", "seconds": seconds} | line)
+    sampler, refine = "fused_minmax_t[sampler]", "fused_minmax_t[refine]"
+    for form, (_, kernels) in START_FORMS.items():
+        for w, h in ((W_IMG, H), (FULL_W, FULL_H)):
+            row = line["start"][f"{form} {w}x{h}"]
+            if (not row["finite"] or (row["gather_tiles"] > 0) != (w == FULL_W)
+                    or set(row["launches"]) != {sampler, refine, *kernels}):
+                raise SystemExit(f"protocols: serving start {form} {w}x{h}: "
+                                 f"{row}")
+    if line["dynamo_imported"]:
+        raise SystemExit("protocols: a serving process's first frames "
+                         "imported torch._dynamo")
+    return line
 
 
 def chain_against_eager(name, s):
@@ -3641,7 +3723,8 @@ def protocol_rehearsal(tmp, env):
 def phase_protocols(device):
     """The twins of the JAX package's measurement and release entry
     points, each as a subprocess on the card, each printing its JSON line:
-    the headline bench (its launches read, one frame profiled), the
+    the headline bench (its launches read, one frame profiled), a serving
+    process's first frames in four forms (``protocol_start``), the
     training bench (chained graph against eager steps), ``verify_fern
     --fixture``, ``bench_coldstart`` warm and ``--no-cache``, and
     ``rehearse_release`` from a raw capture with PIL blocked.
@@ -3656,6 +3739,7 @@ def phase_protocols(device):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_protocols_") as tmp:
         env = {"PYTHONPYCACHEPREFIX": f"{tmp}/pycache"}
         report = {"bench": protocol_bench(device, env),
+                  "serving_start": protocol_start(env),
                   "bench_train": protocol_bench_train(device, env)}
         lines, seconds = run_twin(
             "verify_fern", ["-m", "pronerf_tpu_torch.tools.verify_fern",
@@ -3697,6 +3781,8 @@ def main(argv=None):
                              "multi", "cli", "protocols"))
     ap.add_argument("--bench-child", action="store_true",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--start-child", action="store_true",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--rays", type=int, default=FRAME_RAYS)
     ap.add_argument("--verbose-build", action="store_true",
                     help="print the compiler's output of every source")
@@ -3715,6 +3801,8 @@ def main(argv=None):
 
     if args.bench_child:
         return bench_child()
+    if args.start_child:
+        return start_child()
     device = torch.device("cuda", 0)
     smi = nvidia_smi_line()
     say({"device": {"nvidia_smi": smi, "torch": torch.__version__,

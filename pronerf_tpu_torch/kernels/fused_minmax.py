@@ -15,12 +15,12 @@ to the pack dtype; the bias is added in the pack dtype; ELU is
 ``exp(min(x, 0)) - 1`` evaluated in f32 on the rounded value and rounded
 again; the head is returned as f32.
 
-The kernel is the ``torch.library`` op ``pronerf::fused_minmax``, so that a
-traced program can name it: its CUDA implementation launches the kernel (or
-raises) and counts the launch, its CPU implementation is
-:func:`fused_minmax_plain`, its fake one gives the shape. The blobs the
-kernel reads are built at pack time (``attach_blobs``) and handed to the op
-as tensors.
+The kernel is the ``torch.library`` op ``pronerf::fused_minmax``
+(``library.define``), so that a traced program can name it: its CUDA
+implementation launches the kernel (or raises) and counts the launch, its
+CPU implementation is :func:`fused_minmax_plain`, its fake one gives the
+shape. The blobs the kernel reads are built at pack time (``attach_blobs``)
+and handed to the op as tensors.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from pronerf_tpu_torch.kernels import library
 from pronerf_tpu_torch.kernels.stages import (
     SLAB_K,
     halves,
@@ -301,10 +302,9 @@ def _kernel():
     return _fn
 
 
-@torch.library.custom_op("pronerf::fused_minmax", mutates_args=(),
-                         device_types="cuda")
-def fused_minmax_op(panels: list[torch.Tensor], blobs: list[torch.Tensor],
-                    x_t: torch.Tensor, transpose_out: bool) -> torch.Tensor:
+def _fused_minmax_cuda(panels: list[torch.Tensor],
+                       blobs: list[torch.Tensor], x_t: torch.Tensor,
+                       transpose_out: bool) -> torch.Tensor:
     """The op ``pronerf::fused_minmax`` on the card: launches
     ``minmax_wg_kernel`` (bf16 panels; one launch a head part) or the f32
     kernel, or raises. ``panels`` in ``panel_names`` order, ``blobs`` as
@@ -347,18 +347,22 @@ def fused_minmax_op(panels: list[torch.Tensor], blobs: list[torch.Tensor],
     return out
 
 
-@fused_minmax_op.register_kernel("cpu")
-def _(panels, blobs, x_t, transpose_out):
+def _fused_minmax_cpu(panels, blobs, x_t, transpose_out):
     depth = (len(panels) - 2) // 2
     packed = dict(zip(panel_names(depth), panels))
     return fused_minmax_plain(packed, x_t, transpose_out).contiguous()
 
 
-@fused_minmax_op.register_fake
-def _(panels, blobs, x_t, transpose_out):
+def _fused_minmax_fake(panels, blobs, x_t, transpose_out):
     n, out_pad = x_t.shape[1], panels[-2].shape[0]
     shape = (n, out_pad) if transpose_out else (out_pad, n)
     return x_t.new_empty(shape, dtype=torch.float32)
+
+
+fused_minmax_op = library.define(
+    "fused_minmax(Tensor[] panels, Tensor[] blobs, Tensor x_t, "
+    "bool transpose_out) -> Tensor",
+    _fused_minmax_cuda, _fused_minmax_cpu, _fused_minmax_fake)
 
 
 def fused_minmax_t(packed, x_t, transpose_out: bool = True):

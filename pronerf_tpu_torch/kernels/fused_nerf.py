@@ -17,11 +17,11 @@ pack dtype before it is added; the heads are returned as f32 and all
 compositing arithmetic is f32.
 
 Each kernel is a ``torch.library`` op (``pronerf::fused_nerf_raw``,
-``pronerf::fused_nerf_composite``) that a traced program can name: its CUDA
-implementation launches the kernel (or raises) and counts the launch, its
-CPU implementation is the plain version, its fake one gives the shapes. The
-blob the kernel reads is built at pack time (``attach_blobs``) and handed to
-the op as a tensor.
+``pronerf::fused_nerf_composite``; ``library.define``) that a traced
+program can name: its CUDA implementation launches the kernel (or raises)
+and counts the launch, its CPU implementation is the plain version, its
+fake one gives the shapes. The blob the kernel reads is built at pack time
+(``attach_blobs``) and handed to the op as a tensor.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import ctypes
 import numpy as np
 import torch
 
+from pronerf_tpu_torch.kernels import library
 from pronerf_tpu_torch.kernels.stages import (  # noqa: F401 (re-exported)
     SLAB_K,
     SLAB_ROW_BYTES,
@@ -372,11 +373,9 @@ def _launch_args(panels, blobs, tensors):
     return packed, blobs[0], _check_cuda(packed, **tensors)
 
 
-@torch.library.custom_op("pronerf::fused_nerf_raw", mutates_args=(),
-                         device_types="cuda")
-def fused_nerf_raw_op(panels: list[torch.Tensor], blobs: list[torch.Tensor],
-                      pts24_t: torch.Tensor, vcon_t: torch.Tensor,
-                      n_samples: int) -> torch.Tensor:
+def _fused_nerf_raw_cuda(panels: list[torch.Tensor],
+                         blobs: list[torch.Tensor], pts24_t: torch.Tensor,
+                         vcon_t: torch.Tensor, n_samples: int) -> torch.Tensor:
     """The op ``pronerf::fused_nerf_raw`` on the card: launches
     ``nerf_wg_kernel<false>`` (bf16 panels) or the f32 kernel, or raises."""
     packed, blob, is_bf16 = _launch_args(
@@ -398,16 +397,20 @@ def fused_nerf_raw_op(panels: list[torch.Tensor], blobs: list[torch.Tensor],
     return raw
 
 
-@fused_nerf_raw_op.register_kernel("cpu")
-def _(panels, blobs, pts24_t, vcon_t, n_samples):
+def _fused_nerf_raw_cpu(panels, blobs, pts24_t, vcon_t, n_samples):
     return fused_nerf_raw_plain(dict(zip(_WEIGHT_ORDER, panels)), pts24_t,
                                 vcon_t, n_samples).contiguous()
 
 
-@fused_nerf_raw_op.register_fake
-def _(panels, blobs, pts24_t, vcon_t, n_samples):
+def _raw_fake(panels, blobs, pts24_t, vcon_t, n_samples):
     return pts24_t.new_empty((pts24_t.shape[1], n_samples, 4),
                              dtype=torch.float32)
+
+
+fused_nerf_raw_op = library.define(
+    "fused_nerf_raw(Tensor[] panels, Tensor[] blobs, Tensor pts24_t, "
+    "Tensor vcon_t, SymInt n_samples) -> Tensor",
+    _fused_nerf_raw_cuda, _fused_nerf_raw_cpu, _raw_fake)
 
 
 def fused_nerf_raw_t(packed, pts24_t, vcon_t, n_samples: int = 8):
@@ -445,9 +448,7 @@ fused_nerf_raw_t.launches_by_samples = {}
 _COMPOSITE_KEYS = ("rgb", "depth", "disp", "acc", "weights", "sigma")
 
 
-@torch.library.custom_op("pronerf::fused_nerf_composite", mutates_args=(),
-                         device_types="cuda")
-def fused_nerf_composite_op(
+def _fused_nerf_composite_cuda(
         panels: list[torch.Tensor], blobs: list[torch.Tensor],
         pts24_t: torch.Tensor, vcon_t: torch.Tensor, z_t: torch.Tensor,
         mm_add_t: torch.Tensor, mm_mul_t: torch.Tensor,
@@ -495,19 +496,28 @@ def _composite_empty(like, N, S):
             empty(N, S))
 
 
-@fused_nerf_composite_op.register_kernel("cpu")
-def _(panels, blobs, pts24_t, vcon_t, z_t, mm_add_t, mm_mul_t, dnorm_t,
-      n_samples, white_bkgd):
+def _fused_nerf_composite_cpu(panels, blobs, pts24_t, vcon_t, z_t,
+                              mm_add_t, mm_mul_t, dnorm_t, n_samples,
+                              white_bkgd):
     out = fused_nerf_composite_plain(
         dict(zip(_WEIGHT_ORDER, panels)), pts24_t, vcon_t, z_t, mm_add_t,
         mm_mul_t, dnorm_t, n_samples, white_bkgd)
     return tuple(out[k].contiguous() for k in _COMPOSITE_KEYS)
 
 
-@fused_nerf_composite_op.register_fake
-def _(panels, blobs, pts24_t, vcon_t, z_t, mm_add_t, mm_mul_t, dnorm_t,
-      n_samples, white_bkgd):
+def _fused_nerf_composite_fake(panels, blobs, pts24_t, vcon_t, z_t,
+                               mm_add_t, mm_mul_t, dnorm_t, n_samples,
+                               white_bkgd):
     return _composite_empty(pts24_t, pts24_t.shape[1], n_samples)
+
+
+fused_nerf_composite_op = library.define(
+    "fused_nerf_composite(Tensor[] panels, Tensor[] blobs, Tensor pts24_t, "
+    "Tensor vcon_t, Tensor z_t, Tensor mm_add_t, Tensor mm_mul_t, "
+    "Tensor dnorm_t, SymInt n_samples, bool white_bkgd) -> "
+    "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    _fused_nerf_composite_cuda, _fused_nerf_composite_cpu,
+    _fused_nerf_composite_fake)
 
 
 def fused_nerf_composite_t(packed, pts24_t, vcon_t, z_t, mm_add_t, mm_mul_t,

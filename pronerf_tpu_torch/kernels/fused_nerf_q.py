@@ -32,10 +32,11 @@ integers everywhere: ``|acc| <= 256 * 127 * 127 < 2^24``, so the plain
 version's float32 product of the codes is exact in any order of summation
 (TF32 must be off, which is checked), and so is int32 -> float32.
 
-The kernel is the ``torch.library`` op ``pronerf::fused_nerf_raw_q``: its
-CUDA implementation launches the kernel (or raises) and counts the launch,
-its CPU implementation is the plain version. The blob is built at pack time
-(``attach_blobs``) and handed to the op as a tensor.
+The kernel is the ``torch.library`` op ``pronerf::fused_nerf_raw_q``
+(``library.define``): its CUDA implementation launches the kernel (or
+raises) and counts the launch, its CPU implementation is the plain version.
+The blob is built at pack time (``attach_blobs``) and handed to the op as a
+tensor.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pronerf_tpu_torch.kernels import library
 from pronerf_tpu_torch.kernels.fused_nerf import (
     L_DIR,
     L_PTS,
@@ -53,6 +55,7 @@ from pronerf_tpu_torch.kernels.fused_nerf import (
     W_HALF,
     _check_common,
     _freq_matrix,
+    _raw_fake,
     _split_pe_rows,
 )
 from pronerf_tpu_torch.kernels.stages import images, slabs
@@ -466,11 +469,10 @@ def attach_blobs(packed):
     return packed
 
 
-@torch.library.custom_op("pronerf::fused_nerf_raw_q", mutates_args=(),
-                         device_types="cuda")
-def fused_nerf_raw_q_op(panels: list[torch.Tensor], blobs: list[torch.Tensor],
-                        pts24_t: torch.Tensor, vcon_t: torch.Tensor,
-                        n_samples: int) -> torch.Tensor:
+def _fused_nerf_raw_q_cuda(panels: list[torch.Tensor],
+                           blobs: list[torch.Tensor], pts24_t: torch.Tensor,
+                           vcon_t: torch.Tensor,
+                           n_samples: int) -> torch.Tensor:
     """The op ``pronerf::fused_nerf_raw_q`` on the card: launches
     ``nerf_q_wg_kernel`` or raises. ``panels`` in ``PANELS`` order."""
     packed = dict(zip(PANELS, panels))
@@ -502,16 +504,15 @@ def fused_nerf_raw_q_op(panels: list[torch.Tensor], blobs: list[torch.Tensor],
     return raw
 
 
-@fused_nerf_raw_q_op.register_kernel("cpu")
-def _(panels, blobs, pts24_t, vcon_t, n_samples):
+def _fused_nerf_raw_q_cpu(panels, blobs, pts24_t, vcon_t, n_samples):
     return fused_nerf_raw_q_plain(dict(zip(PANELS, panels)), pts24_t,
                                   vcon_t, n_samples).contiguous()
 
 
-@fused_nerf_raw_q_op.register_fake
-def _(panels, blobs, pts24_t, vcon_t, n_samples):
-    return pts24_t.new_empty((pts24_t.shape[1], n_samples, 4),
-                             dtype=torch.float32)
+fused_nerf_raw_q_op = library.define(
+    "fused_nerf_raw_q(Tensor[] panels, Tensor[] blobs, Tensor pts24_t, "
+    "Tensor vcon_t, SymInt n_samples) -> Tensor",
+    _fused_nerf_raw_q_cuda, _fused_nerf_raw_q_cpu, _raw_fake)
 
 
 def fused_nerf_raw_tq(packed, pts24_t, vcon_t, n_samples: int = 8):

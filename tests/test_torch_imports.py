@@ -26,7 +26,8 @@ def test_port_has_the_expected_modules():
                  "models.mlp", "models.pronerf", "models.pronerf_t",
                  "kernels.build", "kernels.fused_minmax",
                  "kernels.fused_nerf", "kernels.fused_nerf_q",
-                 "kernels.packing", "render.raygen", "render.renderer",
+                 "kernels.packing", "kernels.library", "render.raygen",
+                 "render.renderer",
                  "render.infer", "utils.synthetic", "utils.profiling",
                  "utils.logging", "train.state", "train.stage1",
                  "train.stage2", "train.checkpoint", "train.loop",

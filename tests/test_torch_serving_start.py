@@ -1,0 +1,304 @@
+"""The serving process's start: the four kernel ops
+(``pronerf_tpu_torch/kernels/library.py``) and what a fresh process imports
+to serve its first frame, on the CPU (the ops run their plain versions;
+``chip_smoke.py --only protocols`` checks the same children on the card,
+where the ops launch the kernels).
+
+- in a fresh process, the first frame of every serving form (default,
+  ``fuse_composite``, ``quant = int8``, ``transposed``; the whole-frame
+  gather and the windowed one), ``bench.run_bench``, ``bench_coldstart
+  --device cpu`` and the serving verbs of the command line (``eval
+  --use-trt``, ``infer --use-trt --timing-reps``, ``render-path --use-trt``)
+  leave ``torch._dynamo`` unimported: the ops are registered with
+  ``torch.library.Library``, whose implementations are called as they are
+  (``torch.library.custom_op`` wraps each one in ``torch._disable_dynamo``,
+  which imports ``torch._dynamo`` at the first call);
+- the ops' schemas, which exported programs name, are pinned;
+- a forward with inputs that require grad equals the plain version, and a
+  backward through each op raises;
+- a renderer exported on the CPU loads and serves in a fresh process, bit
+  for bit.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from pronerf_tpu_torch.kernels import fused_minmax as fm
+from pronerf_tpu_torch.kernels import fused_nerf as fn
+from pronerf_tpu_torch.kernels import fused_nerf_q as fq
+from pronerf_tpu_torch.models.mlp import MinMaxMLP
+from pronerf_tpu_torch.models.pronerf import init_pronerf_params
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# what a child prints last: whether torch._dynamo was imported, and the calls
+# of each kernel's plain version (the ops' CPU implementations call them
+# through their modules), so that a child shows its frames reached the ops
+COUNT_PLAIN = """
+import json, sys
+import torch
+torch.set_num_threads(2)
+from pronerf_tpu_torch.kernels import fused_minmax, fused_nerf, fused_nerf_q
+PLAIN = {"fused_minmax_plain": fused_minmax, "fused_nerf_raw_plain": fused_nerf,
+         "fused_nerf_composite_plain": fused_nerf,
+         "fused_nerf_raw_q_plain": fused_nerf_q}
+calls = dict.fromkeys(PLAIN, 0)
+def counted(name, fn):
+    def call(*a, **kw):
+        calls[name] += 1
+        return fn(*a, **kw)
+    return call
+for name, mod in PLAIN.items():
+    setattr(mod, name, counted(name, getattr(mod, name)))
+def report(**extra):
+    print(json.dumps({"dynamo": "torch._dynamo" in sys.modules,
+                      "calls": calls} | extra))
+"""
+
+FRAME = """
+import dataclasses
+from pronerf_tpu_torch import bench
+from pronerf_tpu_torch.render.renderer import make_frame_renderer
+form, windowed = sys.argv[1], sys.argv[2] == "windowed"
+H, W = 24, 32
+s = bench.setup(H=H, W=W, device="cpu")
+kw = {"default": {}, "fuse_composite": {"fuse_composite": True},
+      "int8": {"quant": "int8"}, "transposed": {"transposed": True}}[form]
+if windowed:  # the gather of a 1008x756 frame, at this size
+    kw |= {"gather_tiles": 2, "gather_window_rows": 12}
+statics = dataclasses.replace(s["statics"], **kw)
+render = make_frame_renderer(statics, H, W, s["sc"]["K"], tile_rays=0,
+                             device="cpu")
+out = render(s["params"], s["scene"], s["c2w"])
+report(gather_tiles=render.statics.gather_tiles,
+       finite=all(bool(torch.isfinite(v).all()) for v in out.values()))
+"""
+
+# the plain versions a frame of each form reaches
+FORM_CALLS = {
+    "default": {"fused_minmax_plain", "fused_nerf_raw_plain"},
+    "fuse_composite": {"fused_minmax_plain", "fused_nerf_composite_plain"},
+    "int8": {"fused_minmax_plain", "fused_nerf_raw_q_plain"},
+    "transposed": {"fused_minmax_plain", "fused_nerf_composite_plain"},
+}
+
+
+def _child(body, *args):
+    """Run ``COUNT_PLAIN + body`` in a fresh interpreter from the repo's
+    root; returns its last JSON line."""
+    proc = subprocess.run(
+        [sys.executable, "-c", COUNT_PLAIN + body, *map(str, args)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env=os.environ | {"PYTHONPATH": str(ROOT)})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _reached(calls):
+    return {name for name, n in calls.items() if n}
+
+
+@pytest.mark.parametrize("gather", ["whole", "windowed"])
+@pytest.mark.parametrize("form", list(FORM_CALLS))
+def test_first_frame_leaves_dynamo_unimported(form, gather):
+    got = _child(FRAME, form, gather)
+    assert got["finite"]
+    assert (got["gather_tiles"] > 0) == (gather == "windowed")
+    assert _reached(got["calls"]) == FORM_CALLS[form]
+    assert not got["dynamo"]
+
+
+def test_bench_leaves_dynamo_unimported():
+    got = _child("""
+from pronerf_tpu_torch import bench
+ms, rays_per_s, null, single = bench.run_bench(12, 16, frames_per_loop=2,
+                                               reps=1, device="cpu")
+report(ms=ms)
+""")
+    assert got["ms"] > 0
+    assert _reached(got["calls"]) == FORM_CALLS["default"]
+    assert not got["dynamo"]
+
+
+def test_bench_coldstart_leaves_dynamo_unimported():
+    got = _child("""
+from pronerf_tpu_torch.tools import bench_coldstart
+line = bench_coldstart.main(["--device", "cpu", "--res", "24x32"])
+report(phases=line["phases_s"])
+""")
+    assert {"first_frame", "reload_first_frame"} <= set(got["phases"])
+    assert _reached(got["calls"]) == FORM_CALLS["default"]
+    assert not got["dynamo"]
+
+
+@pytest.fixture(scope="module")
+def stage1_checkpoint(tmp_path_factory):
+    """A one-step stage-1 checkpoint at the release widths (the kernels
+    take 256-wide nets) on a small synthetic scene."""
+    from pronerf_tpu_torch.cli import main
+
+    base = tmp_path_factory.mktemp("serving_start")
+    main(["train-stage1", "--no-reload", "--max-steps", "1", "--device",
+          "cpu", "--", "--datadir", "synthetic:32x24x8", "--basedir",
+          str(base), "--expname", "s1", "--mmnetdepth", "2", "--N_rand",
+          "128", "--i_testset", "0", "--i_video", "0"])
+    return base, sorted((base / "s1").glob("*.ckpt"))[-1]
+
+
+VERBS = {
+    "eval": ["eval", "--use-trt", "--max-images", "1"],
+    "infer_timing": ["infer", "--use-trt", "--max-images", "1",
+                     "--timing-reps", "2"],
+    "render_path": ["render-path", "--use-trt", "--n-frames", "2"],
+}
+
+
+@pytest.mark.parametrize("verb", list(VERBS))
+def test_serving_verbs_leave_dynamo_unimported(verb, stage1_checkpoint):
+    base, ckpt = stage1_checkpoint
+    argv = VERBS[verb] + [
+        "--device", "cpu", "--checkpoint", str(ckpt), "--", "--datadir",
+        "synthetic:32x24x8", "--basedir", str(base), "--expname", verb,
+        "--mmnetdepth", "2"]
+    got = _child(f"""
+from pronerf_tpu_torch.cli import main
+main({argv!r})
+report()
+""")
+    assert _reached(got["calls"]) == FORM_CALLS["default"]
+    assert not got["dynamo"]
+
+
+# ----------------------------------------------------------------- ops --
+
+SCHEMAS = {
+    "fused_minmax": "pronerf::fused_minmax(Tensor[] panels, Tensor[] blobs, "
+                    "Tensor x_t, bool transpose_out) -> Tensor",
+    "fused_nerf_raw": "pronerf::fused_nerf_raw(Tensor[] panels, Tensor[] "
+                      "blobs, Tensor pts24_t, Tensor vcon_t, SymInt "
+                      "n_samples) -> Tensor",
+    "fused_nerf_composite": "pronerf::fused_nerf_composite(Tensor[] panels, "
+                            "Tensor[] blobs, Tensor pts24_t, Tensor vcon_t, "
+                            "Tensor z_t, Tensor mm_add_t, Tensor mm_mul_t, "
+                            "Tensor dnorm_t, SymInt n_samples, bool "
+                            "white_bkgd) -> (Tensor, Tensor, Tensor, Tensor, "
+                            "Tensor, Tensor)",
+    "fused_nerf_raw_q": "pronerf::fused_nerf_raw_q(Tensor[] panels, Tensor[] "
+                        "blobs, Tensor pts24_t, Tensor vcon_t, SymInt "
+                        "n_samples) -> Tensor",
+}
+
+OPS = {"fused_minmax": fm.fused_minmax_op,
+       "fused_nerf_raw": fn.fused_nerf_raw_op,
+       "fused_nerf_composite": fn.fused_nerf_composite_op,
+       "fused_nerf_raw_q": fq.fused_nerf_raw_q_op}
+
+
+@pytest.mark.parametrize("name", list(SCHEMAS))
+def test_op_schema_is_pinned(name):
+    op = getattr(torch.ops.pronerf, name).default
+    assert str(op._schema) == SCHEMAS[name]
+    assert OPS[name] is op
+
+
+def _grad_case(name):
+    """``(op args with grad-requiring float inputs, the plain version's
+    output on the same inputs)``."""
+    g = torch.Generator().manual_seed(7)
+    S, N = 3, 7
+    if name == "fused_minmax":
+        net = MinMaxMLP(2, 256, 6 * 8 + 12, 35, generator=g)
+        packed = fm.pack_minmax_params(net, 8, torch.bfloat16)
+        x_t = torch.randn(6 + 12, N, generator=g).requires_grad_()
+        panels = [packed[n] for n in fm.panel_names(2)]
+        return ((panels, [], x_t, True),
+                fm.fused_minmax_plain(packed, x_t.detach(), True))
+    nerf = init_pronerf_params(g, mmnetdepth=2)["nerf"]
+    pts = (torch.rand(3 * S, N, generator=g) * 2 - 1).requires_grad_()
+    vcon = torch.randn(128, N, generator=g).requires_grad_()
+    if name == "fused_nerf_raw_q":
+        packed = fq.pack_nerf_params_int8(nerf)
+        return (([packed[n] for n in fq.PANELS], [], pts, vcon, S),
+                fq.fused_nerf_raw_q_plain(packed, pts.detach(),
+                                          vcon.detach(), S))
+    packed = fn.pack_nerf_params(nerf, torch.bfloat16)
+    panels = [packed[n] for n in fn._WEIGHT_ORDER]
+    if name == "fused_nerf_raw":
+        return ((panels, [], pts, vcon, S),
+                fn.fused_nerf_raw_plain(packed, pts.detach(), vcon.detach(),
+                                        S))
+    z = torch.sort(torch.rand(S, N, generator=g), dim=0).values
+    extra = (z.requires_grad_(), torch.randn(S, N, generator=g),
+             torch.rand(S, N, generator=g) + 0.5,
+             torch.rand(1, N, generator=g) + 0.5)
+    want = fn.fused_nerf_composite_plain(
+        packed, pts.detach(), vcon.detach(), z.detach(), *extra[1:], S,
+        False)
+    return ((panels, [], pts, vcon, *extra, S, False),
+            tuple(want[k] for k in fn._COMPOSITE_KEYS))
+
+
+@pytest.mark.parametrize("name", list(OPS))
+def test_forward_with_grad_inputs_equals_plain_and_backward_raises(name):
+    args, want = _grad_case(name)
+    got = OPS[name](*args)
+    outs = got if isinstance(got, tuple) else (got,)
+    wants = want if isinstance(want, tuple) else (want,)
+    assert len(outs) == len(wants)
+    for o, w in zip(outs, wants):
+        # bit for bit; a ray with no weight has disp 0 / 0 in both
+        torch.testing.assert_close(o.detach(), w, rtol=0, atol=0,
+                                   equal_nan=True)
+    assert outs[0].requires_grad
+    with pytest.raises(RuntimeError, match="no autograd formula"):
+        sum(o.sum() for o in outs).backward()
+
+
+# ------------------------------------------------------------- export --
+
+LOAD_AND_SERVE = """
+from pronerf_tpu_torch.render.export import load_exported_renderer
+export_dir = sys.argv[1]
+call, params, scene, manifest = load_exported_renderer(export_dir,
+                                                       device="cpu")
+c2w = torch.load(f"{export_dir}/c2w.pt")
+torch.save(call(params, scene, c2w), f"{export_dir}/served.pt")
+report()
+"""
+
+
+def test_exported_renderer_serves_bit_for_bit_in_a_fresh_process(tmp_path):
+    from pronerf_tpu_torch.models.pronerf import RenderStatics
+    from pronerf_tpu_torch.render.export import export_renderer
+    from pronerf_tpu_torch.render.raygen import prepare_scene
+    from pronerf_tpu_torch.render.renderer import make_frame_renderer
+    from pronerf_tpu_torch.utils.synthetic import make_scene
+
+    sc = make_scene(n_views=5, H=20, W=24, seed=5)
+    src = [0, 2, 3, 4]
+    scene = prepare_scene(sc["images"][src], sc["poses"][src], sc["K"],
+                          device="cpu")
+    params = init_pronerf_params(torch.Generator().manual_seed(5),
+                                 device="cpu", mmnetdepth=2)
+    statics = RenderStatics.infer(compute_dtype="bfloat16",
+                                  use_kernels=True)
+    export_renderer(params, scene, tmp_path, 20, 24, sc["K"], tile_rays=0,
+                    statics=statics, arch=dict(mmnetdepth=2), device="cpu")
+    c2w = torch.as_tensor(sc["poses"][1][:3, :4], dtype=torch.float32)
+    torch.save(c2w, tmp_path / "c2w.pt")
+    want = make_frame_renderer(statics, 20, 24, sc["K"], 0, device="cpu")(
+        params, scene, sc["poses"][1][:3, :4])
+    got = _child(LOAD_AND_SERVE, tmp_path)
+    assert _reached(got["calls"]) == FORM_CALLS["default"]
+    served = torch.load(tmp_path / "served.pt")
+    assert served.keys() == want.keys()
+    for k in want:
+        assert torch.equal(served[k], want[k]), k
