@@ -187,6 +187,27 @@ falls back to the CPU. Phases, each printing one JSON line:
                 --scan 4`` and PIL unimportable in every stage, then
                 ``images_4`` held against the port's resize of the raw
                 images, bit for bit.
+8. ``jpeg``     JPEG captures read on the card's host without an imaging
+                package (``utils/jpeg.py``, the host runtime's
+                ``decode_jpeg_native``): every file of the committed
+                conformance set (``tests/torch_jpeg_fixtures``) decoded
+                natively and plainly, both equal to the sha256 of PIL's
+                decode in its manifest, the native counter counting each;
+                then, with ``PIL`` and ``imageio`` unimportable, a raw
+                capture of fern's shape (the consistent scene, 20 views of
+                2016x1512 written by ``write_jpeg`` at quality 95, binary
+                COLMAP, no ``images_4``): each view decoded natively, within
+                a 35 dB PSNR sanity bound of the encoder's input;
+                ``train-stage1`` (``fern_epi.txt``, factor 4) for 2 steps,
+                whose loader makes ``images_4`` (``_minify``, timed), no
+                kernel launched; ``eval --use-trt`` (``fern_trt.txt``) from
+                its checkpoint through the MinMax and raw NeRF kernels, no
+                plain version called; ``images_4`` held against
+                ``resize_lanczos(read_jpeg(view))`` bit for bit for 3 views.
+                A ``jpeg_timings`` line: native decode ms of a 4032x3024 and
+                a 2016x1512 4:2:0 view, plain decode ms of a 101x77 view
+                (medians of 5), ``_minify`` s, the phase's s, with the
+                card's name and power limit.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line with
 the roofline bound of each kernel beside its measured time (and its
@@ -195,7 +216,7 @@ renderer's drives and in the frame graphs' captures), and last
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero and no result line is printed.
 
-``--only build|kernels|frame|fullres|gathers|train|scan|donerf|export|multi|cli|protocols``
+``--only build|kernels|frame|fullres|gathers|train|scan|donerf|export|multi|cli|protocols|jpeg``
 runs a
 subset while developing, ``--rays N`` shrinks the kernel phase,
 ``--profile`` adds ``profile`` lines (device time by kernel name over a few
@@ -210,6 +231,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import hashlib
 import io
 import json
 import re
@@ -3771,6 +3793,254 @@ def phase_protocols(device):
     return report
 
 
+# ---------------------------------------------------------------- jpeg ----
+
+JPEG_VIEWS = 20          # fern's raw capture
+JPEG_CHECKED = (0, JPEG_VIEWS // 2, JPEG_VIEWS - 1)  # images_4 vs resize
+JPEG_PSNR_DB = 35.0      # a decoded view against the encoder's input
+JPEG_REPS = 5            # decode timings: median of 5
+JPEG_BIG = (3024, 4032)  # a 12 Mpx camera view (fern's raw JPEGs)
+JPEG_GRAIN = 4.0         # sensor-like noise (std) for a camera's bit rate
+JPEG_SMALL = (77, 101)   # the plain decoder's view
+JPEG_FIXTURES = ROOT / "tests" / "torch_jpeg_fixtures"
+
+
+@contextlib.contextmanager
+def no_imaging_packages():
+    """``import PIL`` and ``import imageio`` raise while it is open (their
+    names map to None in ``sys.modules``, as the CPU tests block them);
+    checked on entry."""
+    import importlib
+
+    names = ("PIL", "PIL.Image", "imageio", "imageio.v2")
+    saved = {n: sys.modules[n] for n in names if n in sys.modules}
+    sys.modules.update(dict.fromkeys(names))
+    try:
+        for name in ("PIL.Image", "imageio.v2"):
+            try:
+                importlib.import_module(name)
+            except ImportError:
+                continue
+            raise SystemExit(f"jpeg: {name} could not be blocked")
+        yield
+    finally:
+        for n in names:
+            sys.modules.pop(n, None)
+        sys.modules.update(saved)
+
+
+def host_ms(fn, reps=JPEG_REPS) -> float:
+    """Median host ms of ``fn()`` over ``reps`` calls."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def psnr_u8(a, b) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float("inf") if mse == 0 else float(10 * np.log10(255.0 ** 2
+                                                              / mse))
+
+
+def jpeg_conformance():
+    """Every committed conformance file decoded natively and plainly: both
+    equal, equal to the shape and sha256 of PIL's decode in the manifest,
+    and the native decoder counting each call."""
+    from pronerf_tpu_torch import native
+    from pronerf_tpu_torch.utils.jpeg import decode_jpeg_plain
+
+    manifest = json.loads((JPEG_FIXTURES / "manifest.json").read_text())
+    files = manifest["files"]
+    calls = native.decode_jpeg_native.calls
+    for name, entry in sorted(files.items()):
+        data = (JPEG_FIXTURES / name).read_bytes()
+        got = native.decode_jpeg_native(data)
+        if got is None:
+            raise SystemExit("jpeg: the host runtime did not load")
+        plain = decode_jpeg_plain(data)
+        if (not np.array_equal(got, plain)
+                or list(got.shape) != entry["shape"]
+                or hashlib.sha256(got.tobytes()).hexdigest()
+                != entry["sha256"]):
+            raise SystemExit(f"jpeg: {name} decodes to {got.shape}, native "
+                             f"equal to plain {np.array_equal(got, plain)}, "
+                             "not the manifest's PIL decode")
+    n_native = native.decode_jpeg_native.calls - calls
+    if n_native != len(files):
+        raise SystemExit(f"jpeg: {n_native} native decodes of {len(files)} "
+                         "conformance files")
+    row = {"files": len(files), "native_calls": n_native,
+           "equal": "native == plain == PIL's sha256, every file",
+           "manifest_pil": manifest["pil"],
+           "manifest_libjpeg_turbo": manifest["libjpeg_turbo"]}
+    say({"jpeg_conformance": row})
+    return row
+
+
+def phase_jpeg(device):
+    """JPEG captures on the card's host, with PIL and imageio unimportable:
+    the conformance set natively and plainly; a raw capture of fern's shape
+    written as JPEGs, trained for 2 steps at factor 4 (its ``images_4``
+    made by ``_minify`` from the JPEGs) and served by ``eval --use-trt``
+    through the kernels; decode and ``_minify`` timings."""
+    from pronerf_tpu_torch import native
+    from pronerf_tpu_torch.data import llff
+    from pronerf_tpu_torch.train import checkpoint
+    from pronerf_tpu_torch.utils.fixtures import write_llff_scene
+    from pronerf_tpu_torch.utils.jpeg import (
+        decode_jpeg_plain,
+        read_jpeg,
+        write_jpeg,
+    )
+    from pronerf_tpu_torch.utils.png import read_png
+    from pronerf_tpu_torch.utils.resize import resize_lanczos
+    from pronerf_tpu_torch.utils.synthetic import make_consistent_scene
+
+    t_phase = time.perf_counter()
+    timings = {}
+    with no_imaging_packages(), \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_jpeg_") as tmp:
+        report = {"conformance": jpeg_conformance()}
+        root = Path(tmp) / "fern"
+        t0 = time.perf_counter()
+        sc = make_consistent_scene(seed=0, W=RAW_W, H=RAW_H,
+                                   n_views=JPEG_VIEWS, focal=0.875 * RAW_W)
+        timings["make_scene_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        write_llff_scene(root, sc, image_format="jpeg")
+        timings["write_capture_s"] = time.perf_counter() - t0
+        views = sorted((root / "images").iterdir())
+        if [p.suffix for p in views] != [".jpg"] * JPEG_VIEWS or \
+                (root / "images_4").exists():
+            raise SystemExit(f"jpeg: capture of {[p.name for p in views]}")
+        encoded = np.clip(np.round(sc["images"] * 255.0), 0, 255).astype(
+            np.uint8)
+        calls = native.decode_jpeg_native.calls
+        t0 = time.perf_counter()
+        decoded = [read_jpeg(p) for p in views]
+        timings["decode_views_s"] = time.perf_counter() - t0
+        psnrs = [psnr_u8(d, e) for d, e in zip(decoded, encoded)]
+        if native.decode_jpeg_native.calls != calls + JPEG_VIEWS or \
+                decoded[0].shape != (RAW_H, RAW_W, 3) or \
+                min(psnrs) < JPEG_PSNR_DB:
+            raise SystemExit(f"jpeg: native decodes "
+                             f"{native.decode_jpeg_native.calls - calls}, "
+                             f"shape {decoded[0].shape}, PSNR {psnrs}")
+        del sc
+
+        def common(expname):
+            return ["--", "--datadir", str(root), "--basedir", tmp,
+                    "--expname", expname, "--i_print", "1", "--i_weights",
+                    "1000", "--i_img", "0", "--i_testset", "0", "--i_video",
+                    "0"]
+
+        minify_s, make_minify = [], llff._minify
+
+        def timed_minify(*args, **kw):
+            t0 = time.perf_counter()
+            out = make_minify(*args, **kw)
+            minify_s.append(time.perf_counter() - t0)
+            return out
+
+        llff._minify = timed_minify
+        try:
+            with count_plain() as plain:
+                (s1, exp1), c1, wall1 = drive_cli(
+                    ["train-stage1", "--config",
+                     str(ROOT / "configs/llff/fern/fern_epi.txt"),
+                     "--max-steps", "2"] + common("jpeg_s1"))
+                ck1 = checkpoint.latest_checkpoint(exp1)
+                ev, c_ev, wall_ev = drive_cli(
+                    ["eval", "--use-trt", "--checkpoint", ck1]
+                    + common("jpeg_eval"))
+        finally:
+            llff._minify = make_minify
+        expect_counts("jpeg training", c1)
+        n_ev = len(ev["rgbs1"])
+        expect_counts("jpeg eval", c_ev, sampler=n_ev, refine=n_ev,
+                      fused_nerf_raw_t=n_ev)
+        losses = list(read_losses(exp1).values())
+        if any(plain.values()) or s1["global_step"] != 2 or not minify_s \
+                or ev["rgbs1"].shape[1:] != (H, W_IMG, 3) or n_ev < 1 \
+                or not all(np.isfinite(losses)):
+            raise SystemExit(f"jpeg: plain calls {plain}, step "
+                             f"{s1['global_step']}, _minify runs {minify_s}"
+                             f", frames {ev['rgbs1'].shape}, losses "
+                             f"{losses}")
+        all_finite({"eval": ev["rgbs1"], "psnr": np.array(ev["psnrs"])})
+        small = sorted((root / "images_4").iterdir())
+        if [p.name for p in small] != [p.stem + ".png" for p in views]:
+            raise SystemExit(f"jpeg: images_4 holds "
+                             f"{[p.name for p in small]}")
+        for i in JPEG_CHECKED:
+            if not np.array_equal(read_png(small[i]),
+                                  resize_lanczos(decoded[i], W_IMG, H)):
+                raise SystemExit(f"jpeg: images_4/{small[i].name} is not "
+                                 "resize_lanczos(read_jpeg(view))")
+        report["capture"] = {
+            "views": JPEG_VIEWS, "raw": [RAW_H, RAW_W], "quality": 95,
+            "psnr_min_db": min(psnrs), "psnr_max_db": max(psnrs),
+            "images_4_checked": f"{len(JPEG_CHECKED)} of {JPEG_VIEWS} equal "
+                                "to resize_lanczos(read_jpeg(view))",
+            "train_launches": c1, "eval_launches": c_ev,
+            "plain_calls": plain, "losses": losses,
+            "eval_psnrs": ev["psnrs"], "train_wall_s": wall1,
+            "eval_wall_s": wall_ev}
+        say({"jpeg": report["capture"]})
+
+        # ---- timings: native decodes of 12 Mpx views (the render upsampled,
+        # smooth; with grain, near a camera's bits a pixel) and of a 3 Mpx
+        # view, the plain decoder on a small one
+        big = np.repeat(np.repeat(decoded[0], 2, 0), 2, 1)
+        grain = np.random.default_rng(0).normal(0, JPEG_GRAIN, big.shape)
+        dense = np.clip(np.round(big + grain), 0, 255).astype(np.uint8)
+        del grain
+        data_12mp = {}
+        for name, img in (("smooth", big), ("grain", dense)):
+            write_jpeg(Path(tmp) / f"{name}.jpg", img, 95)
+            data_12mp[name] = (Path(tmp) / f"{name}.jpg").read_bytes()
+            got = native.decode_jpeg_native(data_12mp[name])
+            if got.shape != JPEG_BIG + (3,) or \
+                    psnr_u8(got, img) < JPEG_PSNR_DB:
+                raise SystemExit(f"jpeg: the {name} 4032x3024 view decodes "
+                                 f"to {got.shape}, {psnr_u8(got, img)} dB")
+        del big, dense, got
+        data_view = views[0].read_bytes()
+        write_jpeg(Path(tmp) / "small.jpg",
+                   decoded[0][:JPEG_SMALL[0], :JPEG_SMALL[1]], 95)
+        data_small = (Path(tmp) / "small.jpg").read_bytes()
+        if not np.array_equal(decode_jpeg_plain(data_small),
+                              native.decode_jpeg_native(data_small)):
+            raise SystemExit("jpeg: the 101x77 view decodes differently "
+                             "natively and plainly")
+        n_big = JPEG_BIG[0] * JPEG_BIG[1]
+        timings |= {
+            "native_decode_ms_4032x3024": host_ms(
+                lambda: native.decode_jpeg_native(data_12mp["smooth"])),
+            "native_decode_ms_4032x3024_grain": host_ms(
+                lambda: native.decode_jpeg_native(data_12mp["grain"])),
+            "native_decode_ms_2016x1512": host_ms(
+                lambda: native.decode_jpeg_native(data_view)),
+            "plain_decode_ms_101x77": host_ms(
+                lambda: decode_jpeg_plain(data_small)),
+            "bytes_4032x3024": len(data_12mp["smooth"]),
+            "bytes_4032x3024_grain": len(data_12mp["grain"]),
+            "bits_per_pixel_4032x3024": 8 * len(data_12mp["smooth"]) / n_big,
+            "bits_per_pixel_4032x3024_grain":
+                8 * len(data_12mp["grain"]) / n_big,
+            "bytes_2016x1512": len(data_view),
+            "minify_s": minify_s[0], "views": JPEG_VIEWS,
+            "native_build": dict(native.build_info)}
+    timings["phase_s"] = time.perf_counter() - t_phase
+    timings["card"] = nvidia_smi_line()
+    say({"jpeg_timings": timings})
+    report["timings"] = timings
+    return report
+
+
 # ---------------------------------------------------------------- main ----
 
 def main(argv=None):
@@ -3778,7 +4048,7 @@ def main(argv=None):
     ap.add_argument("--only",
                     choices=("build", "kernels", "frame", "fullres",
                              "gathers", "train", "scan", "donerf", "export",
-                             "multi", "cli", "protocols"))
+                             "multi", "cli", "protocols", "jpeg"))
     ap.add_argument("--bench-child", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--start-child", action="store_true",
@@ -3849,6 +4119,8 @@ def main(argv=None):
         phase_cli(device)
     if args.only in (None, "protocols"):
         phase_protocols(device)
+    if args.only in (None, "jpeg"):
+        phase_jpeg(device)
 
     print(smi, flush=True)
     contract = []

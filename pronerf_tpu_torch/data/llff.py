@@ -15,12 +15,15 @@ Fyusion/LLFF loader):
   (with the reference's ``num_neighbor=None`` crash fixed — see
   ``data.colmap.greedy_reference_views``).
 
-PNGs are read by ``utils/png.py`` (8-bit RGB / RGBA), so a capture of PNGs
-loads without an imaging package; any other image (a raw capture's JPEGs)
-needs imageio or PIL. Missing downsampled sets (``images_{factor}``) are
-made in-process with PIL's Lanczos, as in the JAX package, but by the port's
-own copy of it (``utils/resize.py``, equal to PIL bit for bit), so a raw
-capture of PNGs needs no imaging package either.
+Images are read as the JAX package reads them (imageio, through PIL and
+libjpeg-turbo), but by the port's own readers: 8-bit PNGs by
+``utils/png.py``, baseline and progressive JPEGs (a raw capture's camera
+views) by ``utils/jpeg.py``, each equal to imageio bit for bit, so a capture
+loads without an imaging package; only a file they do not decode goes to
+imageio or PIL. Missing downsampled sets (``images_{factor}``) are made
+in-process with PIL's Lanczos, as in the JAX package, but by the port's own
+copy of it (``utils/resize.py``, equal to PIL bit for bit), so a raw
+capture needs no imaging package either.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from pathlib import Path
 import numpy as np
 
 from pronerf_tpu_torch.data.colmap import greedy_reference_views
+from pronerf_tpu_torch.utils.jpeg import UnsupportedJPEG, read_jpeg
 from pronerf_tpu_torch.utils.png import UnsupportedPNG, read_png, write_png
 from pronerf_tpu_torch.utils.resize import resize_lanczos
 
@@ -42,16 +46,22 @@ def _list_images(imgdir: Path):
     )
 
 
-def _imread(path) -> np.ndarray:
-    """[H, W, 3] uint8: PNGs by ``read_png``, anything else (or a PNG it does
-    not decode) by imageio, else PIL; without either it raises, naming the
-    file."""
+def _read(path) -> np.ndarray:
+    """The image's pixels as ``imageio.v2.imread`` returns them (uint8 [H,
+    W] gray, [H, W, 2] gray and alpha, [H, W, 3] RGB, [H, W, 4] RGBA): PNGs
+    by ``read_png``, JPEGs by ``read_jpeg``; a file they do not decode (or
+    another format) by imageio, else PIL. Without either it raises, naming
+    the file and why the port's reader did not decode it."""
     path = Path(path)
-    if path.suffix.lower() == ".png":
-        try:
-            return read_png(path)[..., :3]
-        except UnsupportedPNG:
-            pass
+    suffix = path.suffix.lower()
+    reason = "neither a PNG nor a JPEG"
+    try:
+        if suffix == ".png":
+            return read_png(path)
+        if suffix in (".jpg", ".jpeg"):
+            return read_jpeg(path)
+    except (UnsupportedPNG, UnsupportedJPEG) as e:
+        reason = str(e)
     try:
         import imageio.v2 as imageio
     except ImportError:
@@ -59,20 +69,39 @@ def _imread(path) -> np.ndarray:
             from PIL import Image as PILImage
         except ImportError:
             raise ImportError(
-                f"{path}: reading this image needs imageio or PIL, and "
-                "neither is installed (PNGs of 8-bit RGB / RGBA need "
-                "neither)") from None
+                f"{path}: the port's reader did not decode it ({reason}); "
+                "reading it another way needs imageio or PIL, and neither "
+                "is installed (8-bit PNGs and baseline or progressive JPEGs "
+                "need neither)") from None
         with PILImage.open(path) as img:
             return np.asarray(img.convert("RGB"))
-    return np.asarray(imageio.imread(path))[..., :3]
+    return np.asarray(imageio.imread(path))
+
+
+def _imread(path) -> np.ndarray:
+    """The JAX package's ``_imread``: what imageio returns, then ``[...,
+    :3]`` (on a gray image, [H, W], that keeps its first three columns, as
+    the reference does)."""
+    return _read(path)[..., :3]
+
+
+def _rgb(img: np.ndarray) -> np.ndarray:
+    """PIL's ``convert("RGB")`` of what :func:`_read` returns: gray copied
+    into three channels, alpha dropped (not composited)."""
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.shape[2] < 3:
+        return np.repeat(img[..., :1], 3, axis=2)
+    return np.ascontiguousarray(img[..., :3])
 
 
 def _minify(basedir, factor: int) -> Path:
     """Create ``images_{factor}`` next to ``images`` if missing: each image
-    resized by ``utils/resize.py`` (PIL's Lanczos, bit for bit) to
-    ``round(w / factor) x round(h / factor)`` and written as a PNG by
-    ``utils/png.py``, so no imaging package is needed (a JPEG source still
-    needs one to be read, see ``_imread``)."""
+    decoded as the JAX package's ``PIL.Image.open(p).convert("RGB")``
+    decodes it (:func:`_rgb`), resized by ``utils/resize.py`` (PIL's
+    Lanczos, bit for bit) to ``round(w / factor) x round(h / factor)`` and
+    written as a PNG by ``utils/png.py``: no imaging package is needed for
+    PNG or JPEG sources."""
     basedir = Path(basedir)
     out = basedir / f"images_{factor}"
     if out.exists():
@@ -80,7 +109,7 @@ def _minify(basedir, factor: int) -> Path:
     src = _list_images(basedir / "images")
     out.mkdir(parents=True)
     for p in src:
-        img = _imread(p)
+        img = _rgb(_read(p))
         h, w = img.shape[:2]
         write_png(out / (p.stem + ".png"),
                   resize_lanczos(img, round(w / factor), round(h / factor)))

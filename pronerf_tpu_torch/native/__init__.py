@@ -1,16 +1,22 @@
-"""ctypes bindings of the host runtime ``csrc/pronerf_native.cpp``.
+"""ctypes bindings of the host runtime, ``csrc/*.cpp``.
 
 Counterpart of ``pronerf_tpu/native/__init__.py``, with the same functions
 and the same rule: a caller takes the native path whenever the library loads
 (:func:`is_available`) and its NumPy path otherwise.
+``csrc/pronerf_native.cpp`` is the JAX package's runtime (ray pool, COLMAP
+scan); ``csrc/jpeg_decode.cpp`` adds the port's JPEG decoder
+(:func:`decode_jpeg_native`, the twin of
+``utils/jpeg.py:decode_jpeg_plain``). That one is the exception to the
+rule: its NumPy twin, a Python loop over the bits, is the tests' reference,
+too slow for a camera view, so ``read_jpeg`` raises without the library.
 
-Nothing is built at import. The first call compiles ``csrc/pronerf_native.cpp``
-with the JAX package's compiler line (``native/Makefile``: ``g++ -O3
--march=native -fPIC -std=c++17 -Wall -pthread -shared``) into
-``_build/libpronerf_native-<hash>.so``, where the hash covers the source and
-the flags, so an edited source is rebuilt and a stale library is never
+Nothing is built at import. The first call compiles the sources into one
+library with the JAX package's compiler line (``native/Makefile``: ``g++ -O3
+-march=native -fPIC -std=c++17 -Wall -pthread -shared``), into
+``_build/libpronerf_native-<hash>.so``, where the hash covers every source
+and the flags, so an edited source is rebuilt and a stale library is never
 loaded. Without ``g++`` the library is unavailable; a compiler that fails on
-the source raises with its output.
+a source raises with its output.
 
 Each entry point counts its runs in ``<function>.calls``, so a caller can
 show which path it took.
@@ -28,7 +34,8 @@ from pathlib import Path
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "pronerf_native.cpp"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "pronerf_native.cpp", CSRC / "jpeg_decode.cpp")
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
             "-pthread", "-shared")
@@ -40,7 +47,9 @@ _tried = False
 
 
 def lib_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(hashlib.sha256(src.read_bytes()).digest())
     h.update(" ".join(CXXFLAGS).encode())
     return BUILD_DIR / f"libpronerf_native-{h.hexdigest()[:12]}.so"
 
@@ -48,10 +57,12 @@ def lib_path() -> Path:
 def _build(out: Path, cxx: str) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    proc = subprocess.run([cxx, *CXXFLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([cxx, *CXXFLAGS, "-o", str(tmp),
+                           *map(str, SOURCES)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"{cxx} failed on {SOURCE.name}:\n"
+        raise RuntimeError(f"{cxx} failed on "
+                           f"{', '.join(p.name for p in SOURCES)}:\n"
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
 
@@ -87,6 +98,14 @@ def _load():
         ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_int32,
         ctypes.c_void_p,
     ]
+    lib.jpeg_header.restype = ctypes.c_int
+    lib.jpeg_header.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                ctypes.c_void_p, ctypes.c_char_p,
+                                ctypes.c_int32]
+    lib.jpeg_decode.restype = ctypes.c_int
+    lib.jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                ctypes.c_void_p, ctypes.c_int64,
+                                ctypes.c_char_p, ctypes.c_int32]
     build_info.update(built=built, seconds=time.perf_counter() - t0,
                       path=str(out))
     _lib = lib
@@ -176,3 +195,30 @@ def greedy_cover_native(vis: np.ndarray, n_pick: int):
 
 
 greedy_cover_native.calls = 0
+
+
+def decode_jpeg_native(data: bytes):
+    """A JPEG file's bytes -> uint8 [H, W, 3] (YCbCr) or [H, W] (one
+    component), equal to ``utils/jpeg.py:decode_jpeg_plain`` and to PIL's
+    decode bit for bit. None when the library is unavailable; raises
+    ``UnsupportedJPEG`` with the decoder's message for a file it does not
+    read."""
+    from pronerf_tpu_torch.utils.jpeg import UnsupportedJPEG
+
+    lib = _load()
+    if lib is None:
+        return None
+    data = bytes(data)
+    err = ctypes.create_string_buffer(256)
+    dims = np.zeros(3, np.int32)
+    if lib.jpeg_header(data, len(data), _ptr(dims), err, len(err)):
+        raise UnsupportedJPEG(err.value.decode())
+    h, w, nc = (int(x) for x in dims)
+    out = np.empty((h, w, 3) if nc == 3 else (h, w), np.uint8)
+    if lib.jpeg_decode(data, len(data), _ptr(out), out.size, err, len(err)):
+        raise UnsupportedJPEG(err.value.decode())
+    decode_jpeg_native.calls += 1
+    return out
+
+
+decode_jpeg_native.calls = 0

@@ -5,7 +5,9 @@ sparse model): the inverse of the loaders, for the tests and
 The port's copy of ``pronerf_tpu/utils/fixtures.py``. The files are the
 same, except that the images are written by ``utils/png.py`` (unfiltered
 PNGs; the pixels are the same as PIL's), so that a capture can be written on
-a machine without an imaging package.
+a machine without an imaging package. :func:`write_llff_scene` can also
+write a capture of JPEGs (``utils/jpeg.py:write_jpeg``), as a camera's raw
+``images/`` holds them.
 
 The written layout mirrors a real LLFF capture directory: ``poses_bounds.npy``
 rows are the flattened 3x5 [stored_pose | hwf] plus [near, far], images live
@@ -20,7 +22,10 @@ import struct
 
 import numpy as np
 
+from pronerf_tpu_torch.utils.jpeg import write_jpeg
 from pronerf_tpu_torch.utils.png import write_png
+
+JPEG_QUALITY = 95  # of the JPEG captures write_llff_scene writes
 
 
 def write_llff_dataset(root, n: int = 6, H: int = 24, W: int = 32,
@@ -45,7 +50,8 @@ def write_llff_dataset(root, n: int = 6, H: int = 24, W: int = 32,
     np.save(root / "poses_bounds.npy", np.stack(rows))
 
 
-def write_llff_scene(root, scene, stem: str = "img", factor=None):
+def write_llff_scene(root, scene, stem: str = "img", factor=None,
+                     image_format: str = "png"):
     """Write a GENERATED scene (``utils.synthetic`` dict) as a full LLFF
     capture directory: raw ``images/`` PNGs + ``poses_bounds.npy`` + a
     geometrically-consistent COLMAP ``sparse/0`` model.
@@ -64,7 +70,13 @@ def write_llff_scene(root, scene, stem: str = "img", factor=None):
     ``poses_bounds.npy`` holds the raw capture's height, width and focal
     (``factor`` times the scene's), so that the loader at that factor reads
     the scene's own size and focal without PIL.
+
+    ``image_format = "jpeg"`` writes the images as baseline 4:2:0 JPEGs
+    (``.jpg``, quality ``JPEG_QUALITY``) instead of PNGs.
     """
+    if image_format not in ("png", "jpeg"):
+        raise ValueError(f"image_format {image_format!r}: png or jpeg")
+    ext = ".png" if image_format == "png" else ".jpg"
     root = pathlib.Path(root)
     images = np.asarray(scene["images"])
     poses = np.asarray(scene["poses"])
@@ -85,7 +97,10 @@ def write_llff_scene(root, scene, stem: str = "img", factor=None):
         bds = scene["bds"][i]
         rows.append(np.concatenate([m.flatten(), bds]))
         img = np.clip(np.round(images[i] * 255.0), 0, 255).astype(np.uint8)
-        write_png(imgdir / f"{stem}_{i:03d}.png", img)
+        if image_format == "png":
+            write_png(imgdir / f"{stem}_{i:03d}{ext}", img)
+        else:
+            write_jpeg(imgdir / f"{stem}_{i:03d}{ext}", img, JPEG_QUALITY)
     np.save(root / "poses_bounds.npy", np.stack(rows))
 
     # COLMAP sparse model with true plane geometry + projected visibility.
@@ -138,7 +153,7 @@ def write_llff_scene(root, scene, stem: str = "img", factor=None):
             fh.write(struct.pack("<4d", *qvec))
             fh.write(struct.pack("<3d", *tc))
             fh.write(struct.pack("<i", 1))
-            fh.write(f"{stem}_{i:03d}.png".encode() + b"\x00")
+            fh.write(f"{stem}_{i:03d}{ext}".encode() + b"\x00")
             fh.write(struct.pack("<Q", 0))
     with open(sparse / "points3D.bin", "wb") as fh:
         fh.write(struct.pack("<Q", n_points))

@@ -1,7 +1,7 @@
-"""A minimal PNG writer (8-bit gray or RGB) and reader (8-bit RGB or RGBA)
-on the standard library and numpy, so that the render entry points dump
-frames and the LLFF loader reads a capture on a machine without an imaging
-package."""
+"""A minimal PNG writer (8-bit gray or RGB) and reader (8-bit gray, gray
+and alpha, RGB or RGBA) on the standard library and numpy, so that the
+render entry points dump frames and the LLFF loader reads a capture on a
+machine without an imaging package."""
 
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 class UnsupportedPNG(ValueError):
     """A PNG that :func:`read_png` does not decode: a bit depth other than 8,
-    a colour type other than RGB or RGBA, or interlacing."""
+    a palette, or interlacing."""
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
@@ -83,7 +83,9 @@ def _unfilter(ftype: np.ndarray, filtered: np.ndarray) -> np.ndarray:
 
 
 def read_png(path) -> np.ndarray:
-    """A PNG of 8-bit RGB or RGBA, not interlaced, as uint8 [H, W, 3 or 4].
+    """An 8-bit PNG, not interlaced, as imageio returns it: uint8 [H, W]
+    (gray), [H, W, 2] (gray and alpha), [H, W, 3] (RGB) or [H, W, 4]
+    (RGBA).
 
     Any other PNG raises :class:`UnsupportedPNG`; a file that is not a
     whole PNG raises ``ValueError``."""
@@ -104,11 +106,13 @@ def read_png(path) -> np.ndarray:
     if header is None or not idat:
         raise ValueError(f"{path}: no IHDR or no IDAT chunk")
     w, h, depth, color, method, filt, interlace = header
-    if depth != 8 or color not in (2, 6) or interlace or method or filt:
+    channels = {0: 1, 4: 2, 2: 3, 6: 4}
+    if depth != 8 or color not in channels or interlace or method or filt:
         raise UnsupportedPNG(
             f"{path}: bit depth {depth}, colour type {color}, interlace "
-            f"{interlace}; read_png takes 8-bit RGB or RGBA, not interlaced")
-    bpp = 3 if color == 2 else 4
+            f"{interlace}; read_png takes 8-bit gray, gray and alpha, RGB or "
+            "RGBA, not interlaced")
+    bpp = channels[color]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != h * (w * bpp + 1):
         raise ValueError(f"{path}: {raw.size} bytes of image data for "
@@ -117,4 +121,5 @@ def read_png(path) -> np.ndarray:
     ftype = raw[:, 0]
     if ftype.max(initial=0) > 4:
         raise ValueError(f"{path}: row filter type {ftype.max()}")
-    return _unfilter(ftype, raw[:, 1:].reshape(h, w, bpp))
+    img = _unfilter(ftype, raw[:, 1:].reshape(h, w, bpp))
+    return img[..., 0] if bpp == 1 else img

@@ -130,29 +130,39 @@ def test_other_images_go_through_imageio_or_pil_and_else_raise(
     import imageio.v2 as imageio
     from PIL import Image
 
-    gray = (np.arange(12 * 10) % 256).astype(np.uint8).reshape(12, 10)
-    png.write_png(tmp_path / "g.png", gray)  # colour type 0
+    from pronerf_tpu_torch.utils import jpeg
+
+    deep = (np.arange(12 * 10) * 300).astype(np.uint16).reshape(12, 10)
+    Image.fromarray(deep).save(tmp_path / "d.png")  # 16-bit gray (I;16)
     with pytest.raises(png.UnsupportedPNG):
-        png.read_png(tmp_path / "g.png")
+        png.read_png(tmp_path / "d.png")
     with pytest.raises(ValueError, match="not a PNG"):
         png.read_png(_write(tmp_path / "x.png", b"GIF89a"))
-    # a gray PNG and a JPEG load as imageio loads them
-    Image.fromarray(_photo(16, 12, 3)).save(tmp_path / "j.jpg")
-    for name in ("g.png", "j.jpg"):
+    Image.fromarray(_photo(16, 12, 4), "CMYK").save(tmp_path / "c.jpg")
+    with pytest.raises(jpeg.UnsupportedJPEG, match="CMYK"):
+        jpeg.read_jpeg(tmp_path / "c.jpg")
+    # files the port's readers do not decode load as imageio loads them
+    for name in ("d.png", "c.jpg"):
         want = np.asarray(imageio.imread(tmp_path / name))[..., :3]
         assert_same(t_llff._imread(tmp_path / name), want, name)
     # without imageio, PIL; without either, an error naming the file
     monkeypatch.setitem(sys.modules, "imageio", None)
     monkeypatch.setitem(sys.modules, "imageio.v2", None)
-    assert_same(t_llff._imread(tmp_path / "j.jpg"),
-                np.asarray(Image.open(tmp_path / "j.jpg").convert("RGB")))
+    assert_same(t_llff._imread(tmp_path / "c.jpg"),
+                np.asarray(Image.open(tmp_path / "c.jpg").convert("RGB")))
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError, match="j.jpg.*imageio or PIL"):
-        t_llff._imread(tmp_path / "j.jpg")
-    # 8-bit RGB PNGs need neither
+    with pytest.raises(ImportError, match="c.jpg.*CMYK.*imageio or PIL"):
+        t_llff._imread(tmp_path / "c.jpg")
+    # 8-bit PNGs (RGB, gray) and baseline JPEGs need neither
     rgb = _photo(12, 10, 3)
     png.write_png(tmp_path / "rgb.png", rgb)
     assert_same(t_llff._imread(tmp_path / "rgb.png"), rgb)
+    gray = (np.arange(12 * 10) % 256).astype(np.uint8).reshape(12, 10)
+    png.write_png(tmp_path / "g.png", gray)  # colour type 0
+    assert_same(png.read_png(tmp_path / "g.png"), gray)
+    jpeg.write_jpeg(tmp_path / "j.jpg", rgb)
+    assert_same(t_llff._imread(tmp_path / "j.jpg"),
+                jpeg.decode_jpeg_plain((tmp_path / "j.jpg").read_bytes()))
 
 
 def _write(path, data):

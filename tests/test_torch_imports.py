@@ -38,7 +38,8 @@ def test_port_has_the_expected_modules():
                  "parallel.data_parallel", "parallel.multi_scene",
                  "parallel.render_parallel", "train.multi_loop",
                  "bench", "bench_train", "utils.resize", "tools.verify_fern",
-                 "tools.bench_coldstart", "tools.rehearse_release"):
+                 "tools.bench_coldstart", "tools.rehearse_release",
+                 "utils.jpeg"):
         assert f"pronerf_tpu_torch.{want}" in mods
 
 

@@ -112,8 +112,13 @@ def test_library_is_named_by_its_source(tmp_path, monkeypatch):
     # the JAX package's compiler line (native/Makefile)
     assert t_native.CXXFLAGS == ("-O3", "-march=native", "-fPIC",
                                  "-std=c++17", "-Wall", "-pthread", "-shared")
-    # an edited source gets another library, so a stale one is never loaded
-    edited = tmp_path / "pronerf_native.cpp"
-    edited.write_bytes(t_native.SOURCE.read_bytes() + b"\n")
-    monkeypatch.setattr(t_native, "SOURCE", edited)
-    assert t_native.lib_path() != path
+    # an edited source, either of them, gets another library, so a stale
+    # one is never loaded
+    for i, src in enumerate(t_native.SOURCES):
+        edited = tmp_path / src.name
+        edited.write_bytes(src.read_bytes() + b"\n")
+        sources = list(t_native.SOURCES)
+        sources[i] = edited
+        monkeypatch.setattr(t_native, "SOURCES", tuple(sources))
+        assert t_native.lib_path() != path
+        monkeypatch.undo()

@@ -27,11 +27,14 @@ def pil_resize(img, width, height):
 
 
 def block_pil(monkeypatch):
-    """Make ``import PIL`` / ``from PIL import Image`` raise ImportError."""
-    monkeypatch.setitem(sys.modules, "PIL", None)
-    monkeypatch.setitem(sys.modules, "PIL.Image", None)
+    """Make ``import PIL`` / ``from PIL import Image`` and ``import
+    imageio`` / ``import imageio.v2`` raise ImportError."""
+    for name in ("PIL", "PIL.Image", "imageio", "imageio.v2"):
+        monkeypatch.setitem(sys.modules, name, None)
     with pytest.raises(ImportError):
         from PIL import Image  # noqa: F401
+    with pytest.raises(ImportError):
+        import imageio.v2  # noqa: F401
 
 
 # (W, H, factor): the fern raw capture at factor 4, and a small odd size at
