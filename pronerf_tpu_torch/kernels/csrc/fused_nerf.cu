@@ -69,8 +69,11 @@
 // plain FMA loops through common.cuh, activations in shared memory.
 //
 // The frequency panel bx_t is 2^k by construction (one non-zero per row), so
-// `bx_t . x` rounded to the pack dtype is exactly ldexp(x, k); the wrapper
-// checks the panel before it drops it from the blob.
+// `bx_t . x` is exactly ldexp(x, k), taken from the f32 point in both
+// kernels; only x itself and sin/cos are rounded to the pack dtype (as the
+// XLA serving path encodes; the Pallas kernel rounds x first, which costs a
+// trained scene 3.6 dB). The wrapper checks the panel before it drops it
+// from the blob.
 //
 // Weight blob, f32, in this order (w_t [out, K], K a multiple of 32):
 //   w0p 256x64 b0 | w1..w4 256x256 + b | w5p 256x64 w5h 256x256 b5 |
@@ -274,11 +277,9 @@ __global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS) nerf_kernel(NerfArg
       // positional encoding rows [x(3) | sin(30) | cos(30) | 0]
       for (int idx = threadIdx.x; idx < TILE * 3; idx += P::THREADS) {
         const int r = idx % TILE, c = idx / TILE, ray = base + r;
-        const T x =
-            P::rnd(ray < N ? a.pts[(size_t)(3 * s + c) * N + ray] : 0.0f);
+        const float xf = ray < N ? a.pts[(size_t)(3 * s + c) * N + ray] : 0.0f;
         T* row = pe + r * LDPE;
-        row[P::col(c)] = x;
-        const float xf = P::f(x);
+        row[P::col(c)] = P::rnd(xf);   // the arguments below from the f32 x
 #pragma unroll
         for (int k = 0; k < kL; ++k) {
           float sn, cs;

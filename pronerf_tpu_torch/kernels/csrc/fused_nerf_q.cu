@@ -72,7 +72,8 @@
 // never occurs.
 //
 // The frequency panel bx_t is 2^k by construction, so `bx_t . x` is exactly
-// ldexp(x, k); the wrapper checks the panel before it drops it from the blob.
+// ldexp(x, k) of the f32 point (hopper.cuh's wg_write_pe); the wrapper checks
+// the panel before it drops it from the blob.
 //
 // Weight blob, bytes (`_blob` in ../fused_nerf_q.py): the 21 ring stages of
 // one sample (QBlob::stage_bytes), then the resident part: the head slabs

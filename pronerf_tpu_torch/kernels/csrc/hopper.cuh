@@ -613,20 +613,22 @@ constexpr int kPE = 64;    // PE row: 3 + 2 * 3 * kL = 63, padded
 // `base` (points `pts` [S * 3, N]), bf16, swizzled, written by the helper
 // threads (`t` of kHelpers) into the two warpgroups' buffers at `pe` (shared
 // memory; warpgroup w at + w * 64 rows of 128 bytes). The A operand of a
-// layer that reads the encoding through a descriptor.
+// layer that reads the encoding through a descriptor. The sin/cos arguments
+// are ldexp of the f32 point (exact); only x and the results are rounded.
+// Rounding x first, as the Pallas kernel does, leaves the top octave's
+// phase (2^9 x) wrong by radians.
 __device__ __forceinline__ void wg_write_pe(const float* pts, int N, int base,
                                             int s, unsigned char* pe, int t) {
   for (int idx = t; idx < kWgTile * 3; idx += kHelpers) {
     const int r = idx % kWgTile, c = idx / kWgTile;
-    const __nv_bfloat16 x = __float2bfloat16_rn(
-        base + r < N ? pts[(size_t)(3 * s + c) * N + base + r] : 0.0f);
+    const float xf =
+        base + r < N ? pts[(size_t)(3 * s + c) * N + base + r] : 0.0f;
     unsigned char* row = pe + r * 128;   // 64 rows of 128 bytes a warpgroup
     auto put = [&](int col, __nv_bfloat16 v) {
       *reinterpret_cast<__nv_bfloat16*>(
           row + ((((col >> 3) ^ (r & 7)) << 4) | ((col & 7) << 1))) = v;
     };
-    put(c, x);
-    const float xf = __bfloat162float(x);
+    put(c, __float2bfloat16_rn(xf));
 #pragma unroll
     for (int k = 0; k < kL; ++k) {
       float sn, cs;

@@ -9,12 +9,16 @@ per-ray view contribution as ``vcon_t [128, N] = (d_pe @ views_w[256:]).T``
 (bias excluded), rays contiguous in both.
 
 Rounding points (part of the function, shared by kernels and plain versions):
-points are cast to the pack dtype; ``xb = bx_t . x`` is rounded, ``sin``/
-``cos`` are evaluated in f32 on it and rounded; every dot takes operands in
-the pack dtype, accumulates in f32 and is rounded; biases are added in the
-pack dtype; layer 5 adds two separately rounded dots; ``vcon`` is cast to the
-pack dtype before it is added; the heads are returned as f32 and all
-compositing arithmetic is f32.
+``xb = bx_t . x`` is taken from the f32 points, exactly (``ldexp(x, k)``),
+``sin``/``cos`` are evaluated in f32 on it and rounded, and the points
+themselves are cast to the pack dtype (as the JAX package's XLA serving path
+encodes, ``pronerf_tpu/models/mlp.py:nerf_mlp_apply`` on an f32 encoding;
+its Pallas kernel rounds the points before ``bx_t . x``, which moves the top
+octave's phase, 2^9 x, by radians and costs a trained scene 3.6 dB); every
+dot takes operands in the pack dtype, accumulates in f32 and is rounded;
+biases are added in the pack dtype; layer 5 adds two separately rounded
+dots; ``vcon`` is cast to the pack dtype before it is added; the heads are
+returned as f32 and all compositing arithmetic is f32.
 
 Each kernel is a ``torch.library`` op (``pronerf::fused_nerf_raw``,
 ``pronerf::fused_nerf_composite``; ``library.define``) that a traced
@@ -140,6 +144,13 @@ def _mm(h, w_t):
     return (h.to(w_t.dtype).float() @ w_t.float().T).to(w_t.dtype)
 
 
+def pe_args(pts, bx_t):
+    """The sin/cos arguments ``bx_t . x`` of f32 points [..., 3] -> [..., 30]
+    f32, exactly 2^k x (a float64 product: one power of two a column, so no
+    TF32 or bf16 pass can round it)."""
+    return (pts.double() @ bx_t.double().T).float()
+
+
 def _forward_plain(packed, pts, vcon):
     """The shared PE -> MLP chain. pts [N, S, 3] f32, vcon [N, 128] f32.
     Returns (rgb [N, S, 3], sigma [N, S]) in the pack dtype."""
@@ -150,7 +161,7 @@ def _forward_plain(packed, pts, vcon):
         return p[name].reshape(1, -1)
 
     x = pts.to(cdt)
-    xb = _mm(x, p["bx_t"]).float()                       # [N, S, 30]
+    xb = pe_args(pts, p["bx_t"])                         # [N, S, 30]
     pe = torch.cat([x, torch.sin(xb).to(cdt), torch.cos(xb).to(cdt)], dim=-1)
 
     h = torch.relu(_mm(pe, p["w0p_t"]) + row("b0"))

@@ -25,6 +25,8 @@ Scheme (integer-only inference, every scale folded at pack time):
   bf16 / f32; their f32 sums enter the requantisation unrounded.
 
 Rounding points (part of the function, shared by kernel and plain version):
+the sin/cos arguments are taken from the f32 points, exactly, as in
+``fused_nerf`` (the Pallas kernel rounds the points to the PE dtype first);
 ``acc * A`` is rounded to f32 BEFORE ``B`` is added (no fused multiply-add);
 layer 5 is ``(acc * A5 + pe_dot) + B5`` and the view layer ``(acc * Av +
 vcon * vcon_scale) + Bv``, in that order. The int8 products are exact
@@ -57,6 +59,7 @@ from pronerf_tpu_torch.kernels.fused_nerf import (
     _freq_matrix,
     _raw_fake,
     _split_pe_rows,
+    pe_args,
 )
 from pronerf_tpu_torch.kernels.stages import images, slabs
 from pronerf_tpu_torch.kernels.stages import stage_table as _stage_table
@@ -302,8 +305,9 @@ def fused_nerf_raw_q_plain(packed, pts24_t, vcon_t, n_samples: int = 8):
     def row(name):
         return p[name].reshape(1, -1)
 
-    x = pts24_t.T.reshape(N, n_samples, 3).to(pdt)
-    xb = _mmf(x, p["bx_t"])                               # [N, S, 30], exact
+    pts = pts24_t.T.reshape(N, n_samples, 3)
+    x = pts.to(pdt)
+    xb = pe_args(pts, p["bx_t"])                          # [N, S, 30], exact
     pe = torch.cat([x, torch.sin(xb).to(pdt), torch.cos(xb).to(pdt)], dim=-1)
 
     h = _requant(_mmf(pe, p["w0p_t"]) * row("A0") + row("B0"))

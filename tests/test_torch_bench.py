@@ -39,6 +39,7 @@ from pronerf_tpu.utils.profiling import pipeline_macs as j_macs
 from pronerf_tpu.utils.synthetic import make_scene as j_make_scene
 from pronerf_tpu_torch import bench, convert
 from pronerf_tpu_torch.utils.profiling import pipeline_macs
+from torch_jax_pe import jax_kernels_with_f32_pe  # noqa: F401 (autouse: f32 PE)
 
 torch.set_num_threads(2)
 

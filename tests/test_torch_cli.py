@@ -13,6 +13,7 @@ import torch
 
 from pronerf_tpu_torch.cli import main
 from pronerf_tpu_torch.train import checkpoint as t_ckpt
+from torch_jax_pe import jax_kernels_with_f32_pe  # noqa: F401 (autouse: f32 PE)
 
 torch.set_num_threads(2)
 

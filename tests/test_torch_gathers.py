@@ -42,6 +42,7 @@ from pronerf_tpu_torch.models.pronerf import RenderStatics, render_rays
 from pronerf_tpu_torch.models.pronerf_t import render_rays_t
 from pronerf_tpu_torch.ops import warp as t_warp
 from pronerf_tpu_torch.render import renderer as t_renderer
+from torch_jax_pe import jax_kernels_with_f32_pe  # noqa: F401 (autouse: f32 PE)
 
 torch.set_num_threads(2)
 

@@ -4,7 +4,9 @@ Here, on the CPU, the port's wrappers take their plain PyTorch versions (the
 tensors lie on the CPU) and the JAX kernels run in interpret mode with a
 small ``rays_per_block``, as the JAX package's own tests run them. The CUDA
 kernels themselves are held against the same plain versions on the card by
-``chip_smoke.py``.
+``chip_smoke.py``. The JAX kernels' chains run with their positional
+encoding taken from the f32 points (``torch_jax_pe``), the one rounding point
+where the port departs from the Pallas kernels (``test_torch_pe.py``).
 
 Tolerances. Packed panels: equal bit for bit (f32 and bf16), except the six
 folded columns of the MinMax ``w0_t``: each is a sum of 48 (or 8) f32 terms
@@ -38,6 +40,7 @@ from pronerf_tpu_torch.kernels import fused_minmax as t_fm
 from pronerf_tpu_torch.kernels import fused_nerf as t_fn
 from pronerf_tpu_torch.models.pronerf import view_contribution
 from pronerf_tpu_torch.ops.encoding import positional_encoding as t_posenc
+from torch_jax_pe import jax_kernels_with_f32_pe  # noqa: F401 (autouse: f32 PE)
 
 # The suite runs several workers side by side; two threads a worker keep
 # PyTorch's CPU kernels from crowding the other workers' tests.

@@ -5,7 +5,9 @@ Here the port's wrapper takes its plain PyTorch version (the tensors lie on
 the CPU) and the JAX kernel runs in interpret mode with a small
 ``rays_per_block``, as the JAX package's own tests run it. The CUDA kernel
 itself is held against the same plain version on the card by
-``chip_smoke.py``.
+``chip_smoke.py``. The JAX kernel's chain runs with its positional encoding
+taken from the f32 points (``torch_jax_pe``), the one rounding point where
+the port departs from the Pallas kernel (``test_torch_pe.py``).
 
 Tolerances.
 
@@ -47,6 +49,7 @@ from pronerf_tpu_torch.kernels import fused_nerf as t_fn
 from pronerf_tpu_torch.kernels import fused_nerf_q as t_fq
 from pronerf_tpu_torch.models.pronerf import view_contribution
 from pronerf_tpu_torch.ops.encoding import positional_encoding as t_posenc
+from torch_jax_pe import jax_kernels_with_f32_pe  # noqa: F401 (autouse: f32 PE)
 
 # The suite runs several workers side by side; two threads a worker keep
 # PyTorch's CPU kernels from crowding the other workers' tests.

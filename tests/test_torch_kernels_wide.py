@@ -8,8 +8,9 @@ card in parts, one launch each) input rows.
 
 Here the port's wrappers take their plain PyTorch versions (the tensors lie
 on the CPU) and the JAX kernels run in interpret mode with a small
-``rays_per_block``, as the JAX package's own tests run them. The CUDA
-kernels are held against the same plain versions at these shapes on the
+``rays_per_block``, as the JAX package's own tests run them, with their
+positional encoding taken from the f32 points as the port's
+(``torch_jax_pe``). The CUDA kernels are held against the same plain versions at these shapes on the
 card by ``chip_smoke.py`` (its kernel rows ``[S=128]``, ``[C=198]``,
 ``[C=54]`` and ``[C=1542]``, its frames of 16 and 128 samples a ray, and
 its 1008x756 frame of 2 neighbours).
@@ -41,6 +42,7 @@ from pronerf_tpu_torch import convert
 from pronerf_tpu_torch.kernels import fused_minmax as t_fm
 from pronerf_tpu_torch.kernels import fused_nerf as t_fn
 from pronerf_tpu_torch.kernels import fused_nerf_q as t_fq
+from torch_jax_pe import jax_kernels_with_f32_pe  # noqa: F401 (autouse: f32 PE)
 
 torch.set_num_threads(2)
 

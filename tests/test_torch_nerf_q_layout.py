@@ -537,8 +537,9 @@ def emulate_kernel_order(packed, blob, pts24_t, vcon_t, S=8):
     def panel(name, shape):
         return stored_panel(blob, name, shape, np.int8).astype(np.int64)
 
-    x = torch.from_numpy(pts24_t).T.reshape(N, S, 3).to(torch.bfloat16)
-    xb = fq._mmf(x, packed["bx_t"])
+    pts = torch.from_numpy(pts24_t).T.reshape(N, S, 3)
+    x = pts.to(torch.bfloat16)
+    xb = fq.pe_args(pts, packed["bx_t"])   # from the f32 points, as the kernel
     pe = torch.cat([x, torch.sin(xb).to(torch.bfloat16),
                     torch.cos(xb).to(torch.bfloat16)], dim=-1)
     pe0 = fq._mmf(pe, packed["w0p_t"]).numpy().reshape(N * S, 256)

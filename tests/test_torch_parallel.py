@@ -54,6 +54,7 @@ from pronerf_tpu_torch.render.raygen import build_ray_pool
 from pronerf_tpu_torch.train import checkpoint as t_ckpt
 from torch_train_common import NETS, as_numpy, configs
 import torch_parallel_ranks
+from torch_jax_pe import jax_kernels_with_f32_pe  # noqa: F401 (autouse: f32 PE)
 
 torch.set_num_threads(2)
 

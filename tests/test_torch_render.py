@@ -5,7 +5,8 @@ Fixture: ``make_scene(n_views=5, H=16, W=20)``, the scene of the JAX
 package's own kernel tests. Weights come from the JAX initialiser through
 ``convert.params_from_numpy``; rays are made once (by the JAX ray generator)
 and handed to both as numpy. The port's kernels run as their plain versions
-(CPU tensors), the JAX kernels in interpret mode.
+(CPU tensors), the JAX kernels in interpret mode, their positional
+encoding taken from the f32 points as the port's (``torch_jax_pe``).
 
 The main comparisons render a HELD-OUT pose (pose 1 from source views
 0, 2, 3, 4), as served frames are. With the target pose among the source
@@ -42,6 +43,7 @@ from pronerf_tpu_torch import convert
 from pronerf_tpu_torch.models.pronerf import RenderStatics, render_rays
 from pronerf_tpu_torch.render.raygen import rays_for_pose
 from pronerf_tpu_torch.render.renderer import make_frame_renderer
+from torch_jax_pe import jax_kernels_with_f32_pe  # noqa: F401 (autouse: f32 PE)
 
 # The suite runs several workers side by side; two threads a worker keep
 # PyTorch's CPU kernels from crowding the other workers' tests.

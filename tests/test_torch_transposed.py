@@ -3,7 +3,8 @@ transposed gathers of ``ops/warp.py``) and its int8 serving path, against the
 JAX package and against the port's own row-major graph, on the CPU.
 
 The port's kernels run as their plain versions (CPU tensors), the JAX
-kernels in interpret mode. Weights come from the JAX initialiser through
+kernels in interpret mode (their positional encoding from the f32 points,
+as the port's: ``torch_jax_pe``). Weights come from the JAX initialiser through
 ``convert.params_from_numpy``; rays and scenes are made once and handed to
 both as numpy. Renders use a HELD-OUT pose (pose 1 from source views 0, 2,
 3, 4) for the reason given in ``test_torch_render.py``.
@@ -48,6 +49,7 @@ from pronerf_tpu_torch.ops import warp as t_warp
 from pronerf_tpu_torch.ops.encoding import plucker
 from pronerf_tpu_torch.ops.sampling import bin_constrain
 from pronerf_tpu_torch.render.renderer import make_frame_renderer
+from torch_jax_pe import jax_kernels_with_f32_pe  # noqa: F401 (autouse: f32 PE)
 
 # The suite runs several workers side by side; two threads a worker keep
 # PyTorch's CPU kernels from crowding the other workers' tests.

@@ -24,6 +24,7 @@ from pronerf_tpu.models import init_pronerf_params as j_init
 from pronerf_tpu.train import checkpoint as j_ckpt
 from pronerf_tpu_torch.ops.metrics import to8b
 from pronerf_tpu_torch.utils import gif
+from torch_jax_pe import jax_kernels_with_f32_pe  # noqa: F401 (autouse: f32 PE)
 
 torch.set_num_threads(2)
 
