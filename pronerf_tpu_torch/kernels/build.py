@@ -13,7 +13,9 @@ every pointer and for the stream, or ctypes would cut them to 32 bits).
 
 Nothing happens at import: the first launch of a kernel calls :func:`load`,
 which builds if needed. :func:`build_all` starts one ``nvcc`` per source at
-once, for callers that want the whole set up front.
+once, for callers that want the whole set up front. Each library loaded and
+each one built is counted in ``utils/profiling.COUNTERS`` (``kernel_loads``,
+``kernel_builds``).
 
 The libraries live in ``_build/`` beside this file, or in the directory
 that ``PRONERF_KERNEL_CACHE`` names (read at each build or load; the
@@ -30,6 +32,8 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
+
+from pronerf_tpu_torch.utils.profiling import COUNTERS
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -143,6 +147,7 @@ def build_all() -> dict:
             stderr=subprocess.STDOUT, text=True,
         )
         running.append((name, proc, tmp, out))
+    COUNTERS["kernel_builds"] += len(running)
     return {n: _finish(n, p, t, o) for n, p, t, o in running}
 
 
@@ -154,4 +159,5 @@ def load(name: str) -> ctypes.CDLL:
         if not out.exists():
             build_all()
         lib = _loaded[name] = ctypes.CDLL(str(out))
+        COUNTERS["kernel_loads"] += 1
     return lib

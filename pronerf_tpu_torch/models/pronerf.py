@@ -63,6 +63,7 @@ from pronerf_tpu_torch.ops.warp import (
     mean_fill_invalid_sct,
     per_view_gather_auto,
 )
+from pronerf_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -317,6 +318,11 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
     kernels, on CPU tensors their plain versions. No gradient flows through
     them; callers on the serving path run under ``torch.no_grad()``.
 
+    Each numbered stage is a span (``utils/profiling.span``): ``sampler``
+    (1), ``sort`` (2), ``gather`` (3, with the mean fill and the colours'
+    layout), ``refine`` (4 and 5), ``nerf`` (6 up to ``raw`` or the fused
+    composite), ``composite`` (``ops.composite.composite``).
+
     Returns: dict with rgb0 (refine aux rgb), rgb1 (composited NeRF rgb),
       depth, disp, acc, mm_rgb, depth0, weights, sigma.
     """
@@ -333,271 +339,288 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
     # (p = o + t d), so the 48-point signature is 48 copies of one
     # [d_hat, m] 6-vector; the serving path folds the tiling into the
     # first-layer weights instead of materializing [N, 288].
-    fold_mm = cdt is not None and not statics.mmnetskips
-    mm_kernel = fold_mm and statics.use_kernels
-    # stage-1 NeRF steps train the NeRF alone: the sampler and refine nets
-    # run frozen, so no graph is kept for them
-    frozen = torch.no_grad() if statics.stop_sampler_grad \
-        else contextlib.nullcontext()
-    if mm_kernel:
-        from pronerf_tpu_torch.kernels.fused_minmax import (
-            fused_minmax_t,
-            pack_minmax_params,
-        )
+    with span("sampler"):
+        fold_mm = cdt is not None and not statics.mmnetskips
+        mm_kernel = fold_mm and statics.use_kernels
+        # stage-1 NeRF steps train the NeRF alone: the sampler and refine nets
+        # run frozen, so no graph is kept for them
+        frozen = torch.no_grad() if statics.stop_sampler_grad \
+            else contextlib.nullcontext()
+        if mm_kernel:
+            from pronerf_tpu_torch.kernels.fused_minmax import (
+                fused_minmax_t,
+                pack_minmax_params,
+            )
 
-        sig = plucker(ndc_o, ndc_d)  # [N, 6]
-        sig_t = sig.T.contiguous()
-        packed_s = params.get("sampler_packed")
-        if packed_s is None:
-            packed_s = pack_minmax_params(
-                params["sampler"], statics.N_point_ray_enc, cdt
+            sig = plucker(ndc_o, ndc_d)  # [N, 6]
+            sig_t = sig.T.contiguous()
+            packed_s = params.get("sampler_packed")
+            if packed_s is None:
+                packed_s = pack_minmax_params(
+                    params["sampler"], statics.N_point_ray_enc, cdt
+                )
+            mm_out = fused_minmax_t(packed_s, sig_t)[:, : 3 * S + 3]
+        elif fold_mm:
+            sig = plucker(ndc_o, ndc_d)  # [N, 6]
+            with frozen:
+                mm_out = minmax_mlp_apply_folded(
+                    params["sampler"], sig, statics.N_point_ray_enc, None, cdt
+                )
+        else:
+            sig_depths = linspace_depths(
+                0.0, 1.0, statics.N_point_ray_enc, ndc_o.dtype, ndc_o.device
             )
-        mm_out = fused_minmax_t(packed_s, sig_t)[:, : 3 * S + 3]
-    elif fold_mm:
-        sig = plucker(ndc_o, ndc_d)  # [N, 6]
-        with frozen:
-            mm_out = minmax_mlp_apply_folded(
-                params["sampler"], sig, statics.N_point_ray_enc, None, cdt
+            sig_pts = ray_points(
+                ndc_o, ndc_d,
+                sig_depths.expand(n_rays, statics.N_point_ray_enc),
             )
-    else:
-        sig_depths = linspace_depths(
-            0.0, 1.0, statics.N_point_ray_enc, ndc_o.dtype, ndc_o.device
-        )
-        sig_pts = ray_points(
-            ndc_o, ndc_d, sig_depths.expand(n_rays, statics.N_point_ray_enc)
-        )
-        sampler_in = plucker(sig_pts, ndc_d[:, None, :]).reshape(n_rays, -1)
-        with frozen:
-            mm_out = params["sampler"](sampler_in, cdt)
-    mm_rgb = torch.sigmoid(mm_out[:, 3 * S:])
-    mm_add = mm_out[:, S: 2 * S]
-    mm_mul = mm_out[:, 2 * S: 3 * S]
-    depth_values = torch.sigmoid(mm_out[:, :S]) * (far - near) + near
+            sampler_in = plucker(sig_pts, ndc_d[:, None, :]).reshape(
+                n_rays, -1)
+            with frozen:
+                mm_out = params["sampler"](sampler_in, cdt)
+        mm_rgb = torch.sigmoid(mm_out[:, 3 * S:])
+        mm_add = mm_out[:, S: 2 * S]
+        mm_mul = mm_out[:, 2 * S: 3 * S]
+        depth_values = torch.sigmoid(mm_out[:, :S]) * (far - near) + near
 
     # 2. Sort depths; carry the density corrections along.
-    depth_values, mm_add, mm_mul = sort_with_payloads(
-        depth_values, mm_add, mm_mul
-    )
-    z3d = ndc_to_3d_depth(depth_values, statics.ndc_eps)
+    with span("sort"):
+        depth_values, mm_add, mm_mul = sort_with_payloads(
+            depth_values, mm_add, mm_mul
+        )
+        z3d = ndc_to_3d_depth(depth_values, statics.ndc_eps)
 
     # 3. Epipolar color features (never differentiated): per-ray neighbor
     # views while training, else the shared nearest views.
-    gdt = (
-        torch.bfloat16
-        if (statics.gather_bf16 == 1
-            or (statics.gather_bf16 == -1 and mm_kernel))
-        else None
-    )
-    imgs = scene["images"]
-    u8 = is_u8_pack(imgs)
-    # Transposed emit: produce the fused kernels' rays-minor layout directly
-    # at the gather instead of transposing epi_flat below.
-    t_emit = (
-        not statics.randomize and mm_kernel and u8
-        and not statics.gather_split and statics.gather_transposed == 1
-    )
-    # Full-resolution serving: tile the ray batch and gather through source
-    # row windows (statics resolved by render.renderer.resolve_gather_statics)
-    windowed = (
-        statics.gather_tiles > 0 and statics.gather_window_rows > 0 and u8
-    )
-    z3d = z3d.detach()
-    with torch.no_grad():
-        if statics.randomize:
-            view_idx = _select_neighbors(rays, scene, controls)
-            per_view = (statics.train_gather == 1 and u8) or (
-                statics.train_gather == -1 and per_view_gather_auto(imgs))
-            gather = epipolar_colors_per_view if per_view else epipolar_colors
-            colors = gather(
-                imgs, scene["fused_mats"], scene["K"], view_idx,
-                rays["or_o"], rays["or_d"], z3d,
-                split=statics.gather_split and u8,
-            )  # [N, V, S, 3]
-            colors = mean_fill_invalid(colors)
-        else:
-            nearest = _nearest_views(statics, scene, controls)
-            args = (imgs, scene["fused_mats"], scene["K"], nearest,
-                    rays["or_o"], rays["or_d"], z3d)
-            if windowed:
-                colors = epipolar_colors_shared_windowed(
-                    *args, statics.gather_tiles, statics.gather_window_rows,
-                    split=statics.gather_split, out_dtype=gdt,
-                    transposed_out=t_emit,
-                )
-            else:
-                colors = epipolar_colors_shared(
-                    *args, split=statics.gather_split and u8, out_dtype=gdt,
-                    transposed_out=t_emit,
-                )
-            if t_emit:  # [V, S*3, N]
-                n_views = colors.shape[0]
-                epi_v = mean_fill_invalid_sct(
-                    colors.reshape(n_views, S, 3, n_rays))
-            else:  # [N, V, S, 3]
+    with span("gather"):
+        gdt = (
+            torch.bfloat16
+            if (statics.gather_bf16 == 1
+                or (statics.gather_bf16 == -1 and mm_kernel))
+            else None
+        )
+        imgs = scene["images"]
+        u8 = is_u8_pack(imgs)
+        # Transposed emit: produce the fused kernels' rays-minor layout
+        # directly at the gather instead of transposing epi_flat below.
+        t_emit = (
+            not statics.randomize and mm_kernel and u8
+            and not statics.gather_split and statics.gather_transposed == 1
+        )
+        # Full-resolution serving: tile the ray batch and gather through
+        # source row windows (statics resolved by
+        # render.renderer.resolve_gather_statics)
+        windowed = (
+            statics.gather_tiles > 0 and statics.gather_window_rows > 0 and u8
+        )
+        z3d = z3d.detach()
+        with torch.no_grad():
+            if statics.randomize:
+                view_idx = _select_neighbors(rays, scene, controls)
+                per_view = (statics.train_gather == 1 and u8) or (
+                    statics.train_gather == -1 and per_view_gather_auto(imgs))
+                gather = epipolar_colors_per_view if per_view \
+                    else epipolar_colors
+                colors = gather(
+                    imgs, scene["fused_mats"], scene["K"], view_idx,
+                    rays["or_o"], rays["or_d"], z3d,
+                    split=statics.gather_split and u8,
+                )  # [N, V, S, 3]
                 colors = mean_fill_invalid(colors)
-    if t_emit:
-        epi_flat = None
-        if statics.epi_layout == "svc":
-            epi_t = epi_v.transpose(0, 1).reshape(-1, n_rays)
+            else:
+                nearest = _nearest_views(statics, scene, controls)
+                args = (imgs, scene["fused_mats"], scene["K"], nearest,
+                        rays["or_o"], rays["or_d"], z3d)
+                if windowed:
+                    colors = epipolar_colors_shared_windowed(
+                        *args, statics.gather_tiles,
+                        statics.gather_window_rows,
+                        split=statics.gather_split, out_dtype=gdt,
+                        transposed_out=t_emit,
+                    )
+                else:
+                    colors = epipolar_colors_shared(
+                        *args, split=statics.gather_split and u8,
+                        out_dtype=gdt,
+                        transposed_out=t_emit,
+                    )
+                if t_emit:  # [V, S*3, N]
+                    n_views = colors.shape[0]
+                    epi_v = mean_fill_invalid_sct(
+                        colors.reshape(n_views, S, 3, n_rays))
+                else:  # [N, V, S, 3]
+                    colors = mean_fill_invalid(colors)
+        if t_emit:
+            epi_flat = None
+            if statics.epi_layout == "svc":
+                epi_t = epi_v.transpose(0, 1).reshape(-1, n_rays)
+            else:
+                epi_t = epi_v.reshape(-1, n_rays)  # [V*S*3, N]
         else:
-            epi_t = epi_v.reshape(-1, n_rays)  # [V*S*3, N]
-    else:
-        epi_t = None
-        if statics.epi_layout == "svc":
-            epi_flat = colors.transpose(1, 2).reshape(n_rays, -1)
-        else:
-            epi_flat = colors.reshape(n_rays, -1)  # [N, V*S*3]
+            epi_t = None
+            if statics.epi_layout == "svc":
+                epi_flat = colors.transpose(1, 2).reshape(n_rays, -1)
+            else:
+                epi_flat = colors.reshape(n_rays, -1)  # [N, V*S*3]
 
     # 4. Refine net on [Pluecker(candidates) || warped colors]. Same
     # collinearity fold as the sampler: the 8 candidate points share one
     # Pluecker signature.
-    if mm_kernel:
-        packed_r = params.get("refine_packed")
-        if packed_r is None:
-            packed_r = pack_minmax_params(params["refine"], S, cdt)
-        # one dtype for the concat, so a bf16 gather stays bf16 (the kernel
-        # casts its input to bf16 on entry either way)
-        epi_rows_t = epi_t if epi_t is not None else epi_flat.T
-        refine_out = fused_minmax_t(
-            packed_r,
-            torch.cat([sig_t.to(epi_rows_t.dtype), epi_rows_t], dim=0),
-        )[:, : 4 * S + 3]
-    elif fold_mm:
-        with frozen:
-            refine_out = minmax_mlp_apply_folded(
-                params["refine"], sig, S, epi_flat, cdt
-            )
-    else:
-        epi_pts = ray_points(ndc_o, ndc_d, depth_values)
-        plk = plucker(epi_pts, ndc_d[:, None, :]).reshape(n_rays, -1)
-        with frozen:
-            refine_out = params["refine"](
-                torch.cat([plk, epi_flat], dim=-1), cdt
-            )
-    refine_sig = torch.sigmoid(refine_out[:, :S])
-    refine_rgb = torch.sigmoid(refine_out[:, 4 * S:])
-    points_offset = torch.tanh(refine_out[:, S: 4 * S]).reshape(n_rays, S, 3)
+    with span("refine"):
+        if mm_kernel:
+            packed_r = params.get("refine_packed")
+            if packed_r is None:
+                packed_r = pack_minmax_params(params["refine"], S, cdt)
+            # one dtype for the concat, so a bf16 gather stays bf16 (the kernel
+            # casts its input to bf16 on entry either way)
+            epi_rows_t = epi_t if epi_t is not None else epi_flat.T
+            refine_out = fused_minmax_t(
+                packed_r,
+                torch.cat([sig_t.to(epi_rows_t.dtype), epi_rows_t], dim=0),
+            )[:, : 4 * S + 3]
+        elif fold_mm:
+            with frozen:
+                refine_out = minmax_mlp_apply_folded(
+                    params["refine"], sig, S, epi_flat, cdt
+                )
+        else:
+            epi_pts = ray_points(ndc_o, ndc_d, depth_values)
+            plk = plucker(epi_pts, ndc_d[:, None, :]).reshape(n_rays, -1)
+            with frozen:
+                refine_out = params["refine"](
+                    torch.cat([plk, epi_flat], dim=-1), cdt
+                )
+        refine_sig = torch.sigmoid(refine_out[:, :S])
+        refine_rgb = torch.sigmoid(refine_out[:, 4 * S:])
+        points_offset = torch.tanh(refine_out[:, S: 4 * S]).reshape(
+            n_rays, S, 3)
 
-    # 5. Bin-constrained refined depths + branch-specific surgery.
-    z_vals = bin_constrain(depth_values, refine_sig, near, far)
-    num_valid = None
-    gen = controls.get("rng")
-    if statics.explore:
-        z_vals, num_valid = explore_expand(
-            z_vals, controls["n_mult"], _coin(controls["dir_expand"]), near,
-            far, statics.max_expand,
-        )
-        jittered = gap_jitter(
-            z_vals, near, far, _coin(controls["dir_jitter"]), 0.99,
-            noise=controls.get("jitter_noise"), generator=gen,
-        )
-        idx = torch.arange(statics.max_expand, device=z_vals.device)
-        z_vals = torch.where(idx[None, :] < num_valid, jittered,
-                             torch.full_like(jittered, far))
-    elif statics.jitter:
-        z_vals = gap_jitter(
-            z_vals, near, far, _coin(controls["dir_jitter"]), 1.0 - 2e-6,
-            noise=controls.get("jitter_noise"), generator=gen,
-        )
-    n_s = z_vals.shape[-1]
+        # 5. Bin-constrained refined depths + branch-specific surgery.
+        z_vals = bin_constrain(depth_values, refine_sig, near, far)
+        num_valid = None
+        gen = controls.get("rng")
+        if statics.explore:
+            z_vals, num_valid = explore_expand(
+                z_vals, controls["n_mult"], _coin(controls["dir_expand"]),
+                near, far, statics.max_expand,
+            )
+            jittered = gap_jitter(
+                z_vals, near, far, _coin(controls["dir_jitter"]), 0.99,
+                noise=controls.get("jitter_noise"), generator=gen,
+            )
+            idx = torch.arange(statics.max_expand, device=z_vals.device)
+            z_vals = torch.where(idx[None, :] < num_valid, jittered,
+                                 torch.full_like(jittered, far))
+        elif statics.jitter:
+            z_vals = gap_jitter(
+                z_vals, near, far, _coin(controls["dir_jitter"]), 1.0 - 2e-6,
+                noise=controls.get("jitter_noise"), generator=gen,
+            )
+        n_s = z_vals.shape[-1]
 
     # 6. NeRF forward (fused kernel on the inference path, the module
     # otherwise) + shared compositing.
-    comp = None
-    if statics.use_kernels:
-        # PE + MLP chain inside the kernel; the view-dir ENCODING and its
-        # small product stay outside. With fuse_composite (and inference
-        # semantics) alpha compositing streams inside the kernel.
-        from pronerf_tpu_torch.kernels.fused_nerf import (
-            fused_nerf_composite_t,
-            fused_nerf_raw_t,
-            pack_nerf_params,
-        )
-
-        kdt = torch.bfloat16 if cdt is not None else torch.float32
-        d_pe = positional_encoding(rays["viewdirs"], statics.multires_views)
-        vcon_t = view_contribution(params["nerf"], d_pe, kdt)  # [128, N]
-        # [S*3, N] transposed query points, row 3*s + c, the offsets taken
-        # from refine_out's [n, 3s + c] columns: the same points as
-        # ray_points + offsets below.
-        pts24_t = (
-            ndc_o.T[None, :, :] + ndc_d.T[None, :, :] * z_vals.T[:, None, :]
-        ).reshape(3 * S, n_rays)
-        if statics.add_offsets:
-            pts24_t = pts24_t + statics.offset_scale * torch.tanh(
-                refine_out[:, S: 4 * S].T
-            )
-        pts24_t = pts24_t.float().contiguous()
-        fuse_comp = (
-            statics.fuse_composite and statics.noise_std == 0.0
-            and not statics.explore and not statics.clamp_raw
-            and statics.use_mm
-        )
-        if statics.quant == "int8":
-            # the int8 serving path (opt-in); compositing stays in
-            # ops.composite, never inside the kernel
-            from pronerf_tpu_torch.kernels.fused_nerf_q import (
-                fused_nerf_raw_tq,
-                pack_nerf_params_int8,
+    with span("nerf"):
+        comp = None
+        if statics.use_kernels:
+            # PE + MLP chain inside the kernel; the view-dir ENCODING and its
+            # small product stay outside. With fuse_composite (and inference
+            # semantics) alpha compositing streams inside the kernel.
+            from pronerf_tpu_torch.kernels.fused_nerf import (
+                fused_nerf_composite_t,
+                fused_nerf_raw_t,
+                pack_nerf_params,
             )
 
-            packed_q = params.get("nerf_packed_q")
-            if packed_q is None:
-                packed_q = pack_nerf_params_int8(params["nerf"])
-            raw = fused_nerf_raw_tq(
-                packed_q, pts24_t, vcon_t.contiguous(), n_samples=S)
-        elif fuse_comp:
-            packed = params.get("nerf_packed")
-            if packed is None:
-                packed = pack_nerf_params(params["nerf"], kdt)
-            comp = fused_nerf_composite_t(
-                packed, pts24_t, vcon_t,
-                z_vals.T.float().contiguous(),
-                mm_add.T.float().contiguous(),
-                mm_mul.T.float().contiguous(),
-                torch.linalg.norm(ndc_d, dim=-1)[None, :].float().contiguous(),
-                n_samples=S, white_bkgd=statics.white_bkgd,
+            kdt = torch.bfloat16 if cdt is not None else torch.float32
+            d_pe = positional_encoding(rays["viewdirs"],
+                                       statics.multires_views)
+            vcon_t = view_contribution(params["nerf"], d_pe, kdt)  # [128, N]
+            # [S*3, N] transposed query points, row 3*s + c, the offsets taken
+            # from refine_out's [n, 3s + c] columns: the same points as
+            # ray_points + offsets below.
+            pts24_t = (
+                ndc_o.T[None, :, :]
+                + ndc_d.T[None, :, :] * z_vals.T[:, None, :]
+            ).reshape(3 * S, n_rays)
+            if statics.add_offsets:
+                pts24_t = pts24_t + statics.offset_scale * torch.tanh(
+                    refine_out[:, S: 4 * S].T
+                )
+            pts24_t = pts24_t.float().contiguous()
+            fuse_comp = (
+                statics.fuse_composite and statics.noise_std == 0.0
+                and not statics.explore and not statics.clamp_raw
+                and statics.use_mm
             )
-            sigma_out = comp["sigma"]
+            if statics.quant == "int8":
+                # the int8 serving path (opt-in); compositing stays in
+                # ops.composite, never inside the kernel
+                from pronerf_tpu_torch.kernels.fused_nerf_q import (
+                    fused_nerf_raw_tq,
+                    pack_nerf_params_int8,
+                )
+
+                packed_q = params.get("nerf_packed_q")
+                if packed_q is None:
+                    packed_q = pack_nerf_params_int8(params["nerf"])
+                raw = fused_nerf_raw_tq(
+                    packed_q, pts24_t, vcon_t.contiguous(), n_samples=S)
+            elif fuse_comp:
+                packed = params.get("nerf_packed")
+                if packed is None:
+                    packed = pack_nerf_params(params["nerf"], kdt)
+                dnorm = torch.linalg.norm(ndc_d, dim=-1)[None, :]
+                comp = fused_nerf_composite_t(
+                    packed, pts24_t, vcon_t,
+                    z_vals.T.float().contiguous(),
+                    mm_add.T.float().contiguous(),
+                    mm_mul.T.float().contiguous(),
+                    dnorm.float().contiguous(),
+                    n_samples=S, white_bkgd=statics.white_bkgd,
+                )
+                sigma_out = comp["sigma"]
+            else:
+                packed = params.get("nerf_packed")
+                if packed is None:
+                    packed = pack_nerf_params(params["nerf"], kdt)
+                raw = fused_nerf_raw_t(packed, pts24_t, vcon_t, n_samples=S)
         else:
-            packed = params.get("nerf_packed")
-            if packed is None:
-                packed = pack_nerf_params(params["nerf"], kdt)
-            raw = fused_nerf_raw_t(packed, pts24_t, vcon_t, n_samples=S)
-    else:
-        query_pts = ray_points(ndc_o, ndc_d, z_vals)
-        if statics.add_offsets:
-            query_pts = query_pts + statics.offset_scale * points_offset
-        x_pe = positional_encoding(query_pts, statics.multires)
-        d_pe = positional_encoding(rays["viewdirs"], statics.multires_views)
-        if cdt is None or statics.netarch == "donerf":
-            # The parity path (and donerf) broadcasts dirs per point; the
-            # serving path hands the NeRF module the per-ray encoding.
-            d_pe = d_pe[:, None, :].expand(n_rays, n_s, d_pe.shape[-1])
-        raw = params["nerf"](x_pe, d_pe, cdt)
+            query_pts = ray_points(ndc_o, ndc_d, z_vals)
+            if statics.add_offsets:
+                query_pts = query_pts + statics.offset_scale * points_offset
+            x_pe = positional_encoding(query_pts, statics.multires)
+            d_pe = positional_encoding(rays["viewdirs"],
+                                       statics.multires_views)
+            if cdt is None or statics.netarch == "donerf":
+                # The parity path (and donerf) broadcasts dirs per point; the
+                # serving path hands the NeRF module the per-ray encoding.
+                d_pe = d_pe[:, None, :].expand(n_rays, n_s, d_pe.shape[-1])
+            raw = params["nerf"](x_pe, d_pe, cdt)
 
     if comp is None:
-        noise = None
-        if statics.noise_std > 0.0:
-            rn = controls.get("raw_noise")
-            if rn is None:
-                rn = torch.randn(z_vals.shape, generator=gen,
-                                 dtype=z_vals.dtype, device=z_vals.device)
-            else:
-                rn = rn[:, :n_s].to(z_vals.dtype)
-            noise = statics.noise_std * rn
-        comp = composite(
-            raw,
-            z_vals,
-            ndc_d,
-            noise=noise,
-            mm_add=mm_add if statics.use_mm else None,
-            mm_mul=mm_mul if statics.use_mm else None,
-            clamp_raw=statics.clamp_raw,
-            num_valid=num_valid,
-            white_bkgd=statics.white_bkgd,
-        )
-        sigma_out = raw[..., 3]
+        with span("composite"):
+            noise = None
+            if statics.noise_std > 0.0:
+                rn = controls.get("raw_noise")
+                if rn is None:
+                    rn = torch.randn(z_vals.shape, generator=gen,
+                                     dtype=z_vals.dtype, device=z_vals.device)
+                else:
+                    rn = rn[:, :n_s].to(z_vals.dtype)
+                noise = statics.noise_std * rn
+            comp = composite(
+                raw,
+                z_vals,
+                ndc_d,
+                noise=noise,
+                mm_add=mm_add if statics.use_mm else None,
+                mm_mul=mm_mul if statics.use_mm else None,
+                clamp_raw=statics.clamp_raw,
+                num_valid=num_valid,
+                white_bkgd=statics.white_bkgd,
+            )
+            sigma_out = raw[..., 3]
     return {
         "rgb0": refine_rgb,
         "rgb1": comp["rgb"],

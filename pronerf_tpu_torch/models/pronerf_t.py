@@ -39,6 +39,7 @@ from pronerf_tpu_torch.ops.warp import (
     is_u8_pack,
     mean_fill_invalid_t,
 )
+from pronerf_tpu_torch.utils.profiling import span
 
 
 def transposed_eligible(statics: RenderStatics, images) -> bool:
@@ -101,7 +102,8 @@ def render_rays_t(params, rays, scene, controls, statics: RenderStatics):
     Same (params, rays, scene, controls) contract and the same output dict;
     numerics match the row-major serving graph (the kernels' arithmetic is
     the same; the refine product sums its input rows in a permuted order, a
-    bounded float reassociation).
+    bounded float reassociation). The stages carry ``render_rays``' spans,
+    but for ``composite``, which runs inside the NeRF kernel here.
     """
     from pronerf_tpu_torch.kernels.fused_minmax import (
         fused_minmax_t,
@@ -131,76 +133,84 @@ def render_rays_t(params, rays, scene, controls, statics: RenderStatics):
 
     # 1. Sampler on the folded Pluecker signature (collinearity fold: the
     # 48-point signature is 48 copies of one 6-vector).
-    sig_t = _plucker_t(ndc_o_t, ndc_d_t)  # [6, N]
-    packed_s = params.get("sampler_packed")
-    if packed_s is None:
-        packed_s = pack_minmax_params(
-            params["sampler"], statics.N_point_ray_enc, kdt
-        )
-    # [out_pad, N]; heads are ROW slices
-    mm_out = fused_minmax_t(packed_s, sig_t, transpose_out=False)
-    mm_rgb_t = torch.sigmoid(mm_out[3 * S: 3 * S + 3])  # [3, N]
-    depth_t = torch.sigmoid(mm_out[:S]) * (far - near) + near  # [S, N]
-    mm_add_t = mm_out[S: 2 * S]
-    mm_mul_t = mm_out[2 * S: 3 * S]
+    with span("sampler"):
+        sig_t = _plucker_t(ndc_o_t, ndc_d_t)  # [6, N]
+        packed_s = params.get("sampler_packed")
+        if packed_s is None:
+            packed_s = pack_minmax_params(
+                params["sampler"], statics.N_point_ray_enc, kdt
+            )
+        # [out_pad, N]; heads are ROW slices
+        mm_out = fused_minmax_t(packed_s, sig_t, transpose_out=False)
+        mm_rgb_t = torch.sigmoid(mm_out[3 * S: 3 * S + 3])  # [3, N]
+        depth_t = torch.sigmoid(mm_out[:S]) * (far - near) + near  # [S, N]
+        mm_add_t = mm_out[S: 2 * S]
+        mm_mul_t = mm_out[2 * S: 3 * S]
 
     # 2. Stable sort of the depths along the sample axis, the density
     # corrections carried through the same permutation.
-    depth_t, order = torch.sort(depth_t, dim=0, stable=True)
-    mm_add_t = torch.gather(mm_add_t, 0, order)
-    mm_mul_t = torch.gather(mm_mul_t, 0, order)
-    z3d_t = ndc_to_3d_depth(depth_t, statics.ndc_eps)
+    with span("sort"):
+        depth_t, order = torch.sort(depth_t, dim=0, stable=True)
+        mm_add_t = torch.gather(mm_add_t, 0, order)
+        mm_mul_t = torch.gather(mm_mul_t, 0, order)
+        z3d_t = ndc_to_3d_depth(depth_t, statics.ndc_eps)
 
     # 3. Shared-view epipolar gather, transposed; (v, c, s) feature rows.
-    nearest = _nearest_views(statics, scene, controls)
-    colors_t = epipolar_colors_shared_t(
-        scene["images"], scene["fused_mats"], scene["K"], nearest,
-        or_o_t, or_d_t, z3d_t,
-        n_tiles=max(statics.gather_tiles, 0),
-        window_rows=statics.gather_window_rows,
-    )  # [V, 3, S, N]
-    colors_t = mean_fill_invalid_t(colors_t)
-    epi_t = colors_t.reshape(V * 3 * S, n_rays)
+    with span("gather"):
+        nearest = _nearest_views(statics, scene, controls)
+        colors_t = epipolar_colors_shared_t(
+            scene["images"], scene["fused_mats"], scene["K"], nearest,
+            or_o_t, or_d_t, z3d_t,
+            n_tiles=max(statics.gather_tiles, 0),
+            window_rows=statics.gather_window_rows,
+        )  # [V, 3, S, N]
+        colors_t = mean_fill_invalid_t(colors_t)
+        epi_t = colors_t.reshape(V * 3 * S, n_rays)
 
     # 4. Refine net; first-layer rows permuted to the (v, c, s) order.
-    packed_r = params.get("refine_packed_t")
-    if packed_r is None:
-        packed_r = pack_minmax_params(
-            params["refine"], S, kdt,
-            rest_row_perm=refine_rest_row_perm(V, S),
+    with span("refine"):
+        packed_r = params.get("refine_packed_t")
+        if packed_r is None:
+            packed_r = pack_minmax_params(
+                params["refine"], S, kdt,
+                rest_row_perm=refine_rest_row_perm(V, S),
+            )
+        refine_out = fused_minmax_t(
+            packed_r, torch.cat([sig_t, epi_t], dim=0), transpose_out=False,
+        )  # [out_pad, N]
+        refine_sig_t = torch.sigmoid(refine_out[:S])                # [S, N]
+        refine_rgb_t = torch.sigmoid(refine_out[4 * S: 4 * S + 3])  # [3, N]
+        po_rows = refine_out[S: 4 * S]  # [3S, N], row 3 s + c
+
+        # 5. Bin-constrained depths.
+        z_vals_t = _bin_constrain_t(depth_t, refine_sig_t, near,
+                                    far)  # [S, N]
+
+    # 6. Query points as (s, c) rows with the tanh offsets applied row-wise
+    # (no [N, S, 3] intermediate); fused NeRF + streaming composite
+    # (inference semantics; the [S, N] aux inputs are native here: no
+    # transposes, no raw written).
+    with span("nerf"):
+        pts24_t = (
+            ndc_o_t.repeat(S, 1)
+            + z_vals_t.repeat_interleave(3, dim=0) * ndc_d_t.repeat(S, 1)
+            + statics.offset_scale * torch.tanh(po_rows)
+        )  # [S*3, N]
+        packed_n = params.get("nerf_packed")
+        if packed_n is None:
+            packed_n = pack_nerf_params(params["nerf"], kdt)
+        d_pe = positional_encoding(rays["viewdirs"], statics.multires_views)
+        vcon_t = view_contribution(params["nerf"], d_pe, kdt)  # [128, N]
+        dnorm_t = torch.sqrt(torch.sum(ndc_d_t * ndc_d_t,
+                                       dim=0))[None]  # [1, N]
+        comp = fused_nerf_composite_t(
+            packed_n, pts24_t.float().contiguous(), vcon_t.contiguous(),
+            z_vals_t.float().contiguous(),
+            mm_add_t.float().contiguous(),
+            mm_mul_t.float().contiguous(),
+            dnorm_t.float().contiguous(),
+            n_samples=S, white_bkgd=statics.white_bkgd,
         )
-    refine_out = fused_minmax_t(
-        packed_r, torch.cat([sig_t, epi_t], dim=0), transpose_out=False,
-    )  # [out_pad, N]
-    refine_sig_t = torch.sigmoid(refine_out[:S])                   # [S, N]
-    refine_rgb_t = torch.sigmoid(refine_out[4 * S: 4 * S + 3])     # [3, N]
-    po_rows = refine_out[S: 4 * S]  # [3S, N], row 3 s + c
-
-    # 5. Bin-constrained depths; query points as (s, c) rows with the tanh
-    # offsets applied row-wise (no [N, S, 3] intermediate).
-    z_vals_t = _bin_constrain_t(depth_t, refine_sig_t, near, far)  # [S, N]
-    pts24_t = (
-        ndc_o_t.repeat(S, 1)
-        + z_vals_t.repeat_interleave(3, dim=0) * ndc_d_t.repeat(S, 1)
-        + statics.offset_scale * torch.tanh(po_rows)
-    )  # [S*3, N]
-
-    # 6. Fused NeRF + streaming composite (inference semantics; the [S, N]
-    # aux inputs are native here: no transposes, no raw written).
-    packed_n = params.get("nerf_packed")
-    if packed_n is None:
-        packed_n = pack_nerf_params(params["nerf"], kdt)
-    d_pe = positional_encoding(rays["viewdirs"], statics.multires_views)
-    vcon_t = view_contribution(params["nerf"], d_pe, kdt)  # [128, N]
-    dnorm_t = torch.sqrt(torch.sum(ndc_d_t * ndc_d_t, dim=0))[None]  # [1, N]
-    comp = fused_nerf_composite_t(
-        packed_n, pts24_t.float().contiguous(), vcon_t.contiguous(),
-        z_vals_t.float().contiguous(),
-        mm_add_t.float().contiguous(),
-        mm_mul_t.float().contiguous(),
-        dnorm_t.float().contiguous(),
-        n_samples=S, white_bkgd=statics.white_bkgd,
-    )
     return {
         "rgb0": refine_rgb_t.T,
         "rgb1": comp["rgb"],

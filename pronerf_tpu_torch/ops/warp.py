@@ -27,11 +27,17 @@ The windowed gathers choose each ray tile's source-row window from the
 tile's own projections. The window start stays a device tensor: the rows
 are fetched from the whole view at ``(start + row in the window) * W + x``,
 the same words a slice of the window holds, with no copy and no host sync.
+Under ``utils/profiling.tracing(counters=True)`` they count, on the device,
+the points of live rays that project into the image (``gather_in_image``)
+and those of them whose row falls outside the tile's window
+(``gather_window_miss``: marked invalid and mean-filled).
 """
 
 from __future__ import annotations
 
 import torch
+
+from pronerf_tpu_torch.utils import profiling
 
 
 def _matvec(M, v):
@@ -467,6 +473,16 @@ def _window_rows(y0, inb, live, n_tiles: int, window_rows: int, H: int,
     return start + torch.clamp(y_loc, 0, wr - 1), hit
 
 
+def _count_window_misses(inb, hit, live, n: int, ray_dim: int):
+    """The device counters of a windowed gather (while they are on), over
+    its first ``n`` rays along ``ray_dim`` (the rest pad a call)."""
+    if not profiling.counting():
+        return
+    seen = (inb & live).narrow(ray_dim, 0, n)
+    profiling.count("gather_in_image", seen)
+    profiling.count("gather_window_miss", seen & ~hit.narrow(ray_dim, 0, n))
+
+
 def epipolar_colors_shared_windowed(
     images, fused_mats, K, view_ids, rays_o, rays_d, z3d,
     n_tiles: int, window_rows: int, split: bool = False, out_dtype=None,
@@ -513,6 +529,7 @@ def epipolar_colors_shared_windowed(
                                 W)  # [Np, S]
         inb, x0, y0, wx, wy = _pixel_coords(xn, yn, H, W)
         rows, hit = _window_rows(y0, inb, live, n_tiles, window_rows, H, 0)
+        _count_window_misses(inb, hit, live, N, 0)
         idx = vid.to(torch.int64) * (H * W) + rows * W + x0
         if transposed_out:
             outs.append(_lerp_t_block(table, idx, wx, wy, hit, out_dtype))
@@ -584,6 +601,7 @@ def epipolar_colors_shared_t(images, fused_mats, K, view_ids, or_o_t, or_d_t,
         hit = inb
         if n_tiles:
             y0, hit = _window_rows(y0, inb, live, n_tiles, window_rows, H, 1)
+            _count_window_misses(inb, hit, live, N, 1)
         rows = table[vid.to(torch.int64) * (H * W) + y0 * W + x0]  # [S, Np, 3]
         # the scale-then-lerp order of bilinear_sample_packed_u8
         c00, c01, c10, c11 = _lanes(rows.permute(2, 0, 1))  # [3, S, Np]

@@ -13,7 +13,10 @@
 - ``compute_dtype='bfloat16'`` runs the three MLPs with bf16 operands and
   f32 accumulation;
 - the kernel panels are packed once, when the renderer first sees a set of
-  parameters, not once a frame.
+  parameters, not once a frame;
+- with ``utils/profiling.tracing()`` on, a frame is the span ``pn/frame``
+  (one frame's spans nest inside it), ray generation ``pn/raygen``, and
+  ``render_rays`` adds a span a stage.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 from pronerf_tpu_torch.kernels.packing import pack_serving_params
 from pronerf_tpu_torch.models.pronerf import RenderStatics, render_rays
 from pronerf_tpu_torch.render.raygen import rays_for_pose
-from pronerf_tpu_torch.utils.profiling import timed_ms
+from pronerf_tpu_torch.utils.profiling import COUNTERS, span, timed_ms
 from pronerf_tpu_torch.utils.tensors import as_f32, resolve_device
 
 _FRAME_KEYS = ("rgb1", "rgb0", "depth", "mm_rgb", "depth0")
@@ -65,13 +68,14 @@ def params_packer(statics: RenderStatics):
     """``pack(params)``: the packed params of a parameter set for
     ``statics`` (the kernels' panels and blobs), packed once per parameter
     set, outside the frame (and so outside a traced program or a captured
-    graph)."""
+    graph); each pack is counted in ``COUNTERS["param_packs"]``."""
     packed_for = {}
 
     def pack(params):
         if packed_for.get("source") is not params:
             packed_for["source"] = params
             packed_for["packed"] = pack_serving_params(params, statics)
+            COUNTERS["param_packs"] += 1
         return packed_for["packed"]
 
     return pack
@@ -124,7 +128,8 @@ def make_frame_renderer(
         """The frame itself, from packed params and a [3, 4] f32 pose on the
         device: no host read and no data-dependent shape, so that
         ``torch.export`` traces it (``render/export.py``)."""
-        rays = rays_for_pose(H, W, K, c2w, device)
+        with span("raygen"):
+            rays = rays_for_pose(H, W, K, c2w, device)
         controls = {"target_t": c2w[:3, 3]}
         fn = render_rays
         if statics.transposed and transposed_eligible(statics,
@@ -156,7 +161,8 @@ def make_frame_renderer(
 
     @torch.no_grad()
     def render_frame(params, scene, c2w):
-        return frame(pack(params), scene, as_f32(c2w, device))
+        with span("frame"):
+            return frame(pack(params), scene, as_f32(c2w, device))
 
     render_frame.statics = statics
     render_frame.frame = frame

@@ -24,7 +24,11 @@ steps as a chunk:
   replays them back to back with no host sync inside it. The graphs hold no
   random draw: everything random was drawn before the chunk. Stage 1 runs
   (NeRF step, sampler step) pairs, so a chunk starts at an even step;
-- on the CPU the same chunk body runs eagerly, step by step.
+- on the CPU the same chunk body runs eagerly, step by step;
+- with ``utils/profiling.tracing()`` on, a chunk is the span ``pn/chunk``,
+  holding ``pn/fill`` (the chunk's draws and buffers), ``pn/capture`` (each
+  capture) and one ``pn/step.<kind>`` a step (a replay on the card, the
+  eager step on the CPU); ``device_reshuffle`` is ``pn/reshuffle``.
 
 A capture that fails raises; nothing carries on eagerly on the card.
 """
@@ -41,7 +45,7 @@ from pronerf_tpu_torch.train.stage1 import (
 )
 from pronerf_tpu_torch.train.stage2 import make_stage2_step
 from pronerf_tpu_torch.train.state import stage1_lr, stage2_lr
-from pronerf_tpu_torch.utils.profiling import cuda_graph
+from pronerf_tpu_torch.utils.profiling import cuda_graph, span
 
 # Warm-up runs of each step before its capture (on a side stream, as
 # PyTorch's CUDA-graph notes ask): they make the lazy allocations and the
@@ -86,11 +90,13 @@ def device_reshuffle(pool, pool_ids, seed: int):
     place (the captured steps read the pool at its address), by a uniform
     permutation drawn on the device from a generator seeded with ``seed``.
     Returns ``(pool, pool_ids)``."""
-    gen = torch.Generator(device=pool.device)
-    gen.manual_seed(int(seed))
-    perm = torch.randperm(pool.shape[0], generator=gen, device=pool.device)
-    pool.copy_(pool.index_select(0, perm))
-    pool_ids.copy_(pool_ids.index_select(0, perm))
+    with span("reshuffle"):
+        gen = torch.Generator(device=pool.device)
+        gen.manual_seed(int(seed))
+        perm = torch.randperm(pool.shape[0], generator=gen,
+                              device=pool.device)
+        pool.copy_(pool.index_select(0, perm))
+        pool_ids.copy_(pool_ids.index_select(0, perm))
     return pool, pool_ids
 
 
@@ -277,6 +283,11 @@ class _ScanExecutor:
 
     def __call__(self, state, scene, pool, pool_ids, i_batch0, seed,
                  controls=None):
+        with span("chunk"):
+            return self._chunk(state, scene, pool, pool_ids, i_batch0, seed,
+                               controls)
+
+    def _chunk(self, state, scene, pool, pool_ids, i_batch0, seed, controls):
         device = pool.device
         if self.buf is None or self.buf["k"].device != device:
             self.buf = self._buffers(device)
@@ -288,7 +299,8 @@ class _ScanExecutor:
                              "at an even step")
         steps = list(range(g0 + 1, g0 + self.K + 1))
         counts0 = {o: state[o]["count"] for o in self._opts()}
-        widths = self._fill(state, steps, seed, controls, device)
+        with span("fill"):
+            widths = self._fill(state, steps, seed, controls, device)
         self.buf["start"].fill_(int(i_batch0))
         kinds = self._kinds()
         plan = [(kind, widths[j] if kind == "nerf" else None)
@@ -303,14 +315,17 @@ class _ScanExecutor:
                 self.mempool = torch.cuda.graph_pool_handle()
             for kw in dict.fromkeys(plan):
                 if kw not in self.graphs:
-                    self.graphs[kw] = self._capture(*kw, state, scene)
+                    with span("capture"):
+                        self.graphs[kw] = self._capture(*kw, state, scene)
             self.buf["k"].zero_()
             for kw in plan:
-                self.graphs[kw].replay()
+                with span("step." + kw[0]):
+                    self.graphs[kw].replay()
         else:
             self.buf["k"].zero_()
             for kind, width in plan:
-                self._step(kind, width, state, scene)
+                with span("step." + kind):
+                    self._step(kind, width, state, scene)
         # the host's step counts advance by the chunk (the replays do not
         # touch them; the eager steps did the same)
         state["global_step"] = g0 + self.K

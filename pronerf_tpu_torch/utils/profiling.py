@@ -11,12 +11,28 @@ The counterpart of ``pronerf_tpu/utils/profiling.py``:
   ``carry -> carry`` function captured as one CUDA graph and replayed (the
   counterpart of a ``lax.scan`` inside one dispatch); on the CPU a plain
   loop;
-- ``trace``: ``torch.profiler`` around a block, written as a Chrome trace;
-- ``profile_categories``: device time by kernel name stem from
-  ``torch.profiler``'s events (the counterpart of ``xplane_categories``,
-  which reads TPU traces), summed by ``aggregate_events`` (a copy of the
-  pure ``aggregate_xplane_events``);
+- the port's spans and counters, at the boundaries of its layers:
+  ``span(name)`` is a ``torch.profiler.record_function`` range named
+  ``pn/<name>`` while ``tracing()`` is on, and one shared do-nothing
+  context otherwise (so the ranges sit in the profiler's trace beside the
+  kernels they launch, on its clock); ``tracing(counters=True)`` also
+  turns on the device counters (``count``: int64 sums kept on the device,
+  no host sync; ``read_device_counters``: one sync), which add work to the
+  frame and are never launched outside it; ``COUNTERS`` counts, always,
+  the rare slow events that rebuild state (``param_packs``,
+  ``kernel_loads``, ``kernel_builds``, ``graph_captures``);
+- ``trace``: ``torch.profiler`` around a block, with spans on, written as a
+  Chrome trace;
 - ``pipeline_macs``: analytic multiply-adds a frame.
+
+Profiler traces are reduced by their readers (the benchmark reads the
+Chrome trace). The second reduction that lived here, device time by kernel
+name stem through ``key_averages`` (``profile_categories``,
+``aggregate_events``, ``kernel_category``, ``KERNEL_STEMS``), had no caller
+but its own tests and is gone, with those tests
+(``test_aggregate_events_equals_jax``, four cases, and
+``test_kernel_category``); ``tests/test_torch_profiling.py`` now holds the
+spans, the counters and ``trace``.
 """
 
 from __future__ import annotations
@@ -82,6 +98,70 @@ def device_timer(fn, *args, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+# ---------------------------------------------------- spans, counters --
+
+_NO_SPAN = contextlib.nullcontext()
+_spans_on = False
+_counters_on = False
+_device_counts: dict = {}
+
+# Host counts of the events that rebuild state, always on: each is counted
+# where a rare, slow event already happens.
+COUNTERS = collections.Counter()
+
+
+def span(name: str):
+    """A ``with`` range ``pn/<name>`` of the profiler's trace while
+    ``tracing()`` is on; else the one shared do-nothing context. Off while
+    ``torch.export`` or ``torch.compile`` traces, so no program records a
+    profiler op."""
+    if not _spans_on or torch.compiler.is_compiling():
+        return _NO_SPAN
+    return torch.profiler.record_function("pn/" + name)
+
+
+def counting() -> bool:
+    """Whether the device counters are on (``tracing(counters=True)``)."""
+    return _counters_on and not torch.compiler.is_compiling()
+
+
+def count(name: str, mask):
+    """Add the true elements of ``mask`` to device counter ``name``, on
+    the device (no host sync). Callers test ``counting()`` first, so that
+    no mask is made while the counters are off."""
+    n = mask.sum(dtype=torch.int64)
+    acc = _device_counts.get(name)
+    if acc is None:
+        _device_counts[name] = n
+    else:
+        acc.add_(n)
+
+
+def read_device_counters() -> dict:
+    """{name: count} of the device counters since they were turned on
+    (one host sync)."""
+    names = list(_device_counts)
+    if not names:
+        return {}
+    vals = torch.stack([_device_counts[n] for n in names]).tolist()
+    return dict(zip(names, vals))
+
+
+@contextlib.contextmanager
+def tracing(counters: bool = False):
+    """Spans on inside the block; with ``counters`` the device counters
+    too, from zero. The state before the block is restored after it."""
+    global _spans_on, _counters_on
+    before = _spans_on, _counters_on
+    if counters and not _counters_on:
+        _device_counts.clear()
+    _spans_on, _counters_on = True, counters or _counters_on
+    try:
+        yield
+    finally:
+        _spans_on, _counters_on = before
+
+
 # Warm-up calls on a side stream before a capture, as PyTorch's CUDA-graph
 # notes ask: lazy allocations and library handles are made outside it.
 GRAPH_WARMUP = 1
@@ -94,6 +174,7 @@ def cuda_graph(fn, warmup: int = GRAPH_WARMUP, pool=None, before=None):
     host sync (a capture fails on one) and read its inputs from tensors
     whose addresses stay put. ``before()``, if given, runs before each
     warm-up and before the capture, outside the graph."""
+    COUNTERS["graph_captures"] += 1
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -161,89 +242,18 @@ def _activities():
 @contextlib.contextmanager
 def trace(logdir):
     """``with trace(logdir): ...`` records ``torch.profiler`` events (the
-    card's kernels too, where there is one) and writes them to
-    ``logdir/trace.json`` (Chrome's trace format; Perfetto reads it). The
-    profiler object is yielded."""
+    card's kernels too, where there is one) with the port's spans on, and
+    writes them to ``logdir/trace.json`` (Chrome's trace format; Perfetto
+    reads it). The profiler object is yielded."""
     from torch.profiler import profile
 
     logdir = Path(logdir)
     logdir.mkdir(parents=True, exist_ok=True)
-    with profile(activities=_activities()) as prof:
+    with profile(activities=_activities()) as prof, tracing():
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(str(logdir / "trace.json"))
-
-
-# Kernel name stems: the port's own kernels first (the f32 forms too), then
-# PyTorch's families.
-KERNEL_STEMS = (
-    "minmax_wg_kernel", "nerf_q_wg_kernel", "nerf_wg_kernel",
-    "minmax_kernel", "nerf_kernel",
-    "at::native::vectorized_elementwise_kernel",
-    "at::native::unrolled_elementwise_kernel",
-    "at::native::elementwise_kernel", "at::native::reduce_kernel",
-    "at::native::index_elementwise_kernel", "at::native::",
-    "cub::", "Memcpy", "Memset",
-)
-
-
-def kernel_category(name: str, stems=KERNEL_STEMS) -> str:
-    """The stem of ``stems`` a kernel's name starts with (after a leading
-    ``void``), ``gemm`` for the BLAS products, else the name up to its
-    template arguments."""
-    head = name[5:] if name.startswith("void ") else name
-    for stem in stems:
-        if head.startswith(stem):
-            return stem
-    if "gemm" in head.lower():
-        return "gemm"
-    return head.split("<")[0].split("(")[0]
-
-
-def profile_categories(trace_fn, iters: int = 3, stems=KERNEL_STEMS):
-    """Run ``trace_fn(i)`` for ``i < iters`` under ``torch.profiler`` and
-    sum the time of its events by kernel name stem: the card's kernels
-    where there is one (device time), else the CPU's operators (their self
-    time, for a run on the CPU). Returns ``(per_cat, per_op, total_ns)`` as
-    ``aggregate_events`` does."""
-    from torch.profiler import profile
-
-    with profile(activities=_activities()) as prof:
-        for i in range(iters):
-            trace_fn(i)
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    rows = prof.key_averages()
-    on_card = [(e.key, e.device_time_total * 1e3) for e in rows
-               if e.device_type.name == "CUDA" and e.device_time_total > 0]
-    events = on_card or [(e.key, e.self_cpu_time_total * 1e3) for e in rows
-                         if e.self_cpu_time_total > 0]
-    return aggregate_events(events,
-                            lambda name: kernel_category(name, stems))
-
-
-def aggregate_events(events, category):
-    """Aggregate ``(op_name, duration_ns)`` pairs into ``(per_cat, per_op,
-    total_ns)``. Control-flow PARENT ops (``while``, ``conditional``,
-    ``call``) are routed to a ``"<cat> (inclusive)"`` key and excluded from
-    ``total_ns`` and the leaf categories: a trace that records a loop's
-    inclusive duration beside its children would count the body twice. A
-    copy of the JAX package's pure ``aggregate_xplane_events``."""
-    control_flow = ("while", "conditional", "call")
-    per_op = collections.Counter()
-    per_cat = collections.Counter()
-    inclusive = collections.Counter()
-    for name, duration_ns in events:
-        cat = category(name)
-        if cat in control_flow:
-            inclusive[f"{cat} (inclusive)"] += duration_ns
-            continue
-        per_op[name] += duration_ns
-        per_cat[cat] += duration_ns
-    total = sum(per_op.values())
-    per_cat.update(inclusive)  # visible, but not in the leaf total
-    return per_cat, per_op, total
 
 
 def _dense_macs(dims):
