@@ -32,9 +32,11 @@ falls back to the CPU. Phases, each printing one JSON line:
 4. ``frame``    the serving path end to end, three times through
                 ``run_inference`` on the synthetic 504x378 scene with 17
                 views, release widths, bf16, whole frame in one tile, fused
-                kernels on: the default graph (raw kernel + composite op),
+                kernels on: the default graph (the NeRF kernel compositing),
                 ``quant = int8``, and ``transposed = True``; then the default
-                graph's frame with the composite fused into the NeRF kernel;
+                graph's frame in the eager composite arm (the raw kernel and
+                ``ops.composite``, ``fuse_composite = False``), at 8 and 128
+                samples a ray;
                 then a tile of the frame's own rays, all nine outputs, each
                 relative to its size: the composite forms against each other,
                 the kernel path against the port's kernel-free bf16 path and
@@ -132,7 +134,7 @@ falls back to the CPU. Phases, each printing one JSON line:
                 1, 2 and 8 scenes against each scene's eager step
                 (``TRAIN_TOL``), ms a step both ways and peak memory; in a
                 world of one over NCCL, the sharded frame renderer at
-                504x378 (default, ``fuse_composite``, int8, transposed) and
+                504x378 (default, the eager composite, int8, transposed) and
                 1008x756 equal to the live renderer bit for bit with the
                 same launches (the slice's kernel path), the frame body as
                 a CUDA graph replayed equal to the eager frame, the
@@ -148,8 +150,8 @@ falls back to the CPU. Phases, each printing one JSON line:
                 ``infer --use-trt -- --quant int8``, each with the counters
                 zeroed just before and read just after: training runs no
                 kernel and the native pool twice; eval the sampler, refine
-                and raw NeRF kernels, int8 the int8 one; the native COLMAP
-                scan once each; losses and frames finite, PNGs written;
+                and compositing NeRF kernels, int8 the int8 one; the native
+                COLMAP scan once each; losses and frames finite, PNGs written;
                 ``i_ref`` equal to the Python path's greedy pick; the eval
                 frame equal to a render from the checkpoint's params passed
                 in directly; ``render-path --use-trt --n-frames 6`` written
@@ -174,13 +176,14 @@ falls back to the CPU. Phases, each printing one JSON line:
                 bench (``pronerf_tpu_torch.bench``, run in full by a child
                 ``chip_smoke.py --bench-child`` that zeroes the launch
                 counters before it and reads them after: the MinMax kernel
-                at C = 6, 102 and 54 and the raw NeRF kernel launched, no
-                plain version called, ``torch._dynamo`` never imported),
+                at C = 6, 102 and 54 and the compositing NeRF kernel
+                launched, no plain version called, ``torch._dynamo`` never
+                imported),
                 then one 504x378 bench frame profiled here, its device busy
                 time within 10% of the bench's steady-state ms/frame; a
                 serving process's start (a child ``chip_smoke.py
                 --start-child``): the first frame of each serving form
-                (default, ``fuse_composite``, int8, transposed) at 504x378
+                (default, the eager composite, int8, transposed) at 504x378
                 and at 1008x756 (windowed), each timed, finite and
                 launching its form's kernels, with ``torch._dynamo`` never
                 imported (the kernels' ops are ``torch.library.Library``
@@ -214,8 +217,8 @@ falls back to the CPU. Phases, each printing one JSON line:
                 ``train-stage1`` (``fern_epi.txt``, factor 4) for 2 steps,
                 whose loader makes ``images_4`` (``_minify``, timed), no
                 kernel launched; ``eval --use-trt`` (``fern_trt.txt``) from
-                its checkpoint through the MinMax and raw NeRF kernels, no
-                plain version called; ``images_4`` held against
+                its checkpoint through the MinMax and compositing NeRF
+                kernels, no plain version called; ``images_4`` held against
                 ``resize_lanczos(read_jpeg(view))`` bit for bit for 3 views.
                 A ``jpeg_timings`` line: native decode ms of a 4032x3024 and
                 a 2016x1512 4:2:0 view, plain decode ms of a 101x77 view
@@ -230,7 +233,7 @@ falls back to the CPU. Phases, each printing one JSON line:
                 plain version called) at a mean of at least 40.3 dB and an
                 SSIM of at least 0.995 (JAX recorded 40.541 / 0.99600), and
                 within 0.05 dB a view of ``--use_pallas False``, as
-                ``transposed`` and ``fuse_composite`` are; ``--quant int8``
+                ``transposed`` and the eager composite are; ``--quant int8``
                 printed and finite; each kernel (sampler, refine, raw,
                 composite, int8) against its plain version on a held-out
                 frame's own inputs, relative to each output's size; the
@@ -919,10 +922,20 @@ def gather_kernel():
     return eg.epipolar_gather_rows
 
 
+# the port's own counters of the NeRF kernel's launches by form
+# (utils/profiling.COUNTERS), held to the wrappers' counts in every drive
+NERF_FORM_COUNTERS = {"nerf_raw_launches": "fused_nerf_raw_t",
+                      "nerf_composite_launches": "fused_nerf_composite_t"}
+
+
 def reset_counters():
+    from pronerf_tpu_torch.utils.profiling import COUNTERS
+
     w = wrappers()
     for fn in w.values():
         fn.launches = 0
+    for name in NERF_FORM_COUNTERS:
+        COUNTERS[name] = 0
     gather_kernel().launches = 0
     for name in ("fused_nerf_raw_t", "fused_nerf_composite_t",
                  "fused_nerf_raw_tq"):
@@ -936,8 +949,15 @@ def read_counters():
     MinMax shapes from the wrapper's count by input width (a width of no
     row fails), each NeRF kernel's launches at any S under its own name and
     at S = 128 under its wide row's, and the MinMax kernel's launches with
-    ``transpose_out=False`` (all widths together) under their own name."""
+    ``transpose_out=False`` (all widths together) under their own name.
+    ``profiling.COUNTERS``' NeRF launches by form must read the same."""
+    from pronerf_tpu_torch.utils.profiling import COUNTERS
+
     w = wrappers()
+    for name, fn in NERF_FORM_COUNTERS.items():
+        if COUNTERS[name] != w[fn].launches:
+            raise SystemExit(f"COUNTERS[{name!r}] = {COUNTERS[name]}, "
+                             f"{fn} counted {w[fn].launches} launches")
     by_width = w["fused_minmax_t"].launches_by_width
     counts = {name: by_width.get(c, 0) for name, c in MINMAX_WIDTH.items()}
     if sum(counts.values()) != w["fused_minmax_t"].launches:
@@ -1118,11 +1138,13 @@ def phase_frame(device, profile=False):
             datadir=f"synthetic:{W_IMG}x{H}x{N_VIEWS}", use_trt=True,
             tile_rays=0, use_pallas=True, basedir=tmp, ft_path="",
         )
-        # ---- the server answers a few requests, three ways: raw kernel +
-        # composite op; the int8 NeRF kernel; the transposed graph
+        # ---- the server answers a few requests, three ways: the NeRF
+        # kernel compositing (the default); the int8 NeRF kernel; the
+        # transposed graph
         main = serve("default graph", cfg, reps)
         expect_counts("default graph", main["counts"], sampler=main["frames"],
-                      refine=main["frames"], fused_nerf_raw_t=main["frames"])
+                      refine=main["frames"],
+                      fused_nerf_composite_t=main["frames"])
         quant = serve("quant=int8", cfg.replace(quant="int8"), reps)
         expect_counts("quant=int8", quant["counts"], sampler=quant["frames"],
                       refine=quant["frames"],
@@ -1150,10 +1172,11 @@ def phase_frame(device, profile=False):
         for S, what, over, kernels in (
                 (16, "N_samples=16", {},
                  {"fused_minmax_t[refine,C=198]": None,
-                  "fused_nerf_raw_t": 1}),
+                  "fused_nerf_composite_t": 1}),
                 (128, "N_samples=128", {},
                  {"fused_minmax_t[refine,C=1542]": None,
-                  "fused_nerf_raw_t": 1, "fused_nerf_raw_t[S=128]": 1}),
+                  "fused_nerf_composite_t": 1,
+                  "fused_nerf_composite_t[S=128]": 1}),
                 (128, "N_samples=128,quant=int8", {"quant": "int8"},
                  {"fused_minmax_t[refine,C=1542]": None,
                   "fused_nerf_raw_tq": 1, "fused_nerf_raw_tq[S=128]": 1}),
@@ -1163,7 +1186,7 @@ def phase_frame(device, profile=False):
                   "fused_nerf_composite_t[S=128]": 1}),
                 (8, "num_neighbor=2", {"num_neighbor": 2},
                  {"fused_minmax_t[refine,C=54]": None,
-                  "fused_nerf_raw_t": 1})):
+                  "fused_nerf_composite_t": 1})):
             drive = serve(what, cfg.replace(N_samples=S, **over), 1)
             sampler = launches_a_frame(6, 3 * S + 3)
             views = over.get("num_neighbor", cfg.num_neighbor)
@@ -1176,49 +1199,69 @@ def phase_frame(device, profile=False):
                              (want | {"sampler": sampler}).items()})
             wide[what] = drive
 
-        # ---- the default graph's frame with the composite fused into the
-        # kernel
+        # ---- the default graph's frame in the eager composite arm
+        # (fuse_composite=False: the raw kernel and ops.composite), which no
+        # command-line drive serves: at 8 samples a ray, timed, and at 128
         data = infer.load_inference_data(cfg)
         params = infer._load_params(cfg, infer.setup_expdir(cfg), device)
         scene = prepare_scene(
             data["images"][data["i_ref"]], data["poses"][data["i_ref"]],
             data["K"], pack_corners="u8", device=device)
         statics = infer._infer_statics(cfg, use_bf16=True)
-        fused = dataclasses.replace(statics, fuse_composite=True)
+        eager = dataclasses.replace(statics, fuse_composite=False)
         statics_q = dataclasses.replace(statics, quant="int8")
         statics_t = dataclasses.replace(statics, transposed=True)
         c2w = data["poses"][data["i_test"][0]][:3, :4]
-        renderer = make_frame_renderer(fused, H, W_IMG, data["K"], 0,
+        renderer = make_frame_renderer(eager, H, W_IMG, data["K"], 0,
                                        device=device)
         reset_counters()
-        out_f = renderer(params, scene, c2w)
+        out_e = renderer(params, scene, c2w)
         torch.cuda.synchronize()
-        counts_f = read_counters()
-        all_finite(out_f)
-        expect_counts("fused composite", counts_f, sampler=1, refine=1,
-                      fused_nerf_composite_t=1)
-        ms_fused = cuda_ms(lambda: renderer(params, scene, c2w), reps)
-        frame_raw = first_frame(main, device)
-        forms_frame = rel_errs(out_f, frame_raw, FORMS_REL, tuple(frame_raw))
+        counts_e = read_counters()
+        all_finite(out_e)
+        expect_counts("eager composite", counts_e, sampler=1, refine=1,
+                      fused_nerf_raw_t=1)
+        ms_eager = cuda_ms(lambda: renderer(params, scene, c2w), reps)
+        frame_main = first_frame(main, device)
+        forms_frame = rel_errs(out_e, frame_main, FORMS_REL,
+                               tuple(frame_main))
         hold("composite forms, whole frame", forms_frame, FORMS_REL)
+        cfg128 = cfg.replace(N_samples=128)
+        render128 = make_frame_renderer(
+            dataclasses.replace(infer._infer_statics(cfg128, use_bf16=True),
+                                fuse_composite=False),
+            H, W_IMG, data["K"], 0, device=device)
+        params128 = infer._load_params(cfg128, infer.setup_expdir(cfg128),
+                                       device)
+        reset_counters()
+        all_finite(render128(params128, scene, c2w))
+        torch.cuda.synchronize()
+        counts_e128 = read_counters()
+        expect_counts("eager composite, 128 samples", counts_e128,
+                      sampler=launches_a_frame(6, 3 * 128 + 3),
+                      fused_nerf_raw_t=1, **{
+                          "fused_nerf_raw_t[S=128]": 1,
+                          "fused_minmax_t[refine,C=1542]": launches_a_frame(
+                              6 + 3 * cfg.num_neighbor * 128, 4 * 128 + 3)})
+        del render128, params128
 
         # ---- whole frames of the new paths against the default graph's:
         # the JAX package's int8 bounds, the transposed graph's bulk and tail
         frame_q = first_frame(quant, device)
         frame_t = first_frame(trans, device)
-        mse = float(((frame_q["rgb1"].double() - frame_raw["rgb1"].double())
+        mse = float(((frame_q["rgb1"].double() - frame_main["rgb1"].double())
                      ** 2).mean())
         quant_frame = {
             "psnr_rgb1_db": -10.0 * float(np.log10(max(mse, 1e-12))),
-            "depth_max_abs": max_err(frame_q["depth"], frame_raw["depth"]),
+            "depth_max_abs": max_err(frame_q["depth"], frame_main["depth"]),
         }
         if not (quant_frame["psnr_rgb1_db"] > QUANT_PSNR_DB
                 and quant_frame["depth_max_abs"] <= QUANT_DEPTH):
             raise SystemExit(
                 f"int8 frame against the bf16 frame: {quant_frame}")
         trans_frame = bulk_and_tail(
-            "transposed frame against the row-major frame", frame_t, out_f,
-            tuple(frame_t))
+            "transposed frame against the row-major frame", frame_t,
+            frame_main, tuple(frame_t))
 
         # ---- a tile of the frame's rays, all nine outputs: both composite
         # forms against each other and against the kernel-free bf16 path
@@ -1228,19 +1271,19 @@ def phase_frame(device, profile=False):
         controls = {"target_t": torch.as_tensor(
             c2w[:3, 3], dtype=torch.float32, device=device)}
         with_k = render_rays(params, tile, scene, controls, statics)
-        with_kf = render_rays(params, tile, scene, controls, fused)
+        with_ke = render_rays(params, tile, scene, controls, eager)
         without = render_rays(
             params, tile, scene, controls,
             dataclasses.replace(statics, use_kernels=False))
-        forms_tile = rel_errs(with_kf, with_k, FORMS_REL)
+        forms_tile = rel_errs(with_ke, with_k, FORMS_REL)
         hold("composite forms, tile", forms_tile, FORMS_REL)
         keys = tuple(k for k in NINE_KEYS if k != "sigma")
-        paths = {"raw": rel_errs(with_k, without, PATHS_REL, keys),
-                 "fused": rel_errs(with_kf, without, PATHS_REL, keys)}
+        paths = {"raw": rel_errs(with_ke, without, PATHS_REL, keys),
+                 "fused": rel_errs(with_k, without, PATHS_REL, keys)}
         for form, rows in paths.items():
             hold(f"kernel path ({form}) against kernel-free bf16 path", rows,
                  PATHS_REL)
-        for form, got in (("raw", with_k), ("fused", with_kf)):
+        for form, got in (("raw", with_ke), ("fused", with_k)):
             rows = rel_errs(got, without, PATHS_REL, ("sigma",))
             hold(f"kernel path ({form}) sigma against kernel-free bf16 path",
                  rows, PATHS_REL, PLAIN_SHARE)
@@ -1258,11 +1301,11 @@ def phase_frame(device, profile=False):
         hold("int8 path against the bf16 kernel path", quant_tile, QUANT_REL,
              PLAIN_SHARE)
         with_t = render_rays_t(params, tile, scene, controls, statics_t)
-        trans_tile = rel_errs(with_t, with_kf, PLAIN_REL)
+        trans_tile = rel_errs(with_t, with_k, PLAIN_REL)
         hold("transposed graph against the row-major graph", trans_tile,
              PLAIN_REL, PLAIN_SHARE)
         bulk_and_tail("transposed graph against the row-major graph, tile",
-                      with_t, with_kf)
+                      with_t, with_k)
         # ... and against the same code on CPU tensors, where every wrapper
         # takes its plain version: the kernels at the inputs the frame gives
         # them, sigma included. The int8 panels are carried over, so the
@@ -1282,10 +1325,11 @@ def phase_frame(device, profile=False):
             out = fn(prm, tile_cpu, scene_cpu, controls_cpu, st)
             return {k: v.to(device) for k, v in out.items()}
 
-        cpu_k = on_cpu(render_rays, params_cpu, statics)
         plain = {
-            "raw": rel_errs(with_k, cpu_k, PLAIN_REL),
-            "fused": rel_errs(with_kf, cpu_k, PLAIN_REL),
+            "raw": rel_errs(with_ke, on_cpu(render_rays, params_cpu, eager),
+                            PLAIN_REL),
+            "fused": rel_errs(with_k, on_cpu(render_rays, params_cpu, statics),
+                              PLAIN_REL),
             "int8": rel_errs(
                 with_q, on_cpu(render_rays, params_cpu_q, statics_q),
                 PLAIN_REL),
@@ -1298,7 +1342,7 @@ def phase_frame(device, profile=False):
                  "CPU", rows, PLAIN_REL, PLAIN_SHARE)
 
         if profile:
-            say({"profile": {"path": "fused composite"} | profile_frames(
+            say({"profile": {"path": "eager composite"} | profile_frames(
                 lambda: renderer(params, scene, c2w), 3)})
             for path, st in (("quant=int8", statics_q),
                              ("transposed=True", statics_t)):
@@ -1312,14 +1356,14 @@ def phase_frame(device, profile=False):
             "H": H, "W": W_IMG, "views": N_VIEWS, "poses": main["poses"],
             "frames_rendered": main["frames"],
             "ms_per_frame": main["ms_per_frame"],
-            "ms_per_frame_fused_composite": ms_fused,
+            "ms_per_frame_eager_composite": ms_eager,
             "ms_per_frame_int8": quant["ms_per_frame"],
             "ms_per_frame_transposed": trans["ms_per_frame"],
             "run_inference_wall_s": {
                 "default": main["wall_s"], "int8": quant["wall_s"],
                 "transposed": trans["wall_s"]},
             "psnr": main["result"]["psnrs"],
-            "launches": main["counts"], "launches_fused_composite": counts_f,
+            "launches": main["counts"], "launches_eager_composite": counts_e,
             "launches_int8": quant["counts"],
             "launches_transposed": trans["counts"],
             "wide": {what: {"frames_rendered": d["frames"],
@@ -1340,17 +1384,18 @@ def phase_frame(device, profile=False):
         }
     })
     # launches on each kernel's main-path drive: the default graph's for the
-    # MinMax shapes and the raw kernel, the fuse_composite frame for the
-    # composite kernel, the int8 drive for the int8 kernel, the transposed
-    # drive for the MinMax kernel's untransposed form; the wide rows' on the
-    # drives of 16 and 128 samples a ray, the C = 54 row's on the drive of 2
+    # MinMax shapes and the composite kernel, the eager composite arm's
+    # frames for the raw kernel, the int8 drive for the int8 kernel, the
+    # transposed drive for the MinMax kernel's untransposed form; the wide
+    # rows' on the drives of 16 and 128 samples a ray (the raw kernel's on
+    # the eager arm's frame of 128), the C = 54 row's on the drive of 2
     # neighbours
     w16, w128 = wide["N_samples=16"], wide["N_samples=128"]
     return {
         "fused_minmax_t[sampler]": main["counts"]["fused_minmax_t[sampler]"],
         "fused_minmax_t[refine]": main["counts"]["fused_minmax_t[refine]"],
-        "fused_nerf_raw_t": main["counts"]["fused_nerf_raw_t"],
-        "fused_nerf_composite_t": counts_f["fused_nerf_composite_t"],
+        "fused_nerf_raw_t": counts_e["fused_nerf_raw_t"],
+        "fused_nerf_composite_t": main["counts"]["fused_nerf_composite_t"],
         "fused_nerf_raw_tq": quant["counts"]["fused_nerf_raw_tq"],
         UNTRANSPOSED: trans["counts"][UNTRANSPOSED],
         "fused_minmax_t[refine,C=54]": wide["num_neighbor=2"]["counts"][
@@ -1359,9 +1404,9 @@ def phase_frame(device, profile=False):
             w16["counts"]["fused_minmax_t[refine,C=198]"],
         "fused_minmax_t[refine,C=1542]":
             w128["counts"]["fused_minmax_t[refine,C=1542]"],
-        "fused_nerf_raw_t[S=128]": w128["counts"]["fused_nerf_raw_t[S=128]"],
-        "fused_nerf_composite_t[S=128]": wide["N_samples=128,transposed=True"][
-            "counts"]["fused_nerf_composite_t[S=128]"],
+        "fused_nerf_raw_t[S=128]": counts_e128["fused_nerf_raw_t[S=128]"],
+        "fused_nerf_composite_t[S=128]": w128["counts"][
+            "fused_nerf_composite_t[S=128]"],
         "fused_nerf_raw_tq[S=128]": wide["N_samples=128,quant=int8"][
             "counts"]["fused_nerf_raw_tq[S=128]"],
     }
@@ -1522,12 +1567,12 @@ def window_readings(scene, rays, z3d, nearest, n_tiles, window_rows):
 
 @contextlib.contextmanager
 def plain_versions():
-    """The default graph's kernel wrappers (the MinMax and the raw NeRF
-    kernel, and the gather pair) replaced by their plain versions, run on
-    the card over tiles of CHUNK rays (for memory), as the kernel phase runs
-    them (the gather's chain over the whole frame, whose windows span it): a
-    frame rendered inside is the same frame with the plain versions, and
-    launches no kernel."""
+    """The default graph's kernel wrappers (the MinMax kernel, both forms
+    of the NeRF kernel, and the gather pair) replaced by their plain
+    versions, run on the card over tiles of CHUNK rays (for memory), as the
+    kernel phase runs them (the gather's chain over the whole frame, whose
+    windows span it): a frame rendered inside is the same frame with the
+    plain versions, and launches no kernel."""
     from pronerf_tpu_torch.kernels import epipolar_gather as eg
     from pronerf_tpu_torch.kernels import fused_minmax as fm
     from pronerf_tpu_torch.kernels import fused_nerf as fn
@@ -1547,19 +1592,32 @@ def plain_versions():
                                     n_samples)
             for i in range(0, pts24_t.shape[1], CHUNK)])
 
+    def composite(packed, pts24_t, vcon_t, *aux, n_samples=8,
+                  white_bkgd=False):
+        parts = [fn.fused_nerf_composite_plain(
+            packed, *[t[:, i:i + CHUNK].contiguous()
+                      for t in (pts24_t, vcon_t, *aux)],
+            n_samples, white_bkgd)
+            for i in range(0, pts24_t.shape[1], CHUNK)]
+        return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
     def gather(images, fused_mats, K, view_ids, rays_o, rays_d, z3d, head,
                n_tiles=0, window_rows=0, svc=False):
         return eg.epipolar_gather_plain(
             images, fused_mats, K, view_ids, rays_o, rays_d, z3d, head,
             n_tiles, window_rows, svc, False)[0]
 
-    kept = fm.fused_minmax_t, fn.fused_nerf_raw_t, eg.epipolar_gather_rows
-    fm.fused_minmax_t, fn.fused_nerf_raw_t = minmax, raw
-    eg.epipolar_gather_rows = gather
+    swapped = ((fm, "fused_minmax_t", minmax), (fn, "fused_nerf_raw_t", raw),
+               (fn, "fused_nerf_composite_t", composite),
+               (eg, "epipolar_gather_rows", gather))
+    kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swapped]
+    for mod, name, plain in swapped:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        fm.fused_minmax_t, fn.fused_nerf_raw_t, eg.epipolar_gather_rows = kept
+        for mod, name, fn_ in kept:
+            setattr(mod, name, fn_)
 
 
 @torch.no_grad()
@@ -1586,7 +1644,8 @@ def fullres_two_neighbours(cfg, scene, K, poses, device):
     drive = drive_renderer(render, params, scene, poses)
     n = drive["frames"]
     expect_counts("fullres num_neighbor=2", drive["counts"], sampler=n,
-                  fused_nerf_raw_t=n, **{"fused_minmax_t[refine,C=54]": n})
+                  fused_nerf_composite_t=n,
+                  **{"fused_minmax_t[refine,C=54]": n})
     torch.cuda.empty_cache()
     prof = profile_frames(lambda: render(params, scene, poses[0]), 3)
     if drive["gather_launches"] != 2 * n:
@@ -1654,7 +1713,7 @@ def phase_fullres(device, profile=False):
         main = serve("fullres default (windowed)", cfg, FULL_REPS, shape)
         expect_counts("fullres default", main["counts"],
                       sampler=main["frames"], refine=main["frames"],
-                      fused_nerf_raw_t=main["frames"])
+                      fused_nerf_composite_t=main["frames"])
 
         # ---- every form through the frame renderer, the same protocol
         data = infer.load_inference_data(cfg)
@@ -1669,6 +1728,8 @@ def phase_fullres(device, profile=False):
             "unwindowed": dataclasses.replace(statics, gather_tiles=0),
             "transposed": dataclasses.replace(statics, transposed=True),
             "int8": dataclasses.replace(statics, quant="int8"),
+            "eager_composite": dataclasses.replace(statics,
+                                                   fuse_composite=False),
         }
         renderers = {name: make_frame_renderer(st, *shape, K, 0,
                                                device=device)
@@ -1680,7 +1741,10 @@ def phase_fullres(device, profile=False):
         n = drives["windowed"]["frames"]
         for name in ("windowed", "unwindowed"):
             expect_counts(f"fullres {name}", drives[name]["counts"],
-                          sampler=n, refine=n, fused_nerf_raw_t=n)
+                          sampler=n, refine=n, fused_nerf_composite_t=n)
+        expect_counts("fullres eager composite",
+                      drives["eager_composite"]["counts"], sampler=n,
+                      refine=n, fused_nerf_raw_t=n)
         expect_counts("fullres transposed", drives["transposed"]["counts"],
                       sampler=n, refine=n, untransposed=2 * n,
                       fused_nerf_composite_t=n)
@@ -1691,7 +1755,8 @@ def phase_fullres(device, profile=False):
         gather_launches = {"run_inference": main["gather_launches"]} | {
             name: d["gather_launches"] for name, d in drives.items()}
         want = {"run_inference": 2 * main["frames"], "windowed": 2 * n,
-                "unwindowed": n, "transposed": 0, "int8": 2 * n}
+                "unwindowed": n, "transposed": 0, "int8": 2 * n,
+                "eager_composite": 2 * n}
         if gather_launches != want:
             raise SystemExit(f"fullres gather launches {gather_launches}, "
                              f"expected {want}")
@@ -1746,6 +1811,9 @@ def phase_fullres(device, profile=False):
         if not (int8_vs["psnr_rgb1_db"] > QUANT_PSNR_DB
                 and int8_vs["depth_max_abs"] <= QUANT_DEPTH):
             raise SystemExit(f"fullres int8 frame against bf16: {int8_vs}")
+        forms_vs = rel_errs(drives["eager_composite"]["first"], fw,
+                            FORMS_REL, FRAME_KEYS)
+        hold("fullres composite forms, whole frame", forms_vs, FORMS_REL)
         two = fullres_two_neighbours(cfg, scene, K, poses, device)
 
         # ---- a tile of the frame's rays (its own 8 ray tiles and windows)
@@ -1812,6 +1880,7 @@ def phase_fullres(device, profile=False):
         "windowed_vs_unwindowed_frame": windowed_vs,
         "transposed_vs_row_major_frame": trans_vs,
         "int8_vs_bf16_frame": int8_vs,
+        "eager_vs_fused_composite_frame": forms_vs,
         "num_neighbor_2": two, "card": nvidia_smi_line(),
         "tile_kernel_vs_kernel_free_bf16": paths,
         "tile_kernel_vs_plain_versions_on_cpu": plain,
@@ -1821,9 +1890,10 @@ def phase_fullres(device, profile=False):
             main["counts"]["fused_minmax_t[sampler]"],
         "fused_minmax_t[refine,N=762048]":
             main["counts"]["fused_minmax_t[refine]"],
-        "fused_nerf_raw_t[N=762048]": main["counts"]["fused_nerf_raw_t"],
+        "fused_nerf_raw_t[N=762048]":
+            drives["eager_composite"]["counts"]["fused_nerf_raw_t"],
         "fused_nerf_composite_t[N=762048]":
-            drives["transposed"]["counts"]["fused_nerf_composite_t"],
+            main["counts"]["fused_nerf_composite_t"],
         "fused_nerf_raw_tq[N=762048]":
             drives["int8"]["counts"]["fused_nerf_raw_tq"],
         "fused_minmax_t[refine,C=54,N=762048]":
@@ -1938,7 +2008,7 @@ def phase_gathers(device):
                 data["K"], 0, device=device)(params, scene, c2w)
             torch.cuda.synchronize()
         expect_counts("gather_split frame", read_counters(), sampler=1,
-                      refine=1, fused_nerf_raw_t=1)
+                      refine=1, fused_nerf_composite_t=1)
         report["split_frame_equal"] = {k: nan_equal(split[k], base[k])
                                        for k in split}
         if not all(report["split_frame_equal"].values()):
@@ -1949,7 +2019,7 @@ def phase_gathers(device):
                      cfg.replace(warp_interp="nearest", max_images=1), 1)
         expect_counts("warp_interp=nearest", near["counts"],
                       sampler=near["frames"], refine=near["frames"],
-                      fused_nerf_raw_t=near["frames"])
+                      fused_nerf_composite_t=near["frames"])
         near_frame = torch.from_numpy(near["result"]["rgbs1"][0]).to(device)
         report["nearest"] = {"frames": near["frames"],
                              "ms_per_frame": near["ms_per_frame"],
@@ -2348,7 +2418,7 @@ def phase_train(device, profile=False):
         drive = serve("trained checkpoint", cfg_i, 1)
         expect_counts("trained checkpoint", drive["counts"],
                       sampler=drive["frames"], refine=drive["frames"],
-                      fused_nerf_raw_t=drive["frames"])
+                      fused_nerf_composite_t=drive["frames"])
         data = infer.load_inference_data(cfg_i)
         scene = prepare_scene(
             data["images"][data["i_ref"]], data["poses"][data["i_ref"]],
@@ -2686,7 +2756,7 @@ def multi_steps(tmp, device, profile=False):
 def multi_frames(tmp, device, profile=False):
     """The slice's kernel path. The sharded frame renderer in a world of one
     over NCCL, and the frame body as a CUDA graph, at 504x378 (the default
-    statics, fuse_composite, int8, transposed) and 1008x756 (the default,
+    statics, the eager composite, int8, transposed) and 1008x756 (the default,
     windowed): sharded frames equal the live renderer's bit for bit with
     the same launches (counters zeroed just before each, read just after);
     a captured frame (launches counted at its warm-up and capture) replayed
@@ -2736,8 +2806,8 @@ def multi_frames(tmp, device, profile=False):
             forms = {"default": st}
             if w == W_IMG:
                 forms |= {
-                    "fuse_composite": dataclasses.replace(
-                        st, fuse_composite=True),
+                    "eager_composite": dataclasses.replace(
+                        st, fuse_composite=False),
                     "int8": dataclasses.replace(st, quant="int8"),
                     "transposed": dataclasses.replace(st, transposed=True)}
             c2w = data["poses"][data["i_test"][0]][:3, :4]
@@ -3371,7 +3441,7 @@ def phase_cli(device):
         n_ev = len(ev["rgbs1"]) * (1 + CLI_REPS) + steady_frames(CLI_REPS)
         n_q = len(q["rgbs1"])
         expect_counts("cli eval", c_ev, sampler=n_ev, refine=n_ev,
-                      fused_nerf_raw_t=n_ev)
+                      fused_nerf_composite_t=n_ev)
         expect_counts("cli int8 infer", c_q, sampler=n_q, refine=n_q,
                       fused_nerf_raw_tq=n_q)
         all_finite({"eval": ev["rgbs1"], "int8": q["rgbs1"],
@@ -3400,7 +3470,7 @@ def phase_cli(device):
                                          f"x{CLI_STEADY_REPS} minus ")]
         n_st = 1 + CLI_STEADY_REPS + steady_frames(CLI_STEADY_REPS)
         expect_counts("cli infer --timing-reps", c_st, sampler=n_st,
-                      refine=n_st, fused_nerf_raw_t=n_st)
+                      refine=n_st, fused_nerf_composite_t=n_st)
         if len(steady_lines) != 1 or not st["amortized_ms"] > 0:
             raise SystemExit(f"infer --timing-reps {CLI_STEADY_REPS}: "
                              f"steady-state lines {steady_lines}")
@@ -3460,7 +3530,7 @@ def phase_cli(device):
              str(CLI_PATH_FRAMES)] + common("cli_rp"))
         expect_counts("cli render-path", c_rp, sampler=CLI_PATH_FRAMES,
                       refine=CLI_PATH_FRAMES,
-                      fused_nerf_raw_t=CLI_PATH_FRAMES)
+                      fused_nerf_composite_t=CLI_PATH_FRAMES)
         if not rp.endswith(".gif"):
             raise SystemExit(f"render-path wrote {rp}, not a GIF")
         t0 = time.perf_counter()
@@ -3520,7 +3590,7 @@ def phase_cli(device):
             + common("cli_export"))
         n_fx = 1 + CLI_EXPORT_REPS + max(2, CLI_EXPORT_REPS)
         expect_counts("cli infer --from-export", c_fx, sampler=n_fx,
-                      refine=n_fx, fused_nerf_raw_t=n_fx)
+                      refine=n_fx, fused_nerf_composite_t=n_fx)
         png = read_png(Path(fx["savedir"]) / "000.png")
         if not np.array_equal(png, to8b(ev["rgbs1"][0])):
             raise SystemExit("infer --from-export: its PNG differs from the "
@@ -3736,8 +3806,8 @@ def bench_child():
 # replacements, and the kernels a first frame of each launches (the MinMax
 # ones by their rows in read_counters)
 START_FORMS = {
-    "default": ({}, {"fused_nerf_raw_t"}),
-    "fuse_composite": ({"fuse_composite": True}, {"fused_nerf_composite_t"}),
+    "default": ({}, {"fused_nerf_composite_t"}),
+    "eager_composite": ({"fuse_composite": False}, {"fused_nerf_raw_t"}),
     "int8": ({"quant": "int8"}, {"fused_nerf_raw_tq"}),
     "transposed": ({"transposed": True},
                    {"fused_nerf_composite_t", UNTRANSPOSED}),
@@ -3810,8 +3880,8 @@ def run_twin(what, argv, env=None, timeout=TWIN_TIMEOUT_S):
 def protocol_bench(device, env):
     """The headline bench, in full, through its entry point in a child
     process that reads the launch counters around it: the MinMax kernel at
-    C = 6, 102 and 54 and the raw NeRF kernel launched, no plain version
-    called. Then one 504x378 bench frame profiled here: the steady-state
+    C = 6, 102 and 54 and the compositing NeRF kernel launched, no plain
+    version called. Then one 504x378 bench frame profiled here: the steady-state
     ms/frame within BUSY_REL of the frame's device busy time."""
     from pronerf_tpu_torch import bench
 
@@ -3822,7 +3892,7 @@ def protocol_bench(device, env):
     say({"protocol": "bench", "line": line, "seconds": seconds})
     launched = counts["bench_launches"]
     need = ("fused_minmax_t[sampler]", "fused_minmax_t[refine]",
-            "fused_minmax_t[refine,C=54]", "fused_nerf_raw_t")
+            "fused_minmax_t[refine,C=54]", "fused_nerf_composite_t")
     if any(launched[k] < 1 for k in need) or any(counts["plain_calls"].values()):
         raise SystemExit(f"protocols: bench launches {launched}, plain "
                          f"calls {counts['plain_calls']}")
@@ -4227,7 +4297,7 @@ def phase_jpeg(device):
         expect_counts("jpeg training", c1)
         n_ev = len(ev["rgbs1"])
         expect_counts("jpeg eval", c_ev, sampler=n_ev, refine=n_ev,
-                      fused_nerf_raw_t=n_ev)
+                      fused_nerf_composite_t=n_ev)
         losses = list(read_losses(exp1).values())
         if any(plain.values()) or s1["global_step"] != 2 or not minify_s \
                 or ev["rgbs1"].shape[1:] != (H, W_IMG, 3) or n_ev < 1 \
@@ -4475,7 +4545,7 @@ def trained_serving(tmp, device):
     forms = {}
     with count_plain() as plain:
         for name, extra, want in (
-                ("kernels", (), "fused_nerf_raw_t"),
+                ("kernels", (), "fused_nerf_composite_t"),
                 ("use_pallas_false", ("--use_pallas", "False"), None),
                 ("transposed", ("--transposed", "True"),
                  "fused_nerf_composite_t"),
@@ -4494,10 +4564,10 @@ def trained_serving(tmp, device):
                            "launches": counts, "wall_s": wall}
             if name == "kernels":
                 expect_counts("trained eval", counts, sampler=n, refine=n,
-                              fused_nerf_raw_t=n)
+                              fused_nerf_composite_t=n)
             all_finite({name: ev["rgbs1"]})
-        # fuse_composite has no command-line flag: the same frames through
-        # the renderer the eval verb calls
+        # the eager composite arm (fuse_composite=False) has no command-line
+        # flag: the same frames through the renderer the eval verb calls
         cfg = Config.from_file(ROOT / "configs/llff/fern/fern_trt.txt",
                                datadir=TRAINED_SPEC, use_trt=True,
                                use_pallas=True, tile_rays=0)
@@ -4506,23 +4576,23 @@ def trained_serving(tmp, device):
                                                  device)
         scene = infer._serving_scene(cfg, data, device)
         statics = infer._infer_statics(cfg, use_bf16=True)
-        fused = dataclasses.replace(statics, fuse_composite=True)
+        eager = dataclasses.replace(statics, fuse_composite=False)
         i_test = data["i_test"]
         reset_counters()
-        res = render_path(data["poses"][i_test], params, scene, fused,
+        res = render_path(data["poses"][i_test], params, scene, eager,
                           data["H"], data["W"], data["K"],
                           gt_imgs=data["images"][i_test], tile_rays=0,
                           device=device)
         counts = read_counters()
-        expect_counts("trained fuse_composite", counts, sampler=3, refine=3,
-                      fused_nerf_composite_t=3)
-        forms["fuse_composite"] = {"psnrs_rgb1": res["psnrs"],
+        expect_counts("trained eager composite", counts, sampler=3, refine=3,
+                      fused_nerf_raw_t=3)
+        forms["eager_composite"] = {"psnrs_rgb1": res["psnrs"],
                                    "mean_rgb1": float(np.mean(res["psnrs"])),
                                    "launches": counts}
     if any(plain.values()):
         raise SystemExit(f"trained: plain versions called {plain}")
     ref = forms["use_pallas_false"]["psnrs_rgb1"]
-    for name in ("kernels", "fuse_composite", "transposed"):
+    for name in ("kernels", "eager_composite", "transposed"):
         gap = [abs(a - b) for a, b in zip(forms[name]["psnrs_rgb1"], ref)]
         forms[name]["max_view_gap_db"] = max(gap)
         if max(gap) > TRAINED_VIEW_DB:
@@ -4535,11 +4605,11 @@ def trained_serving(tmp, device):
         raise SystemExit(f"trained: int8 {forms['int8']}")
 
     # each kernel against its plain version on the first held-out view's
-    # own inputs: the default graph (sampler, refine, raw), the fused
-    # composite and int8
+    # own inputs: the default graph (sampler, refine, composite), the eager
+    # composite arm (raw) and int8
     pose = data["poses"][i_test[:1]]
     with kernel_inputs() as seen:
-        for st in (statics, fused, dataclasses.replace(statics, quant="int8")):
+        for st in (statics, eager, dataclasses.replace(statics, quant="int8")):
             render_path(pose, params, scene, st, data["H"], data["W"],
                         data["K"], tile_rays=0, device=device)
     want = {"fused_minmax_t[sampler]", "fused_minmax_t[refine]",

@@ -46,6 +46,7 @@ from pronerf_tpu_torch.kernels.stages import (  # noqa: F401 (re-exported)
     slabs,
 )
 from pronerf_tpu_torch.kernels.stages import stage_table as _stage_table
+from pronerf_tpu_torch.utils.profiling import COUNTERS
 
 L_PTS = 10     # position octaves: PE = [x(3), sin(30), cos(30)]
 L_DIR = 4      # direction octaves: PE = [d(3), sin(12), cos(12)]
@@ -404,6 +405,7 @@ def _fused_nerf_raw_cuda(panels: list[torch.Tensor],
         raise RuntimeError(
             f"fused_nerf_raw kernel launch failed: {_launch_error(err)}")
     fused_nerf_raw_t.launches += 1
+    COUNTERS["nerf_raw_launches"] += 1
     _count_samples(fused_nerf_raw_t, n_samples)
     return raw
 
@@ -452,7 +454,9 @@ def _count_samples(fn, n_samples):
 
 
 # Launches of each kernel (counted where the op launches it): all of them,
-# and by samples a ray
+# and by samples a ray; ``profiling.COUNTERS`` counts the same launches as
+# ``nerf_raw_launches`` / ``nerf_composite_launches``, the form that
+# composited each frame
 fused_nerf_raw_t.launches = 0
 fused_nerf_raw_t.launches_by_samples = {}
 
@@ -495,6 +499,7 @@ def _fused_nerf_composite_cuda(
             f"fused_nerf_composite kernel launch failed: {_launch_error(err)}"
         )
     fused_nerf_composite_t.launches += 1
+    COUNTERS["nerf_composite_launches"] += 1
     _count_samples(fused_nerf_composite_t, S)
     return out
 

@@ -104,7 +104,7 @@ class RenderStatics:
                                # kernels (inference)
     fuse_composite: bool = False  # stream alpha compositing inside the NeRF
                                   # kernel, so raw [N, S, 4] never reaches
-                                  # device memory
+                                  # device memory (``infer`` turns it on)
     pallas_block_rays: int = 4096  # carried for config parity; the CUDA
                                    # kernels fix their tile at build time
     gather_tiles: int = 0      # windowed epipolar gather: contiguous ray
@@ -167,15 +167,22 @@ class RenderStatics:
     def infer(
         compute_dtype: Optional[str] = None,
         use_kernels: bool = False,
+        fuse_composite: bool = True,
         **kw,
     ) -> "RenderStatics":
         """Deterministic inference, optionally in bfloat16 and/or through
-        the fused kernels."""
+        the fused kernels. With the kernels the frame composites inside the
+        NeRF kernel unless the caller passes ``fuse_composite=False`` (the
+        int8 kernel returns raw for ``ops.composite`` either way). The JAX
+        package's ``infer`` leaves it off, for a v5e reason: its XLA
+        composite fused with its neighbours there; on the H100 the eager
+        composite is a chain of small kernels."""
         return RenderStatics(
             near=0.0, ndc_eps=1e-5, epi_layout="vsc", randomize=False,
             stop_sampler_grad=False, explore=False, jitter=False,
             add_offsets=True, use_mm=True, clamp_raw=False, noise_std=0.0,
-            compute_dtype=compute_dtype, use_kernels=use_kernels, **kw,
+            compute_dtype=compute_dtype, use_kernels=use_kernels,
+            fuse_composite=fuse_composite, **kw,
         )
 
 

@@ -20,7 +20,9 @@ The counterpart of ``pronerf_tpu/utils/profiling.py``:
   no host sync; ``read_device_counters``: one sync), which add work to the
   frame and are never launched outside it; ``COUNTERS`` counts, always,
   the rare slow events that rebuild state (``param_packs``,
-  ``kernel_loads``, ``kernel_builds``, ``graph_captures``);
+  ``kernel_loads``, ``kernel_builds``, ``graph_captures``) and the NeRF
+  kernel's launches on the card by form (``nerf_composite_launches``,
+  ``nerf_raw_launches``);
 - ``trace``: ``torch.profiler`` around a block, with spans on, written as a
   Chrome trace;
 - ``pipeline_macs``: analytic multiply-adds a frame.
@@ -105,8 +107,10 @@ _spans_on = False
 _counters_on = False
 _device_counts: dict = {}
 
-# Host counts of the events that rebuild state, always on: each is counted
-# where a rare, slow event already happens.
+# Host counts, always on, each where its event already happens: the rare,
+# slow events that rebuild state, and the NeRF kernel's launches by form
+# (``nerf_composite_launches``, ``nerf_raw_launches``: which one composited
+# a frame).
 COUNTERS = collections.Counter()
 
 

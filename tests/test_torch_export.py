@@ -92,7 +92,10 @@ VARIANTS = {
                      set()),
     "kernels": (RenderStatics.infer(compute_dtype="bfloat16",
                                     use_kernels=True), 0, dict(mmnetdepth=2),
-                {"fused_minmax", "fused_nerf_raw"}),
+                {"fused_minmax", "fused_nerf_composite"}),
+    "kernels_eager_composite": (RenderStatics.infer(
+        compute_dtype="bfloat16", use_kernels=True, fuse_composite=False), 0,
+        dict(mmnetdepth=2), {"fused_minmax", "fused_nerf_raw"}),
     "kernels_int8": (RenderStatics.infer(compute_dtype="bfloat16",
                                          use_kernels=True, quant="int8"), 0,
                      dict(mmnetdepth=2),

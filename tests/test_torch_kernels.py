@@ -307,6 +307,47 @@ def test_fused_nerf_composite_f32_equals_raw_plus_composite_op():
                                atol=2e-5)
 
 
+@pytest.mark.parametrize("white_bkgd", [False, True])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_fused_nerf_composite_empty_rays_give_nan_disp(dtype, white_bkgd):
+    """Rays whose weights are all zero (relu(mm_mul) zero at every sample)
+    composite to depth = acc = 0 and disp = 1 / max(1e-10, 0 / 0) = NaN in
+    both forms, as the reference's composite gives; on white, their colour
+    is 1 - acc = 1. The other rays keep the f32 bounds above."""
+    from pronerf_tpu_torch.ops.composite import composite
+
+    _, net = nerf_nets(seed=4)
+    n = 42
+    inp = nerf_inputs(n, seed=7)
+    empty = np.arange(n) % 3 == 0
+    mm_mul = inp["mm_mul"].copy()
+    mm_mul[empty] = -np.abs(mm_mul[empty]) - 0.1
+    packed = t_fn.pack_nerf_params(net, DTYPES[dtype][1])
+    with torch.no_grad():
+        vcon = view_contribution(net, t_posenc(T(inp["dirs"]), 4),
+                                 DTYPES[dtype][1])
+        raw = t_fn.fused_nerf_raw_t(packed, T(inp["pts24_t"]), vcon)
+        eager = composite(raw, T(inp["z"]), T(inp["rays_d"]),
+                          mm_add=T(inp["mm_add"]), mm_mul=T(mm_mul),
+                          white_bkgd=white_bkgd)
+        fused = t_fn.fused_nerf_composite_t(
+            packed, T(inp["pts24_t"]), vcon, T(inp["z"].T.copy()),
+            T(inp["mm_add"].T.copy()), T(mm_mul.T.copy()),
+            torch.linalg.norm(T(inp["rays_d"]), dim=-1)[None, :],
+            white_bkgd=white_bkgd)
+    e = torch.from_numpy(empty)
+    for form in (eager, fused):
+        assert torch.all(form["weights"][e] == 0)
+        assert torch.all(form["depth"][e] == 0) and torch.all(form["acc"][e] == 0)
+        assert torch.isnan(form["disp"][e]).all()
+        assert torch.all(form["rgb"][e] == (1.0 if white_bkgd else 0.0))
+        assert torch.equal(torch.isnan(form["disp"]), form["acc"] == 0)
+    for k, atol in (("rgb", 2e-5), ("depth", 2e-5), ("acc", 2e-5),
+                    ("weights", 2e-5), ("disp", 1e-3)):
+        np.testing.assert_allclose(fused[k].numpy(), eager[k].numpy(),
+                                   atol=atol, err_msg=k)
+
+
 # ----------------------------------------------------------- wrappers ----
 
 def test_wrappers_reject_wrong_shapes_before_dispatch():

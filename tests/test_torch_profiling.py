@@ -135,12 +135,14 @@ def test_span_is_one_shared_object_while_off(frame_scene):
 
 
 FRAME_FORMS = {
-    # name: (statics, the stages render_rays runs)
-    "row_major": (dict(), STAGES),
-    "windowed": (dict(gather_tiles=4, gather_window_rows=3), STAGES),
-    # the transposed graph composites inside the NeRF kernel
+    # name: (statics, the stages render_rays runs); the served frame
+    # composites inside the NeRF kernel (no composite span), the eager
+    # composite arm in ops.composite
+    "row_major": (dict(), STAGES[:-1]),
+    "windowed": (dict(gather_tiles=4, gather_window_rows=3), STAGES[:-1]),
     "transposed": (dict(transposed=True, gather_tiles=4,
                         gather_window_rows=3), STAGES[:-1]),
+    "eager_composite": (dict(fuse_composite=False), STAGES),
 }
 
 

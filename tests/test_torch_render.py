@@ -24,6 +24,8 @@ JAX test's bound between its two bf16 paths), ``0.05`` on sigma logits;
 """
 
 import dataclasses
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -49,6 +51,7 @@ from torch_jax_pe import jax_kernels_with_f32_pe  # noqa: F401 (autouse: f32 PE)
 # PyTorch's CPU kernels from crowding the other workers' tests.
 torch.set_num_threads(2)
 
+ROOT = Path(__file__).resolve().parents[1]
 KEYS = ("rgb0", "rgb1", "depth", "disp", "acc", "weights", "mm_rgb",
         "depth0", "sigma")
 H, W = 16, 20
@@ -199,9 +202,16 @@ def test_render_statics_twin_has_the_same_fields_and_defaults():
     t = {f.name: f.default for f in dataclasses.fields(RenderStatics)}
     assert j.pop("use_pallas") == t.pop("use_kernels")
     assert j == t
+    # the port's infer composites inside the NeRF kernel (its frame's
+    # eager composite is a chain of small kernels on the card); JAX's keeps
+    # its v5e default. Everything else is the same, and a caller's
+    # fuse_composite=False gives JAX's statics.
     ji, ti = JStatics.infer(), RenderStatics.infer()
+    assert ti.fuse_composite and not ji.fuse_composite
+    te = RenderStatics.infer(fuse_composite=False)
+    assert te == dataclasses.replace(ti, fuse_composite=False)
     for name in t:
-        assert getattr(ji, name) == getattr(ti, name), name
+        assert getattr(ji, name) == getattr(te, name), name
     hash(RenderStatics.infer(compute_dtype="bfloat16", use_kernels=True))
 
 
@@ -239,7 +249,8 @@ def test_frame_renderer_whole_frame_tiled_and_jax(held_out, compute_dtype):
 # whose refine net reads C = 6 + 3 * 2 * 8 = 54 rows, in the three forms
 # of the serving frame.
 V2_FORMS = {"default": {}, "fuse_composite": {"fuse_composite": True},
-            "transposed": {"transposed": True}}
+            "transposed": {"transposed": True},
+            "eager_composite": {"fuse_composite": False}}
 
 
 @pytest.fixture(scope="module")
@@ -287,6 +298,140 @@ def test_frame_renderer_two_neighbours_against_jax(two_views, form):
         assert v.shape == want[k].shape, k
         np.testing.assert_allclose(v.numpy(), np.asarray(want[k], np.float32),
                                    atol=0.02, err_msg=k)
+
+
+def served_statics(build):
+    """``fern_trt``'s serving statics as the benchmark's viewer cell builds
+    them (``RenderStatics.infer(**statics)`` of its configuration), as
+    ``infer`` / ``eval --use-trt`` build them (``_infer_statics``), and the
+    cell's with ``quant = int8``."""
+    if build == "use_trt":
+        from pronerf_tpu_torch.config import Config
+        from pronerf_tpu_torch.render.infer import _infer_statics
+
+        cfg = Config.from_file("configs/llff/fern/fern_trt.txt",
+                               use_trt=True, tile_rays=0, use_pallas=True)
+        return _infer_statics(cfg, use_bf16=cfg.use_trt)
+    config = json.loads((ROOT / "benchmark/configs/fern_trt.json").read_text())
+    statics = config["statics"] | ({"quant": "int8"} if build == "int8"
+                                   else {})
+    return RenderStatics.infer(**statics)
+
+
+@pytest.fixture
+def nerf_calls(monkeypatch):
+    """Calls of the NeRF kernels' plain versions (the ops' CPU
+    implementations, which call them through their modules) and of
+    ``ops.composite`` from ``render_rays``."""
+    from pronerf_tpu_torch.kernels import fused_nerf, fused_nerf_q
+    from pronerf_tpu_torch.models import pronerf
+
+    calls = {}
+    for mod, name in ((fused_nerf, "fused_nerf_composite_plain"),
+                      (fused_nerf, "fused_nerf_raw_plain"),
+                      (fused_nerf_q, "fused_nerf_raw_q_plain"),
+                      (pronerf, "composite")):
+        calls[name] = 0
+
+        def counted(*a, _fn=getattr(mod, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(mod, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("white_bkgd", [False, True])
+@pytest.mark.parametrize("build", ["viewer_cell", "use_trt", "int8"])
+def test_served_frame_composites_in_the_nerf_kernel(held_out, nerf_calls,
+                                                    monkeypatch, build,
+                                                    white_bkgd):
+    """The served statics composite inside the NeRF kernel: one
+    ``fused_nerf_composite`` a frame and no raw kernel (int8: its raw kernel
+    and ``ops.composite``, whatever ``fuse_composite`` says), the eager arm
+    ``fuse_composite=False`` the raw kernel and ``ops.composite``. The
+    launch counters of ``profiling.COUNTERS`` move with the kernels'
+    ``launches`` (on the card one a launch; here the ops run their plain
+    versions and neither moves).
+
+    The fused composite's outputs equal ``ops.composite`` over the raw
+    values the kernel's chain computed, at the f32 bounds of the tests
+    above (NaN disp where a ray's weights are all zero, on both sides). The
+    two forms' frames are two renders, whose CPU matmuls may sum in another
+    order under load and move a bf16 rounding: they are held at the bf16
+    frame bound (0.02)."""
+    from pronerf_tpu_torch.kernels import fused_nerf as t_fn
+    from pronerf_tpu_torch.ops.composite import composite
+    from pronerf_tpu_torch.utils import profiling
+
+    fx = held_out
+    statics = dataclasses.replace(served_statics(build),
+                                  white_bkgd=white_bkgd)
+    assert statics.use_kernels and statics.fuse_composite
+    assert statics.compute_dtype == "bfloat16"
+    int8 = build == "int8"
+    want_calls = {
+        "served": dict(fused_nerf_composite_plain=0 if int8 else 1,
+                       fused_nerf_raw_plain=0, fused_nerf_raw_q_plain=int8,
+                       composite=int8),
+        "eager": dict(fused_nerf_composite_plain=0,
+                      fused_nerf_raw_plain=0 if int8 else 1,
+                      fused_nerf_raw_q_plain=int8, composite=1)}
+    kernels = {"nerf_composite_launches": t_fn.fused_nerf_composite_t,
+               "nerf_raw_launches": t_fn.fused_nerf_raw_t}
+    frames = {}
+    for form in ("served", "eager"):
+        st = statics if form == "served" else dataclasses.replace(
+            statics, fuse_composite=False)
+        render = make_frame_renderer(st, H, W, fx.sc["K"], 0, device="cpu")
+        before = dict(nerf_calls)
+        counters = {k: profiling.COUNTERS[k] for k in kernels}
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        frames[form] = render(fx.params, fx.scene, fx.pose)
+        assert {k: nerf_calls[k] - before[k] for k in nerf_calls} \
+            == want_calls[form], form
+        for k, fn in kernels.items():
+            assert (profiling.COUNTERS[k] - counters[k]
+                    == fn.launches - launches[k] == 0), k
+    for k in frames["served"]:
+        np.testing.assert_allclose(frames["served"][k].numpy(),
+                                   frames["eager"][k].numpy(), atol=0.02,
+                                   err_msg=k)
+    if int8:
+        return
+
+    # the composite's inputs and the chain's raw values, as the kernel's
+    # plain version received and computed them
+    seen = {}
+    plain, chain = t_fn.fused_nerf_composite_plain, t_fn._forward_plain
+
+    def composite_plain(*a, **kw):
+        seen["args"] = a
+        return plain(*a, **kw)
+
+    def forward_plain(*a):  # raw as fused_nerf_raw_plain builds it
+        rgb, sigma = chain(*a)
+        seen["raw"] = torch.cat([rgb, sigma[..., None]], dim=-1).float()
+        return rgb, sigma
+
+    monkeypatch.setattr(t_fn, "fused_nerf_composite_plain", composite_plain)
+    monkeypatch.setattr(t_fn, "_forward_plain", forward_plain)
+    with torch.no_grad():
+        got = render_rays(render.pack(fx.params), fx.rays, fx.scene,
+                          fx.controls, dataclasses.replace(
+                              render.statics, fuse_composite=True))
+    _, _, _, z_t, mm_add_t, mm_mul_t = seen["args"][:6]
+    # the op's tensors as the card's kernel takes them (it raises otherwise)
+    for t in seen["args"][1:7]:
+        assert t.dtype == torch.float32 and t.is_contiguous()
+    want = composite(seen["raw"], z_t.T, fx.rays["ndc_d"], mm_add=mm_add_t.T,
+                     mm_mul=mm_mul_t.T, white_bkgd=white_bkgd)
+    want["rgb1"], want["sigma"] = want.pop("rgb"), seen["raw"][..., 3]
+    for k in ("rgb1", "depth", "acc", "disp", "weights", "sigma"):
+        g, w = got[k].numpy(), want[k].numpy()
+        assert np.all(np.isnan(g) == np.isnan(w)), k
+        atol = {"depth": 5e-4, "disp": 1e-3}.get(k, 5e-5)
+        np.testing.assert_allclose(g, w, atol=atol, err_msg=k)
 
 
 def test_rays_for_pose_matches_jax(held_out):

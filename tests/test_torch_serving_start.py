@@ -5,7 +5,8 @@ to serve its first frame, on the CPU (the ops run their plain versions;
 where the ops launch the kernels).
 
 - in a fresh process, the first frame of every serving form (default,
-  ``fuse_composite``, ``quant = int8``, ``transposed``; the whole-frame
+  ``fuse_composite``, ``quant = int8``, ``transposed``, the eager
+  composite ``fuse_composite = False``; the whole-frame
   gather and the windowed one), ``bench.run_bench``, ``bench_coldstart
   --device cpu`` and the serving verbs of the command line (``eval
   --use-trt``, ``infer --use-trt --timing-reps``, ``render-path --use-trt``)
@@ -72,7 +73,8 @@ form, windowed = sys.argv[1], sys.argv[2] == "windowed"
 H, W = 24, 32
 s = bench.setup(H=H, W=W, device="cpu")
 kw = {"default": {}, "fuse_composite": {"fuse_composite": True},
-      "int8": {"quant": "int8"}, "transposed": {"transposed": True}}[form]
+      "int8": {"quant": "int8"}, "transposed": {"transposed": True},
+      "eager_composite": {"fuse_composite": False}}[form]
 if windowed:  # the gather of a 1008x756 frame, at this size
     kw |= {"gather_tiles": 2, "gather_window_rows": 12}
 statics = dataclasses.replace(s["statics"], **kw)
@@ -83,12 +85,14 @@ report(gather_tiles=render.statics.gather_tiles,
        finite=all(bool(torch.isfinite(v).all()) for v in out.values()))
 """
 
-# the plain versions a frame of each form reaches
+# the plain versions a frame of each form reaches (the default composites
+# inside the NeRF kernel; the eager composite is the A/B arm)
 FORM_CALLS = {
-    "default": {"fused_minmax_plain", "fused_nerf_raw_plain"},
+    "default": {"fused_minmax_plain", "fused_nerf_composite_plain"},
     "fuse_composite": {"fused_minmax_plain", "fused_nerf_composite_plain"},
     "int8": {"fused_minmax_plain", "fused_nerf_raw_q_plain"},
     "transposed": {"fused_minmax_plain", "fused_nerf_composite_plain"},
+    "eager_composite": {"fused_minmax_plain", "fused_nerf_raw_plain"},
 }
 
 
