@@ -33,13 +33,14 @@ falls back to the CPU. Phases, each printing one JSON line:
                 ``run_inference`` on the synthetic 504x378 scene with 17
                 views, release widths, bf16, whole frame in one tile, fused
                 kernels on: the default graph (the NeRF kernel compositing),
-                ``quant = int8``, and ``transposed = True``; then the default
-                graph's frame in the eager composite arm (the raw kernel and
-                ``ops.composite``, ``fuse_composite = False``), at 8 and 128
-                samples a ray;
+                ``quant = int8``, and ``transposed = True``; then a frame of
+                the raw-kernel route, which the kernel path takes where the
+                NeRF kernel cannot composite (the served statics with the
+                stage-1 raw clamp: the raw kernel and ``ops.composite``), at
+                8 and 128 samples a ray;
                 then a tile of the frame's own rays, all nine outputs, each
-                relative to its size: the composite forms against each other,
-                the kernel path against the port's kernel-free bf16 path and
+                relative to its size: the kernel path against the port's
+                kernel-free bf16 path and, with the raw-kernel route,
                 against the plain versions (the same code on CPU tensors),
                 the int8 path against the bf16 kernel path and against its
                 plain versions, the transposed graph against the row-major
@@ -67,7 +68,8 @@ falls back to the CPU. Phases, each printing one JSON line:
                 emit and the split fetch equal to the row form, and each
                 gather's ms; the windowed frame equal to the unwindowed one
                 on every ray no window missed, the transposed frame against
-                the row-major one, int8 against bf16; the headline bench's
+                the row-major one, int8 against bf16; one frame of the
+                raw-kernel route, its launches; the headline bench's
                 second point, 2 neighbours (refine C = 54), windowed: ms a
                 frame, launches, device busy ms and kernels a frame
                 (profiler), the frame against the same frame with the plain
@@ -134,8 +136,8 @@ falls back to the CPU. Phases, each printing one JSON line:
                 1, 2 and 8 scenes against each scene's eager step
                 (``TRAIN_TOL``), ms a step both ways and peak memory; in a
                 world of one over NCCL, the sharded frame renderer at
-                504x378 (default, the eager composite, int8, transposed) and
-                1008x756 equal to the live renderer bit for bit with the
+                504x378 (default, the raw-kernel route, int8, transposed)
+                and 1008x756 equal to the live renderer bit for bit with the
                 same launches (the slice's kernel path), the frame body as
                 a CUDA graph replayed equal to the eager frame, the
                 steady-state ms/frame (``amortized_timer``) beside the eager
@@ -183,7 +185,7 @@ falls back to the CPU. Phases, each printing one JSON line:
                 time within 10% of the bench's steady-state ms/frame; a
                 serving process's start (a child ``chip_smoke.py
                 --start-child``): the first frame of each serving form
-                (default, the eager composite, int8, transposed) at 504x378
+                (default, int8, transposed) at 504x378
                 and at 1008x756 (windowed), each timed, finite and
                 launching its form's kernels, with ``torch._dynamo`` never
                 imported (the kernels' ops are ``torch.library.Library``
@@ -233,7 +235,7 @@ falls back to the CPU. Phases, each printing one JSON line:
                 plain version called) at a mean of at least 40.3 dB and an
                 SSIM of at least 0.995 (JAX recorded 40.541 / 0.99600), and
                 within 0.05 dB a view of ``--use_pallas False``, as
-                ``transposed`` and the eager composite are; ``--quant int8``
+                ``transposed`` is; ``--quant int8``
                 printed and finite; each kernel (sampler, refine, raw,
                 composite, int8) against its plain version on a held-out
                 frame's own inputs, relative to each output's size; the
@@ -333,9 +335,6 @@ NOT_ABS = ("_rel", "_share", "_vs_bf16")
 # with seeded random weights the rays are near-transparent (rgb1, acc and
 # sigma are a few hundredths at most): an absolute bound of 0.02 would pass a
 # NeRF kernel that returned zeros.
-# FORMS_REL: between the two composite forms everything up to the NeRF kernel
-# is the same code on the same inputs; only the f32 compositing is summed in
-# another order.
 # PATHS_REL: kernel path against the kernel-free bf16 path (stricter than the
 # 0.02 absolute that the JAX package's tests allow on rgb1 and depth, since no
 # output here is larger than 1). sigma too, on all but PLAIN_SHARE of its
@@ -361,7 +360,6 @@ NOT_ABS = ("_rel", "_share", "_vs_bf16")
 # the refine product sums its rows in a permuted order and the projection is
 # written out, so isolated rays land on the other side of a bf16 or an
 # out-of-bounds boundary.
-FORMS_REL = 1e-4
 PATHS_REL = 0.02
 PLAIN_REL = 0.05
 PLAIN_SHARE = 0.005
@@ -1199,45 +1197,40 @@ def phase_frame(device, profile=False):
                              (want | {"sampler": sampler}).items()})
             wide[what] = drive
 
-        # ---- the default graph's frame in the eager composite arm
-        # (fuse_composite=False: the raw kernel and ops.composite), which no
-        # command-line drive serves: at 8 samples a ray, timed, and at 128
+        # ---- the raw-kernel route, which the kernel path takes where the
+        # NeRF kernel cannot composite (here the served statics with the
+        # stage-1 raw clamp): the raw kernel and ops.composite, a frame at 8
+        # samples a ray and one at 128
         data = infer.load_inference_data(cfg)
         params = infer._load_params(cfg, infer.setup_expdir(cfg), device)
         scene = prepare_scene(
             data["images"][data["i_ref"]], data["poses"][data["i_ref"]],
             data["K"], pack_corners="u8", device=device)
         statics = infer._infer_statics(cfg, use_bf16=True)
-        eager = dataclasses.replace(statics, fuse_composite=False)
+        raw_route = dataclasses.replace(statics, clamp_raw=True)
         statics_q = dataclasses.replace(statics, quant="int8")
         statics_t = dataclasses.replace(statics, transposed=True)
         c2w = data["poses"][data["i_test"][0]][:3, :4]
-        renderer = make_frame_renderer(eager, H, W_IMG, data["K"], 0,
-                                       device=device)
         reset_counters()
-        out_e = renderer(params, scene, c2w)
+        all_finite(make_frame_renderer(raw_route, H, W_IMG, data["K"], 0,
+                                       device=device)(params, scene, c2w))
         torch.cuda.synchronize()
-        counts_e = read_counters()
-        all_finite(out_e)
-        expect_counts("eager composite", counts_e, sampler=1, refine=1,
+        counts_r = read_counters()
+        expect_counts("raw route", counts_r, sampler=1, refine=1,
                       fused_nerf_raw_t=1)
-        ms_eager = cuda_ms(lambda: renderer(params, scene, c2w), reps)
         frame_main = first_frame(main, device)
-        forms_frame = rel_errs(out_e, frame_main, FORMS_REL,
-                               tuple(frame_main))
-        hold("composite forms, whole frame", forms_frame, FORMS_REL)
         cfg128 = cfg.replace(N_samples=128)
         render128 = make_frame_renderer(
             dataclasses.replace(infer._infer_statics(cfg128, use_bf16=True),
-                                fuse_composite=False),
+                                clamp_raw=True),
             H, W_IMG, data["K"], 0, device=device)
         params128 = infer._load_params(cfg128, infer.setup_expdir(cfg128),
                                        device)
         reset_counters()
         all_finite(render128(params128, scene, c2w))
         torch.cuda.synchronize()
-        counts_e128 = read_counters()
-        expect_counts("eager composite, 128 samples", counts_e128,
+        counts_r128 = read_counters()
+        expect_counts("raw route, 128 samples", counts_r128,
                       sampler=launches_a_frame(6, 3 * 128 + 3),
                       fused_nerf_raw_t=1, **{
                           "fused_nerf_raw_t[S=128]": 1,
@@ -1263,31 +1256,25 @@ def phase_frame(device, profile=False):
             "transposed frame against the row-major frame", frame_t,
             frame_main, tuple(frame_t))
 
-        # ---- a tile of the frame's rays, all nine outputs: both composite
-        # forms against each other and against the kernel-free bf16 path
+        # ---- a tile of the frame's rays, all nine outputs: the kernel path
+        # against the kernel-free bf16 path
         rays = rays_for_pose(H, W_IMG, data["K"], c2w, device=device)
         lo = (H // 2) * W_IMG
         tile = {k: v[lo:lo + CHUNK].contiguous() for k, v in rays.items()}
         controls = {"target_t": torch.as_tensor(
             c2w[:3, 3], dtype=torch.float32, device=device)}
         with_k = render_rays(params, tile, scene, controls, statics)
-        with_ke = render_rays(params, tile, scene, controls, eager)
+        with_r = render_rays(params, tile, scene, controls, raw_route)
         without = render_rays(
             params, tile, scene, controls,
             dataclasses.replace(statics, use_kernels=False))
-        forms_tile = rel_errs(with_ke, with_k, FORMS_REL)
-        hold("composite forms, tile", forms_tile, FORMS_REL)
         keys = tuple(k for k in NINE_KEYS if k != "sigma")
-        paths = {"raw": rel_errs(with_ke, without, PATHS_REL, keys),
-                 "fused": rel_errs(with_k, without, PATHS_REL, keys)}
-        for form, rows in paths.items():
-            hold(f"kernel path ({form}) against kernel-free bf16 path", rows,
-                 PATHS_REL)
-        for form, got in (("raw", with_ke), ("fused", with_k)):
-            rows = rel_errs(got, without, PATHS_REL, ("sigma",))
-            hold(f"kernel path ({form}) sigma against kernel-free bf16 path",
-                 rows, PATHS_REL, PLAIN_SHARE)
-            paths[form] |= rows
+        paths = rel_errs(with_k, without, PATHS_REL, keys)
+        hold("kernel path against kernel-free bf16 path", paths, PATHS_REL)
+        rows = rel_errs(with_k, without, PATHS_REL, ("sigma",))
+        hold("kernel path sigma against kernel-free bf16 path", rows,
+             PATHS_REL, PLAIN_SHARE)
+        paths |= rows
         # the int8 path against the bf16 kernel path, and the transposed
         # graph against the row-major one (both end in the fused composite)
         from pronerf_tpu_torch.kernels.fused_nerf_q import (
@@ -1326,8 +1313,9 @@ def phase_frame(device, profile=False):
             return {k: v.to(device) for k, v in out.items()}
 
         plain = {
-            "raw": rel_errs(with_ke, on_cpu(render_rays, params_cpu, eager),
-                            PLAIN_REL),
+            "raw_route": rel_errs(
+                with_r, on_cpu(render_rays, params_cpu, raw_route),
+                PLAIN_REL),
             "fused": rel_errs(with_k, on_cpu(render_rays, params_cpu, statics),
                               PLAIN_REL),
             "int8": rel_errs(
@@ -1342,9 +1330,7 @@ def phase_frame(device, profile=False):
                  "CPU", rows, PLAIN_REL, PLAIN_SHARE)
 
         if profile:
-            say({"profile": {"path": "eager composite"} | profile_frames(
-                lambda: renderer(params, scene, c2w), 3)})
-            for path, st in (("quant=int8", statics_q),
+            for path, st in (("default", statics), ("quant=int8", statics_q),
                              ("transposed=True", statics_t)):
                 render = make_frame_renderer(st, H, W_IMG, data["K"], 0,
                                              device=device)
@@ -1356,14 +1342,13 @@ def phase_frame(device, profile=False):
             "H": H, "W": W_IMG, "views": N_VIEWS, "poses": main["poses"],
             "frames_rendered": main["frames"],
             "ms_per_frame": main["ms_per_frame"],
-            "ms_per_frame_eager_composite": ms_eager,
             "ms_per_frame_int8": quant["ms_per_frame"],
             "ms_per_frame_transposed": trans["ms_per_frame"],
             "run_inference_wall_s": {
                 "default": main["wall_s"], "int8": quant["wall_s"],
                 "transposed": trans["wall_s"]},
             "psnr": main["result"]["psnrs"],
-            "launches": main["counts"], "launches_eager_composite": counts_e,
+            "launches": main["counts"], "launches_raw_route": counts_r,
             "launches_int8": quant["counts"],
             "launches_transposed": trans["counts"],
             "wide": {what: {"frames_rendered": d["frames"],
@@ -1371,8 +1356,6 @@ def phase_frame(device, profile=False):
                             "run_inference_wall_s": d["wall_s"],
                             "launches": d["counts"]}
                      for what, d in wide.items()},
-            "composite_forms_frame": forms_frame,
-            "composite_forms_tile": forms_tile, "forms_rel_tol": FORMS_REL,
             "kernel_vs_kernel_free_bf16_tile": paths,
             "paths_rel_tol": PATHS_REL,
             "int8_vs_bf16_frame": quant_frame,
@@ -1384,17 +1367,17 @@ def phase_frame(device, profile=False):
         }
     })
     # launches on each kernel's main-path drive: the default graph's for the
-    # MinMax shapes and the composite kernel, the eager composite arm's
-    # frames for the raw kernel, the int8 drive for the int8 kernel, the
+    # MinMax shapes and the composite kernel, the raw-kernel route's frame
+    # for the raw kernel, the int8 drive for the int8 kernel, the
     # transposed drive for the MinMax kernel's untransposed form; the wide
     # rows' on the drives of 16 and 128 samples a ray (the raw kernel's on
-    # the eager arm's frame of 128), the C = 54 row's on the drive of 2
+    # the raw route's frame of 128), the C = 54 row's on the drive of 2
     # neighbours
     w16, w128 = wide["N_samples=16"], wide["N_samples=128"]
     return {
         "fused_minmax_t[sampler]": main["counts"]["fused_minmax_t[sampler]"],
         "fused_minmax_t[refine]": main["counts"]["fused_minmax_t[refine]"],
-        "fused_nerf_raw_t": counts_e["fused_nerf_raw_t"],
+        "fused_nerf_raw_t": counts_r["fused_nerf_raw_t"],
         "fused_nerf_composite_t": main["counts"]["fused_nerf_composite_t"],
         "fused_nerf_raw_tq": quant["counts"]["fused_nerf_raw_tq"],
         UNTRANSPOSED: trans["counts"][UNTRANSPOSED],
@@ -1404,7 +1387,7 @@ def phase_frame(device, profile=False):
             w16["counts"]["fused_minmax_t[refine,C=198]"],
         "fused_minmax_t[refine,C=1542]":
             w128["counts"]["fused_minmax_t[refine,C=1542]"],
-        "fused_nerf_raw_t[S=128]": counts_e128["fused_nerf_raw_t[S=128]"],
+        "fused_nerf_raw_t[S=128]": counts_r128["fused_nerf_raw_t[S=128]"],
         "fused_nerf_composite_t[S=128]": w128["counts"][
             "fused_nerf_composite_t[S=128]"],
         "fused_nerf_raw_tq[S=128]": wide["N_samples=128,quant=int8"][
@@ -1683,11 +1666,15 @@ def phase_fullres(device, profile=False):
     default (windowed) form through ``run_inference``, then the unwindowed,
     transposed and int8 forms and a split frame through the frame renderer,
     each timed, counted and measured; the gathers on the frame's own
-    points; the frames held against each other; a tile against the
-    kernel-free bf16 path and the plain versions on the CPU."""
+    points; the frames held against each other; a frame of the raw-kernel
+    route, counted; a tile against the kernel-free bf16 path and the plain
+    versions on the CPU."""
     from pronerf_tpu_torch.config import Config
-    from pronerf_tpu_torch.kernels.packing import pack_serving_params
-    from pronerf_tpu_torch.models.pronerf import _nearest_views, render_rays
+    from pronerf_tpu_torch.models.pronerf import (
+        _nearest_views,
+        pack_serving_params,
+        render_rays,
+    )
     from pronerf_tpu_torch.render import infer
     from pronerf_tpu_torch.render.raygen import prepare_scene, rays_for_pose
     from pronerf_tpu_torch.render.renderer import (
@@ -1728,8 +1715,6 @@ def phase_fullres(device, profile=False):
             "unwindowed": dataclasses.replace(statics, gather_tiles=0),
             "transposed": dataclasses.replace(statics, transposed=True),
             "int8": dataclasses.replace(statics, quant="int8"),
-            "eager_composite": dataclasses.replace(statics,
-                                                   fuse_composite=False),
         }
         renderers = {name: make_frame_renderer(st, *shape, K, 0,
                                                device=device)
@@ -1742,9 +1727,6 @@ def phase_fullres(device, profile=False):
         for name in ("windowed", "unwindowed"):
             expect_counts(f"fullres {name}", drives[name]["counts"],
                           sampler=n, refine=n, fused_nerf_composite_t=n)
-        expect_counts("fullres eager composite",
-                      drives["eager_composite"]["counts"], sampler=n,
-                      refine=n, fused_nerf_raw_t=n)
         expect_counts("fullres transposed", drives["transposed"]["counts"],
                       sampler=n, refine=n, untransposed=2 * n,
                       fused_nerf_composite_t=n)
@@ -1755,8 +1737,7 @@ def phase_fullres(device, profile=False):
         gather_launches = {"run_inference": main["gather_launches"]} | {
             name: d["gather_launches"] for name, d in drives.items()}
         want = {"run_inference": 2 * main["frames"], "windowed": 2 * n,
-                "unwindowed": n, "transposed": 0, "int8": 2 * n,
-                "eager_composite": 2 * n}
+                "unwindowed": n, "transposed": 0, "int8": 2 * n}
         if gather_launches != want:
             raise SystemExit(f"fullres gather launches {gather_launches}, "
                              f"expected {want}")
@@ -1811,10 +1792,18 @@ def phase_fullres(device, profile=False):
         if not (int8_vs["psnr_rgb1_db"] > QUANT_PSNR_DB
                 and int8_vs["depth_max_abs"] <= QUANT_DEPTH):
             raise SystemExit(f"fullres int8 frame against bf16: {int8_vs}")
-        forms_vs = rel_errs(drives["eager_composite"]["first"], fw,
-                            FORMS_REL, FRAME_KEYS)
-        hold("fullres composite forms, whole frame", forms_vs, FORMS_REL)
         two = fullres_two_neighbours(cfg, scene, K, poses, device)
+
+        # ---- one frame of the raw-kernel route (the served statics with
+        # the stage-1 raw clamp: the raw kernel and ops.composite)
+        reset_counters()
+        all_finite(make_frame_renderer(
+            dataclasses.replace(statics, clamp_raw=True), *shape, K, 0,
+            device=device)(params, scene, poses[0]))
+        torch.cuda.synchronize()
+        raw_counts = read_counters()
+        expect_counts("fullres raw route", raw_counts, sampler=1, refine=1,
+                      fused_nerf_raw_t=1)
 
         # ---- a tile of the frame's rays (its own 8 ray tiles and windows)
         # through the kernels, the kernel-free bf16 path and the plain
@@ -1880,7 +1869,7 @@ def phase_fullres(device, profile=False):
         "windowed_vs_unwindowed_frame": windowed_vs,
         "transposed_vs_row_major_frame": trans_vs,
         "int8_vs_bf16_frame": int8_vs,
-        "eager_vs_fused_composite_frame": forms_vs,
+        "raw_route_launches": raw_counts,
         "num_neighbor_2": two, "card": nvidia_smi_line(),
         "tile_kernel_vs_kernel_free_bf16": paths,
         "tile_kernel_vs_plain_versions_on_cpu": plain,
@@ -1890,8 +1879,7 @@ def phase_fullres(device, profile=False):
             main["counts"]["fused_minmax_t[sampler]"],
         "fused_minmax_t[refine,N=762048]":
             main["counts"]["fused_minmax_t[refine]"],
-        "fused_nerf_raw_t[N=762048]":
-            drives["eager_composite"]["counts"]["fused_nerf_raw_t"],
+        "fused_nerf_raw_t[N=762048]": raw_counts["fused_nerf_raw_t"],
         "fused_nerf_composite_t[N=762048]":
             main["counts"]["fused_nerf_composite_t"],
         "fused_nerf_raw_tq[N=762048]":
@@ -2756,13 +2744,13 @@ def multi_steps(tmp, device, profile=False):
 def multi_frames(tmp, device, profile=False):
     """The slice's kernel path. The sharded frame renderer in a world of one
     over NCCL, and the frame body as a CUDA graph, at 504x378 (the default
-    statics, the eager composite, int8, transposed) and 1008x756 (the default,
-    windowed): sharded frames equal the live renderer's bit for bit with
-    the same launches (counters zeroed just before each, read just after);
-    a captured frame (launches counted at its warm-up and capture) replayed
-    equal to the eager frame bit for bit; ms a frame sharded and live in
-    turns, the steady-state ms/frame (``amortized_timer``: one graph of
-    STEADY_ITERS frames, replayed), the graph's replay alone, the eager
+    statics, the raw-kernel route, int8, transposed) and 1008x756 (the
+    default, windowed): sharded frames equal the live renderer's bit for bit
+    with the same launches (counters zeroed just before each, read just
+    after); a captured frame (launches counted at its warm-up and capture)
+    replayed equal to the eager frame bit for bit; ms a frame sharded and
+    live in turns, the steady-state ms/frame (``amortized_timer``: one graph
+    of STEADY_ITERS frames, replayed), the graph's replay alone, the eager
     frame (``timed_ms``) and its profiled busy time. Returns the report and
     the launches of the sharded drives and of the captures."""
     from pronerf_tpu_torch.config import Config
@@ -2806,8 +2794,8 @@ def multi_frames(tmp, device, profile=False):
             forms = {"default": st}
             if w == W_IMG:
                 forms |= {
-                    "eager_composite": dataclasses.replace(
-                        st, fuse_composite=False),
+                    # the raw-kernel route: the raw kernel and ops.composite
+                    "raw_route": dataclasses.replace(st, clamp_raw=True),
                     "int8": dataclasses.replace(st, quant="int8"),
                     "transposed": dataclasses.replace(st, transposed=True)}
             c2w = data["poses"][data["i_test"][0]][:3, :4]
@@ -3261,7 +3249,7 @@ def export_case(what, cfg, height, width, device, tmp):
         "H": height, "W": width, "statics": {
             k: manifest["statics"][k] for k in (
                 "compute_dtype", "use_kernels", "quant", "transposed",
-                "gather_tiles", "gather_window_rows", "fuse_composite")},
+                "gather_tiles", "gather_window_rows")},
         "manifest_keys": sorted(manifest), "platforms": manifest["platforms"],
         "export_s": export_s, "load_s": load_s,
         "artifact_bytes": {k: p.stat().st_size for k, p in paths.items()},
@@ -3807,7 +3795,6 @@ def bench_child():
 # ones by their rows in read_counters)
 START_FORMS = {
     "default": ({}, {"fused_nerf_composite_t"}),
-    "eager_composite": ({"fuse_composite": False}, {"fused_nerf_raw_t"}),
     "int8": ({"quant": "int8"}, {"fused_nerf_raw_tq"}),
     "transposed": ({"transposed": True},
                    {"fused_nerf_composite_t", UNTRANSPOSED}),
@@ -3924,7 +3911,7 @@ def protocol_bench(device, env):
 
 
 def protocol_start(env):
-    """The first frames of a fresh serving process in the four forms at
+    """The first frames of a fresh serving process in the three forms at
     504x378 and 1008x756 (``chip_smoke.py --start-child``): each finite,
     launching its form's kernels and no other, the 1008x756 ones through
     the windowed gather, and ``torch._dynamo`` never imported."""
@@ -4092,7 +4079,7 @@ def phase_protocols(device):
     """The twins of the JAX package's measurement and release entry
     points, each as a subprocess on the card, each printing its JSON line:
     the headline bench (its launches read, one frame profiled), a serving
-    process's first frames in four forms (``protocol_start``), the
+    process's first frames in three forms (``protocol_start``), the
     training bench (chained graph against eager steps), ``verify_fern
     --fixture``, ``bench_coldstart`` warm and ``--no-cache``, and
     ``rehearse_release`` from a raw capture with PIL blocked.
@@ -4566,33 +4553,10 @@ def trained_serving(tmp, device):
                 expect_counts("trained eval", counts, sampler=n, refine=n,
                               fused_nerf_composite_t=n)
             all_finite({name: ev["rgbs1"]})
-        # the eager composite arm (fuse_composite=False) has no command-line
-        # flag: the same frames through the renderer the eval verb calls
-        cfg = Config.from_file(ROOT / "configs/llff/fern/fern_trt.txt",
-                               datadir=TRAINED_SPEC, use_trt=True,
-                               use_pallas=True, tile_rays=0)
-        data = infer.load_inference_data(cfg)
-        params = infer.load_params_for_inference(str(TRAINED_S2), cfg,
-                                                 device)
-        scene = infer._serving_scene(cfg, data, device)
-        statics = infer._infer_statics(cfg, use_bf16=True)
-        eager = dataclasses.replace(statics, fuse_composite=False)
-        i_test = data["i_test"]
-        reset_counters()
-        res = render_path(data["poses"][i_test], params, scene, eager,
-                          data["H"], data["W"], data["K"],
-                          gt_imgs=data["images"][i_test], tile_rays=0,
-                          device=device)
-        counts = read_counters()
-        expect_counts("trained eager composite", counts, sampler=3, refine=3,
-                      fused_nerf_raw_t=3)
-        forms["eager_composite"] = {"psnrs_rgb1": res["psnrs"],
-                                   "mean_rgb1": float(np.mean(res["psnrs"])),
-                                   "launches": counts}
     if any(plain.values()):
         raise SystemExit(f"trained: plain versions called {plain}")
     ref = forms["use_pallas_false"]["psnrs_rgb1"]
-    for name in ("kernels", "eager_composite", "transposed"):
+    for name in ("kernels", "transposed"):
         gap = [abs(a - b) for a, b in zip(forms[name]["psnrs_rgb1"], ref)]
         forms[name]["max_view_gap_db"] = max(gap)
         if max(gap) > TRAINED_VIEW_DB:
@@ -4605,11 +4569,20 @@ def trained_serving(tmp, device):
         raise SystemExit(f"trained: int8 {forms['int8']}")
 
     # each kernel against its plain version on the first held-out view's
-    # own inputs: the default graph (sampler, refine, composite), the eager
-    # composite arm (raw) and int8
-    pose = data["poses"][i_test[:1]]
+    # own inputs, through the renderer the eval verb calls: the default
+    # graph (sampler, refine, composite), the raw-kernel route (the served
+    # statics with the stage-1 raw clamp: raw) and int8
+    cfg = Config.from_file(ROOT / "configs/llff/fern/fern_trt.txt",
+                           datadir=TRAINED_SPEC, use_trt=True,
+                           use_pallas=True, tile_rays=0)
+    data = infer.load_inference_data(cfg)
+    params = infer.load_params_for_inference(str(TRAINED_S2), cfg, device)
+    scene = infer._serving_scene(cfg, data, device)
+    statics = infer._infer_statics(cfg, use_bf16=True)
+    pose = data["poses"][data["i_test"][:1]]
     with kernel_inputs() as seen:
-        for st in (statics, eager, dataclasses.replace(statics, quant="int8")):
+        for st in (statics, dataclasses.replace(statics, clamp_raw=True),
+                   dataclasses.replace(statics, quant="int8")):
             render_path(pose, params, scene, st, data["H"], data["W"],
                         data["K"], tile_rays=0, device=device)
     want = {"fused_minmax_t[sampler]", "fused_minmax_t[refine]",

@@ -55,7 +55,7 @@ def pack_minmax_params(net, reps: int, dtype=torch.bfloat16, c_rep: int = 6,
     ``reps * c_rep`` input features are an exact tiling.
 
     Args:
-      net: a :class:`pronerf_tpu_torch.models.mlp.MinMaxMLP`.
+      net: a :class:`models.mlp.MinMaxMLP`.
       reps: tile count of the repeated leading block (48 sampler, 8 refine).
       c_rep: width of the repeated block: 6 (Pluecker [d, m]).
       rest_row_perm: optional permutation of the NON-repeated trailing input

@@ -76,7 +76,7 @@ def _split_pe_rows(w, L: int):
 
 
 def pack_nerf_params(net, dtype=torch.bfloat16):
-    """Split/reorder a :class:`pronerf_tpu_torch.models.mlp.NeRFMLP` into
+    """Split/reorder a :class:`models.mlp.NeRFMLP` into
     TRANSPOSED kernel panels (w_t [out, in]; biases as [out, 1] columns),
     with the keys, shapes and values of the JAX pack.
 

@@ -78,7 +78,7 @@ def calibrate_nerf_ranges(net, n: int = 8192, pts=None, dirs=None,
     """Per-channel activation ranges for the int8 chain.
 
     Runs the f32 NeRF forward of ``net`` (a
-    :class:`pronerf_tpu_torch.models.mlp.NeRFMLP`) on ``n`` synthetic query
+    :class:`models.mlp.NeRFMLP`) on ``n`` synthetic query
     points spanning the NDC volume the serving path evaluates (x, y in
     [-1.25, 1.25], z in [-0.1, 1.1]; random unit view directions) and
     records the range of every tensor the kernel quantizes.
@@ -164,7 +164,7 @@ def _fold(w_t, b, s_in, m_in, s_out=None, m_out=None):
 
 @torch.no_grad()
 def pack_nerf_params_int8(net, ranges=None, pe_dtype=torch.bfloat16):
-    """Pack a :class:`pronerf_tpu_torch.models.mlp.NeRFMLP` into int8 kernel
+    """Pack a :class:`models.mlp.NeRFMLP` into int8 kernel
     panels (plus the bf16 PE panels), with the keys, shapes and dtypes of the
     JAX pack: ``w{1..7}q, wfq [256, 256]``, ``wvq [128, 256]``, ``waq
     [8, 256]``, ``wrq [8, 128]`` int8; ``A*, B* [out, 1]`` and ``vcon_scale

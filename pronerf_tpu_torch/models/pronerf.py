@@ -72,9 +72,12 @@ class RenderStatics:
 
     Factory helpers below derive the (stage, branch) behavior matrix; every
     epsilon that differs between stages is explicit. The fields are those of
-    the JAX package's ``RenderStatics``, with ``use_kernels`` in the place of
-    ``use_pallas``. ``transposed`` is read by the frame renderer, which then
-    takes ``models.pronerf_t.render_rays_t``.
+    the JAX package's ``RenderStatics`` with ``use_kernels`` in the place of
+    ``use_pallas``, less two: its switch of the composite into the NeRF
+    kernel (the kernel path here composites there wherever the statics
+    allow it) and its Pallas block of rays (the CUDA kernels fix their tile
+    at build time). The graph a ray slab runs is picked by
+    ``models.pronerf_t.graph_for``.
     """
 
     N_samples: int = 8
@@ -102,11 +105,6 @@ class RenderStatics:
     compute_dtype: Optional[str] = None  # 'bfloat16' for the inference path
     use_kernels: bool = False  # fused PE->NeRF(->composite) and MinMax
                                # kernels (inference)
-    fuse_composite: bool = False  # stream alpha compositing inside the NeRF
-                                  # kernel, so raw [N, S, 4] never reaches
-                                  # device memory (``infer`` turns it on)
-    pallas_block_rays: int = 4096  # carried for config parity; the CUDA
-                                   # kernels fix their tile at build time
     gather_tiles: int = 0      # windowed epipolar gather: contiguous ray
                                # tiles a call (0 = off; -1 = auto, resolved
                                # by render.renderer.resolve_gather_statics)
@@ -167,22 +165,16 @@ class RenderStatics:
     def infer(
         compute_dtype: Optional[str] = None,
         use_kernels: bool = False,
-        fuse_composite: bool = True,
         **kw,
     ) -> "RenderStatics":
         """Deterministic inference, optionally in bfloat16 and/or through
         the fused kernels. With the kernels the frame composites inside the
-        NeRF kernel unless the caller passes ``fuse_composite=False`` (the
-        int8 kernel returns raw for ``ops.composite`` either way). The JAX
-        package's ``infer`` leaves it off, for a v5e reason: its XLA
-        composite fused with its neighbours there; on the H100 the eager
-        composite is a chain of small kernels."""
+        NeRF kernel (the int8 kernel returns raw for ``ops.composite``)."""
         return RenderStatics(
             near=0.0, ndc_eps=1e-5, epi_layout="vsc", randomize=False,
             stop_sampler_grad=False, explore=False, jitter=False,
             add_offsets=True, use_mm=True, clamp_raw=False, noise_std=0.0,
-            compute_dtype=compute_dtype, use_kernels=use_kernels,
-            fuse_composite=fuse_composite, **kw,
+            compute_dtype=compute_dtype, use_kernels=use_kernels, **kw,
         )
 
 
@@ -306,12 +298,74 @@ def _gather_on_kernel(statics, mm_kernel: bool, images, gather_dtype):
             and images.is_cuda and gather_dtype == torch.bfloat16)
 
 
+def pack_serving_params(params, statics: RenderStatics):
+    """Return ``params`` with the kernel panels that a frame of ``statics``
+    reads, so that a renderer packs them once a parameter set, not once a
+    frame. ``render_rays`` and ``models.pronerf_t.render_rays_t`` call it on
+    entry, where packed params make it a no-op.
+
+    - ``nerf_packed_q`` (the int8 panels) with ``quant = 'int8'``, else
+      ``nerf_packed``; with ``transposed`` ``nerf_packed`` too, because the
+      transposed graph composites in the bf16/f32 NeRF kernel, as the JAX
+      package's does;
+    - ``sampler_packed`` / ``refine_packed`` when the MinMax nets run as
+      kernels in ``render_rays`` (bf16 and no ``mmnetskips``: the fold's
+      precondition);
+    - with ``transposed`` (and no ``mmnetskips``) ``sampler_packed`` and
+      ``refine_packed_t``, whose first-layer rows are permuted to the
+      transposed graph's (v, c, s) feature order.
+
+    Returns ``params`` itself outside the kernel path and when every panel
+    is there; else a new dict with the missing panels added, so that params
+    packed for one form and handed to another are completed.
+    """
+    if not statics.use_kernels:
+        return params
+    pdt = (torch.bfloat16 if statics.compute_dtype == "bfloat16"
+           else torch.float32)
+    int8, bf16 = statics.quant == "int8", pdt == torch.bfloat16
+    minmax = not statics.mmnetskips
+    need = {
+        "nerf_packed_q": int8,
+        "nerf_packed": not int8 or statics.transposed,
+        "sampler_packed": minmax and (bf16 or statics.transposed),
+        "refine_packed": minmax and bf16,
+        "refine_packed_t": minmax and statics.transposed,
+    }
+    missing = [k for k, on in need.items() if on and k not in params]
+    if not missing:
+        return params
+    from pronerf_tpu_torch.kernels import (
+        fused_minmax,
+        fused_nerf,
+        fused_nerf_q,
+    )
+    from pronerf_tpu_torch.models.pronerf_t import refine_rest_row_perm
+
+    S = statics.N_samples
+    pack = {
+        "nerf_packed_q": lambda: fused_nerf_q.pack_nerf_params_int8(
+            params["nerf"]),
+        "nerf_packed": lambda: fused_nerf.pack_nerf_params(params["nerf"],
+                                                           pdt),
+        "sampler_packed": lambda: fused_minmax.pack_minmax_params(
+            params["sampler"], statics.N_point_ray_enc, pdt),
+        "refine_packed": lambda: fused_minmax.pack_minmax_params(
+            params["refine"], S, pdt),
+        "refine_packed_t": lambda: fused_minmax.pack_minmax_params(
+            params["refine"], S, pdt, rest_row_perm=refine_rest_row_perm(
+                statics.num_neighbor, S)),
+    }
+    return dict(params, **{k: pack[k]() for k in missing})
+
+
 def render_rays(params, rays, scene, controls, statics: RenderStatics):
     """Render a batch of rays end to end.
 
     Args:
       params: {'nerf', 'sampler', 'refine'} modules, optionally with the
-        pre-packed kernel panels of ``kernels.packing.pack_serving_params``.
+        kernel panels of :func:`pack_serving_params` (packed here where
+        they are missing).
       rays: dict of [N, ...] tensors: ndc_o, ndc_d, viewdirs (unit world
         dirs), or_o, or_d (original camera-space rays for warping), and
         pose_id ([N] train-view id; read when ``randomize``).
@@ -347,6 +401,7 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
       depth, disp, acc, mm_rgb, depth0, weights, sigma.
     """
     _check_statics(statics)
+    params = pack_serving_params(params, statics)
     S = statics.N_samples
     near, far = statics.near, statics.far
     cdt = torch.bfloat16 if statics.compute_dtype == "bfloat16" else None
@@ -367,19 +422,12 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
         frozen = torch.no_grad() if statics.stop_sampler_grad \
             else contextlib.nullcontext()
         if mm_kernel:
-            from pronerf_tpu_torch.kernels.fused_minmax import (
-                fused_minmax_t,
-                pack_minmax_params,
-            )
+            from pronerf_tpu_torch.kernels.fused_minmax import fused_minmax_t
 
             sig = plucker(ndc_o, ndc_d)  # [N, 6]
             sig_t = sig.T.contiguous()
-            packed_s = params.get("sampler_packed")
-            if packed_s is None:
-                packed_s = pack_minmax_params(
-                    params["sampler"], statics.N_point_ray_enc, cdt
-                )
-            mm_out = fused_minmax_t(packed_s, sig_t)[:, : 3 * S + 3]
+            mm_out = fused_minmax_t(params["sampler_packed"],
+                                    sig_t)[:, : 3 * S + 3]
         elif fold_mm:
             sig = plucker(ndc_o, ndc_d)  # [N, 6]
             with frozen:
@@ -505,16 +553,14 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
     # Pluecker signature.
     with span("refine"):
         if mm_kernel:
-            packed_r = params.get("refine_packed")
-            if packed_r is None:
-                packed_r = pack_minmax_params(params["refine"], S, cdt)
             if x_t is None:
                 # one dtype for the concat, so a bf16 gather stays bf16 (the
                 # kernel casts its input to bf16 on entry either way)
                 epi_rows_t = epi_t if epi_t is not None else epi_flat.T
                 x_t = torch.cat([sig_t.to(epi_rows_t.dtype), epi_rows_t],
                                 dim=0)
-            refine_out = fused_minmax_t(packed_r, x_t)[:, : 4 * S + 3]
+            refine_out = fused_minmax_t(params["refine_packed"],
+                                        x_t)[:, : 4 * S + 3]
         elif fold_mm:
             with frozen:
                 refine_out = minmax_mlp_apply_folded(
@@ -561,12 +607,13 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
         comp = None
         if statics.use_kernels:
             # PE + MLP chain inside the kernel; the view-dir ENCODING and its
-            # small product stay outside. With fuse_composite (and inference
-            # semantics) alpha compositing streams inside the kernel.
+            # small product stay outside. Where the statics allow it (no
+            # noise, exploration or raw clamp; the density corrections on),
+            # alpha compositing streams inside the kernel; else the raw
+            # kernel's output goes to ops.composite.
             from pronerf_tpu_torch.kernels.fused_nerf import (
                 fused_nerf_composite_t,
                 fused_nerf_raw_t,
-                pack_nerf_params,
             )
 
             kdt = torch.bfloat16 if cdt is not None else torch.float32
@@ -586,30 +633,23 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
                 )
             pts24_t = pts24_t.float().contiguous()
             fuse_comp = (
-                statics.fuse_composite and statics.noise_std == 0.0
-                and not statics.explore and not statics.clamp_raw
-                and statics.use_mm
+                statics.noise_std == 0.0 and not statics.explore
+                and not statics.clamp_raw and statics.use_mm
             )
             if statics.quant == "int8":
                 # the int8 serving path (opt-in); compositing stays in
                 # ops.composite, never inside the kernel
                 from pronerf_tpu_torch.kernels.fused_nerf_q import (
                     fused_nerf_raw_tq,
-                    pack_nerf_params_int8,
                 )
 
-                packed_q = params.get("nerf_packed_q")
-                if packed_q is None:
-                    packed_q = pack_nerf_params_int8(params["nerf"])
                 raw = fused_nerf_raw_tq(
-                    packed_q, pts24_t, vcon_t.contiguous(), n_samples=S)
+                    params["nerf_packed_q"], pts24_t, vcon_t.contiguous(),
+                    n_samples=S)
             elif fuse_comp:
-                packed = params.get("nerf_packed")
-                if packed is None:
-                    packed = pack_nerf_params(params["nerf"], kdt)
                 dnorm = torch.linalg.norm(ndc_d, dim=-1)[None, :]
                 comp = fused_nerf_composite_t(
-                    packed, pts24_t, vcon_t,
+                    params["nerf_packed"], pts24_t, vcon_t,
                     z_vals.T.float().contiguous(),
                     mm_add.T.float().contiguous(),
                     mm_mul.T.float().contiguous(),
@@ -618,10 +658,8 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
                 )
                 sigma_out = comp["sigma"]
             else:
-                packed = params.get("nerf_packed")
-                if packed is None:
-                    packed = pack_nerf_params(params["nerf"], kdt)
-                raw = fused_nerf_raw_t(packed, pts24_t, vcon_t, n_samples=S)
+                raw = fused_nerf_raw_t(params["nerf_packed"], pts24_t, vcon_t,
+                                       n_samples=S)
         else:
             query_pts = ray_points(ndc_o, ndc_d, z_vals)
             if statics.add_offsets:

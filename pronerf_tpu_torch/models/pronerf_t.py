@@ -30,6 +30,8 @@ import torch
 from pronerf_tpu_torch.models.pronerf import (
     RenderStatics,
     _nearest_views,
+    pack_serving_params,
+    render_rays,
     view_contribution,
 )
 from pronerf_tpu_torch.ops.encoding import positional_encoding
@@ -59,6 +61,16 @@ def transposed_eligible(statics: RenderStatics, images) -> bool:
         and statics.netarch == "nerf"
         and is_u8_pack(images)
     )
+
+
+def graph_for(statics: RenderStatics, images):
+    """The graph a ray slab of ``statics`` runs over ``images``: this
+    module's ``render_rays_t`` with ``transposed`` where it implements the
+    statics exactly (:func:`transposed_eligible`), else
+    ``models.pronerf.render_rays``. The frame renderers call it."""
+    if statics.transposed and transposed_eligible(statics, images):
+        return render_rays_t
+    return render_rays
 
 
 def refine_rest_row_perm(num_neighbor: int, n_samples: int):
@@ -105,20 +117,15 @@ def render_rays_t(params, rays, scene, controls, statics: RenderStatics):
     bounded float reassociation). The stages carry ``render_rays``' spans,
     but for ``composite``, which runs inside the NeRF kernel here.
     """
-    from pronerf_tpu_torch.kernels.fused_minmax import (
-        fused_minmax_t,
-        pack_minmax_params,
-    )
-    from pronerf_tpu_torch.kernels.fused_nerf import (
-        fused_nerf_composite_t,
-        pack_nerf_params,
-    )
+    from pronerf_tpu_torch.kernels.fused_minmax import fused_minmax_t
+    from pronerf_tpu_torch.kernels.fused_nerf import fused_nerf_composite_t
 
     if not transposed_eligible(statics, scene["images"]):
         raise ValueError(
             "render_rays_t implements the deterministic kernel serving "
             "branch over a u8-packed scene only (see transposed_eligible)"
         )
+    params = pack_serving_params(params, statics)
     S = statics.N_samples
     V = statics.num_neighbor
     near, far = statics.near, statics.far
@@ -135,13 +142,9 @@ def render_rays_t(params, rays, scene, controls, statics: RenderStatics):
     # 48-point signature is 48 copies of one 6-vector).
     with span("sampler"):
         sig_t = _plucker_t(ndc_o_t, ndc_d_t)  # [6, N]
-        packed_s = params.get("sampler_packed")
-        if packed_s is None:
-            packed_s = pack_minmax_params(
-                params["sampler"], statics.N_point_ray_enc, kdt
-            )
         # [out_pad, N]; heads are ROW slices
-        mm_out = fused_minmax_t(packed_s, sig_t, transpose_out=False)
+        mm_out = fused_minmax_t(params["sampler_packed"], sig_t,
+                                transpose_out=False)
         mm_rgb_t = torch.sigmoid(mm_out[3 * S: 3 * S + 3])  # [3, N]
         depth_t = torch.sigmoid(mm_out[:S]) * (far - near) + near  # [S, N]
         mm_add_t = mm_out[S: 2 * S]
@@ -169,14 +172,9 @@ def render_rays_t(params, rays, scene, controls, statics: RenderStatics):
 
     # 4. Refine net; first-layer rows permuted to the (v, c, s) order.
     with span("refine"):
-        packed_r = params.get("refine_packed_t")
-        if packed_r is None:
-            packed_r = pack_minmax_params(
-                params["refine"], S, kdt,
-                rest_row_perm=refine_rest_row_perm(V, S),
-            )
         refine_out = fused_minmax_t(
-            packed_r, torch.cat([sig_t, epi_t], dim=0), transpose_out=False,
+            params["refine_packed_t"], torch.cat([sig_t, epi_t], dim=0),
+            transpose_out=False,
         )  # [out_pad, N]
         refine_sig_t = torch.sigmoid(refine_out[:S])                # [S, N]
         refine_rgb_t = torch.sigmoid(refine_out[4 * S: 4 * S + 3])  # [3, N]
@@ -196,15 +194,13 @@ def render_rays_t(params, rays, scene, controls, statics: RenderStatics):
             + z_vals_t.repeat_interleave(3, dim=0) * ndc_d_t.repeat(S, 1)
             + statics.offset_scale * torch.tanh(po_rows)
         )  # [S*3, N]
-        packed_n = params.get("nerf_packed")
-        if packed_n is None:
-            packed_n = pack_nerf_params(params["nerf"], kdt)
         d_pe = positional_encoding(rays["viewdirs"], statics.multires_views)
         vcon_t = view_contribution(params["nerf"], d_pe, kdt)  # [128, N]
         dnorm_t = torch.sqrt(torch.sum(ndc_d_t * ndc_d_t,
                                        dim=0))[None]  # [1, N]
         comp = fused_nerf_composite_t(
-            packed_n, pts24_t.float().contiguous(), vcon_t.contiguous(),
+            params["nerf_packed"], pts24_t.float().contiguous(),
+            vcon_t.contiguous(),
             z_vals_t.float().contiguous(),
             mm_add_t.float().contiguous(),
             mm_mul_t.float().contiguous(),

@@ -3,8 +3,8 @@ axis, the counterpart of ``pronerf_tpu/parallel/render_parallel.py``.
 
 A frame is embarrassingly parallel over rays. Each rank of a ray mesh
 (``parallel/data_parallel.py``) renders one slab of the frame's rays
-through ``render_rays`` (or ``render_rays_t``) with the kernels, and one
-all-gather gives every rank the whole frame. The frame's H*W rays are
+through the graph ``models.pronerf_t.graph_for`` picks, with the kernels,
+and one all-gather gives every rank the whole frame. The frame's H*W rays are
 padded with zero rays to a multiple of the mesh's size. The windowed
 gather's statics are resolved for the slab, as the JAX package resolves
 them (``resolve_gather_statics(statics, H, W, H*W // size)``): the windows
@@ -22,16 +22,17 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from pronerf_tpu_torch.models.pronerf import RenderStatics, render_rays
+from pronerf_tpu_torch.models.pronerf import RenderStatics
+from pronerf_tpu_torch.models.pronerf_t import graph_for
 from pronerf_tpu_torch.parallel.data_parallel import RayMesh
 from pronerf_tpu_torch.render.raygen import rays_for_pose
 from pronerf_tpu_torch.render.renderer import (
+    _FRAME_KEYS,
     params_packer,
     resolve_gather_statics,
 )
 from pronerf_tpu_torch.utils.tensors import as_f32, resolve_device
 
-_FRAME_KEYS = ("rgb1", "rgb0", "depth", "mm_rgb", "depth0")
 _WIDTHS = {"rgb1": 3, "rgb0": 3, "depth": 1, "mm_rgb": 3, "depth0": 1}
 
 
@@ -50,11 +51,6 @@ def make_sharded_frame_renderer(statics: RenderStatics, H: int, W: int, K,
     statics = resolve_gather_statics(statics, H, W, (H * W) // size)
     n = H * W
     per = -(-n // size)
-    if statics.transposed:
-        from pronerf_tpu_torch.models.pronerf_t import (
-            render_rays_t,
-            transposed_eligible,
-        )
 
     def gather(local):
         if mesh.group is None:
@@ -70,10 +66,7 @@ def make_sharded_frame_renderer(statics: RenderStatics, H: int, W: int, K,
                                                   *v.shape[1:]))])
                     for k, v in rays.items()}
         slab = {k: v[rank * per:(rank + 1) * per] for k, v in rays.items()}
-        fn = render_rays
-        if statics.transposed and transposed_eligible(statics,
-                                                      scene["images"]):
-            fn = render_rays_t
+        fn = graph_for(statics, scene["images"])
         out = fn(packed, slab, scene, {"target_t": c2w[:3, 3]}, statics)
         local = torch.cat([out[k].reshape(per, _WIDTHS[k])
                            for k in _FRAME_KEYS], dim=1)

@@ -37,8 +37,11 @@ from pronerf_tpu_torch.kernels import epipolar_gather  # noqa: F401
 from pronerf_tpu_torch.kernels import fused_minmax  # noqa: F401
 from pronerf_tpu_torch.kernels import fused_nerf  # noqa: F401
 from pronerf_tpu_torch.kernels import fused_nerf_q  # noqa: F401
-from pronerf_tpu_torch.kernels.packing import pack_serving_params
-from pronerf_tpu_torch.models.pronerf import RenderStatics, init_pronerf_params
+from pronerf_tpu_torch.models.pronerf import (
+    RenderStatics,
+    init_pronerf_params,
+    pack_serving_params,
+)
 from pronerf_tpu_torch.render.renderer import (
     make_frame_renderer,
     resolve_gather_statics,

@@ -28,8 +28,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pronerf_tpu_torch.kernels.packing import pack_serving_params
-from pronerf_tpu_torch.models.pronerf import RenderStatics, render_rays
+from pronerf_tpu_torch.models.pronerf import (
+    RenderStatics,
+    pack_serving_params,
+)
+from pronerf_tpu_torch.models.pronerf_t import graph_for
 from pronerf_tpu_torch.render.raygen import rays_for_pose
 from pronerf_tpu_torch.utils.profiling import COUNTERS, span, timed_ms
 from pronerf_tpu_torch.utils.tensors import as_f32, resolve_device
@@ -96,9 +99,9 @@ def make_frame_renderer(
     device is the card; without one the call raises (pass ``device='cpu'``
     to run the plain versions).
 
-    With ``statics.transposed`` the tiles go through the transposed serving
-    graph (``models.pronerf_t.render_rays_t``) where it implements the
-    statics exactly (``transposed_eligible``), else through ``render_rays``.
+    The tiles go through the graph ``models.pronerf_t.graph_for`` picks:
+    with ``statics.transposed`` the transposed serving graph where it
+    implements the statics exactly, else ``render_rays``.
     ``gather_tiles = -1`` is resolved for ``tile_rays`` rays a call
     (``resolve_gather_statics``); the renderer's ``statics`` attribute holds
     the resolved statics.
@@ -118,11 +121,6 @@ def make_frame_renderer(
     # the windows depend on where a call's ray tiles begin: a short last
     # call is padded to the nominal size, as the JAX renderer pads it
     pad_last = statics.gather_tiles > 0 and statics.gather_window_rows > 0
-    if statics.transposed:
-        from pronerf_tpu_torch.models.pronerf_t import (
-            render_rays_t,
-            transposed_eligible,
-        )
 
     def frame(packed, scene, c2w):
         """The frame itself, from packed params and a [3, 4] f32 pose on the
@@ -131,10 +129,7 @@ def make_frame_renderer(
         with span("raygen"):
             rays = rays_for_pose(H, W, K, c2w, device)
         controls = {"target_t": c2w[:3, 3]}
-        fn = render_rays
-        if statics.transposed and transposed_eligible(statics,
-                                                      scene["images"]):
-            fn = render_rays_t
+        fn = graph_for(statics, scene["images"])
         outs = []
         for lo in range(0, H * W, tile_rays):
             tile = {k: v[lo:lo + tile_rays] for k, v in rays.items()}

@@ -72,9 +72,11 @@ def test_config_and_statics_equal_run_bench(num_neighbor):
     j = dataclasses.asdict(jst)
     t = dataclasses.asdict(st)
     assert j.pop("use_pallas") == t.pop("use_kernels") is True
-    # the port's served frame composites inside the NeRF kernel; the JAX
-    # package's keeps its eager composite (its v5e default)
-    assert t.pop("fuse_composite") is True and j.pop("fuse_composite") is False
+    # the JAX twin's fields the port does not carry: its composite switch
+    # (the port's served frame composites inside the NeRF kernel; JAX's
+    # keeps its v5e default, off) and its Pallas block of rays
+    assert j.pop("fuse_composite") is False
+    j.pop("pallas_block_rays")
     assert j == t
     assert (st.compute_dtype, st.num_neighbor) == ("bfloat16", num_neighbor)
 

@@ -23,6 +23,7 @@ for f32 (``atol 5e-5``, ``depth 5e-4``: the JAX test's bounds between its
 own two paths), on a held-out pose (the reason stands in that file).
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -93,16 +94,18 @@ VARIANTS = {
     "kernels": (RenderStatics.infer(compute_dtype="bfloat16",
                                     use_kernels=True), 0, dict(mmnetdepth=2),
                 {"fused_minmax", "fused_nerf_composite"}),
-    "kernels_eager_composite": (RenderStatics.infer(
-        compute_dtype="bfloat16", use_kernels=True, fuse_composite=False), 0,
+    # the raw-kernel route (under the stage-1 raw clamp): the raw kernel
+    # and ops.composite
+    "kernels_eager_composite": (dataclasses.replace(RenderStatics.infer(
+        compute_dtype="bfloat16", use_kernels=True), clamp_raw=True), 0,
         dict(mmnetdepth=2), {"fused_minmax", "fused_nerf_raw"}),
     "kernels_int8": (RenderStatics.infer(compute_dtype="bfloat16",
                                          use_kernels=True, quant="int8"), 0,
                      dict(mmnetdepth=2),
                      {"fused_minmax", "fused_nerf_raw_q"}),
     "kernels_transposed": (RenderStatics.infer(
-        compute_dtype="bfloat16", use_kernels=True, transposed=True,
-        fuse_composite=True), 0, dict(mmnetdepth=2),
+        compute_dtype="bfloat16", use_kernels=True, transposed=True), 0,
+        dict(mmnetdepth=2),
         {"fused_minmax", "fused_nerf_composite"}),
 }
 
@@ -166,10 +169,13 @@ def test_exported_frame_against_jax_export(tmp_path):
                                    atol=5e-4 if k == "depth" else 5e-5,
                                    err_msg=k)
     # the manifest's keys are the JAX manifest's; its statics too, but for
-    # the kernels' switch, named by each package (use_pallas, use_kernels)
+    # the kernels' switch, named by each package (use_pallas, use_kernels),
+    # and the two JAX fields the port does not carry (its composite switch
+    # and its Pallas block of rays)
     assert set(man) == set(jman)
     rename = {"use_kernels": "use_pallas"}
-    assert {rename.get(k, k) for k in man["statics"]} == set(jman["statics"])
+    assert {rename.get(k, k) for k in man["statics"]} == set(
+        jman["statics"]) - {"fuse_composite", "pallas_block_rays"}
     assert json.loads((tmp_path / "port" / "manifest.json").read_text()) == \
         man
 

@@ -338,12 +338,10 @@ def test_infer_statics_and_frame_renderer_resolve_as_jax_at_1008x756():
             jres = j_renderer.resolve_gather_statics(jst, *HW, rays)
             got = render.statics
             fields = {f.name for f in dataclasses.fields(got)} - {
-                "use_kernels", "fuse_composite"}
+                "use_kernels"}
             assert {f: getattr(got, f) for f in fields} == {
                 f: getattr(jres, f) for f in fields}
             assert got.use_kernels == jres.use_pallas
-            # the port's served frame composites inside the NeRF kernel
-            assert got.fuse_composite and not jres.fuse_composite
             if tile == 0:
                 assert (got.gather_tiles, got.gather_window_rows) == want
 

@@ -127,7 +127,6 @@ def test_frame_through_the_kernel_equals_the_pytorch_form(card, hw,
     statics the frame renderer resolves: every output equal bit for bit to
     the same frame with the route off (the PyTorch form on the card)."""
     from pronerf_tpu_torch.kernels import epipolar_gather as eg
-    from pronerf_tpu_torch.kernels.packing import pack_serving_params
     from pronerf_tpu_torch.models import pronerf
     from pronerf_tpu_torch.render.raygen import prepare_scene, rays_for_pose
     from pronerf_tpu_torch.render.renderer import resolve_gather_statics
@@ -146,7 +145,7 @@ def test_frame_through_the_kernel_equals_the_pytorch_form(card, hw,
         H, W, H * W)
     params = pronerf.init_pronerf_params(torch.Generator().manual_seed(3),
                                          device=card)
-    packed = pack_serving_params(params, statics)
+    packed = pronerf.pack_serving_params(params, statics)
     controls = {"target_t": torch.as_tensor(sc["poses"][1][:3, 3],
                                             device=card)}
     with torch.no_grad():

@@ -26,7 +26,7 @@ def test_port_has_the_expected_modules():
                  "models.mlp", "models.pronerf", "models.pronerf_t",
                  "kernels.build", "kernels.fused_minmax",
                  "kernels.fused_nerf", "kernels.fused_nerf_q",
-                 "kernels.packing", "kernels.library",
+                 "kernels.library",
                  "kernels.epipolar_gather", "render.raygen",
                  "render.renderer",
                  "render.infer", "utils.synthetic", "utils.profiling",

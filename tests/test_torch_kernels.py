@@ -283,7 +283,7 @@ def test_fused_nerf_composite_against_jax_kernel(dtype, n, white_bkgd):
 
 def test_fused_nerf_composite_f32_equals_raw_plus_composite_op():
     """The streaming composite equals the raw kernel followed by
-    ``ops.composite`` (the A/B of ``fuse_composite``), the JAX test's
+    ``ops.composite`` (the kernel path's two routes), the JAX test's
     bounds."""
     from pronerf_tpu_torch.ops.composite import composite
 

@@ -23,6 +23,7 @@ form of ``amortized_timer`` cannot run (the card's run is ``chip_smoke.py
 """
 
 import contextlib
+import dataclasses
 import json
 import sys
 
@@ -136,13 +137,13 @@ def test_span_is_one_shared_object_while_off(frame_scene):
 
 FRAME_FORMS = {
     # name: (statics, the stages render_rays runs); the served frame
-    # composites inside the NeRF kernel (no composite span), the eager
-    # composite arm in ops.composite
+    # composites inside the NeRF kernel (no composite span), the raw-kernel
+    # route (under the stage-1 raw clamp) in ops.composite
     "row_major": (dict(), STAGES[:-1]),
     "windowed": (dict(gather_tiles=4, gather_window_rows=3), STAGES[:-1]),
     "transposed": (dict(transposed=True, gather_tiles=4,
                         gather_window_rows=3), STAGES[:-1]),
-    "eager_composite": (dict(fuse_composite=False), STAGES),
+    "eager_composite": (dict(clamp_raw=True), STAGES),
 }
 
 
@@ -152,8 +153,9 @@ def test_frame_spans_nest_in_stage_order(frame_scene, form):
     sc, scene, params = frame_scene
     H, W, _ = sc["hwf"]
     r = make_frame_renderer(
-        RenderStatics.infer(compute_dtype="bfloat16", use_kernels=True,
-                            **kw), H, W, sc["K"], 0, device="cpu")
+        dataclasses.replace(RenderStatics.infer(
+            compute_dtype="bfloat16", use_kernels=True), **kw),
+        H, W, sc["K"], 0, device="cpu")
     with profile(activities=[ProfilerActivity.CPU]) as prof, \
             profiling.tracing():
         r(params, scene, sc["poses"][0, :3, :4])

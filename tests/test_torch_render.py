@@ -75,16 +75,20 @@ class Fixture:
                      for k, v in self.jrays.items()}
         self.controls = {"target_t": torch.from_numpy(self.pose[:3, 3].copy())}
 
-    def both(self, compute_dtype=None, use_kernels=False, **kw):
+    def both(self, compute_dtype=None, use_kernels=False, jax_kw=(), **kw):
+        """Both packages' ``render_rays`` under the inference statics
+        replaced by ``kw`` (JAX's by ``jax_kw`` too)."""
         want = j_render_rays(
             self.jparams, self.jrays, self.jscene, self.jcontrols,
-            JStatics.infer(compute_dtype=compute_dtype, use_pallas=use_kernels,
-                           pallas_block_rays=128, **kw))
+            dataclasses.replace(JStatics.infer(
+                compute_dtype=compute_dtype, use_pallas=use_kernels,
+                pallas_block_rays=128), **kw, **dict(jax_kw)))
         with torch.no_grad():
             got = render_rays(
                 self.params, self.rays, self.scene, self.controls,
-                RenderStatics.infer(compute_dtype=compute_dtype,
-                                    use_kernels=use_kernels, **kw))
+                dataclasses.replace(RenderStatics.infer(
+                    compute_dtype=compute_dtype, use_kernels=use_kernels),
+                    **kw))
         assert set(got) == set(want) == set(KEYS)
         return ({k: v.numpy() for k, v in got.items()},
                 {k: np.asarray(v, np.float32) for k, v in want.items()})
@@ -95,22 +99,37 @@ def held_out():
     return Fixture(ref=[0, 2, 3, 4])
 
 
+# (use_kernels, fused): the kernel-free path; the raw-kernel route, which
+# the kernel path takes where the NeRF kernel cannot composite (here the
+# served statics with the stage-1 raw clamp), the raw kernel and
+# ops.composite; the served route, compositing inside the NeRF kernel
+# (JAX's under its fuse_composite).
 PATHS = [(False, False), (True, False), (True, True)]
 
 
-@pytest.mark.parametrize("use_kernels,fuse_composite", PATHS)
-def test_render_rays_f32_all_keys(held_out, use_kernels, fuse_composite):
-    got, want = held_out.both(None, use_kernels, fuse_composite=fuse_composite)
+def path_kw(use_kernels, fused):
+    """The statics' replacements of a path of ``PATHS``, and JAX's."""
+    if not use_kernels:
+        return {}, {}
+    if not fused:
+        return {"clamp_raw": True}, {}
+    return {}, {"fuse_composite": True}
+
+
+@pytest.mark.parametrize("use_kernels,fused", PATHS)
+def test_render_rays_f32_all_keys(held_out, use_kernels, fused):
+    kw, jax_kw = path_kw(use_kernels, fused)
+    got, want = held_out.both(None, use_kernels, jax_kw, **kw)
     for k in KEYS:
         assert got[k].shape == want[k].shape, k
         atol = {"depth": 5e-4, "disp": 1e-3}.get(k, 5e-5)
         np.testing.assert_allclose(got[k], want[k], atol=atol, err_msg=k)
 
 
-@pytest.mark.parametrize("use_kernels,fuse_composite", PATHS)
-def test_render_rays_bf16_all_keys(held_out, use_kernels, fuse_composite):
-    got, want = held_out.both("bfloat16", use_kernels,
-                              fuse_composite=fuse_composite)
+@pytest.mark.parametrize("use_kernels,fused", PATHS)
+def test_render_rays_bf16_all_keys(held_out, use_kernels, fused):
+    kw, jax_kw = path_kw(use_kernels, fused)
+    got, want = held_out.both("bfloat16", use_kernels, jax_kw, **kw)
     for k in KEYS:
         assert got[k].shape == want[k].shape and got[k].dtype == np.float32, k
         if k == "disp":
@@ -128,22 +147,23 @@ def test_render_rays_bf16_all_keys(held_out, use_kernels, fuse_composite):
 
 
 def test_render_rays_paths_agree_within_the_port(held_out):
-    """Kernel path (plain versions) against the kernel-free path, and the two
-    composite forms, f32: the query points built per (s, c) row equal those
-    built from the [n, S, 3] offsets."""
-    outs = {}
-    with torch.no_grad():
-        for use_kernels, fuse in PATHS:
-            outs[use_kernels, fuse] = render_rays(
+    """Both kernel routes (plain versions) against the kernel-free path
+    under the same statics, f32: the query points built per (s, c) row
+    equal those built from the [n, S, 3] offsets."""
+
+    def render(use_kernels, **kw):
+        with torch.no_grad():
+            return render_rays(
                 held_out.params, held_out.rays, held_out.scene,
-                held_out.controls,
-                RenderStatics.infer(use_kernels=use_kernels,
-                                    fuse_composite=fuse))
-    base = outs[False, False]
-    for key in ((True, False), (True, True)):
+                held_out.controls, dataclasses.replace(
+                    RenderStatics.infer(use_kernels=use_kernels), **kw))
+
+    for key in PATHS[1:]:
+        kw, _ = path_kw(*key)
+        got, base = render(True, **kw), render(False, **kw)
         for k in KEYS:
             atol = {"depth": 5e-4, "disp": 1e-3}.get(k, 5e-5)
-            np.testing.assert_allclose(outs[key][k].numpy(), base[k].numpy(),
+            np.testing.assert_allclose(got[k].numpy(), base[k].numpy(),
                                        atol=atol, err_msg=f"{key} {k}")
     z_mean = base["depth0"].numpy()
     assert z_mean.shape == (H * W,) and np.all((z_mean > 0) & (z_mean < 1))
@@ -198,20 +218,19 @@ def test_unported_branches_raise_by_name():
 
 
 def test_render_statics_twin_has_the_same_fields_and_defaults():
+    """The port's fields are JAX's, with ``use_kernels`` for ``use_pallas``,
+    less JAX's composite switch (the port's kernel path composites in the
+    NeRF kernel wherever the statics allow it) and its Pallas block of
+    rays (the CUDA kernels fix their tile at build time)."""
     j = {f.name: f.default for f in dataclasses.fields(JStatics)}
     t = {f.name: f.default for f in dataclasses.fields(RenderStatics)}
     assert j.pop("use_pallas") == t.pop("use_kernels")
+    for name in ("fuse_composite", "pallas_block_rays"):  # JAX's alone
+        j.pop(name)
     assert j == t
-    # the port's infer composites inside the NeRF kernel (its frame's
-    # eager composite is a chain of small kernels on the card); JAX's keeps
-    # its v5e default. Everything else is the same, and a caller's
-    # fuse_composite=False gives JAX's statics.
     ji, ti = JStatics.infer(), RenderStatics.infer()
-    assert ti.fuse_composite and not ji.fuse_composite
-    te = RenderStatics.infer(fuse_composite=False)
-    assert te == dataclasses.replace(ti, fuse_composite=False)
     for name in t:
-        assert getattr(ji, name) == getattr(te, name), name
+        assert getattr(ji, name) == getattr(ti, name), name
     hash(RenderStatics.infer(compute_dtype="bfloat16", use_kernels=True))
 
 
@@ -246,11 +265,9 @@ def test_frame_renderer_whole_frame_tiled_and_jax(held_out, compute_dtype):
 
 
 # The headline bench's second serving point: num_neighbor = 2 (bench.py),
-# whose refine net reads C = 6 + 3 * 2 * 8 = 54 rows, in the three forms
-# of the serving frame.
-V2_FORMS = {"default": {}, "fuse_composite": {"fuse_composite": True},
-            "transposed": {"transposed": True},
-            "eager_composite": {"fuse_composite": False}}
+# whose refine net reads C = 6 + 3 * 2 * 8 = 54 rows, in both graphs of the
+# serving frame.
+V2_FORMS = {"default": {}, "transposed": {"transposed": True}}
 
 
 @pytest.fixture(scope="module")
@@ -348,18 +365,13 @@ def test_served_frame_composites_in_the_nerf_kernel(held_out, nerf_calls,
                                                     white_bkgd):
     """The served statics composite inside the NeRF kernel: one
     ``fused_nerf_composite`` a frame and no raw kernel (int8: its raw kernel
-    and ``ops.composite``, whatever ``fuse_composite`` says), the eager arm
-    ``fuse_composite=False`` the raw kernel and ``ops.composite``. The
-    launch counters of ``profiling.COUNTERS`` move with the kernels'
-    ``launches`` (on the card one a launch; here the ops run their plain
-    versions and neither moves).
+    and ``ops.composite``). The launch counters of ``profiling.COUNTERS``
+    move with the kernels' ``launches`` (on the card one a launch; here the
+    ops run their plain versions and neither moves).
 
     The fused composite's outputs equal ``ops.composite`` over the raw
     values the kernel's chain computed, at the f32 bounds of the tests
-    above (NaN disp where a ray's weights are all zero, on both sides). The
-    two forms' frames are two renders, whose CPU matmuls may sum in another
-    order under load and move a bf16 rounding: they are held at the bf16
-    frame bound (0.02)."""
+    above (NaN disp where a ray's weights are all zero, on both sides)."""
     from pronerf_tpu_torch.kernels import fused_nerf as t_fn
     from pronerf_tpu_torch.ops.composite import composite
     from pronerf_tpu_torch.utils import profiling
@@ -367,36 +379,20 @@ def test_served_frame_composites_in_the_nerf_kernel(held_out, nerf_calls,
     fx = held_out
     statics = dataclasses.replace(served_statics(build),
                                   white_bkgd=white_bkgd)
-    assert statics.use_kernels and statics.fuse_composite
-    assert statics.compute_dtype == "bfloat16"
+    assert statics.use_kernels and statics.compute_dtype == "bfloat16"
     int8 = build == "int8"
-    want_calls = {
-        "served": dict(fused_nerf_composite_plain=0 if int8 else 1,
-                       fused_nerf_raw_plain=0, fused_nerf_raw_q_plain=int8,
-                       composite=int8),
-        "eager": dict(fused_nerf_composite_plain=0,
-                      fused_nerf_raw_plain=0 if int8 else 1,
-                      fused_nerf_raw_q_plain=int8, composite=1)}
     kernels = {"nerf_composite_launches": t_fn.fused_nerf_composite_t,
                "nerf_raw_launches": t_fn.fused_nerf_raw_t}
-    frames = {}
-    for form in ("served", "eager"):
-        st = statics if form == "served" else dataclasses.replace(
-            statics, fuse_composite=False)
-        render = make_frame_renderer(st, H, W, fx.sc["K"], 0, device="cpu")
-        before = dict(nerf_calls)
-        counters = {k: profiling.COUNTERS[k] for k in kernels}
-        launches = {k: fn.launches for k, fn in kernels.items()}
-        frames[form] = render(fx.params, fx.scene, fx.pose)
-        assert {k: nerf_calls[k] - before[k] for k in nerf_calls} \
-            == want_calls[form], form
-        for k, fn in kernels.items():
-            assert (profiling.COUNTERS[k] - counters[k]
-                    == fn.launches - launches[k] == 0), k
-    for k in frames["served"]:
-        np.testing.assert_allclose(frames["served"][k].numpy(),
-                                   frames["eager"][k].numpy(), atol=0.02,
-                                   err_msg=k)
+    render = make_frame_renderer(statics, H, W, fx.sc["K"], 0, device="cpu")
+    counters = {k: profiling.COUNTERS[k] for k in kernels}
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    render(fx.params, fx.scene, fx.pose)
+    assert nerf_calls == dict(fused_nerf_composite_plain=0 if int8 else 1,
+                              fused_nerf_raw_plain=0,
+                              fused_nerf_raw_q_plain=int8, composite=int8)
+    for k, fn in kernels.items():
+        assert (profiling.COUNTERS[k] - counters[k]
+                == fn.launches - launches[k] == 0), k
     if int8:
         return
 
@@ -418,8 +414,7 @@ def test_served_frame_composites_in_the_nerf_kernel(held_out, nerf_calls,
     monkeypatch.setattr(t_fn, "_forward_plain", forward_plain)
     with torch.no_grad():
         got = render_rays(render.pack(fx.params), fx.rays, fx.scene,
-                          fx.controls, dataclasses.replace(
-                              render.statics, fuse_composite=True))
+                          fx.controls, render.statics)
     _, _, _, z_t, mm_add_t, mm_mul_t = seen["args"][:6]
     # the op's tensors as the card's kernel takes them (it raises otherwise)
     for t in seen["args"][1:7]:
@@ -432,6 +427,49 @@ def test_served_frame_composites_in_the_nerf_kernel(held_out, nerf_calls,
         assert np.all(np.isnan(g) == np.isnan(w)), k
         atol = {"depth": 5e-4, "disp": 1e-3}.get(k, 5e-5)
         np.testing.assert_allclose(g, w, atol=atol, err_msg=k)
+
+
+# the kernel path's forms, as replacements of the bf16 kernel statics: the
+# served one, int8, the raw-kernel route and the transposed graph, in bf16
+# and in f32 (whose MinMax nets run as kernels in that graph alone)
+PACKED_FORMS = {"default": {}, "int8": {"quant": "int8"},
+                "raw_route": {"clamp_raw": True},
+                "transposed": {"transposed": True},
+                "transposed_f32": {"transposed": True, "compute_dtype": None}}
+
+
+@pytest.mark.parametrize("form", list(PACKED_FORMS))
+def test_packed_params_render_as_the_raw_ones(held_out, monkeypatch, form):
+    """The graph ``graph_for`` picks (``render_rays_t`` for the transposed
+    form, ``render_rays`` else) on the nets alone packs what it reads on
+    entry, and renders bit for bit what it renders on
+    ``pack_serving_params``' output, where no pack function is called."""
+    from pronerf_tpu_torch.kernels import fused_minmax, fused_nerf, fused_nerf_q
+    from pronerf_tpu_torch.models.pronerf import pack_serving_params
+    from pronerf_tpu_torch.models.pronerf_t import graph_for, render_rays_t
+
+    fx = held_out
+    statics = dataclasses.replace(RenderStatics.infer(
+        compute_dtype="bfloat16", use_kernels=True), **PACKED_FORMS[form])
+    graph = graph_for(statics, fx.scene["images"])
+    assert (graph is render_rays_t) == form.startswith("transposed")
+    packed = pack_serving_params(fx.params, statics)
+    args = (fx.rays, fx.scene, fx.controls, statics)
+    with torch.no_grad():
+        want = graph(fx.params, *args)
+
+        def refuse(*a, **kw):
+            raise AssertionError("packed params were packed again")
+
+        for mod, name in ((fused_minmax, "pack_minmax_params"),
+                          (fused_nerf, "pack_nerf_params"),
+                          (fused_nerf_q, "pack_nerf_params_int8")):
+            monkeypatch.setattr(mod, name, refuse)
+        got = graph(packed, *args)
+    assert set(got) == set(want) == set(KEYS)
+    for k in KEYS:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0,
+                                   equal_nan=True, msg=k)
 
 
 def test_rays_for_pose_matches_jax(held_out):

@@ -5,8 +5,9 @@ to serve its first frame, on the CPU (the ops run their plain versions;
 where the ops launch the kernels).
 
 - in a fresh process, the first frame of every serving form (default,
-  ``fuse_composite``, ``quant = int8``, ``transposed``, the eager
-  composite ``fuse_composite = False``; the whole-frame
+  ``quant = int8``, ``transposed``, and the raw-kernel route, which the
+  kernel path takes where the NeRF kernel cannot composite, here under the
+  stage-1 raw clamp; the whole-frame
   gather and the windowed one), ``bench.run_bench``, ``bench_coldstart
   --device cpu`` and the serving verbs of the command line (``eval
   --use-trt``, ``infer --use-trt --timing-reps``, ``render-path --use-trt``)
@@ -72,9 +73,9 @@ from pronerf_tpu_torch.render.renderer import make_frame_renderer
 form, windowed = sys.argv[1], sys.argv[2] == "windowed"
 H, W = 24, 32
 s = bench.setup(H=H, W=W, device="cpu")
-kw = {"default": {}, "fuse_composite": {"fuse_composite": True},
-      "int8": {"quant": "int8"}, "transposed": {"transposed": True},
-      "eager_composite": {"fuse_composite": False}}[form]
+kw = {"default": {}, "int8": {"quant": "int8"},
+      "transposed": {"transposed": True},
+      "eager_composite": {"clamp_raw": True}}[form]
 if windowed:  # the gather of a 1008x756 frame, at this size
     kw |= {"gather_tiles": 2, "gather_window_rows": 12}
 statics = dataclasses.replace(s["statics"], **kw)
@@ -86,10 +87,10 @@ report(gather_tiles=render.statics.gather_tiles,
 """
 
 # the plain versions a frame of each form reaches (the default composites
-# inside the NeRF kernel; the eager composite is the A/B arm)
+# inside the NeRF kernel; "eager_composite" is the raw-kernel route, the raw
+# kernel and ops.composite)
 FORM_CALLS = {
     "default": {"fused_minmax_plain", "fused_nerf_composite_plain"},
-    "fuse_composite": {"fused_minmax_plain", "fused_nerf_composite_plain"},
     "int8": {"fused_minmax_plain", "fused_nerf_raw_q_plain"},
     "transposed": {"fused_minmax_plain", "fused_nerf_composite_plain"},
     "eager_composite": {"fused_minmax_plain", "fused_nerf_raw_plain"},

@@ -44,7 +44,11 @@ from pronerf_tpu.render.raygen import rays_for_pose as j_rays_for_pose
 from pronerf_tpu.utils.synthetic import make_scene
 from pronerf_tpu_torch import convert
 from pronerf_tpu_torch.models import pronerf_t as t_pt
-from pronerf_tpu_torch.models.pronerf import RenderStatics, render_rays
+from pronerf_tpu_torch.models.pronerf import (
+    RenderStatics,
+    pack_serving_params,
+    render_rays,
+)
 from pronerf_tpu_torch.ops import warp as t_warp
 from pronerf_tpu_torch.ops.encoding import plucker
 from pronerf_tpu_torch.ops.sampling import bin_constrain
@@ -319,7 +323,7 @@ def test_render_rays_t_against_jax_all_keys(fx, dtype):
 def test_render_rays_t_matches_the_ports_row_major_graph(fx, dtype):
     """The JAX test's bulk and tail bounds between the two graphs."""
     statics = RenderStatics.infer(compute_dtype=dtype, use_kernels=True,
-                                  transposed=True, fuse_composite=True)
+                                  transposed=True)
     ref = fx.port(render_rays, statics)
     got = fx.port(t_pt.render_rays_t, statics)
     bulk, tail = (2e-2, 5e-2) if dtype == "bfloat16" else (2e-3, 5e-3)
@@ -412,9 +416,9 @@ def test_render_rays_int8_close_to_the_bf16_kernel_path(fx):
     np.testing.assert_allclose(q["depth"], bf16["depth"], atol=0.05)
     assert np.abs(q["sigma"] - bf16["sigma"]).max() < \
         0.25 * bf16["sigma"].std() + 0.02
-    # fuse_composite is ignored on the int8 path: raw + ops.composite
-    qf = fx.port(render_rays, dataclasses.replace(statics, quant="int8",
-                                                  fuse_composite=True))
+    # params packed for the bf16 form are completed with the int8 panels
+    qf = fx.port(render_rays, dataclasses.replace(statics, quant="int8"),
+                 params=pack_serving_params(fx.params, statics))
     for k in KEYS:
         np.testing.assert_array_equal(qf[k], q[k], err_msg=k)
     with pytest.raises(ValueError, match="quant"):
