@@ -1047,7 +1047,8 @@ def profile_frames(render, frames):
     down, so the call's own time is taken elsewhere, without it."""
     from torch.profiler import ProfilerActivity, profile
 
-    render()
+    for _ in range(2):  # a frame renderer's second call captures its graph
+        render()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(frames):
@@ -1082,12 +1083,24 @@ def steady_frames(reps):
     return 2 * max(2, min(reps, 6)) if reps > 0 else 0
 
 
+def launched_frames(calls):
+    """Frames whose kernels a frame renderer launches from Python over
+    ``calls`` calls with one parameter set and scene on the card: the first
+    call runs eagerly, the second warms up its CUDA graph of the frame
+    (``profiling.GRAPH_WARMUP`` frames) and captures it, and every later
+    call replays it (a replay calls no wrapper)."""
+    from pronerf_tpu_torch.utils.profiling import GRAPH_WARMUP
+
+    return calls if calls < 2 else 2 + GRAPH_WARMUP
+
+
 def serve(what, cfg, reps, shape=(H, W_IMG)):
     """One drive of the serving entry point: counters zeroed just before,
     read just after; the frames must be finite and of the frame's shape.
     ``frames`` counts the frames whose kernels were launched from Python:
-    a warm-up and ``reps`` timed frames a pose, and the steady-state
-    graph's (``steady_frames``)."""
+    the renderer's over its calls, a warm-up and ``reps`` timed frames a
+    pose (``launched_frames``), and the steady-state graph's
+    (``steady_frames``)."""
     from pronerf_tpu_torch.render import infer
 
     reset_counters()
@@ -1105,7 +1118,8 @@ def serve(what, cfg, reps, shape=(H, W_IMG)):
         raise SystemExit(f"{what}: PSNRs {result['psnrs']}")
     return {"result": result, "counts": counts, "wall_s": wall,
             "gather_launches": gather_kernel().launches,
-            "frames": n_poses * (1 + reps) + steady_frames(reps),
+            "frames": launched_frames(n_poses * (1 + reps))
+            + steady_frames(reps),
             "poses": n_poses,
             "ms_per_frame": statistics.median(result["times_ms"]),
             "steady_ms_per_frame": result["amortized_ms"],
@@ -1419,8 +1433,10 @@ def event_ms(fn) -> float:
 def drive_renderer(render, params, scene, poses, reps=FULL_REPS):
     """Frames of one form through its frame renderer, timed as
     ``run_inference`` times them: each pose once (its warm-up), then
-    ``reps`` times by CUDA events. Counters zeroed just before and read just
-    after; peak memory over the drive."""
+    ``reps`` times by CUDA events (from the renderer's second call on, a
+    replay of its graph of the frame). Counters zeroed just before and read
+    just after (``frames``: the frames launched from Python,
+    ``launched_frames``); peak memory over the drive."""
     reset_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1435,7 +1451,7 @@ def drive_renderer(render, params, scene, poses, reps=FULL_REPS):
     all_finite({k: v for k, v in first.items()})
     return {"first": first, "counts": counts,
             "gather_launches": gather_kernel().launches,
-            "frames": len(poses) * (1 + reps),
+            "frames": launched_frames(len(poses) * (1 + reps)),
             "ms_per_frame": statistics.median(times), "ms_all": times,
             "peak_mem_bytes": torch.cuda.max_memory_allocated()}
 
@@ -1635,8 +1651,9 @@ def fullres_two_neighbours(cfg, scene, K, poses, device):
         raise SystemExit(f"fullres num_neighbor=2: {drive['gather_launches']}"
                          f" gather launches for {n} frames")
     reset_counters()
-    with plain_versions():
-        plain = render(params, scene, poses[0])
+    with plain_versions():  # a new renderer: its first frame runs eagerly
+        plain = make_frame_renderer(st, FULL_H, FULL_W, K, 0, device=device)(
+            params, scene, poses[0])
     torch.cuda.synchronize()
     expect_counts("fullres num_neighbor=2 with the plain versions",
                   read_counters())
@@ -2856,8 +2873,8 @@ def multi_frames(tmp, device, profile=False):
                                          iters=STEADY_ITERS, reps=MULTI_REPS,
                                          null_ms=null_ms)
                 add(graph_counts, read_counters())
-                eager = [timed_ms(lambda: live(params, scene, c2w), device)
-                         for _ in range(MULTI_REPS)]
+                eager = [timed_ms(lambda: live.frame(packed, scene, c2w_d),
+                                  device) for _ in range(MULTI_REPS)]
                 prof = profile_frames(lambda: live(params, scene, c2w), 3)
                 if profile:
                     say({"profile": {"path": f"multi frame {what}"} | prof})
@@ -3187,17 +3204,20 @@ EXPORT_REPS = 9   # timed frames a pose of the exported and live renderer
 
 def export_case(what, cfg, height, width, device, tmp):
     """``run_export`` of ``cfg`` at height x width, the program loaded
-    back, and its frames on the 3 held-out poses against the live
-    ``make_frame_renderer`` of the manifest's statics with the same params
-    and scene: equal bit for bit, the same launches a frame (counters zeroed
-    before and read after a frame a pose of each), then both timed in turns
-    by CUDA events (EXPORT_REPS a pose each)."""
+    back, and its frames on the 3 held-out poses against the frame body of
+    the live ``make_frame_renderer`` of the manifest's statics (run eagerly,
+    as the export traced it) with the same params and scene: equal bit for
+    bit, the same launches a frame (counters zeroed before and read after a
+    frame a pose of each); then the exported program and the live renderer
+    (its frames from the second on a graph replay) timed in turns by CUDA
+    events (EXPORT_REPS a pose each)."""
     from pronerf_tpu_torch.render import infer
     from pronerf_tpu_torch.render.export import (
         load_exported_renderer,
         statics_from_manifest,
     )
     from pronerf_tpu_torch.render.renderer import make_frame_renderer
+    from pronerf_tpu_torch.utils.tensors import as_f32
 
     cfg = cfg.replace(basedir=tmp, expname=what)
     torch.cuda.synchronize()
@@ -3227,7 +3247,8 @@ def export_case(what, cfg, height, width, device, tmp):
 
     with torch.no_grad():
         exp, exp_counts, exp_peak = frames(call)
-        ref, ref_counts, _ = frames(live)
+        ref, ref_counts, _ = frames(lambda p, s, c: live.frame(
+            live.pack(p), s, as_f32(c, device)))
         # timed in turns (exported, live, live, exported, ...): a
         # host-bound frame's time drifts within a run
         t_exp, t_live = [], []
@@ -3426,8 +3447,9 @@ def phase_cli(device):
         q, c_q, wall_q = drive_cli(
             ["infer", "--use-trt", "--checkpoint", ck2]
             + common("cli_int8") + ["--quant", "int8"])
-        n_ev = len(ev["rgbs1"]) * (1 + CLI_REPS) + steady_frames(CLI_REPS)
-        n_q = len(q["rgbs1"])
+        n_ev = launched_frames(len(ev["rgbs1"]) * (1 + CLI_REPS)) \
+            + steady_frames(CLI_REPS)
+        n_q = launched_frames(len(q["rgbs1"]))
         expect_counts("cli eval", c_ev, sampler=n_ev, refine=n_ev,
                       fused_nerf_composite_t=n_ev)
         expect_counts("cli int8 infer", c_q, sampler=n_q, refine=n_q,
@@ -3444,7 +3466,7 @@ def phase_cli(device):
                              f", frames {ev['rgbs1'].shape}, PNGs {saved}")
         # the steady-state line of infer --timing-reps (a CUDA graph of the
         # frame, replayed), and the JAX command line's two summary lines
-        # after it: the timed eager frames under their own name, then
+        # after it: the timed frames under their own name, then
         # "Median render ms/frame", which is the steady-state figure
         log = io.StringIO()
         with contextlib.redirect_stdout(log):
@@ -3456,7 +3478,8 @@ def phase_cli(device):
         steady_lines = [ln for ln in lines
                         if ln.startswith("Steady-state render ms/frame (scan "
                                          f"x{CLI_STEADY_REPS} minus ")]
-        n_st = 1 + CLI_STEADY_REPS + steady_frames(CLI_STEADY_REPS)
+        n_st = launched_frames(1 + CLI_STEADY_REPS) \
+            + steady_frames(CLI_STEADY_REPS)
         expect_counts("cli infer --timing-reps", c_st, sampler=n_st,
                       refine=n_st, fused_nerf_composite_t=n_st)
         if len(steady_lines) != 1 or not st["amortized_ms"] > 0:
@@ -3465,7 +3488,7 @@ def phase_cli(device):
         steady = steady_lines[0].rsplit(": ", 1)[1]
         summary = lines[-2:]
         per_dispatch = (
-            "Median per-dispatch ms/frame (CUDA events around one eager "
+            "Median per-dispatch ms/frame (CUDA events around one served "
             f"frame on {torch.cuda.get_device_name(0)}): "
             f"{statistics.median(st['times_ms']):.3f}")
         if not (summary[0] == per_dispatch
@@ -3516,9 +3539,9 @@ def phase_cli(device):
         rp, c_rp, wall_rp = drive_cli(
             ["render-path", "--use-trt", "--checkpoint", ck2, "--n-frames",
              str(CLI_PATH_FRAMES)] + common("cli_rp"))
-        expect_counts("cli render-path", c_rp, sampler=CLI_PATH_FRAMES,
-                      refine=CLI_PATH_FRAMES,
-                      fused_nerf_composite_t=CLI_PATH_FRAMES)
+        n_rp = launched_frames(CLI_PATH_FRAMES)
+        expect_counts("cli render-path", c_rp, sampler=n_rp, refine=n_rp,
+                      fused_nerf_composite_t=n_rp)
         if not rp.endswith(".gif"):
             raise SystemExit(f"render-path wrote {rp}, not a GIF")
         t0 = time.perf_counter()
@@ -4283,8 +4306,9 @@ def phase_jpeg(device):
             llff._minify = make_minify
         expect_counts("jpeg training", c1)
         n_ev = len(ev["rgbs1"])
-        expect_counts("jpeg eval", c_ev, sampler=n_ev, refine=n_ev,
-                      fused_nerf_composite_t=n_ev)
+        m_ev = launched_frames(n_ev)
+        expect_counts("jpeg eval", c_ev, sampler=m_ev, refine=m_ev,
+                      fused_nerf_composite_t=m_ev)
         losses = list(read_losses(exp1).values())
         if any(plain.values()) or s1["global_step"] != 2 or not minify_s \
                 or ev["rgbs1"].shape[1:] != (H, W_IMG, 3) or n_ev < 1 \
@@ -4539,7 +4563,8 @@ def trained_serving(tmp, device):
                 ("int8", ("--quant", "int8"), "fused_nerf_raw_tq")):
             ev, counts, wall = drive_cli(verb(f"trained_{name}", *extra))
             n = len(ev["psnrs"])
-            if n != 3 or (want and counts[want] != n) or \
+            m = launched_frames(n)
+            if n != 3 or (want and counts[want] != m) or \
                     (not want and any(counts.values())):
                 raise SystemExit(f"trained: {name} served {n} views with "
                                  f"launches {counts}")
@@ -4550,8 +4575,8 @@ def trained_serving(tmp, device):
                            "ssim": float(np.mean(ev["ssims"])),
                            "launches": counts, "wall_s": wall}
             if name == "kernels":
-                expect_counts("trained eval", counts, sampler=n, refine=n,
-                              fused_nerf_composite_t=n)
+                expect_counts("trained eval", counts, sampler=m, refine=m,
+                              fused_nerf_composite_t=m)
             all_finite({name: ev["rgbs1"]})
     if any(plain.values()):
         raise SystemExit(f"trained: plain versions called {plain}")

@@ -243,7 +243,7 @@ def run_inference(cfg: Config, timing_reps: int = 0, device="cuda"):
     # replayed, less the null dispatch)
     if result["times_ms"]:
         ms = float(np.median(result["times_ms"]))
-        how = (f"CUDA events around one eager frame on "
+        how = (f"CUDA events around one served frame on "
                f"{torch.cuda.get_device_name(device)}"
                if device.type == "cuda"
                else "host clock around one eager frame on cpu")

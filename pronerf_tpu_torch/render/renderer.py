@@ -1,4 +1,4 @@
-"""Full-frame rendering over fixed-size ray tiles, in eager PyTorch.
+"""Full-frame rendering over fixed-size ray tiles.
 
 - a frame is H*W rays cut into tiles of ``tile_rays`` (the last one may be
   short: the kernels mask a ragged edge themselves; with the windowed
@@ -10,6 +10,11 @@
   source view exceeds ``GATHER_CLIFF_BYTES``;
 - everything per-pose (ray generation, neighbor selection) happens inside
   the one ``render_frame`` call, under ``torch.no_grad()``;
+- on the card a frame is one CUDA graph replay, the port's counterpart of
+  the JAX package's one jitted dispatch: ``render_frame`` runs the first
+  call of a (parameter set, scene) pair eagerly, captures the frame body
+  on the second and replays it from then on, reading the pose from a
+  [3, 4] tensor of its own; every call returns fresh tensors;
 - ``compute_dtype='bfloat16'`` runs the three MLPs with bf16 operands and
   f32 accumulation;
 - the kernel panels are packed once, when the renderer first sees a set of
@@ -34,7 +39,13 @@ from pronerf_tpu_torch.models.pronerf import (
 )
 from pronerf_tpu_torch.models.pronerf_t import graph_for
 from pronerf_tpu_torch.render.raygen import rays_for_pose
-from pronerf_tpu_torch.utils.profiling import COUNTERS, span, timed_ms
+from pronerf_tpu_torch.utils.profiling import (
+    COUNTERS,
+    counting,
+    cuda_graph,
+    span,
+    timed_ms,
+)
 from pronerf_tpu_torch.utils.tensors import as_f32, resolve_device
 
 _FRAME_KEYS = ("rgb1", "rgb0", "depth", "mm_rgb", "depth0")
@@ -107,11 +118,26 @@ def make_frame_renderer(
     the resolved statics.
 
     Returns tensors on ``device``: rgb1, rgb0, mm_rgb [H, W, 3]; depth,
-    depth0 [H, W]. The renderer's ``frame`` attribute is the frame body
+    depth0 [H, W], fresh on every call (a later call overwrites none of
+    them). The renderer's ``frame`` attribute is the frame body
     ``(packed params, scene, c2w tensor) -> frame dict``, which the export
-    traces and a CUDA graph captures (``render_path``'s steady-state
-    timing); the renderer packs the params (once per parameter set; its
-    ``pack`` attribute) and calls it under ``torch.no_grad()``.
+    traces and a CUDA graph captures; the renderer packs the params (once
+    per parameter set; its ``pack`` attribute) and runs the body under
+    ``torch.no_grad()``.
+
+    On the card the renderer serves a frame by replaying one CUDA graph of
+    the body, captured on the second call that sees the same packed params
+    and the same scene (by identity: the first call runs eagerly, so a
+    one-pose ``infer`` never captures). The graph reads the pose's
+    ``[:3, :4]`` from a [3, 4] tensor the renderer owns, and its five
+    outputs are cloned after each replay. The renderer keeps only its
+    newest graph, with references to the params and scene it read, and
+    drops it at the first call with others. The body runs eagerly on the
+    CPU and while ``profiling.counting()`` is on (the device counters add
+    work to the frame and keep their sums outside any graph).
+    ``COUNTERS["frame_replays"]`` counts the frames served by a replay,
+    ``COUNTERS["frame_eager"]`` those run eagerly. Calling ``frame``
+    directly always runs eagerly: the way to see per-stage spans.
     """
     device = resolve_device(device)
     K = np.asarray(K)
@@ -153,11 +179,35 @@ def make_frame_renderer(
         }
 
     pack = params_packer(statics)
+    # the newest (packed params, scene) seen on the card ("key"), and once
+    # seen twice its graph, the graph's outputs and its pose tensor
+    served = {}
+
+    def eager(packed, scene, c2w):
+        COUNTERS["frame_eager"] += 1
+        return frame(packed, scene, as_f32(c2w, device))
 
     @torch.no_grad()
     def render_frame(params, scene, c2w):
         with span("frame"):
-            return frame(pack(params), scene, as_f32(c2w, device))
+            packed = pack(params)
+            if device.type != "cuda" or counting():
+                return eager(packed, scene, c2w)
+            key = (packed, *scene.values())
+            # by identity: the key held keeps its objects' ids from reuse
+            if list(map(id, key)) != list(map(id, served.get("key", ()))):
+                served.clear()  # frees the old graph and its pool
+                served["key"] = key
+                return eager(packed, scene, c2w)
+            if "graph" not in served:
+                pose = served["pose"] = as_f32(c2w, device)[:3, :4].clone()
+                served["graph"], served["out"] = cuda_graph(
+                    lambda: frame(packed, scene, pose))
+            else:
+                served["pose"].copy_(as_f32(c2w)[:3, :4])
+            served["graph"].replay()
+            COUNTERS["frame_replays"] += 1
+            return {k: v.clone() for k, v in served["out"].items()}
 
     render_frame.statics = statics
     render_frame.frame = frame
@@ -187,8 +237,10 @@ def render_path(
 
     ``timing_reps > 0`` re-renders each pose that many times and prints
     ``Render path time:`` per rep, timed by CUDA events around the frame
-    after a synchronise (the first render of each pose is the warm-up).
-    It also measures a steady-state ms/frame once, as the JAX package does:
+    after a synchronise (the first render of each pose is the warm-up; on
+    the card the renderer's second call captures its graph of the frame,
+    and every later one is a replay). It also measures a steady-state
+    ms/frame once, as the JAX package does:
     ``amortized_timer`` over ``max(2, min(timing_reps, 6))`` frames a call
     (on the card one CUDA graph of the frame body, replayed), minus the
     null-dispatch floor, printed as ``Steady-state render ms/frame``.

@@ -23,7 +23,9 @@ wall time since the last (the first since the process started, read from
   touch_inputs      : one trivial kernel reading every input, and a readback
   first_frame       : the first frame (its params packed for the kernels)
                       and its readback
-  steady            : one more frame and its readback
+  steady            : one more frame and its readback (on the card the
+                      renderer's second call: its CUDA graph of the
+                      frame warmed up, captured and replayed)
   reload_first_frame: a second renderer in the same process, its first frame
 
 JAX's ``reload_compile`` has no counterpart (``PHASES_ABSENT`` says why).

@@ -20,9 +20,12 @@ The counterpart of ``pronerf_tpu/utils/profiling.py``:
   no host sync; ``read_device_counters``: one sync), which add work to the
   frame and are never launched outside it; ``COUNTERS`` counts, always,
   the rare slow events that rebuild state (``param_packs``,
-  ``kernel_loads``, ``kernel_builds``, ``graph_captures``) and the NeRF
-  kernel's launches on the card by form (``nerf_composite_launches``,
-  ``nerf_raw_launches``);
+  ``kernel_loads``, ``kernel_builds``, ``graph_captures``), the frames
+  ``render_frame`` served by a replay of its CUDA graph or ran eagerly
+  (``frame_replays``, ``frame_eager``) and the NeRF kernel's launches from
+  the host on the card by form (``nerf_composite_launches``,
+  ``nerf_raw_launches``: eager frames and captures; a replay launches
+  nothing from the host);
 - ``trace``: ``torch.profiler`` around a block, with spans on, written as a
   Chrome trace;
 - ``pipeline_macs``: analytic multiply-adds a frame.
@@ -108,9 +111,11 @@ _counters_on = False
 _device_counts: dict = {}
 
 # Host counts, always on, each where its event already happens: the rare,
-# slow events that rebuild state, and the NeRF kernel's launches by form
-# (``nerf_composite_launches``, ``nerf_raw_launches``: which one composited
-# a frame).
+# slow events that rebuild state; the frames ``render_frame`` served by a
+# graph replay (``frame_replays``) or ran eagerly (``frame_eager``), whose
+# hit share is replays over both; and the NeRF kernel's launches from the
+# host by form (``nerf_composite_launches``, ``nerf_raw_launches``: which
+# one composited a frame, in eager frames and captures only).
 COUNTERS = collections.Counter()
 
 

@@ -264,6 +264,32 @@ def test_frame_renderer_whole_frame_tiled_and_jax(held_out, compute_dtype):
             err_msg=k)
 
 
+@pytest.mark.parametrize("tile_rays", [0, 96])
+def test_frame_renderer_stays_eager_on_the_cpu(held_out, tile_rays):
+    """On the CPU ``render_frame`` runs every call eagerly, however often it
+    sees one parameter set and scene (on the card the second call captures
+    a CUDA graph): ``frame_eager`` moves once a call, ``frame_replays`` and
+    ``graph_captures`` not at all, and each call returns tensors of its
+    own, equal to the frame body's."""
+    from pronerf_tpu_torch.utils import profiling
+
+    fx = held_out
+    render = make_frame_renderer(served_statics("viewer_cell"), H, W,
+                                 fx.sc["K"], tile_rays, device="cpu")
+    names = ("frame_eager", "frame_replays", "graph_captures")
+    before = {k: profiling.COUNTERS[k] for k in names}
+    outs = [render(fx.params, fx.scene, fx.pose) for _ in range(3)]
+    assert {k: profiling.COUNTERS[k] - before[k] for k in names} == {
+        "frame_eager": 3, "frame_replays": 0, "graph_captures": 0}
+    with torch.no_grad():
+        want = render.frame(render.pack(fx.params), fx.scene,
+                            torch.as_tensor(fx.pose, dtype=torch.float32))
+    for k, v in want.items():
+        assert len({o[k].data_ptr() for o in outs}) == len(outs), k
+        for o in outs:
+            assert torch.equal(o[k].nan_to_num(), v.nan_to_num()), k
+
+
 # The headline bench's second serving point: num_neighbor = 2 (bench.py),
 # whose refine net reads C = 6 + 3 * 2 * 8 = 54 rows, in both graphs of the
 # serving frame.
