@@ -809,7 +809,10 @@ def conversion_counts():
         return {op: ops[op] for op in CONVERSIONS if op in ops}
 
     got = {"nerf_q_wg_kernel": count("fused_nerf_q", "nerf_q_wg_kernel"),
-           "nerf_wg_kernel<false>": count("fused_nerf", "nerf_wg_kernelILb0E")}
+           # the mangled name with its length, which the DoNeRF kernel's
+           # (``16donerf_wg_kernel``) does not hold
+           "nerf_wg_kernel<false>": count("fused_nerf",
+                                          "14nerf_wg_kernelILb0E")}
     if sum(got["nerf_q_wg_kernel"].values()) > sum(
             got["nerf_wg_kernel<false>"].values()):
         raise SystemExit(f"conversion instructions in the int8 kernel: {got}")
@@ -2072,26 +2075,143 @@ def phase_gathers(device):
 
 # ------------------------------------------------------ donerf phase ------
 
+def donerf_row(device, n_rays, S=8):
+    """The DoNeRF kernel (``fused_donerf_raw_t`` / ``fused_donerf_composite_t``,
+    ``csrc/fused_nerf.cu:donerf_wg_kernel``) against its plain version on a
+    numpy seed's inputs at ``n_rays`` rays, timed with CUDA events, in the
+    kernel table's form (bf16 bounds of ``TOL``, relative to the raw
+    logits' size: Kaiming weights keep them at a few units). The biases,
+    zero at init, are drawn in [-0.1, 0.1], so that a kernel that misreads
+    its bias region reads wrong."""
+    from pronerf_tpu_torch.kernels import fused_nerf as fn
+    from pronerf_tpu_torch.models.donerf import init_donerf
+    from pronerf_tpu_torch.models.pronerf import view_contribution
+    from pronerf_tpu_torch.ops.encoding import positional_encoding
+    from pronerf_tpu_torch.utils.profiling import COUNTERS
+
+    net = init_donerf(torch.Generator().manual_seed(0), device=device)
+    with torch.no_grad():
+        for i, lin in enumerate(net.layers):  # zero at init: make them count
+            b = torch.rand(lin.bias.shape,
+                           generator=torch.Generator().manual_seed(i))
+            lin.bias.copy_((0.2 * b - 0.1).to(device))
+    packed = fn.pack_donerf_params(net)
+    inp = nerf_inputs(n_rays, device, 2, S)
+    # multipliers in [0, 1], as the served sampler's: above 1 an alpha
+    # passes 1, the transmittance turns negative and grows, and the
+    # composite amplifies any bf16 step of sigma without bound
+    inp["mm_mul_t"] = inp["mm_mul_t"].clamp(0.0, 1.0)
+    dcon = view_contribution(net, positional_encoding(inp["dirs"], 4),
+                             torch.bfloat16).contiguous()
+    pts = inp["pts24_t"]
+    aux = [inp[k] for k in ("z_t", "mm_add_t", "mm_mul_t", "dnorm_t")]
+
+    def cols(a, i):
+        return a[:, i:i + CHUNK].contiguous()
+
+    def plain_raw():
+        return torch.cat([fn.fused_donerf_raw_plain(packed, cols(pts, i),
+                                                    cols(dcon, i), S)
+                          for i in range(0, n_rays, CHUNK)])
+
+    def plain_comp():
+        parts = [fn.fused_donerf_composite_plain(
+            packed, cols(pts, i), cols(dcon, i), *[cols(a, i) for a in aux],
+            S) for i in range(0, n_rays, CHUNK)]
+        return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+    tol = TOL["bfloat16"]
+    rows = []
+    for form in ("raw", "composite"):
+        def kernel():
+            if form == "raw":
+                return fn.fused_donerf_raw_t(packed, pts, dcon, S)
+            return fn.fused_donerf_composite_t(packed, pts, dcon, *aux, S)
+
+        plain = plain_raw if form == "raw" else plain_comp
+        before = COUNTERS["donerf_launches"]
+        k, p = kernel(), plain()
+        size = float(plain_raw().abs().max())
+        if form == "raw":
+            errs = {"raw": (max_err(k, p), tol["raw"] * max(size, 1.0))}
+        else:
+            # the share of composited values off by more than the bf16
+            # bound: the last sample's alpha is a step in the sign of
+            # sigma + mm_add (its interval is 1e10), so where a bf16 step of
+            # sigma crosses zero a ray's last weight jumps
+            # (tests/test_torch_donerf_card.py)
+            errs = {f"{key}_share": (float(
+                ((k[key] - p[key]).abs() > tol["comp"]).float().mean()), 1e-4)
+                for key in ("rgb", "depth", "acc", "weights")}
+            errs["sigma"] = (max_err(k["sigma"], p["sigma"]),
+                             tol["raw"] * max(size, 1.0))
+        torch.cuda.synchronize()
+        ms, plain_ms = cuda_ms(kernel, 5), cuda_ms(plain, 2)
+        macs = n_rays * S * (63 * 256 + 6 * 256 * 256 + 256 * 4)
+        nbytes = ((3 * S + 4) * n_rays * 4 + n_rays * S * 4 * 4
+                  + fn._donerf_blob(packed).numel() * 2)
+        bound_ops = 2 * macs / PEAK_FLOPS["bfloat16"] * 1e3
+        bound_bytes = nbytes / PEAK_BYTES_S * 1e3
+        rows.append({
+            "name": f"fused_donerf_{form}_t", "dtype": "bfloat16",
+            "route": "cuda",
+            "source": "pronerf_tpu_torch/kernels/csrc/fused_nerf.cu",
+            "replaces": None, "rays": n_rays, "raw_size": size,
+            "max_abs_err": max(e for key, (e, _) in errs.items()
+                               if not key.endswith(NOT_ABS)),
+            "errs": {key: e for key, (e, _) in errs.items()},
+            "tols": {key: t for key, (_, t) in errs.items()},
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bound_ops, bound_bytes),
+            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+            "launches": COUNTERS["donerf_launches"] - before,
+        })
+        bad = {key: v for key, v in errs.items() if not v[0] <= v[1]}
+        if bad:
+            say({"donerf_kernel": rows})
+            raise SystemExit(f"fused_donerf_{form}_t disagrees with its "
+                             f"plain version: {bad}")
+    return rows
+
+
+@torch.no_grad()
+def donerf_rows(device):
+    return [r for n in (FRAME_RAYS, FULL_RAYS) for r in donerf_row(device, n)]
+
+
 def phase_donerf(device):
-    """``netarch = donerf`` at D = 8, W = 256 on the card: one 504x378 frame
-    through ``run_inference`` (the fused kernels implement the NeRF MLP, so
-    none runs), and one stage-1 NeRF step against the same step on CPU
+    """``netarch = donerf`` at D = 8, W = 256 on the card: the DoNeRF kernel
+    in both forms against its plain version at a 504x378 and a 1008x756
+    frame's rays (``donerf_row``); one 504x378 frame through
+    ``run_inference``, which serves DoNeRF through the kernels (the
+    sampler and refine MinMax kernels, the gather pair, the DoNeRF kernel
+    compositing: ``COUNTERS["donerf_launches"]`` one a launched frame, no
+    NeRF kernel); and one stage-1 NeRF step against the same step on CPU
     tensors (TRAIN_TOL)."""
     from pronerf_tpu_torch.config import Config
+    from pronerf_tpu_torch.utils.profiling import COUNTERS
 
+    kernel_rows = donerf_rows(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_donerf_") as tmp:
         cfg = Config.from_file(
             ROOT / "configs/llff/fern/fern_trt.txt",
             datadir=f"synthetic:{W_IMG}x{H}x{N_VIEWS}", use_trt=True,
             tile_rays=0, use_pallas=True, basedir=tmp, ft_path="",
             netarch="donerf", max_images=1)
+        before = COUNTERS["donerf_launches"]
         drive = serve("netarch=donerf", cfg, 1)
-        expect_counts("netarch=donerf", drive["counts"])
+        expect_counts("netarch=donerf", drive["counts"],
+                      sampler=drive["frames"], refine=drive["frames"])
+        launches = COUNTERS["donerf_launches"] - before
+        if launches != drive["frames"]:
+            raise SystemExit(f"netarch=donerf: {launches} DoNeRF kernel "
+                             f"launches, {drive['frames']} frames launched")
         shared = training_data(train_config(1, tmp))
         vs_cpu = card_against_cpu(tmp, shared, device, (STEP_KINDS[1],),
                                   netarch="donerf")
         report = {"netdepth": cfg.netdepth, "netwidth": cfg.netwidth,
-                  "frames": drive["frames"],
+                  "kernel": kernel_rows,
+                  "frames": drive["frames"], "donerf_launches": launches,
                   "ms_per_frame": drive["ms_per_frame"],
                   "peak_mem_bytes": drive["peak_mem_bytes"],
                   "psnr": drive["result"]["psnrs"], "card_vs_cpu": vs_cpu}

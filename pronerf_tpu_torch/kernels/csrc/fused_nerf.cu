@@ -68,6 +68,15 @@
 // f32 (`nerf_kernel<PF32>`, the exactness check, not on the serving path):
 // plain FMA loops through common.cuh, activations in shared memory.
 //
+// DoNeRF (`donerf_wg_kernel`, the radiance net of `netarch = donerf`): the
+// bf16 kernel's frame with another layer schedule (`DoNeRFNet`): the PE
+// layer, six hidden layers of 256, then a head 256 -> 4 (padded to 8,
+// resident in shared memory as the NeRF heads are), whose f32 sums take the
+// per-ray direction term dcon = W7[:, 256:] . d_pe (computed outside, [4, N],
+// the view features entering at the last layer) before they are rounded. The
+// ring, the PE rows, the result buffers and the composite are the NeRF
+// kernel's code; only the consumers' chain a sample and the blob differ.
+//
 // The frequency panel bx_t is 2^k by construction (one non-zero per row), so
 // `bx_t . x` is exactly ldexp(x, k), taken from the f32 point in both
 // kernels; only x itself and sin/cos are rounded to the pack dtype (as the
@@ -82,6 +91,8 @@
 // Weight blob, bf16: 37 ring stages (WgBlob::stage_off), then the head
 // slabs (w_alpha 4 x [8 x 64], w_rgb 2 x [8 x 64]), then the biases
 // b0..b7 b_feat bv b_alpha b_rgb; see `_blob` in ../fused_nerf.py.
+// DoNeRF blob, bf16: 25 ring stages (w0p, then w1..w6 in halves), the head
+// slabs (w_out 4 x [8 x 64]), the biases b0..b6 b_out (DoWgBlob).
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -107,7 +118,7 @@ struct NerfBlob {  // the f32 blob, in elements
 
 struct NerfArgs {
   const float* pts;    // [S*3, N]
-  const float* vcon;   // [128, N]
+  const float* vcon;   // [128, N]; DoNeRF: the head's direction term [4, N]
   const void* blob;
   int N, S;
   // raw
@@ -401,10 +412,44 @@ struct WgSmem {
 static_assert(WgBlob::kBiases * 4 <= 10240, "bias region");
 static_assert(WgSmem::bytes <= 232448, "what fits");
 
-template <bool COMPOSITE>
-__global__ void __launch_bounds__(kWgThreads, 1)
-    nerf_wg_kernel(const __grid_constant__ NerfArgs a) {
-  using B = WgBlob;
+struct DoWgBlob {  // the DoNeRF bf16 blob, in bytes
+  static constexpr int kStageBytes = 32768;
+  // layer 0 (both halves in one stage), then layers 1..6 in four stages
+  static constexpr int kStagesPerSample = 1 + 6 * 4;
+  __host__ __device__ static constexpr int stage_bytes(int) {
+    return kStageBytes;
+  }
+  __host__ __device__ static constexpr int stage_off(int i) {
+    return i * kStageBytes;
+  }
+  static constexpr int kRingBytes = kStagesPerSample * kStageBytes;
+  static constexpr int kHeadBytes = 4 * 1024;   // w_out 4 x [8 x 64]
+  static constexpr int heads = kRingBytes, biases = heads + kHeadBytes;
+  // bias offsets, in elements: b0..b6, b_out
+  static constexpr int b_out = 7 * kW, kBiases = b_out + 8;
+  static constexpr long long kBlobElems = (biases + 2 * kBiases) / 2;
+};
+static_assert(DoWgBlob::kHeadBytes <= WgBlob::kHeadBytes, "head region");
+static_assert(DoWgBlob::kBiases * 4 <= 10240, "bias region");
+
+// The layer schedule of a net on the warpgroup frame: its blob, and whether
+// its chain is DoNeRF's (PE layer, six hidden layers, the head with the
+// direction term) or the NeRF MLP's (skip at layer 5, the heads, the view
+// branch).
+struct NerfNet {
+  using Blob = WgBlob;
+  static constexpr bool kDoNeRF = false;
+};
+struct DoNeRFNet {
+  using Blob = DoWgBlob;
+  static constexpr bool kDoNeRF = true;
+};
+
+// The body of both bf16 kernels; `Net` picks the consumers' chain a sample
+// and the blob, everything else is shared.
+template <class Net, bool COMPOSITE>
+__device__ __forceinline__ void wg_kernel_body(const NerfArgs& a) {
+  using B = typename Net::Blob;
   using M = WgSmem;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t pad = (1024 - (hp::smem_u32(smem_raw) & 1023)) & 1023;
@@ -513,7 +558,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     float* biasf = reinterpret_cast<float*>(sm + M::bias);
     uint32_t* vfrag = reinterpret_cast<uint32_t*>(sm + M::vfrag) + wg * 4096 + wt;
     const uint64_t alpha_desc = hp::desc_k128(sm32 + M::heads);
-    const uint64_t rgb_desc = hp::desc_k128(sm32 + M::heads + B::kAlphaBytes);
+    const uint64_t rgb_desc =
+        hp::desc_k128(sm32 + M::heads + WgBlob::kAlphaBytes);
     const float* bias_q = biasf + 2 * q;   // this thread's first column pair
 
     // the biases, once for the block's life, as f32
@@ -538,15 +584,29 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       const int base = tile * kWgTile + wg * kWgRays;
       const int live = min(kWgRays, max(N - base, 0));
 
-      // vcon of this thread's rows and columns in the view layer, rounded,
-      // in the order of that layer's accumulator pairs
+      if constexpr (Net::kDoNeRF) {
+        // the direction term of this thread's rows and head columns (2 q,
+        // 2 q + 1 of the 4; q < 2), f32, in the order of the head's
+        // accumulators
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const int r = row0 + 8 * (p >> 1), c = 2 * q + (p & 1);
+          const float d = q < 2 && r < live
+                              ? a.vcon[(size_t)c * N + base + r] : 0.0f;
+          vfrag[p * 128] = __float_as_uint(d);
+        }
+      } else {
+        // vcon of this thread's rows and columns in the view layer,
+        // rounded, in the order of that layer's accumulator pairs
 #pragma unroll 4
-      for (int p = 0; p < 32; ++p) {
-        const int r = row0 + 8 * (p & 1), c = 8 * (p >> 1) + 2 * q;
-        const bool ok = r < live;
-        const float v0 = ok ? a.vcon[(size_t)c * N + base + r] : 0.0f;
-        const float v1 = ok ? a.vcon[(size_t)(c + 1) * N + base + r] : 0.0f;
-        vfrag[p * 128] = hp::pack_bf16x2(v0, v1);
+        for (int p = 0; p < 32; ++p) {
+          const int r = row0 + 8 * (p & 1), c = 8 * (p >> 1) + 2 * q;
+          const bool ok = r < live;
+          const float v0 = ok ? a.vcon[(size_t)c * N + base + r] : 0.0f;
+          const float v1 =
+              ok ? a.vcon[(size_t)(c + 1) * N + base + r] : 0.0f;
+          vfrag[p * 128] = hp::pack_bf16x2(v0, v1);
+        }
       }
       // the results buffer of the tile's first chunk, once its last chunk
       // has left it
@@ -586,113 +646,158 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           }
           ring.release(ring.advance());
         }
-        // layers 1..4
+        if constexpr (Net::kDoNeRF) {
+          // the sample's PE rows are read: layer 0 is their one reader
+          if (lane == 0) hp::mbar_arrive(pe_empty + 8 * pt.at);
+          pt.next();
+          // layers 1..6
 #pragma unroll 1
-        for (int l = 1; l <= 4; ++l)
-          wg_layer256<Act::kRelu>(acc, h, ring, bias_q + l * kW);
-        // layer 5, per half: the PE product, rounded and packed; then the h
-        // product; added, biased, clamped
-        {
-          uint32_t lo[32];
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            uint32_t pdot[32];
-            wg_dense128_ss(acc, pe_desc, 0, ring.wait(), 4);
-            ring.release(ring.advance());
-#pragma unroll
-            for (int p = 0; p < 32; ++p)
-              pdot[p] = hp::pack_bf16x2(acc[2 * p], acc[2 * p + 1]);
-            wg_dense128(acc, h, ring);
-            uint32_t* out = hf ? h + 32 : lo;
-#pragma unroll
-            for (int p = 0; p < 32; ++p) {
-              const float2 b = *reinterpret_cast<const float2*>(
-                  bias_q + 5 * kW + hf * kWH + 8 * (p / 2));
-              const uint32_t both = wg_add_packed(
-                  pdot[p], hp::pack_bf16x2(acc[2 * p], acc[2 * p + 1]));
-              out[p] = wg_add_pair<Act::kRelu>(both, b);
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < 32; ++i) h[i] = lo[i];
-        }
-        // this warp's last read of the sample's PE rows is behind it
-        if (lane == 0) hp::mbar_arrive(pe_empty + 8 * pt.at);
-        pt.next();
-        // layers 6, 7
-#pragma unroll 1
-        for (int l = 6; l <= 7; ++l)
-          wg_layer256<Act::kRelu>(acc, h, ring, bias_q + l * kW);
-
-        __nv_bfloat16* rs = res + (s % kResChunk) * 4;   // [ray][chunk][4]
-        // sigma head (column 0 of 8, resident) and the feature layer, on h7
-        {
-          float sig[4] = {};
+          for (int l = 1; l <= 6; ++l)
+            wg_layer256<Act::kRelu>(acc, h, ring, bias_q + l * kW);
+          // the head (columns 0..3 of 8, resident) on the last hidden
+          // layer: its f32 sums plus the direction term, rounded; then the
+          // bias, rounded
+          float o[4] = {};
           wg_turn_wait();
           hp::wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < 16; ++kk) {
             const int j = 4 * kk;
             hp::wgmma_m64n8k16_rs(
-                sig, h[j], h[j + 1], h[j + 2], h[j + 3],
+                o, h[j], h[j + 1], h[j + 2], h[j + 3],
                 alpha_desc + (kk / 4) * (1024 >> 4) + (kk % 4) * hp::kDescKStep,
                 kk);
           }
           hp::wgmma_commit();
           wg_turn_pass();
           hp::wgmma_wait<0>();
-          hp::keep(sig);
-          if (q == 0) {
-            const float ba = biasf[B::b_alpha];
-            rs[(size_t)row0 * kResChunk * 4 + 3] = __float2bfloat16_rn(
-                __bfloat162float(__float2bfloat16_rn(sig[0])) + ba);
-            rs[(size_t)(row0 + 8) * kResChunk * 4 + 3] = __float2bfloat16_rn(
-                __bfloat162float(__float2bfloat16_rn(sig[2])) + ba);
-          }
-          wg_layer256<Act::kNone>(acc, h, ring, bias_q + B::b_feat);
-        }
-        // view branch: relu(round(round(dot + vcon) + bv)), 128 wide
-        {
-          wg_dense128(acc, h, ring);
-#pragma unroll
-          for (int p = 0; p < 32; ++p) {
-            const float2 b = *reinterpret_cast<const float2*>(
-                bias_q + B::bv + 8 * (p / 2));
-            const uint32_t withv = wg_add_packed(
-                hp::pack_bf16x2(acc[2 * p], acc[2 * p + 1]), vfrag[p * 128]);
-            h[p] = wg_add_pair<Act::kRelu>(withv, b);
-          }
-        }
-        // rgb head (columns 0..2 of 8, resident) on the 128 view features
-        {
-          float rgb[4] = {};
-          wg_turn_wait();
-          hp::wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < 8; ++kk) {
-            const int j = 4 * kk;
-            hp::wgmma_m64n8k16_rs(
-                rgb, h[j], h[j + 1], h[j + 2], h[j + 3],
-                rgb_desc + (kk / 4) * (1024 >> 4) + (kk % 4) * hp::kDescKStep,
-                kk);
-          }
-          hp::wgmma_commit();
-          wg_turn_pass();
-          hp::wgmma_wait<0>();
-          hp::keep(rgb);
+          hp::keep(o);
           hp::keep(h);
-          if (q < 2) {   // q = 0: columns 0, 1; q = 1: column 2
-            const float b0 = biasf[B::b_rgb + 2 * q];
-            auto head = [](float d, float b) {
+          if (q < 2) {   // q = 0: rgb columns 0, 1; q = 1: rgb 2 and sigma
+            __nv_bfloat16* rs = res + (s % kResChunk) * 4;
+            const float b0 = biasf[B::b_out + 2 * q],
+                        b1 = biasf[B::b_out + 2 * q + 1];
+            auto head = [](float d, uint32_t dir, float b) {
+              const float dd = d + __uint_as_float(dir);
               return __float2bfloat16_rn(
-                  __bfloat162float(__float2bfloat16_rn(d)) + b);
+                  __bfloat162float(__float2bfloat16_rn(dd)) + b);
             };
-            rs[(size_t)row0 * kResChunk * 4 + 2 * q] = head(rgb[0], b0);
-            rs[(size_t)(row0 + 8) * kResChunk * 4 + 2 * q] = head(rgb[2], b0);
+            __nv_bfloat16* r0 = rs + (size_t)row0 * kResChunk * 4 + 2 * q;
+            __nv_bfloat16* r8 = r0 + (size_t)8 * kResChunk * 4;
+            r0[0] = head(o[0], vfrag[0], b0);
+            r0[1] = head(o[1], vfrag[128], b1);
+            r8[0] = head(o[2], vfrag[256], b0);
+            r8[1] = head(o[3], vfrag[384], b1);
+          }
+        } else {
+          // layers 1..4
+#pragma unroll 1
+          for (int l = 1; l <= 4; ++l)
+            wg_layer256<Act::kRelu>(acc, h, ring, bias_q + l * kW);
+          // layer 5, per half: the PE product, rounded and packed; then the h
+          // product; added, biased, clamped
+          {
+            uint32_t lo[32];
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              uint32_t pdot[32];
+              wg_dense128_ss(acc, pe_desc, 0, ring.wait(), 4);
+              ring.release(ring.advance());
+#pragma unroll
+              for (int p = 0; p < 32; ++p)
+                pdot[p] = hp::pack_bf16x2(acc[2 * p], acc[2 * p + 1]);
+              wg_dense128(acc, h, ring);
+              uint32_t* out = hf ? h + 32 : lo;
+#pragma unroll
+              for (int p = 0; p < 32; ++p) {
+                const float2 b = *reinterpret_cast<const float2*>(
+                    bias_q + 5 * kW + hf * kWH + 8 * (p / 2));
+                const uint32_t both = wg_add_packed(
+                    pdot[p], hp::pack_bf16x2(acc[2 * p], acc[2 * p + 1]));
+                out[p] = wg_add_pair<Act::kRelu>(both, b);
+              }
+            }
+#pragma unroll
+            for (int i = 0; i < 32; ++i) h[i] = lo[i];
+          }
+          // this warp's last read of the sample's PE rows is behind it
+          if (lane == 0) hp::mbar_arrive(pe_empty + 8 * pt.at);
+          pt.next();
+          // layers 6, 7
+#pragma unroll 1
+          for (int l = 6; l <= 7; ++l)
+            wg_layer256<Act::kRelu>(acc, h, ring, bias_q + l * kW);
+
+          __nv_bfloat16* rs = res + (s % kResChunk) * 4;   // [ray][chunk][4]
+          // sigma head (column 0 of 8, resident) and the feature layer, on h7
+          {
+            float sig[4] = {};
+            wg_turn_wait();
+            hp::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 16; ++kk) {
+              const int j = 4 * kk;
+              hp::wgmma_m64n8k16_rs(
+                  sig, h[j], h[j + 1], h[j + 2], h[j + 3],
+                  alpha_desc + (kk / 4) * (1024 >> 4) + (kk % 4) * hp::kDescKStep,
+                  kk);
+            }
+            hp::wgmma_commit();
+            wg_turn_pass();
+            hp::wgmma_wait<0>();
+            hp::keep(sig);
             if (q == 0) {
-              const float b1 = biasf[B::b_rgb + 1];
-              rs[(size_t)row0 * kResChunk * 4 + 1] = head(rgb[1], b1);
-              rs[(size_t)(row0 + 8) * kResChunk * 4 + 1] = head(rgb[3], b1);
+              const float ba = biasf[B::b_alpha];
+              rs[(size_t)row0 * kResChunk * 4 + 3] = __float2bfloat16_rn(
+                  __bfloat162float(__float2bfloat16_rn(sig[0])) + ba);
+              rs[(size_t)(row0 + 8) * kResChunk * 4 + 3] = __float2bfloat16_rn(
+                  __bfloat162float(__float2bfloat16_rn(sig[2])) + ba);
+            }
+            wg_layer256<Act::kNone>(acc, h, ring, bias_q + B::b_feat);
+          }
+          // view branch: relu(round(round(dot + vcon) + bv)), 128 wide
+          {
+            wg_dense128(acc, h, ring);
+#pragma unroll
+            for (int p = 0; p < 32; ++p) {
+              const float2 b = *reinterpret_cast<const float2*>(
+                  bias_q + B::bv + 8 * (p / 2));
+              const uint32_t withv = wg_add_packed(
+                  hp::pack_bf16x2(acc[2 * p], acc[2 * p + 1]), vfrag[p * 128]);
+              h[p] = wg_add_pair<Act::kRelu>(withv, b);
+            }
+          }
+          // rgb head (columns 0..2 of 8, resident) on the 128 view features
+          {
+            float rgb[4] = {};
+            wg_turn_wait();
+            hp::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 8; ++kk) {
+              const int j = 4 * kk;
+              hp::wgmma_m64n8k16_rs(
+                  rgb, h[j], h[j + 1], h[j + 2], h[j + 3],
+                  rgb_desc + (kk / 4) * (1024 >> 4) + (kk % 4) * hp::kDescKStep,
+                  kk);
+            }
+            hp::wgmma_commit();
+            wg_turn_pass();
+            hp::wgmma_wait<0>();
+            hp::keep(rgb);
+            hp::keep(h);
+            if (q < 2) {   // q = 0: columns 0, 1; q = 1: column 2
+              const float b0 = biasf[B::b_rgb + 2 * q];
+              auto head = [](float d, float b) {
+                return __float2bfloat16_rn(
+                    __bfloat162float(__float2bfloat16_rn(d)) + b);
+              };
+              rs[(size_t)row0 * kResChunk * 4 + 2 * q] = head(rgb[0], b0);
+              rs[(size_t)(row0 + 8) * kResChunk * 4 + 2 * q] = head(rgb[2], b0);
+              if (q == 0) {
+                const float b1 = biasf[B::b_rgb + 1];
+                rs[(size_t)row0 * kResChunk * 4 + 1] = head(rgb[1], b1);
+                rs[(size_t)(row0 + 8) * kResChunk * 4 + 1] = head(rgb[3], b1);
+              }
             }
           }
         }
@@ -707,6 +812,18 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+template <bool COMPOSITE>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    nerf_wg_kernel(const __grid_constant__ NerfArgs a) {
+  wg_kernel_body<NerfNet, COMPOSITE>(a);
+}
+
+template <bool COMPOSITE>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    donerf_wg_kernel(const __grid_constant__ NerfArgs a) {
+  wg_kernel_body<DoNeRFNet, COMPOSITE>(a);
+}
+
 template <class P, bool COMPOSITE>
 int run_nerf(const NerfArgs& a, cudaStream_t stream) {
   const int blocks = (a.N + P::TILE - 1) / P::TILE;
@@ -715,7 +832,7 @@ int run_nerf(const NerfArgs& a, cudaStream_t stream) {
 }
 
 // One persistent block per SM, at most one per tile.
-template <bool COMPOSITE>
+template <class Net, bool COMPOSITE>
 int run_nerf_wg(const NerfArgs& a, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -723,8 +840,13 @@ int run_nerf_wg(const NerfArgs& a, cudaStream_t stream) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (a.N + kWgTile - 1) / kWgTile;
-  return launch(nerf_wg_kernel<COMPOSITE>, sms < tiles ? sms : tiles,
-                kWgThreads, WgSmem::bytes, stream, a);
+  const int blocks = sms < tiles ? sms : tiles;
+  if constexpr (Net::kDoNeRF)
+    return launch(donerf_wg_kernel<COMPOSITE>, blocks, kWgThreads,
+                  WgSmem::bytes, stream, a);
+  else
+    return launch(nerf_wg_kernel<COMPOSITE>, blocks, kWgThreads,
+                  WgSmem::bytes, stream, a);
 }
 
 // Any S: no buffer depends on it. Indices into [S*3, N], [S, N] and
@@ -736,40 +858,26 @@ inline bool nerf_args_ok(int N, int S, long long blob_elems, int pack_bf16) {
   return blob_elems == WgBlob::kBlobElems;
 }
 
-}  // namespace pn
-
-// Both return the CUDA error of the launch (0 = launched), or -1 for
-// arguments the kernel does not take.
-extern "C" int pn_fused_nerf_raw(const float* pts24_t, const float* vcon_t,
-                                 const void* blob, long long blob_elems,
-                                 float* raw, int N, int S, int pack_bf16,
-                                 void* stream) {
-  if (!pn::nerf_args_ok(N, S, blob_elems, pack_bf16)) return -1;
-  pn::NerfArgs a = {};
+// The arguments of a raw launch and of a composite one, for the NeRF and
+// the DoNeRF entries alike: ``con_t`` is the view term, [C, N].
+inline NerfArgs raw_args(const float* pts24_t, const float* con_t,
+                         const void* blob, float* raw, int N, int S) {
+  NerfArgs a = {};
   a.pts = pts24_t;
-  a.vcon = vcon_t;
+  a.vcon = con_t;
   a.blob = blob;
   a.N = N;
   a.S = S;
   a.raw = raw;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return pack_bf16 ? pn::run_nerf_wg<false>(a, s)
-                   : pn::run_nerf<pn::PF32, false>(a, s);
+  return a;
 }
 
-extern "C" int pn_fused_nerf_composite(
-    const float* pts24_t, const float* vcon_t, const float* z_t,
+inline NerfArgs composite_args(
+    const float* pts24_t, const float* con_t, const float* z_t,
     const float* mm_add_t, const float* mm_mul_t, const float* dnorm,
-    const void* blob, long long blob_elems, float* rgb, float* depth,
-    float* disp, float* acc, float* weights, float* sigma, int N, int S,
-    int white_bkgd, int pack_bf16, void* stream) {
-  if (!pn::nerf_args_ok(N, S, blob_elems, pack_bf16)) return -1;
-  pn::NerfArgs a = {};
-  a.pts = pts24_t;
-  a.vcon = vcon_t;
-  a.blob = blob;
-  a.N = N;
-  a.S = S;
+    const void* blob, float* rgb, float* depth, float* disp, float* acc,
+    float* weights, float* sigma, int N, int S, int white_bkgd) {
+  NerfArgs a = raw_args(pts24_t, con_t, blob, nullptr, N, S);
   a.z = z_t;
   a.mm_add = mm_add_t;
   a.mm_mul = mm_mul_t;
@@ -781,7 +889,60 @@ extern "C" int pn_fused_nerf_composite(
   a.weights = weights;
   a.sigma = sigma;
   a.white_bkgd = white_bkgd;
+  return a;
+}
+
+}  // namespace pn
+
+// Both return the CUDA error of the launch (0 = launched), or -1 for
+// arguments the kernel does not take.
+extern "C" int pn_fused_nerf_raw(const float* pts24_t, const float* vcon_t,
+                                 const void* blob, long long blob_elems,
+                                 float* raw, int N, int S, int pack_bf16,
+                                 void* stream) {
+  if (!pn::nerf_args_ok(N, S, blob_elems, pack_bf16)) return -1;
+  const pn::NerfArgs a = pn::raw_args(pts24_t, vcon_t, blob, raw, N, S);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return pack_bf16 ? pn::run_nerf_wg<true>(a, s)
+  return pack_bf16 ? pn::run_nerf_wg<pn::NerfNet, false>(a, s)
+                   : pn::run_nerf<pn::PF32, false>(a, s);
+}
+
+extern "C" int pn_fused_nerf_composite(
+    const float* pts24_t, const float* vcon_t, const float* z_t,
+    const float* mm_add_t, const float* mm_mul_t, const float* dnorm,
+    const void* blob, long long blob_elems, float* rgb, float* depth,
+    float* disp, float* acc, float* weights, float* sigma, int N, int S,
+    int white_bkgd, int pack_bf16, void* stream) {
+  if (!pn::nerf_args_ok(N, S, blob_elems, pack_bf16)) return -1;
+  const pn::NerfArgs a = pn::composite_args(
+      pts24_t, vcon_t, z_t, mm_add_t, mm_mul_t, dnorm, blob, rgb, depth, disp,
+      acc, weights, sigma, N, S, white_bkgd);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return pack_bf16 ? pn::run_nerf_wg<pn::NerfNet, true>(a, s)
                    : pn::run_nerf<pn::PF32, true>(a, s);
+}
+
+// The DoNeRF kernel (bf16 only): dcon_t is the head's direction term
+// [4, N]; the other arguments as above.
+extern "C" int pn_fused_donerf_raw(const float* pts24_t, const float* dcon_t,
+                                   const void* blob, long long blob_elems,
+                                   float* raw, int N, int S, void* stream) {
+  if (N <= 0 || S <= 0 || blob_elems != pn::DoWgBlob::kBlobElems) return -1;
+  return pn::run_nerf_wg<pn::DoNeRFNet, false>(
+      pn::raw_args(pts24_t, dcon_t, blob, raw, N, S),
+      reinterpret_cast<cudaStream_t>(stream));
+}
+
+extern "C" int pn_fused_donerf_composite(
+    const float* pts24_t, const float* dcon_t, const float* z_t,
+    const float* mm_add_t, const float* mm_mul_t, const float* dnorm,
+    const void* blob, long long blob_elems, float* rgb, float* depth,
+    float* disp, float* acc, float* weights, float* sigma, int N, int S,
+    int white_bkgd, void* stream) {
+  if (N <= 0 || S <= 0 || blob_elems != pn::DoWgBlob::kBlobElems) return -1;
+  const pn::NerfArgs a = pn::composite_args(
+      pts24_t, dcon_t, z_t, mm_add_t, mm_mul_t, dnorm, blob, rgb, depth, disp,
+      acc, weights, sigma, N, S, white_bkgd);
+  return pn::run_nerf_wg<pn::DoNeRFNet, true>(
+      a, reinterpret_cast<cudaStream_t>(stream));
 }

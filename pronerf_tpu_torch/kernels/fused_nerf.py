@@ -1,7 +1,9 @@
 """Fused positional encoding -> NeRF MLP (8x256, skip after layer 4, view
 branch), returning raw ``[N, S, 4]`` or the alpha-composited ray: packing,
 the plain PyTorch versions, and the wrappers that launch the CUDA kernels of
-``csrc/fused_nerf.cu``.
+``csrc/fused_nerf.cu``; and the same for the DoNeRF trunk
+(``netarch = 'donerf'``, ``models/donerf.py``) on the same kernel frame
+(``fused_donerf_raw_t``, ``fused_donerf_composite_t``).
 
 Counterpart of ``pronerf_tpu/kernels/fused_nerf.py`` with the same contract:
 query points come transposed as ``pts24_t [S*3, N]`` (row ``3*s + c``), the
@@ -21,7 +23,8 @@ dots; ``vcon`` is cast to the pack dtype before it is added; the heads are
 returned as f32 and all compositing arithmetic is f32.
 
 Each kernel is a ``torch.library`` op (``pronerf::fused_nerf_raw``,
-``pronerf::fused_nerf_composite``; ``library.define``) that a traced
+``pronerf::fused_nerf_composite``, ``pronerf::fused_donerf_raw``,
+``pronerf::fused_donerf_composite``; ``library.define``) that a traced
 program can name: its CUDA implementation launches the kernel (or raises)
 and counts the launch, its CPU implementation is the plain version, its
 fake one gives the shapes. The blob the kernel reads is built at pack time
@@ -209,9 +212,17 @@ def fused_nerf_composite_plain(packed, pts24_t, vcon_t, z_t, mm_add_t,
     """Plain PyTorch version of :func:`fused_nerf_composite_t`: the same
     chain, then the streaming composite sample by sample in f32."""
     N = _check_common(packed, pts24_t, vcon_t, n_samples)
-    S = n_samples
-    pts = pts24_t.T.reshape(N, S, 3)
+    pts = pts24_t.T.reshape(N, n_samples, 3)
     rgb, sigma = _forward_plain(packed, pts, vcon_t.T)
+    return _composite_plain(rgb, sigma, z_t, mm_add_t, mm_mul_t, dnorm_t,
+                            white_bkgd)
+
+
+def _composite_plain(rgb, sigma, z_t, mm_add_t, mm_mul_t, dnorm_t,
+                     white_bkgd):
+    """The kernels' streaming composite, sample by sample in f32, of the
+    heads rgb [N, S, 3] and sigma [N, S]."""
+    N, S = sigma.shape
     sigf = sigma.float()
     rgbf = torch.sigmoid(rgb.float())
 
@@ -330,15 +341,21 @@ def _kernels():
             [p] * 7 + [ll] + [p] * 6 + [i, i, i, i, p]
         )
         lib.pn_fused_nerf_composite.restype = ctypes.c_int
+        lib.pn_fused_donerf_raw.argtypes = [p, p, p, ll, p, i, i, p]
+        lib.pn_fused_donerf_raw.restype = ctypes.c_int
+        lib.pn_fused_donerf_composite.argtypes = (
+            [p] * 7 + [ll] + [p] * 6 + [i, i, i, p]
+        )
+        lib.pn_fused_donerf_composite.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
 def _check_cuda(packed, **tensors):
-    cdt = packed["w1_t"].dtype
+    cdt = packed["w0p_t"].dtype
     if cdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"pack dtype {cdt} has no kernel")
-    dev = packed["w1_t"].device
+    dev = packed["w0p_t"].device
     for name, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, panels on {dev}")
@@ -359,13 +376,14 @@ def _launch_error(err: int) -> str:
 BLOBS_KEY = "_kernel_blobs"
 
 
-def attach_blobs(packed):
-    """Build the kernel's blob and keep it in ``packed`` under
-    ``BLOBS_KEY`` (a list of one): at pack time, so that no traced or
-    captured call builds it. Only a pack on the card gets it (the plain
-    version reads the panels); returns ``packed``."""
-    if packed["w1_t"].device.type == "cuda" and BLOBS_KEY not in packed:
-        packed[BLOBS_KEY] = [_blob(packed)]
+def attach_blobs(packed, build=_blob):
+    """Build the kernel's blob (``build``: the NeRF pack's ``_blob``, or
+    ``_donerf_blob``) and keep it in ``packed`` under ``BLOBS_KEY`` (a list
+    of one): at pack time, so that no traced or captured call builds it.
+    Only a pack on the card gets it (the plain version reads the panels);
+    returns ``packed``."""
+    if packed["w0p_t"].device.type == "cuda" and BLOBS_KEY not in packed:
+        packed[BLOBS_KEY] = [build(packed)]
     return packed
 
 
@@ -565,3 +583,316 @@ def fused_nerf_composite_t(packed, pts24_t, vcon_t, z_t, mm_add_t, mm_mul_t,
 
 fused_nerf_composite_t.launches = 0
 fused_nerf_composite_t.launches_by_samples = {}
+
+
+# ---------------------------------------------------------------- DoNeRF --
+#
+# The DoNeRF trunk (``models/donerf.py``, the view features entering at its
+# last layer: the 'auto' skip of D <= 8) on the NeRF kernel's frame: the PE
+# layer, D - 2 hidden ReLU layers, then the head on [h | d_pe] -> [rgb
+# logits, sigma]. The head's direction half is one product a ray, taken
+# outside the kernel (``models.pronerf.view_contribution``) as ``dcon_t
+# [4, N]`` f32 with operands in the pack dtype; the kernel adds it to the
+# head's f32 sums before they are rounded, where the module rounds its one
+# product of K = W + 27. The kernel is bf16 only, at D = 8, W = 256.
+
+DONERF_OUT = 4
+DONERF_DEPTH = 8
+
+
+def pack_donerf_params(net, dtype=torch.bfloat16):
+    """Panels of a :class:`models.donerf.DoNeRFMLP` whose view features
+    enter at its last layer, transposed (w_t [out, in]; biases as [out, 1]
+    columns), in ``dtype``: ``bx_t``; ``w0p_t`` [W, 63], its rows in the
+    kernel's PE order; ``w{i}_t`` [W, W] for the hidden layers i = 1 ..
+    D - 2; ``w_out_t`` [8, W], the head's h half (rows [rgb, sigma], padded
+    to 8). A pack on the card gets the kernel's blob (:func:`attach_blobs`,
+    which raises for a pack the kernel does not take)."""
+    layers = list(net.layers)
+    if net.skip != len(layers) - 1 or \
+            layers[-1].weight.shape[0] != DONERF_OUT:
+        raise ValueError(
+            "the DoNeRF kernel takes the view features at the last layer "
+            f"and {DONERF_OUT} outputs (D <= 8 under the 'auto' skip); got "
+            f"the skip at layer {net.skip} of {len(layers)}")
+    W_net = layers[0].weight.shape[0]
+
+    def w_in_out(lin):
+        return lin.weight.detach().T
+
+    def wt(a):
+        return a.T.contiguous().to(dtype)
+
+    def bias(b):
+        return b.detach().reshape(-1, 1).to(dtype)
+
+    last = w_in_out(layers[-1])                    # [W + 27, 4]
+    w_out = last.new_zeros(W_net, 8)
+    w_out[:, :DONERF_OUT] = last[:W_net]
+    b_out = last.new_zeros(8)
+    b_out[:DONERF_OUT] = layers[-1].bias.detach()
+    packed = {
+        "bx_t": _freq_matrix(L_PTS).to(last.device).T.contiguous().to(dtype),
+        "w0p_t": wt(torch.cat(_split_pe_rows(w_in_out(layers[0]), L_PTS))),
+        "b0": bias(layers[0].bias),
+    }
+    for i in range(1, len(layers) - 1):
+        packed[f"w{i}_t"] = wt(w_in_out(layers[i]))
+        packed[f"b{i}"] = bias(layers[i].bias)
+    packed["w_out_t"] = wt(w_out)
+    packed["b_out"] = bias(b_out)
+    return attach_blobs(packed, _donerf_blob)
+
+
+def _donerf_keys(n_hidden: int):
+    """The panels of a DoNeRF pack in the order the ops take them."""
+    hidden = [k for i in range(1, n_hidden + 1) for k in (f"w{i}_t", f"b{i}")]
+    return ("bx_t", "w0p_t", "b0", *hidden, "w_out_t", "b_out")
+
+
+def _donerf_panels(packed):
+    n_hidden = 0
+    while f"w{n_hidden + 1}_t" in packed:
+        n_hidden += 1
+    return [packed[k] for k in _donerf_keys(n_hidden)]
+
+
+def _donerf_pack(panels):
+    return dict(zip(_donerf_keys((len(panels) - 5) // 2), panels))
+
+
+def _donerf_forward_plain(packed, pts, dcon):
+    """The DoNeRF chain. pts [N, S, 3] f32, dcon [N, 4] f32. Returns (rgb
+    [N, S, 3], sigma [N, S]) in the pack dtype."""
+    p = packed
+    cdt = p["w0p_t"].dtype
+
+    def row(name):
+        return p[name].reshape(1, -1)
+
+    x = pts.to(cdt)
+    xb = pe_args(pts, p["bx_t"])                         # [N, S, 30]
+    pe = torch.cat([x, torch.sin(xb).to(cdt), torch.cos(xb).to(cdt)], dim=-1)
+    h = torch.relu(_mm(pe, p["w0p_t"]) + row("b0"))
+    i = 1
+    while f"w{i}_t" in p:
+        h = torch.relu(_mm(h, p[f"w{i}_t"]) + row(f"b{i}"))
+        i += 1
+    w_out = p["w_out_t"][:DONERF_OUT]
+    out = ((h.to(cdt).float() @ w_out.float().T + dcon.float()[:, None, :])
+           .to(cdt) + row("b_out")[:, :DONERF_OUT])      # [N, S, 4]
+    return out[..., :3], out[..., 3]
+
+
+def _check_donerf(pts24_t, dcon_t, n_samples):
+    if pts24_t.dim() != 2 or pts24_t.shape[0] != 3 * n_samples:
+        raise ValueError(
+            f"pts24_t must be [3*{n_samples}, N], got {tuple(pts24_t.shape)}"
+        )
+    N = pts24_t.shape[1]
+    if tuple(dcon_t.shape) != (DONERF_OUT, N):
+        raise ValueError(
+            f"dcon_t must be [{DONERF_OUT}, {N}], got {tuple(dcon_t.shape)}")
+    return N
+
+
+def fused_donerf_raw_plain(packed, pts24_t, dcon_t, n_samples: int = 8):
+    """Plain PyTorch version of :func:`fused_donerf_raw_t`, same rounding
+    points. Runs on any device and at any D and W."""
+    N = _check_donerf(pts24_t, dcon_t, n_samples)
+    rgb, sigma = _donerf_forward_plain(
+        packed, pts24_t.T.reshape(N, n_samples, 3), dcon_t.T)
+    return torch.cat([rgb, sigma[..., None]], dim=-1).float()
+
+
+def fused_donerf_composite_plain(packed, pts24_t, dcon_t, z_t, mm_add_t,
+                                 mm_mul_t, dnorm_t, n_samples: int = 8,
+                                 white_bkgd: bool = False):
+    """Plain PyTorch version of :func:`fused_donerf_composite_t`: the
+    DoNeRF chain, then the NeRF kernel's streaming composite."""
+    N = _check_donerf(pts24_t, dcon_t, n_samples)
+    rgb, sigma = _donerf_forward_plain(
+        packed, pts24_t.T.reshape(N, n_samples, 3), dcon_t.T)
+    return _composite_plain(rgb, sigma, z_t, mm_add_t, mm_mul_t, dnorm_t,
+                            white_bkgd)
+
+
+# The bf16 blob (``DoWgBlob`` in ``csrc/fused_nerf.cu``): the ring stages in
+# the order the chain consumes them, the same for every sample (layer 0 as
+# one stage of 256 rows, then layers 1..6 in halves), the head's slabs, the
+# biases.
+DONERF_RING_STAGES = tuple(
+    tuple(st) for st in slabs("w0p_t", n=1)
+    + [st for i in range(1, DONERF_DEPTH - 1) for st in halves(f"w{i}_t")])
+DONERF_HEAD_SLABS = tuple(("w_out_t", 0, 8, ks) for ks in range(W // SLAB_K))
+DONERF_BIAS_ORDER = tuple(f"b{i}" for i in range(DONERF_DEPTH - 1)) + (
+    "b_out",)
+
+
+def donerf_stage_table():
+    """(byte offset in the blob, bytes) of every DoNeRF ring stage."""
+    return _stage_table(DONERF_RING_STAGES)
+
+
+def _donerf_blob(packed):
+    """The DoNeRF kernel's blob, built once and kept in ``packed``; raises
+    for a pack the kernel does not take (not bf16, not D = 8 and W = 256)."""
+    blob = packed.get(_BLOB_KEY)
+    if blob is None:
+        bx = packed["bx_t"]
+        want = _freq_matrix(L_PTS).T.to(device=bx.device, dtype=bx.dtype)
+        if not torch.equal(bx, want):
+            raise ValueError("bx_t is not the power-of-two frequency matrix")
+        shapes = {k: tuple(v.shape) for k, v in packed.items()
+                  if k.startswith("w")}
+        need = {"w0p_t": (W, 63), "w_out_t": (8, W)} | {
+            f"w{i}_t": (W, W) for i in range(1, DONERF_DEPTH - 1)}
+        if packed["w0p_t"].dtype != torch.bfloat16 or shapes != need:
+            raise ValueError(
+                f"the DoNeRF kernel takes bf16 panels of D = {DONERF_DEPTH}, "
+                f"W = {W}: got {packed['w0p_t'].dtype}, {shapes}")
+        parts = images(packed, DONERF_RING_STAGES + (DONERF_HEAD_SLABS,))
+        parts += [packed[name].reshape(-1) for name in DONERF_BIAS_ORDER]
+        blob = torch.cat(parts).contiguous()
+        packed[_BLOB_KEY] = blob
+    return blob
+
+
+def _donerf_blob_arg(panels, blobs, tensors):
+    """Checks of a DoNeRF launch on the card; the blob."""
+    if len(blobs) != 1:
+        raise ValueError("the pack has no kernel blob (attach_blobs)")
+    if not _check_cuda(_donerf_pack(panels), **tensors):
+        raise TypeError("the DoNeRF kernel takes bf16 panels")
+    return blobs[0]
+
+
+def _donerf_launched(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: {_launch_error(err)}")
+    COUNTERS["donerf_launches"] += 1
+
+
+def _fused_donerf_raw_cuda(panels: list[torch.Tensor],
+                           blobs: list[torch.Tensor], pts24_t: torch.Tensor,
+                           dcon_t: torch.Tensor,
+                           n_samples: int) -> torch.Tensor:
+    """The op ``pronerf::fused_donerf_raw`` on the card: launches
+    ``donerf_wg_kernel<false>``, or raises."""
+    blob = _donerf_blob_arg(panels, blobs,
+                            dict(pts24_t=pts24_t, dcon_t=dcon_t))
+    N = _check_donerf(pts24_t, dcon_t, n_samples)
+    raw = torch.empty(N, n_samples, 4, dtype=torch.float32,
+                      device=pts24_t.device)
+    with torch.cuda.device(pts24_t.device):
+        err = _kernels().pn_fused_donerf_raw(
+            pts24_t.data_ptr(), dcon_t.data_ptr(), blob.data_ptr(),
+            blob.numel(), raw.data_ptr(), N, n_samples,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _donerf_launched(err, "fused_donerf_raw")
+    return raw
+
+
+def _fused_donerf_raw_cpu(panels, blobs, pts24_t, dcon_t, n_samples):
+    return fused_donerf_raw_plain(_donerf_pack(panels), pts24_t, dcon_t,
+                                  n_samples).contiguous()
+
+
+fused_donerf_raw_op = library.define(
+    "fused_donerf_raw(Tensor[] panels, Tensor[] blobs, Tensor pts24_t, "
+    "Tensor dcon_t, SymInt n_samples) -> Tensor",
+    _fused_donerf_raw_cuda, _fused_donerf_raw_cpu, _raw_fake)
+
+
+def _fused_donerf_composite_cuda(
+        panels: list[torch.Tensor], blobs: list[torch.Tensor],
+        pts24_t: torch.Tensor, dcon_t: torch.Tensor, z_t: torch.Tensor,
+        mm_add_t: torch.Tensor, mm_mul_t: torch.Tensor,
+        dnorm_t: torch.Tensor, n_samples: int, white_bkgd: bool,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor, torch.Tensor]:
+    """The op ``pronerf::fused_donerf_composite`` on the card: launches
+    ``donerf_wg_kernel<true>``, or raises. Returns the outputs in
+    ``_COMPOSITE_KEYS`` order."""
+    S = n_samples
+    blob = _donerf_blob_arg(panels, blobs, dict(
+        pts24_t=pts24_t, dcon_t=dcon_t, z_t=z_t, mm_add_t=mm_add_t,
+        mm_mul_t=mm_mul_t, dnorm_t=dnorm_t))
+    N = _check_donerf(pts24_t, dcon_t, S)
+    for name, t in (("z_t", z_t), ("mm_add_t", mm_add_t),
+                    ("mm_mul_t", mm_mul_t)):
+        if tuple(t.shape) != (S, N):
+            raise ValueError(f"{name} must be [{S}, {N}], got {tuple(t.shape)}")
+    if tuple(dnorm_t.shape) != (1, N):
+        raise ValueError(f"dnorm_t must be [1, {N}], got {tuple(dnorm_t.shape)}")
+    out = _composite_empty(pts24_t, N, S)
+    with torch.cuda.device(pts24_t.device):
+        err = _kernels().pn_fused_donerf_composite(
+            pts24_t.data_ptr(), dcon_t.data_ptr(), z_t.data_ptr(),
+            mm_add_t.data_ptr(), mm_mul_t.data_ptr(), dnorm_t.data_ptr(),
+            blob.data_ptr(), blob.numel(),
+            *(t.data_ptr() for t in out),
+            N, S, int(white_bkgd), torch.cuda.current_stream().cuda_stream,
+        )
+    _donerf_launched(err, "fused_donerf_composite")
+    return out
+
+
+def _fused_donerf_composite_cpu(panels, blobs, pts24_t, dcon_t, z_t,
+                                mm_add_t, mm_mul_t, dnorm_t, n_samples,
+                                white_bkgd):
+    out = fused_donerf_composite_plain(
+        _donerf_pack(panels), pts24_t, dcon_t, z_t, mm_add_t, mm_mul_t,
+        dnorm_t, n_samples, white_bkgd)
+    return tuple(out[k].contiguous() for k in _COMPOSITE_KEYS)
+
+
+fused_donerf_composite_op = library.define(
+    "fused_donerf_composite(Tensor[] panels, Tensor[] blobs, "
+    "Tensor pts24_t, Tensor dcon_t, Tensor z_t, Tensor mm_add_t, "
+    "Tensor mm_mul_t, Tensor dnorm_t, SymInt n_samples, bool white_bkgd) -> "
+    "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    _fused_donerf_composite_cuda, _fused_donerf_composite_cpu,
+    _fused_nerf_composite_fake)
+
+
+def _donerf_op_args(packed, device):
+    blobs = (attach_blobs(packed, _donerf_blob)[BLOBS_KEY]
+             if device.type == "cuda" else [])
+    return _donerf_panels(packed), blobs
+
+
+def fused_donerf_raw_t(packed, pts24_t, dcon_t, n_samples: int = 8):
+    """Fused PE -> DoNeRF trunk forward (no autograd; inference path).
+
+    Args:
+      packed: :func:`pack_donerf_params` output.
+      pts24_t: [S*3, N] float32 query points, as :func:`fused_nerf_raw_t`.
+      dcon_t: [4, N] float32 per-ray direction term of the head
+        (``models.pronerf.view_contribution``).
+      n_samples: S.
+
+    Calls the op ``pronerf::fused_donerf_raw``: on CUDA tensors it launches
+    the kernel or raises (each launch counted in
+    ``COUNTERS["donerf_launches"]``), on CPU tensors it runs the plain
+    version. Returns: raw [N, S, 4] float32 (rgb logits, sigma).
+    """
+    panels, blobs = _donerf_op_args(packed, pts24_t.device)
+    return fused_donerf_raw_op(panels, blobs, pts24_t, dcon_t, n_samples)
+
+
+def fused_donerf_composite_t(packed, pts24_t, dcon_t, z_t, mm_add_t,
+                             mm_mul_t, dnorm_t, n_samples: int = 8,
+                             white_bkgd: bool = False):
+    """Fused PE -> DoNeRF trunk -> alpha COMPOSITE (no autograd; inference
+    path): :func:`fused_nerf_composite_t`'s contract with the DoNeRF pack
+    and ``dcon_t [4, N]`` in the place of ``vcon_t``. Calls the op
+    ``pronerf::fused_donerf_composite``; each launch on the card is counted
+    in ``COUNTERS["donerf_launches"]``."""
+    panels, blobs = _donerf_op_args(packed, pts24_t.device)
+    out = fused_donerf_composite_op(panels, blobs, pts24_t, dcon_t, z_t,
+                                    mm_add_t, mm_mul_t, dnorm_t, n_samples,
+                                    white_bkgd)
+    return dict(zip(_COMPOSITE_KEYS, out))

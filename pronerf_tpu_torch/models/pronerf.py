@@ -121,7 +121,7 @@ class RenderStatics:
                                  # all-views gather), 0 all-views, 1 the
                                  # per-view form (u8 pack)
     netarch: str = "nerf"     # radiance-field family: 'nerf' | 'donerf'
-                              # (donerf runs without the kernels)
+                              # (donerf's kernel is bf16, no int8)
     transposed: bool = False  # fully transposed serving graph
                               # (models/pronerf_t.py)
     quant: str = "none"       # 'int8': run the fused NeRF kernel with int8
@@ -256,12 +256,17 @@ def _nearest_views(statics, scene, controls):
     return torch.argsort(dist, stable=True)[: statics.num_neighbor]
 
 
-def view_contribution(nerf: NeRFMLP, d_pe, pack_dtype):
-    """``vcon_t [128, N]`` float32: the direction half of the view layer,
-    ``views_w[:, 256:] . d_pe`` with operands in ``pack_dtype`` and f32
-    accumulation (bias excluded; the kernel adds it). The fused NeRF kernels
-    cast it to the pack dtype before adding it."""
-    wv = nerf.views.weight[:, nerf.W:]  # [128, Cd]
+def view_contribution(nerf, d_pe, pack_dtype):
+    """The direction half of the layer that reads the view features, per
+    ray, with operands in ``pack_dtype`` and f32 accumulation (bias
+    excluded; the kernel adds it): for the NeRF MLP ``vcon_t [128, N] =
+    views_w[:, 256:] . d_pe``, which the fused NeRF kernels cast to the
+    pack dtype before adding it; for DoNeRF ``dcon_t [4, N]``, the head's
+    ``W[:, W:] . d_pe``, which its kernel adds to the head's f32 sums."""
+    if isinstance(nerf, DoNeRFMLP):
+        wv = nerf.layers[-1].weight[:, -d_pe.shape[-1]:]  # [4, Cd]
+    else:
+        wv = nerf.views.weight[:, nerf.W:]  # [128, Cd]
     return wv.to(pack_dtype).float() @ d_pe.to(pack_dtype).float().T
 
 
@@ -279,9 +284,14 @@ def _check_statics(statics: RenderStatics):
     if statics.quant not in ("none", "int8"):
         raise ValueError(
             f"quant must be 'none' or 'int8', got {statics.quant!r}")
-    if statics.use_kernels and statics.netarch != "nerf":
-        raise ValueError("the fused kernels implement the NeRF MLP; "
-                         "netarch='donerf' runs without them")
+    if statics.use_kernels and statics.netarch == "donerf":
+        if statics.quant != "none":
+            raise ValueError("the int8 kernel implements the NeRF MLP; "
+                             "netarch='donerf' takes quant='none'")
+        if statics.compute_dtype != "bfloat16":
+            raise ValueError("the DoNeRF kernel is bf16: netarch='donerf' "
+                             "takes the kernels with compute_dtype="
+                             "'bfloat16'")
     if statics.randomize and statics.use_kernels:
         raise ValueError("the fused kernels serve the deterministic path "
                          "only (no gradient flows through them)")
@@ -307,7 +317,7 @@ def pack_serving_params(params, statics: RenderStatics):
     - ``nerf_packed_q`` (the int8 panels) with ``quant = 'int8'``, else
       ``nerf_packed``; with ``transposed`` ``nerf_packed`` too, because the
       transposed graph composites in the bf16/f32 NeRF kernel, as the JAX
-      package's does;
+      package's does; for DoNeRF ``donerf_packed`` in their place;
     - ``sampler_packed`` / ``refine_packed`` when the MinMax nets run as
       kernels in ``render_rays`` (bf16 and no ``mmnetskips``: the fold's
       precondition);
@@ -325,9 +335,11 @@ def pack_serving_params(params, statics: RenderStatics):
            else torch.float32)
     int8, bf16 = statics.quant == "int8", pdt == torch.bfloat16
     minmax = not statics.mmnetskips
+    donerf = statics.netarch == "donerf"
     need = {
         "nerf_packed_q": int8,
-        "nerf_packed": not int8 or statics.transposed,
+        "nerf_packed": not donerf and (not int8 or statics.transposed),
+        "donerf_packed": donerf,
         "sampler_packed": minmax and (bf16 or statics.transposed),
         "refine_packed": minmax and bf16,
         "refine_packed_t": minmax and statics.transposed,
@@ -348,6 +360,8 @@ def pack_serving_params(params, statics: RenderStatics):
             params["nerf"]),
         "nerf_packed": lambda: fused_nerf.pack_nerf_params(params["nerf"],
                                                            pdt),
+        "donerf_packed": lambda: fused_nerf.pack_donerf_params(
+            params["nerf"], pdt),
         "sampler_packed": lambda: fused_minmax.pack_minmax_params(
             params["sampler"], statics.N_point_ray_enc, pdt),
         "refine_packed": lambda: fused_minmax.pack_minmax_params(
@@ -610,16 +624,23 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
             # small product stay outside. Where the statics allow it (no
             # noise, exploration or raw clamp; the density corrections on),
             # alpha compositing streams inside the kernel; else the raw
-            # kernel's output goes to ops.composite.
-            from pronerf_tpu_torch.kernels.fused_nerf import (
-                fused_nerf_composite_t,
-                fused_nerf_raw_t,
-            )
+            # kernel's output goes to ops.composite. DoNeRF runs its own
+            # form of the kernel (its pack, the head's direction term).
+            from pronerf_tpu_torch.kernels import fused_nerf as fn
 
+            if statics.netarch == "donerf":
+                nerf_packed = params["donerf_packed"]
+                raw_t = fn.fused_donerf_raw_t
+                composite_t = fn.fused_donerf_composite_t
+            else:
+                nerf_packed = params.get("nerf_packed")
+                raw_t = fn.fused_nerf_raw_t
+                composite_t = fn.fused_nerf_composite_t
             kdt = torch.bfloat16 if cdt is not None else torch.float32
             d_pe = positional_encoding(rays["viewdirs"],
                                        statics.multires_views)
-            vcon_t = view_contribution(params["nerf"], d_pe, kdt)  # [128, N]
+            # [128, N] (NeRF) or [4, N] (DoNeRF)
+            vcon_t = view_contribution(params["nerf"], d_pe, kdt)
             # [S*3, N] transposed query points, row 3*s + c, the offsets taken
             # from refine_out's [n, 3s + c] columns: the same points as
             # ray_points + offsets below.
@@ -648,8 +669,8 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
                     n_samples=S)
             elif fuse_comp:
                 dnorm = torch.linalg.norm(ndc_d, dim=-1)[None, :]
-                comp = fused_nerf_composite_t(
-                    params["nerf_packed"], pts24_t, vcon_t,
+                comp = composite_t(
+                    nerf_packed, pts24_t, vcon_t,
                     z_vals.T.float().contiguous(),
                     mm_add.T.float().contiguous(),
                     mm_mul.T.float().contiguous(),
@@ -658,8 +679,7 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
                 )
                 sigma_out = comp["sigma"]
             else:
-                raw = fused_nerf_raw_t(params["nerf_packed"], pts24_t, vcon_t,
-                                       n_samples=S)
+                raw = raw_t(nerf_packed, pts24_t, vcon_t, n_samples=S)
         else:
             query_pts = ray_points(ndc_o, ndc_d, z_vals)
             if statics.add_offsets:

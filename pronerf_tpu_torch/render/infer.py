@@ -98,9 +98,12 @@ def load_inference_data(cfg: Config):
 
 
 def _infer_statics(cfg: Config, use_bf16: bool) -> RenderStatics:
-    use_kernels = cfg.use_pallas and cfg.netarch == "nerf"
+    compute_dtype = "bfloat16" if use_bf16 else cfg.compute_dtype
+    # the DoNeRF kernel is bf16: an f32 DoNeRF frame runs without kernels
+    use_kernels = cfg.use_pallas and (cfg.netarch == "nerf"
+                                      or compute_dtype == "bfloat16")
     return RenderStatics.infer(
-        compute_dtype="bfloat16" if use_bf16 else cfg.compute_dtype,
+        compute_dtype=compute_dtype,
         use_kernels=use_kernels,
         quant=cfg.quant if use_kernels else "none",
         gather_tiles=cfg.gather_tiles,
@@ -300,10 +303,15 @@ def run_export(cfg: Config, height: int = 756, width: int = 1008,
     K = np.array([[data["K"][0][0] * sx, 0, 0.5 * width],
                   [0, data["K"][1][1] * sy, 0.5 * height],
                   [0, 0, 1]], np.float32)
+    statics = _infer_statics(cfg, use_bf16=cfg.use_trt)
+    if statics.netarch == "donerf":
+        # the DoNeRF kernel's ops are not exported: a DoNeRF program is the
+        # kernel-free frame
+        statics = dataclasses.replace(statics, use_kernels=False)
     paths = export_renderer(
         params, scene, expdir / "export", height, width, K,
         tile_rays=cfg.tile_rays,
-        statics=_infer_statics(cfg, use_bf16=cfg.use_trt),
+        statics=statics,
         arch=_arch(cfg), device=device,
     )
     print(f"Exported AOT renderer to {paths['executable']}")

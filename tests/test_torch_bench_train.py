@@ -43,7 +43,10 @@ from pronerf_tpu_torch import bench_train, convert
 from pronerf_tpu_torch.train.state import named_params
 from torch_train_common import NETS, as_numpy, configs, controls, named_numpy
 
+import jax_native_once
+
 torch.set_num_threads(2)
+jax_native_once.load()  # the JAX pool on its library, as the port's
 
 ROOT = Path(__file__).resolve().parents[1]
 K = 2

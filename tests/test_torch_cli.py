@@ -13,9 +13,11 @@ import torch
 
 from pronerf_tpu_torch.cli import main
 from pronerf_tpu_torch.train import checkpoint as t_ckpt
+import jax_native_once
 from torch_jax_pe import jax_kernels_with_f32_pe  # noqa: F401 (autouse: f32 PE)
 
 torch.set_num_threads(2)
+jax_native_once.load()  # the JAX pool on its library, as the port's
 
 
 @pytest.fixture(scope="module")
@@ -231,3 +233,35 @@ def test_infer_timing_reps_prints_the_jax_summary_lines(llff_root, tmp_path,
         "Steady-state render ms/frame (scan x2 minus ")]
     assert len(scan) == 1 and scan[0].endswith(f": {ams:.3f}")
     assert sum(ln.startswith("Median") for ln in out) == 2
+
+
+def test_infer_use_trt_serves_donerf_through_its_kernel(llff_root, tmp_path,
+                                                        monkeypatch):
+    """``infer --use-trt`` with ``netarch = donerf`` takes the kernel route:
+    the DoNeRF kernel's op a frame (on the CPU its plain version; on the
+    card each launch moves ``COUNTERS["donerf_launches"]``,
+    tests/test_torch_donerf_card.py), with the MinMax kernels' ops."""
+    from pronerf_tpu_torch.kernels import fused_minmax as t_fm
+    from pronerf_tpu_torch.kernels import fused_nerf as t_fn
+    from pronerf_tpu_torch.utils.profiling import COUNTERS
+
+    calls = {}
+    for mod, name in ((t_fn, "fused_donerf_composite_plain"),
+                      (t_fn, "fused_nerf_composite_plain"),
+                      (t_fm, "fused_minmax_plain")):
+        real = getattr(mod, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(mod, name, spy)
+    before = COUNTERS["donerf_launches"]
+    result = main(["infer", "--use-trt", "--max-images", "1", "--device",
+                   "cpu"] + _common(llff_root, tmp_path, "donerf", tile=False)
+                  + ["--netarch", "donerf", "--mmnetdepth", "2",
+                     "--ft_path", ""])
+    assert result["rgbs1"].shape == (1, 32, 40, 3)
+    assert calls == {"fused_donerf_composite_plain": 1,
+                     "fused_minmax_plain": 2}
+    assert COUNTERS["donerf_launches"] == before

@@ -172,10 +172,12 @@ def test_donerf_frame_matches_jax(frame, compute_dtype):
         else:
             atol = 0.05 if k == "sigma" else 0.02
         np.testing.assert_allclose(g, w, atol=atol, err_msg=k)
-    # the fused kernels implement the NeRF MLP, not DoNeRF
+    # DoNeRF's kernel is bf16 (f32 raises), and the int8 kernel implements
+    # the NeRF MLP (the bf16 kernel route: the tests below)
+    int8 = dict(quant="int8") if compute_dtype else {}
     with pytest.raises(ValueError, match="donerf"):
         render_rays(frame["params"], {}, frame["scene"], frame["controls"],
-                    RenderStatics.infer(use_kernels=True, **kw))
+                    RenderStatics.infer(use_kernels=True, **kw, **int8))
 
 
 @pytest.mark.parametrize("kind", ["nerf", "sampler"])
@@ -267,3 +269,118 @@ def test_sample_pdf_det_matches_jax_and_draws_stay_in_the_bins():
     again = t_sampling.sample_pdf(T(bins), T(weights), 64,
                                   generator=torch.Generator().manual_seed(1))
     assert torch.equal(draws, again)
+
+
+# ---------------------------------------------------- the DoNeRF kernel --
+#
+# The kernel route of ``netarch = 'donerf'`` on the CPU, where the ops run
+# their plain versions (the card tests: tests/test_torch_donerf_card.py), at
+# the kernel's widths (D 8, W 256). Bounds: the plain version rounds where
+# the module does and sums the head's K = 256 + 27 products in two parts,
+# so a sum can land on the other side of a bf16 boundary: 0.02 on raw
+# logits, as chip_smoke's bf16 bound; the composite is f32 arithmetic on
+# the same raw values, 1e-5.
+
+def _release_donerf(seed):
+    net = t_donerf.init_donerf(torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for i, lin in enumerate(net.layers):  # zero at init: make them count
+            lin.bias.uniform_(-0.1, 0.1,
+                              generator=torch.Generator().manual_seed(i))
+    return net
+
+
+@pytest.mark.parametrize("S", [8, 16])
+def test_donerf_kernel_plain_versions_hold_the_module(S):
+    from pronerf_tpu_torch.kernels import fused_nerf as t_fn
+    from pronerf_tpu_torch.models.pronerf import view_contribution
+    from pronerf_tpu_torch.ops.composite import composite
+    from pronerf_tpu_torch.ops.encoding import positional_encoding
+
+    net, N = _release_donerf(S), 96
+    g = torch.Generator().manual_seed(S)
+    pts = torch.rand(N, S, 3, generator=g) * 2 - 1
+    dirs = torch.nn.functional.normalize(torch.randn(N, 3, generator=g),
+                                         dim=-1)
+    d_pe = positional_encoding(dirs, 4)
+    packed = t_fn.pack_donerf_params(net)
+    pts24_t = pts.reshape(N, 3 * S).T.contiguous()
+    with torch.no_grad():
+        dcon_t = view_contribution(net, d_pe, torch.bfloat16)
+        raw = t_fn.fused_donerf_raw_t(packed, pts24_t, dcon_t, S)
+        want = net(positional_encoding(pts, 10),
+                   d_pe[:, None].expand(N, S, 27), torch.bfloat16)
+    assert dcon_t.shape == (4, N) and raw.shape == (N, S, 4)
+    assert float(want.abs().max()) > 0.1
+    np.testing.assert_allclose(raw.numpy(), want.numpy(), atol=0.02)
+    z_t = torch.sort(torch.rand(S, N, generator=g), dim=0).values
+    mm_add, mm_mul = torch.randn(S, N, generator=g), torch.rand(S, N,
+                                                               generator=g)
+    ndc_d = torch.randn(N, 3, generator=g)
+    dnorm = torch.linalg.norm(ndc_d, dim=-1)[None]
+    got = t_fn.fused_donerf_composite_t(packed, pts24_t, dcon_t, z_t, mm_add,
+                                        mm_mul, dnorm, S)
+    ref = composite(raw, z_t.T, ndc_d, mm_add=mm_add.T, mm_mul=mm_mul.T)
+    for k in ("rgb", "depth", "acc", "weights"):
+        np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(),
+                                   atol=1e-5, err_msg=k)
+    np.testing.assert_array_equal(got["sigma"].numpy(), raw[..., 3].numpy())
+
+
+def test_donerf_pack_takes_only_what_the_kernel_computes():
+    from pronerf_tpu_torch.kernels import fused_nerf as t_fn
+
+    # the view features entering before the last layer (D = 16: layer 14)
+    deep = t_donerf.init_donerf(torch.Generator().manual_seed(0), D=16, W=32)
+    with pytest.raises(ValueError, match="last layer"):
+        t_fn.pack_donerf_params(deep)
+    # the plain version takes any width and depth; the kernel's blob not
+    small = t_fn.pack_donerf_params(
+        t_donerf.init_donerf(torch.Generator().manual_seed(0), D=4, W=32))
+    with pytest.raises(ValueError, match="D = 8, W = 256"):
+        t_fn._donerf_blob(small)
+    f32 = t_fn.pack_donerf_params(_release_donerf(0), torch.float32)
+    with pytest.raises(ValueError, match="bf16"):
+        t_fn._donerf_blob(f32)
+
+
+def test_donerf_frame_on_the_kernel_route(monkeypatch):
+    """The served statics with ``netarch = 'donerf'`` take the kernel route:
+    one DoNeRF composite a frame (here its plain version), no NeRF kernel,
+    the MinMax and gather ops of the NeRF frame, and the frame of the
+    kernel-free bf16 path to within the bf16 bounds of
+    tests/test_torch_render.py (0.02)."""
+    from pronerf_tpu_torch.kernels import fused_nerf as t_fn
+    from pronerf_tpu_torch.render.raygen import prepare_scene
+    from pronerf_tpu_torch.render.renderer import make_frame_renderer
+    from pronerf_tpu_torch.utils.profiling import COUNTERS
+
+    H, W, ref = 12, 16, [0, 2, 3, 4]
+    sc = make_scene(n_views=5, H=H, W=W, seed=0)
+    params = init_pronerf_params(torch.Generator().manual_seed(3),
+                                 netarch="donerf", mmnetdepth=2)
+    params["nerf"] = _release_donerf(3)
+    scene = prepare_scene(sc["images"][ref], sc["poses"][ref], sc["K"],
+                          pack_corners="u8", device="cpu")
+    calls = {}
+    for name in ("fused_donerf_composite_plain", "fused_donerf_raw_plain",
+                 "fused_nerf_composite_plain", "fused_nerf_raw_plain"):
+        real = getattr(t_fn, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(t_fn, name, spy)
+    frames = {}
+    before = COUNTERS["donerf_launches"]
+    for kernels in (True, False):
+        statics = RenderStatics.infer(compute_dtype="bfloat16",
+                                      use_kernels=kernels, netarch="donerf")
+        render = make_frame_renderer(statics, H, W, sc["K"], 0, device="cpu")
+        frames[kernels] = render(params, scene, sc["poses"][1][:3, :4])
+    assert calls == {"fused_donerf_composite_plain": 1}
+    assert COUNTERS["donerf_launches"] == before   # host launches on the card
+    for k, v in frames[False].items():
+        np.testing.assert_allclose(frames[True][k].numpy(), v.numpy(),
+                                   atol=0.02, err_msg=k)

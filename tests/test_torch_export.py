@@ -204,9 +204,20 @@ def _nerf_args(S=3, N=7, int8=False):
     return [packed[n] for n in fn._WEIGHT_ORDER], pts, vcon
 
 
+def _donerf_args(S, N):
+    from pronerf_tpu_torch.models.donerf import init_donerf
+
+    packed = fn.pack_donerf_params(
+        init_donerf(torch.Generator().manual_seed(2), D=4, W=32))
+    g = torch.Generator().manual_seed(3)
+    return (fn._donerf_panels(packed), torch.rand(3 * S, N, generator=g) * 2
+            - 1, torch.randn(4, N, generator=g))
+
+
 @pytest.mark.parametrize("op", ["fused_minmax", "fused_minmax_f32",
                                 "fused_nerf_raw", "fused_nerf_composite",
-                                "fused_nerf_raw_q"])
+                                "fused_nerf_raw_q", "fused_donerf_raw",
+                                "fused_donerf_composite"])
 def test_opcheck(op):
     if op.startswith("fused_minmax"):
         dtype = torch.float32 if op.endswith("f32") else torch.bfloat16
@@ -219,8 +230,12 @@ def test_opcheck(op):
         assert torch.equal(fm.fused_minmax_op(panels, [], x_t, True), want)
         return
     S, N = 3, 7
-    panels, pts, vcon = _nerf_args(S, N, int8=op.endswith("_q"))
-    if op == "fused_nerf_composite":
+    donerf = op.startswith("fused_donerf")
+    panels, pts, vcon = (_donerf_args(S, N) if donerf
+                         else _nerf_args(S, N, int8=op.endswith("_q")))
+    if op.endswith("_composite"):
+        comp_op = fn.fused_donerf_composite_op if donerf \
+            else fn.fused_nerf_composite_op
         g = torch.Generator().manual_seed(4)
         z = torch.sort(torch.rand(S, N, generator=g), dim=0).values
         # mm_mul > 0: every ray has weight, so no disp is 0 / 0 (NaN,
@@ -228,14 +243,16 @@ def test_opcheck(op):
         extra = (z, torch.randn(S, N, generator=g),
                  torch.rand(S, N, generator=g) + 0.5,
                  torch.rand(1, N, generator=g) + 0.5)
-        torch.library.opcheck(fn.fused_nerf_composite_op,
+        if donerf:  # Kaiming logits of a few units: sigma + mm_add > 0
+            extra = (z, extra[1].abs() + 10.0, *extra[2:])
+        torch.library.opcheck(comp_op,
                               (panels, [], pts, vcon, *extra, S, False))
-        out = fn.fused_nerf_composite_op(panels, [], pts, vcon, *extra, S,
-                                         True)
+        out = comp_op(panels, [], pts, vcon, *extra, S, True)
         assert [tuple(t.shape) for t in out] == [
             (N, 3), (N,), (N,), (N,), (N, S), (N, S)]
         return
-    opf = fq.fused_nerf_raw_q_op if op.endswith("_q") else fn.fused_nerf_raw_op
+    opf = (fn.fused_donerf_raw_op if donerf else fq.fused_nerf_raw_q_op
+           if op.endswith("_q") else fn.fused_nerf_raw_op)
     torch.library.opcheck(opf, (panels, [], pts, vcon, S))
     assert tuple(opf(panels, [], pts, vcon, S).shape) == (N, S, 4)
 

@@ -169,6 +169,81 @@ def test_stage_table_agrees_with_the_cuda_source(packed_and_blob):
         "b_feat", "bv", "b_alpha", "b_rgb")
 
 
+@pytest.fixture(scope="module")
+def donerf_packed_and_blob():
+    from pronerf_tpu_torch.models.donerf import init_donerf
+
+    net = init_donerf(torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        for i, lin in enumerate(net.layers):  # zero at init: make them count
+            lin.bias.uniform_(-1, 1, generator=torch.Generator().manual_seed(i))
+    packed = fn.pack_donerf_params(net, torch.bfloat16)
+    return packed, fn._donerf_blob(packed).view(torch.int16).numpy()
+
+
+def test_donerf_blob_reads_back_every_panel_bit_for_bit(
+        donerf_packed_and_blob):
+    """The DoNeRF blob (``DoWgBlob``): every ring stage and the head, read
+    back through the swizzle model, each weight element exactly once, then
+    the biases in the kernel's order, and nothing else."""
+    packed, blob16 = donerf_packed_and_blob
+    cover, at = {}, 0
+    stages = [(off, st) for (off, _), st in zip(fn.donerf_stage_table(),
+                                                 fn.DONERF_RING_STAGES)]
+    ring = sum(b for _, b in fn.donerf_stage_table())
+    stages.append((ring, fn.DONERF_HEAD_SLABS))
+    for off, stage in stages:
+        assert off == at
+        for name, row0, rows, ks in stage:
+            panel = bits(packed[name])
+            want = np.zeros((rows, 64), np.int16)
+            k1 = min(64 * (ks + 1), panel.shape[1])
+            want[:, : k1 - 64 * ks] = panel[row0:row0 + rows, 64 * ks:k1]
+            np.testing.assert_array_equal(slab_reads(blob16, at, rows), want,
+                                          err_msg=f"{name} {row0} {ks}")
+            c = cover.setdefault(name, np.zeros(
+                (panel.shape[0], -(-panel.shape[1] // 64) * 64), np.int32))
+            c[row0:row0 + rows, 64 * ks:64 * (ks + 1)] += 1
+            at += rows * fn.SLAB_ROW_BYTES
+    assert set(cover) == {k for k in packed if k.startswith("w")}
+    assert all((c == 1).all() for c in cover.values())
+    at //= 2
+    for name in fn.DONERF_BIAS_ORDER:
+        b = bits(packed[name]).reshape(-1)
+        np.testing.assert_array_equal(blob16[at:at + b.size], b, err_msg=name)
+        at += b.size
+    assert at == blob16.size
+    assert set(fn.DONERF_BIAS_ORDER) == {
+        k for k in packed if k.startswith("b") and k != "bx_t"}
+
+
+def test_donerf_stage_table_agrees_with_the_cuda_source(
+        donerf_packed_and_blob):
+    _, blob16 = donerf_packed_and_blob
+    src = (CSRC / "fused_nerf.cu").read_text()
+    body = re.search(r"struct DoWgBlob \{(.*?)\n\};", src, re.S).group(1)
+
+    def const(name):  # the constant's expression, over kW = 256
+        expr = re.search(rf"{name} = ([0-9 *+]+(?:kW)?)[;,]", body).group(1)
+        return eval(expr.replace("kW", "256"))
+
+    table = fn.donerf_stage_table()
+    assert const("kStagesPerSample") == len(table) == 25
+    assert all(b == fn.STAGE_BYTES and off == i * fn.STAGE_BYTES
+               for i, (off, b) in enumerate(table))
+    heads = sum(rows * fn.SLAB_ROW_BYTES
+                for _, _, rows, _ in fn.DONERF_HEAD_SLABS)
+    assert const("kHeadBytes") == heads
+    n_bias = const("b_out") + 8
+    assert n_bias == 7 * 256 + 8
+    assert blob16.size == (len(table) * fn.STAGE_BYTES + heads
+                           + 2 * n_bias) // 2
+    # the head's rows: [rgb, sigma] of the module's last layer, then zeros
+    packed = donerf_packed_and_blob[0]
+    assert not packed["w_out_t"][fn.DONERF_OUT:].any()
+    assert not packed["b_out"][fn.DONERF_OUT:].any()
+
+
 def test_f32_blob_keeps_the_panel_order():
     net = NeRFMLP(generator=torch.Generator().manual_seed(6))
     packed = fn.pack_nerf_params(net, torch.float32)

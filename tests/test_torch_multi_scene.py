@@ -69,7 +69,10 @@ from torch_train_common import (
     named_numpy,
 )
 
+import jax_native_once
+
 torch.set_num_threads(2)
+jax_native_once.load()  # the JAX pool on its library, as the port's
 
 LR = 5e-4
 KEY = 7

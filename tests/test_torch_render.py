@@ -183,15 +183,15 @@ def test_unported_branches_raise_by_name():
     per-view and nearest gathers and DoNeRF run
     (tests/test_torch_gathers.py, tests/test_torch_donerf.py). What still
     raises is what the JAX package cannot run either, by name: an unknown
-    ``quant`` or ``netarch``, the fused kernels on a training branch or on
-    DoNeRF (they implement the NeRF MLP), the transposed emit of a split
-    or non-u8 gather."""
-    fx_statics = RenderStatics.infer()
+    ``quant`` or ``netarch``, the fused kernels on a training branch, the
+    int8 kernel on DoNeRF (it implements the NeRF MLP; DoNeRF's own kernel
+    is bf16), the transposed emit of a split or non-u8 gather."""
+    fx_statics = RenderStatics.infer(compute_dtype="bfloat16")
     for kw, err, word in (
             (dict(quant="int4"), ValueError, "quant"),
             (dict(netarch="mip"), ValueError, "netarch"),
-            (dict(netarch="donerf", use_kernels=True), ValueError,
-             "donerf")):
+            (dict(netarch="donerf", use_kernels=True, quant="int8"),
+             ValueError, "donerf")):
         with pytest.raises(err, match=word):
             render_rays({}, {}, {}, {}, dataclasses.replace(fx_statics, **kw))
     from pronerf_tpu_torch.ops.warp import (

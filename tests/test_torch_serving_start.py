@@ -200,6 +200,15 @@ SCHEMAS = {
     "fused_nerf_raw_q": "pronerf::fused_nerf_raw_q(Tensor[] panels, Tensor[] "
                         "blobs, Tensor pts24_t, Tensor vcon_t, SymInt "
                         "n_samples) -> Tensor",
+    "fused_donerf_raw": "pronerf::fused_donerf_raw(Tensor[] panels, "
+                        "Tensor[] blobs, Tensor pts24_t, Tensor dcon_t, "
+                        "SymInt n_samples) -> Tensor",
+    "fused_donerf_composite": "pronerf::fused_donerf_composite(Tensor[] "
+                              "panels, Tensor[] blobs, Tensor pts24_t, Tensor "
+                              "dcon_t, Tensor z_t, Tensor mm_add_t, Tensor "
+                              "mm_mul_t, Tensor dnorm_t, SymInt n_samples, "
+                              "bool white_bkgd) -> (Tensor, Tensor, Tensor, "
+                              "Tensor, Tensor, Tensor)",
     "epipolar_gather": "pronerf::epipolar_gather(Tensor images, Tensor "
                        "fused_mats, Tensor K, Tensor view_ids, Tensor rays_o, "
                        "Tensor rays_d, Tensor z3d, Tensor head, int n_tiles, "
@@ -211,6 +220,8 @@ OPS = {"fused_minmax": fm.fused_minmax_op,
        "fused_nerf_raw": fn.fused_nerf_raw_op,
        "fused_nerf_composite": fn.fused_nerf_composite_op,
        "fused_nerf_raw_q": fq.fused_nerf_raw_q_op,
+       "fused_donerf_raw": fn.fused_donerf_raw_op,
+       "fused_donerf_composite": fn.fused_donerf_composite_op,
        "epipolar_gather": eg.epipolar_gather_op}
 
 
@@ -268,6 +279,25 @@ def _grad_case(name):
     nerf = init_pronerf_params(g, mmnetdepth=2)["nerf"]
     pts = (torch.rand(3 * S, N, generator=g) * 2 - 1).requires_grad_()
     vcon = torch.randn(128, N, generator=g).requires_grad_()
+    if name.startswith("fused_donerf"):
+        from pronerf_tpu_torch.models.donerf import init_donerf
+
+        packed = fn.pack_donerf_params(init_donerf(g, D=4, W=32))
+        panels = fn._donerf_panels(packed)
+        dcon = torch.randn(4, N, generator=g).requires_grad_()
+        if name == "fused_donerf_raw":
+            return ((panels, [], pts, dcon, S),
+                    fn.fused_donerf_raw_plain(packed, pts.detach(),
+                                              dcon.detach(), S))
+        z = torch.sort(torch.rand(S, N, generator=g), dim=0).values
+        extra = (z.requires_grad_(), torch.randn(S, N, generator=g),
+                 torch.rand(S, N, generator=g) + 0.5,
+                 torch.rand(1, N, generator=g) + 0.5)
+        want = fn.fused_donerf_composite_plain(
+            packed, pts.detach(), dcon.detach(), z.detach(), *extra[1:], S,
+            False)
+        return ((panels, [], pts, dcon, *extra, S, False),
+                tuple(want[k] for k in fn._COMPOSITE_KEYS))
     if name == "fused_nerf_raw_q":
         packed = fq.pack_nerf_params_int8(nerf)
         return (([packed[n] for n in fq.PANELS], [], pts, vcon, S),
