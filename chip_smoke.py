@@ -90,6 +90,13 @@ falls back to the CPU. Phases, each printing one JSON line:
                 all-views one on a batch's points (both timed) and a stage-1
                 sampler step with ``train_gather = 1`` against the same step
                 with the all-views gather (``TRAIN_TOL``);
+4e. ``sort``    the sampler depths' sort kernel (``depth_sort_kernel``)
+                at 762,048 and 190,512 rays, 8 samples: its four outputs
+                equal to the chain it replaces (sigmoid, ``torch.sort``,
+                gathers, 3D depth) on the card bit for bit, ms a launch
+                (CUDA events around a graph of 20 launches, median of 10)
+                beside the chain's and the byte bound; ptxas' registers and
+                spills of each instantiation (a spill fails);
 5. ``train``    the training slice at release widths (``fern_epi.txt``,
                 ``fern_refine.txt``) on the same scene (14 train views):
                 ``run_training`` for 4 steps of stage 1 (2 pairs, writing an
@@ -253,7 +260,7 @@ renderer's drives and in the frame graphs' captures), and last
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero and no result line is printed.
 
-``--only build|kernels|frame|fullres|epi|gathers|train|scan|donerf|export|multi|cli|protocols|jpeg|trained``
+``--only build|kernels|frame|fullres|epi|sort|gathers|train|scan|donerf|export|multi|cli|protocols|jpeg|trained``
 runs a
 subset while developing, ``--rays N`` shrinks the kernel phase,
 ``--profile`` adds ``profile`` lines (device time by kernel name over a few
@@ -1570,14 +1577,17 @@ def window_readings(scene, rays, z3d, nearest, n_tiles, window_rows):
 @contextlib.contextmanager
 def plain_versions():
     """The default graph's kernel wrappers (the MinMax kernel, both forms
-    of the NeRF kernel, and the gather pair) replaced by their plain
+    of the NeRF kernel, the gather pair and the depth sort) replaced by
+    their plain
     versions, run on the card over tiles of CHUNK rays (for memory), as the
     kernel phase runs them (the gather's chain over the whole frame, whose
     windows span it): a frame rendered inside is the same frame with the
     plain versions, and launches no kernel."""
+    from pronerf_tpu_torch.kernels import depth_sort as ds
     from pronerf_tpu_torch.kernels import epipolar_gather as eg
     from pronerf_tpu_torch.kernels import fused_minmax as fm
     from pronerf_tpu_torch.kernels import fused_nerf as fn
+    from pronerf_tpu_torch.ops.sampling import sort_sampler_depths
 
     def minmax(packed, x_t, transpose_out=True):
         return torch.cat([
@@ -1611,7 +1621,8 @@ def plain_versions():
 
     swapped = ((fm, "fused_minmax_t", minmax), (fn, "fused_nerf_raw_t", raw),
                (fn, "fused_nerf_composite_t", composite),
-               (eg, "epipolar_gather_rows", gather))
+               (eg, "epipolar_gather_rows", gather),
+               (ds, "sorted_sampler_depths", sort_sampler_depths))
     kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swapped]
     for mod, name, plain in swapped:
         setattr(mod, name, plain)
@@ -1975,6 +1986,68 @@ def phase_epi(device):
         del args, got, want, scene, rays, z3d, head
         torch.cuda.empty_cache()
     say({"epi_gather": rows, "card": nvidia_smi_line()})
+    return rows
+
+
+# ---------------------------------------------- depth sort kernel phase ----
+
+def graph_ms(fn, launches: int = 20, reps: int = 10) -> float:
+    """Median ms of one ``fn()`` by CUDA events around replays of a graph of
+    ``launches`` calls, so that no host time falls between the launches."""
+    from pronerf_tpu_torch.utils.profiling import cuda_graph
+
+    graph, _ = cuda_graph(lambda: [fn() for _ in range(launches)])
+    return cuda_ms(graph.replay, reps) / launches
+
+
+@torch.no_grad()
+def phase_sort(device):
+    """The sampler depths' sort kernel (``kernels/depth_sort.py``) at the
+    served shapes (8 samples; the rays of a 1008x756 and a 504x378 frame),
+    on a sampler output laid out as the MinMax kernel's (row-major, 32
+    columns, sliced to 27) with equal depths and NaN: its four outputs equal
+    to the chain's (``ops/sampling.py:sort_sampler_depths``) on the card bit
+    for bit; ms a launch beside the chain's (``graph_ms``) and the byte
+    bound (each ray's 3 S floats read, 4 S written); ptxas' registers and
+    spills of each instantiation (a spill fails)."""
+    from pronerf_tpu_torch.kernels import build
+    from pronerf_tpu_torch.kernels import depth_sort as ds
+    from pronerf_tpu_torch.ops.sampling import sort_sampler_depths
+
+    report = ptxas_report(build.ptxas_log("depth_sort"), "depth_sort_kernel")
+    funcs = report["functions"]
+    if not funcs or any(f.get("spill_stores", 1) or f.get("spill_loads", 1)
+                        for f in funcs.values()):
+        raise SystemExit(f"depth_sort_kernel spilled or was not reported: "
+                         f"{report}")
+    S, args = 8, (0.0, 1.0, 1e-5)
+    rows = []
+    for n in (FULL_RAYS, FRAME_RAYS):
+        g = torch.Generator(device=device).manual_seed(n)
+        mm = torch.randn(n, 32, generator=g, device=device) * 3
+        mm[:, :S] = torch.round(mm[:, :S] * 2) / 2  # equal depths
+        mm[::97, 3] = float("nan")
+        mm = mm[:, :3 * S + 3]
+        got = ds.sorted_sampler_depths(mm, S, *args)
+        want = sort_sampler_depths(mm, S, *args)
+        differ = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                     for a, b in zip(got, want))
+        if differ:
+            raise SystemExit(f"depth_sort kernel at {n} rays: {differ} values "
+                             f"differ from the chain's")
+        ms = graph_ms(lambda: ds.sorted_sampler_depths(mm, S, *args))
+        chain_ms = graph_ms(lambda: sort_sampler_depths(mm, S, *args))
+        nbytes = n * S * 4 * (3 + 4)
+        bound_ms = nbytes / PEAK_BYTES_S * 1e3
+        rows.append({"rays": n, "samples": S, "ms": ms, "chain_ms": chain_ms,
+                     "bytes": nbytes, "bound_ms": bound_ms,
+                     "share": bound_ms / ms, "equal_to_chain": True})
+        del mm, got, want
+        torch.cuda.empty_cache()
+    say({"depth_sort": rows,
+         "ptxas": {k.split("depth_sort_kernel")[-1]: v
+                   for k, v in funcs.items()},
+         "card": nvidia_smi_line()})
     return rows
 
 
@@ -4854,7 +4927,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only",
                     choices=("build", "kernels", "frame", "fullres",
-                             "epi", "gathers", "train", "scan", "donerf", "export",
+                             "epi", "sort", "gathers", "train", "scan",
+                             "donerf", "export",
                              "multi", "cli", "protocols", "jpeg",
                              "trained"))
     ap.add_argument("--bench-child", action="store_true",
@@ -4924,6 +4998,7 @@ def main(argv=None):
         launches = run("frame", phase_frame, args.profile) or {}
         launches |= run("fullres", phase_fullres, args.profile) or {}
         run("epi", phase_epi)
+        run("sort", phase_sort)
         run("gathers", phase_gathers)
         run("train", phase_train, args.profile)
         run("scan", phase_scan, args.profile)

@@ -50,8 +50,7 @@ from pronerf_tpu_torch.ops.sampling import (
     bin_constrain,
     explore_expand,
     gap_jitter,
-    ndc_to_3d_depth,
-    sort_with_payloads,
+    sort_sampler_depths,
 )
 from pronerf_tpu_torch.ops.warp import (
     epipolar_colors,
@@ -308,6 +307,17 @@ def _gather_on_kernel(statics, mm_kernel: bool, images, gather_dtype):
             and images.is_cuda and gather_dtype == torch.bfloat16)
 
 
+def _sort_on_kernel(mm_kernel: bool, n_samples: int) -> bool:
+    """Whether step 2 of :func:`render_rays` runs ``kernels/depth_sort.py``'s
+    op (the depths, their sort and the 3D depths in one kernel, the chain's
+    values bit for bit): where the MinMax kernel made the sampler's output
+    (no autograd) and the sort network takes S. Every other case keeps the
+    chain, ``ops.sampling.sort_sampler_depths``."""
+    from pronerf_tpu_torch.kernels.depth_sort import MAX_SAMPLES
+
+    return mm_kernel and n_samples <= MAX_SAMPLES
+
+
 def pack_serving_params(params, statics: RenderStatics):
     """Return ``params`` with the kernel panels that a frame of ``statics``
     reads, so that a renderer packs them once a parameter set, not once a
@@ -405,11 +415,13 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
     them; callers on the serving path run under ``torch.no_grad()``.
 
     Each numbered stage is a span (``utils/profiling.span``): ``sampler``
-    (1), ``sort`` (2), ``gather`` (3, with the mean fill and the colours'
-    layout; for the served frame on the card the kernel pair of
-    ``kernels/epipolar_gather.py``, which writes the refine kernel's whole
-    input), ``refine`` (4 and 5), ``nerf`` (6 up to ``raw`` or the fused
-    composite), ``composite`` (``ops.composite.composite``).
+    (1), ``sort`` (2, the depths from the sampler's logits too; with the
+    MinMax kernel the kernel of ``kernels/depth_sort.py``), ``gather`` (3,
+    with the mean fill and the colours' layout; for the served frame on the
+    card the kernel pair of ``kernels/epipolar_gather.py``, which writes the
+    refine kernel's whole input), ``refine`` (4 and 5), ``nerf`` (6 up to
+    ``raw`` or the fused composite), ``composite``
+    (``ops.composite.composite``).
 
     Returns: dict with rgb0 (refine aux rgb), rgb1 (composited NeRF rgb),
       depth, disp, acc, mm_rgb, depth0, weights, sigma.
@@ -461,16 +473,19 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
             with frozen:
                 mm_out = params["sampler"](sampler_in, cdt)
         mm_rgb = torch.sigmoid(mm_out[:, 3 * S:])
-        mm_add = mm_out[:, S: 2 * S]
-        mm_mul = mm_out[:, 2 * S: 3 * S]
-        depth_values = torch.sigmoid(mm_out[:, :S]) * (far - near) + near
 
-    # 2. Sort depths; carry the density corrections along.
+    # 2. Depths from the sampler's logits, sorted; the density corrections
+    # move with them. Where the MinMax kernel made mm_out, one kernel does
+    # it all (its plain version, the chain, on CPU tensors).
     with span("sort"):
-        depth_values, mm_add, mm_mul = sort_with_payloads(
-            depth_values, mm_add, mm_mul
-        )
-        z3d = ndc_to_3d_depth(depth_values, statics.ndc_eps)
+        if _sort_on_kernel(mm_kernel, S):
+            from pronerf_tpu_torch.kernels.depth_sort import (
+                sorted_sampler_depths as sort_depths,
+            )
+        else:
+            sort_depths = sort_sampler_depths
+        depth_values, mm_add, mm_mul, z3d = sort_depths(
+            mm_out, S, near, far, statics.ndc_eps)
 
     # 3. Epipolar color features (never differentiated): per-ray neighbor
     # views while training, else the shared nearest views.

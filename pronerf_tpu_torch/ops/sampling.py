@@ -36,6 +36,27 @@ def ndc_to_3d_depth(z_ndc, eps: float):
     return 1.0 / (1.0 - z_ndc - eps)
 
 
+def sort_sampler_depths(mm_out, n_samples: int, near: float, far: float,
+                        ndc_eps: float):
+    """The sampler's candidate depths, sorted, from its raw output.
+
+    ``mm_out`` [N, >= 3 S] holds S depth logits, then S density offsets
+    (``mm_add``) and S density scales (``mm_mul``). The depths are
+    ``sigmoid(logit) * (far - near) + near``, sorted ascending and stably;
+    the corrections move with them.
+
+    Returns ``(depth_values, mm_add, mm_mul, z3d)``, each [N, S], ``z3d``
+    the 3D depth of each sorted depth (:func:`ndc_to_3d_depth`). This chain
+    is the plain version of ``kernels/depth_sort.py``'s kernel.
+    """
+    S = n_samples
+    depth_values = torch.sigmoid(mm_out[:, :S]) * (far - near) + near
+    depth_values, mm_add, mm_mul = sort_with_payloads(
+        depth_values, mm_out[:, S: 2 * S], mm_out[:, 2 * S: 3 * S])
+    return depth_values, mm_add, mm_mul, ndc_to_3d_depth(depth_values,
+                                                         ndc_eps)
+
+
 def bin_constrain(depths_sorted, refine_sig, near, far):
     """Constrain refined depths to per-sample bins around the sorted sampler
     depths: bin s spans [midpoint(s-1, s), midpoint(s, s+1)] with the first /

@@ -11,10 +11,11 @@ exactly). Serving loads the program and runs it eagerly.
 
 The CUDA kernels are ``torch.library`` ops (``pronerf::fused_minmax``,
 ``pronerf::fused_nerf_raw``, ``pronerf::fused_nerf_composite``,
-``pronerf::fused_nerf_raw_q``, and on the card ``pronerf::epipolar_gather``,
-the served frame's gather), so the traced program names them; on the
-card they launch the kernels (and count the launches), on the CPU they run
-the plain versions. The program's inputs are tensors only: the nets'
+``pronerf::fused_nerf_raw_q``, ``pronerf::depth_sort``, the sampler
+depths' sort, and on the card ``pronerf::epipolar_gather``, the served
+frame's gather), so the traced program names them; on the card they launch
+the kernels (and count the launches), on the CPU they run the plain
+versions. The program's inputs are tensors only: the nets'
 parameters (bound to the nets with ``torch.func.functional_call`` inside the
 traced body, so no weight is stored in the program), the kernel panels and
 blobs, which ``call`` packs outside the program once per parameter set, the
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 # the kernel modules register the ops a saved program names
+from pronerf_tpu_torch.kernels import depth_sort  # noqa: F401
 from pronerf_tpu_torch.kernels import epipolar_gather  # noqa: F401
 from pronerf_tpu_torch.kernels import fused_minmax  # noqa: F401
 from pronerf_tpu_torch.kernels import fused_nerf  # noqa: F401

@@ -25,7 +25,8 @@ The counterpart of ``pronerf_tpu/utils/profiling.py``:
   (``frame_replays``, ``frame_eager``) and the NeRF kernel's launches from
   the host on the card by form (``nerf_composite_launches``,
   ``nerf_raw_launches``: eager frames and captures; a replay launches
-  nothing from the host) and the DoNeRF kernel's (``donerf_launches``);
+  nothing from the host), the DoNeRF kernel's (``donerf_launches``) and
+  the sampler depths' sort kernel's (``depth_sort_launches``);
 - ``trace``: ``torch.profiler`` around a block, with spans on, written as a
   Chrome trace;
 - ``pipeline_macs``: analytic multiply-adds a frame.
@@ -115,8 +116,9 @@ _device_counts: dict = {}
 # graph replay (``frame_replays``) or ran eagerly (``frame_eager``), whose
 # hit share is replays over both; and the NeRF kernel's launches from the
 # host by form (``nerf_composite_launches``, ``nerf_raw_launches``: which
-# one composited a frame, in eager frames and captures only), and the DoNeRF
-# kernel's, either form (``donerf_launches``).
+# one composited a frame, in eager frames and captures only), the DoNeRF
+# kernel's, either form (``donerf_launches``), and the sampler depths' sort
+# kernel's (``depth_sort_launches``: 1 an eager served frame, 0 a replay).
 COUNTERS = collections.Counter()
 
 

@@ -27,7 +27,8 @@ def test_port_has_the_expected_modules():
                  "kernels.build", "kernels.fused_minmax",
                  "kernels.fused_nerf", "kernels.fused_nerf_q",
                  "kernels.library",
-                 "kernels.epipolar_gather", "render.raygen",
+                 "kernels.epipolar_gather", "kernels.depth_sort",
+                 "render.raygen",
                  "render.renderer",
                  "render.infer", "utils.synthetic", "utils.profiling",
                  "utils.logging", "train.state", "train.stage1",

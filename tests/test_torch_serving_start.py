@@ -31,12 +31,14 @@ from pathlib import Path
 import pytest
 import torch
 
+from pronerf_tpu_torch.kernels import depth_sort as ds
 from pronerf_tpu_torch.kernels import epipolar_gather as eg
 from pronerf_tpu_torch.kernels import fused_minmax as fm
 from pronerf_tpu_torch.kernels import fused_nerf as fn
 from pronerf_tpu_torch.kernels import fused_nerf_q as fq
 from pronerf_tpu_torch.models.mlp import MinMaxMLP
 from pronerf_tpu_torch.models.pronerf import init_pronerf_params
+from pronerf_tpu_torch.ops.sampling import sort_sampler_depths
 
 torch.set_num_threads(2)
 
@@ -214,6 +216,9 @@ SCHEMAS = {
                        "Tensor rays_d, Tensor z3d, Tensor head, int n_tiles, "
                        "int window_rows, bool svc, bool count) -> (Tensor, "
                        "Tensor)",
+    "depth_sort": "pronerf::depth_sort(Tensor mm_out, SymInt n_samples, "
+                  "float near, float far, float ndc_eps) -> (Tensor, Tensor, "
+                  "Tensor, Tensor)",
 }
 
 OPS = {"fused_minmax": fm.fused_minmax_op,
@@ -222,7 +227,8 @@ OPS = {"fused_minmax": fm.fused_minmax_op,
        "fused_nerf_raw_q": fq.fused_nerf_raw_q_op,
        "fused_donerf_raw": fn.fused_donerf_raw_op,
        "fused_donerf_composite": fn.fused_donerf_composite_op,
-       "epipolar_gather": eg.epipolar_gather_op}
+       "epipolar_gather": eg.epipolar_gather_op,
+       "depth_sort": ds.depth_sort_op}
 
 
 @pytest.mark.parametrize("name", list(SCHEMAS))
@@ -261,6 +267,10 @@ def _grad_case(name):
         panels = [packed[n] for n in fm.panel_names(2)]
         return ((panels, [], x_t, True),
                 fm.fused_minmax_plain(packed, x_t.detach(), True))
+    if name == "depth_sort":
+        mm_out = torch.randn(N, 3 * S + 5, generator=g) * 3
+        want = sort_sampler_depths(mm_out, S, 0.0, 1.0, 1e-5)
+        return (mm_out.requires_grad_(), S, 0.0, 1.0, 1e-5), want
     if name == "epipolar_gather":
         from pronerf_tpu_torch.render.raygen import prepare_scene
         from pronerf_tpu_torch.utils.synthetic import make_scene
