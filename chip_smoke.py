@@ -51,8 +51,15 @@ falls back to the CPU. Phases, each printing one JSON line:
                 2 neighbours (refine C = 54) in the default graph.
                 Launch counters (the MinMax one by input width, so sampler
                 and refine are counted apart, and its untransposed form
-                apart again; the NeRF ones also by samples a ray) are zeroed
-                before and read after each drive;
+                apart again; the NeRF ones also by samples a ray; the
+                query-prep kernel's, one a frame of every drive that takes
+                it) are zeroed before and read after each drive; last the
+                query-prep kernel (``query_prep_kernel``, the NeRF kernel's
+                inputs) at 762,048 and 190,512 rays for the NeRF MLP's 128
+                view rows against the chain it replaces on the card (bit
+                for bit but three sums, within their bounds), ms a launch
+                beside the chain's and the byte bound, ptxas' registers and
+                spills;
 4b. ``fullres`` the serving path at 1008x756 (the reference engine's frame;
                 ``synthetic:1008x756x17``, ``fern_trt.txt``, 3 held-out
                 poses): the statics ``gather_tiles = -1`` resolves to
@@ -125,7 +132,8 @@ falls back to the CPU. Phases, each printing one JSON line:
 5b. ``donerf``  ``netarch = donerf`` at D = 8, W = 256: one 504x378 frame
                 through ``run_inference`` (no kernel runs: they implement
                 the NeRF MLP) and one stage-1 NeRF step on the card against
-                the same step on CPU tensors (``TRAIN_TOL``);
+                the same step on CPU tensors (``TRAIN_TOL``); the
+                query-prep kernel for DoNeRF's 4 head rows, as in ``frame``;
 5c. ``export`` the exported renderer (``render/export.py``):
                 ``run_export`` at 1008x756 with the ``--use-trt`` statics
                 (the windows resolved, checked), then ``quant = int8`` and
@@ -945,6 +953,7 @@ def reset_counters():
     for name in NERF_FORM_COUNTERS:
         COUNTERS[name] = 0
     gather_kernel().launches = 0
+    COUNTERS["query_prep_launches"] = 0
     for name in ("fused_nerf_raw_t", "fused_nerf_composite_t",
                  "fused_nerf_raw_tq"):
         w[name].launches_by_samples.clear()
@@ -1126,8 +1135,11 @@ def serve(what, cfg, reps, shape=(H, W_IMG)):
         raise SystemExit(f"{what}: frame shape {result['rgbs1'].shape}")
     if not all(np.isfinite(result["psnrs"])):
         raise SystemExit(f"{what}: PSNRs {result['psnrs']}")
+    from pronerf_tpu_torch.utils.profiling import COUNTERS
+
     return {"result": result, "counts": counts, "wall_s": wall,
             "gather_launches": gather_kernel().launches,
+            "query_prep_launches": COUNTERS["query_prep_launches"],
             "frames": launched_frames(n_poses * (1 + reps))
             + steady_frames(reps),
             "poses": n_poses,
@@ -1152,6 +1164,7 @@ def phase_frame(device, profile=False):
     from pronerf_tpu_torch.render import infer
     from pronerf_tpu_torch.render.raygen import prepare_scene, rays_for_pose
     from pronerf_tpu_torch.render.renderer import make_frame_renderer
+    from pronerf_tpu_torch.utils.profiling import COUNTERS
 
     reps = 3
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1176,6 +1189,13 @@ def phase_frame(device, profile=False):
                       sampler=trans["frames"], refine=trans["frames"],
                       untransposed=2 * trans["frames"],
                       fused_nerf_composite_t=trans["frames"])
+        # the query-prep kernel: one a launched frame of the row-major graph
+        # (the transposed graph keeps the chain)
+        expect_prep("default graph", main["query_prep_launches"],
+                    main["frames"])
+        expect_prep("quant=int8", quant["query_prep_launches"],
+                    quant["frames"])
+        expect_prep("transposed=True", trans["query_prep_launches"], 0)
 
         # ---- the same server at shapes the kernels did not take before this
         # port lifted their limits: 16 samples a ray (the refine net's input
@@ -1219,6 +1239,9 @@ def phase_frame(device, profile=False):
             expect_counts(what, drive["counts"],
                           **{k: n * drive["frames"] for k, n in
                              (want | {"sampler": sampler}).items()})
+            expect_prep(what, drive["query_prep_launches"],
+                        drive["frames"] if S <= 32 and not over.get(
+                            "transposed") else 0)
             wide[what] = drive
 
         # ---- the raw-kernel route, which the kernel path takes where the
@@ -1242,6 +1265,7 @@ def phase_frame(device, profile=False):
         counts_r = read_counters()
         expect_counts("raw route", counts_r, sampler=1, refine=1,
                       fused_nerf_raw_t=1)
+        expect_prep("raw route", COUNTERS["query_prep_launches"], 1)
         frame_main = first_frame(main, device)
         cfg128 = cfg.replace(N_samples=128)
         render128 = make_frame_renderer(
@@ -1361,9 +1385,11 @@ def phase_frame(device, profile=False):
                 say({"profile": {"path": path} | profile_frames(
                     lambda: render(params, scene, c2w), 3)})
 
+    prep_rows = query_prep_rows(device, "nerf")
     say({
         "frame": {
             "H": H, "W": W_IMG, "views": N_VIEWS, "poses": main["poses"],
+            "query_prep": prep_rows,
             "frames_rendered": main["frames"],
             "ms_per_frame": main["ms_per_frame"],
             "ms_per_frame_int8": quant["ms_per_frame"],
@@ -1577,8 +1603,8 @@ def window_readings(scene, rays, z3d, nearest, n_tiles, window_rows):
 @contextlib.contextmanager
 def plain_versions():
     """The default graph's kernel wrappers (the MinMax kernel, both forms
-    of the NeRF kernel, the gather pair and the depth sort) replaced by
-    their plain
+    of the NeRF kernel, the gather pair, the depth sort and the query prep)
+    replaced by their plain
     versions, run on the card over tiles of CHUNK rays (for memory), as the
     kernel phase runs them (the gather's chain over the whole frame, whose
     windows span it): a frame rendered inside is the same frame with the
@@ -1587,6 +1613,7 @@ def plain_versions():
     from pronerf_tpu_torch.kernels import epipolar_gather as eg
     from pronerf_tpu_torch.kernels import fused_minmax as fm
     from pronerf_tpu_torch.kernels import fused_nerf as fn
+    from pronerf_tpu_torch.kernels import query_prep as qp
     from pronerf_tpu_torch.ops.sampling import sort_sampler_depths
 
     def minmax(packed, x_t, transpose_out=True):
@@ -1622,7 +1649,8 @@ def plain_versions():
     swapped = ((fm, "fused_minmax_t", minmax), (fn, "fused_nerf_raw_t", raw),
                (fn, "fused_nerf_composite_t", composite),
                (eg, "epipolar_gather_rows", gather),
-               (ds, "sorted_sampler_depths", sort_sampler_depths))
+               (ds, "sorted_sampler_depths", sort_sampler_depths),
+               (qp, "query_inputs", qp.query_inputs_chain))
     kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swapped]
     for mod, name, plain in swapped:
         setattr(mod, name, plain)
@@ -2051,6 +2079,84 @@ def phase_sort(device):
     return rows
 
 
+def expect_prep(what, launches, frames):
+    """Fail unless a drive launched the query-prep kernel ``frames`` times
+    (``COUNTERS["query_prep_launches"]``, zeroed with the others)."""
+    if launches != frames:
+        raise SystemExit(f"{what}: {launches} query-prep launches, "
+                         f"expected {frames}")
+
+
+@torch.no_grad()
+def query_prep_rows(device, arch):
+    """The query-prep kernel (``kernels/query_prep.py``) at the served
+    shapes (8 samples; the rays of a 1008x756 and a 504x378 frame) for the
+    NeRF MLP's 128 view rows or DoNeRF's 4, on a refine output laid out as
+    the MinMax kernel's (row-major, 40 columns, sliced to 35) with NaN and
+    saturating logits: its outputs against the chain's
+    (``query_inputs_chain``) on the card, every one bit for bit but the
+    three sums, which must lie within ``sum_bounds`` (the share of them
+    equal bit for bit is reported); ms a launch beside the chain's
+    (``graph_ms``) and the byte bound; ptxas' registers and spills of each
+    instantiation (a spill fails)."""
+    from pronerf_tpu_torch.kernels import build
+    from pronerf_tpu_torch.kernels import query_prep as qp
+
+    report = ptxas_report(build.ptxas_log("query_prep"), "query_prep_kernel")
+    funcs = report["functions"]
+    if not funcs or any(f.get("spill_stores", 1) or f.get("spill_loads", 1)
+                        for f in funcs.values()):
+        raise SystemExit(f"query_prep_kernel spilled or was not reported: "
+                         f"{report}")
+    S, R = 8, {"nerf": 128, "donerf": 4}[arch]
+    statics = (S, 0.0, 1.0, 1e-2, True, 4)
+    rows = []
+    for n in (FULL_RAYS, FRAME_RAYS):
+        g = torch.Generator(device=device).manual_seed(n + R)
+        refine = torch.randn(n, 40, generator=g, device=device) * 3
+        refine[::97, 2] = float("nan")
+        refine[::89, 4 * S] = 100.0
+        refine[::83, S + 5] = -1e30
+        depth = torch.sort(torch.rand(n, S, generator=g, device=device),
+                           dim=-1).values
+        ins = (refine[:, :4 * S + 3], depth,
+               torch.randn(n, S, generator=g, device=device),
+               torch.rand(n, S, generator=g, device=device),
+               *[torch.randn(n, 3, generator=g, device=device)
+                 for _ in range(2)],
+               torch.nn.functional.normalize(
+                   torch.randn(n, 3, generator=g, device=device), dim=-1),
+               (torch.randn(R, 283, generator=g, device=device)
+                * 0.1)[:, 256:])
+        got = qp.query_inputs(*ins, *statics)
+        want = qp.query_inputs_chain(*ins, *statics)
+        diff = qp.differences(got, want, ins[7], ins[6], S)
+        bad = {k: v for k, v in diff.items()
+               if not k.endswith("_exact") and v}
+        if bad:
+            raise SystemExit(f"query_prep kernel ({arch}) at {n} rays: "
+                             f"outside the contract with the chain: {diff}")
+        ms = graph_ms(lambda: qp.query_inputs(*ins, *statics))
+        chain_ms = graph_ms(lambda: qp.query_inputs_chain(*ins, *statics),
+                            launches=5)
+        # read: the refine row's 4 S + 3 floats in 32-byte sectors, three
+        # [S] rows, three [3] vectors; written: 3 S points, R view rows,
+        # three [S] rows, rgb0, the norm and depth0
+        read = -(-(4 * S + 3) * 4 // 32) * 32 + 3 * S * 4 + 9 * 4
+        written = (3 * S + R + 3 * S + 3 + 2) * 4
+        nbytes = n * (read + written)
+        bound_ms = nbytes / PEAK_BYTES_S * 1e3
+        rows.append({"arch": arch, "rays": n, "samples": S, "view_rows": R,
+                     "ms": ms, "chain_ms": chain_ms, "bytes": nbytes,
+                     "bound_ms": bound_ms, "share": bound_ms / ms,
+                     "contract": diff})
+        del ins, got, want, refine, depth
+        torch.cuda.empty_cache()
+    return {"rows": rows, "card": nvidia_smi_line(),
+            "ptxas": {k.split("query_prep_kernel")[-1]: v
+                      for k, v in funcs.items()}}
+
+
 # ----------------------------------------------------- gathers phase ------
 
 def phase_gathers(device):
@@ -2279,11 +2385,14 @@ def phase_donerf(device):
         if launches != drive["frames"]:
             raise SystemExit(f"netarch=donerf: {launches} DoNeRF kernel "
                              f"launches, {drive['frames']} frames launched")
+        expect_prep("netarch=donerf", drive["query_prep_launches"],
+                    drive["frames"])
         shared = training_data(train_config(1, tmp))
         vs_cpu = card_against_cpu(tmp, shared, device, (STEP_KINDS[1],),
                                   netarch="donerf")
         report = {"netdepth": cfg.netdepth, "netwidth": cfg.netwidth,
                   "kernel": kernel_rows,
+                  "query_prep": query_prep_rows(device, "donerf"),
                   "frames": drive["frames"], "donerf_launches": launches,
                   "ms_per_frame": drive["ms_per_frame"],
                   "peak_mem_bytes": drive["peak_mem_bytes"],

@@ -47,7 +47,6 @@ from pronerf_tpu_torch.ops.encoding import (
 )
 from pronerf_tpu_torch.ops.rays import linspace_depths, ray_points
 from pronerf_tpu_torch.ops.sampling import (
-    bin_constrain,
     explore_expand,
     gap_jitter,
     sort_sampler_depths,
@@ -255,17 +254,25 @@ def _nearest_views(statics, scene, controls):
     return torch.argsort(dist, stable=True)[: statics.num_neighbor]
 
 
+def view_weight(nerf, n_dir: int):
+    """The columns of the layer that reads the view features which take the
+    direction encoding (``n_dir`` wide): the NeRF MLP's ``views.weight[:,
+    256:]`` [128, n_dir], DoNeRF's head ``W[:, W:]`` [4, n_dir]. A view of
+    the weight, no copy."""
+    if isinstance(nerf, DoNeRFMLP):
+        return nerf.layers[-1].weight[:, -n_dir:]
+    return nerf.views.weight[:, nerf.W:]
+
+
 def view_contribution(nerf, d_pe, pack_dtype):
     """The direction half of the layer that reads the view features, per
     ray, with operands in ``pack_dtype`` and f32 accumulation (bias
     excluded; the kernel adds it): for the NeRF MLP ``vcon_t [128, N] =
     views_w[:, 256:] . d_pe``, which the fused NeRF kernels cast to the
     pack dtype before adding it; for DoNeRF ``dcon_t [4, N]``, the head's
-    ``W[:, W:] . d_pe``, which its kernel adds to the head's f32 sums."""
-    if isinstance(nerf, DoNeRFMLP):
-        wv = nerf.layers[-1].weight[:, -d_pe.shape[-1]:]  # [4, Cd]
-    else:
-        wv = nerf.views.weight[:, nerf.W:]  # [128, Cd]
+    ``W[:, W:] . d_pe``, which its kernel adds to the head's f32 sums.
+    ``nerf`` is the radiance net, or the weight :func:`view_weight` gives."""
+    wv = nerf if torch.is_tensor(nerf) else view_weight(nerf, d_pe.shape[-1])
     return wv.to(pack_dtype).float() @ d_pe.to(pack_dtype).float().T
 
 
@@ -316,6 +323,22 @@ def _sort_on_kernel(mm_kernel: bool, n_samples: int) -> bool:
     from pronerf_tpu_torch.kernels.depth_sort import MAX_SAMPLES
 
     return mm_kernel and n_samples <= MAX_SAMPLES
+
+
+def _prep_on_kernel(statics, mm_kernel: bool, n_samples: int) -> bool:
+    """Whether step 6 of :func:`render_rays` builds the NeRF kernel's inputs
+    with ``kernels/query_prep.py``'s op (the refine epilogue, the query
+    points, the view term and the composite's rows in one kernel, the
+    chain's values but for the order of three sums): where the MinMax
+    kernel ran the refine net (no autograd), no exploration or jitter moves
+    the depths, the kernel takes S and the view encoding is at its octaves.
+    Every other case keeps the chain (``query_prep.refine_epilogue``,
+    ``query_points_t``, :func:`view_contribution`)."""
+    from pronerf_tpu_torch.kernels.query_prep import MAX_SAMPLES, VIEW_OCTAVES
+
+    return (mm_kernel and not statics.explore and not statics.jitter
+            and n_samples <= MAX_SAMPLES
+            and statics.multires_views == VIEW_OCTAVES)
 
 
 def pack_serving_params(params, statics: RenderStatics):
@@ -420,8 +443,10 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
     with the mean fill and the colours' layout; for the served frame on the
     card the kernel pair of ``kernels/epipolar_gather.py``, which writes the
     refine kernel's whole input), ``refine`` (4 and 5), ``nerf`` (6 up to
-    ``raw`` or the fused composite), ``composite``
-    (``ops.composite.composite``).
+    ``raw`` or the fused composite; where the MinMax kernel ran the refine
+    net, it launches first the op of ``kernels/query_prep.py``, which does
+    step 5 and builds every input of the NeRF kernel in one kernel),
+    ``composite`` (``ops.composite.composite``).
 
     Returns: dict with rgb0 (refine aux rgb), rgb1 (composited NeRF rgb),
       depth, disp, acc, mm_rgb, depth0, weights, sigma.
@@ -602,15 +627,16 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
                 refine_out = params["refine"](
                     torch.cat([plk, epi_flat], dim=-1), cdt
                 )
-        refine_sig = torch.sigmoid(refine_out[:, :S])
-        refine_rgb = torch.sigmoid(refine_out[:, 4 * S:])
-        points_offset = torch.tanh(refine_out[:, S: 4 * S]).reshape(
-            n_rays, S, 3)
+        # 5. Bin-constrained refined depths + branch-specific surgery; on
+        # the kernel path (no surgery) step 6's op does it all.
+        from pronerf_tpu_torch.kernels import query_prep as qp
 
-        # 5. Bin-constrained refined depths + branch-specific surgery.
-        z_vals = bin_constrain(depth_values, refine_sig, near, far)
+        prep = _prep_on_kernel(statics, mm_kernel, S)
         num_valid = None
         gen = controls.get("rng")
+        if not prep:
+            refine_rgb, z_vals = qp.refine_epilogue(refine_out, depth_values,
+                                                    S, near, far)
         if statics.explore:
             z_vals, num_valid = explore_expand(
                 z_vals, controls["n_mult"], _coin(controls["dir_expand"]),
@@ -628,19 +654,23 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
                 z_vals, near, far, _coin(controls["dir_jitter"]), 1.0 - 2e-6,
                 noise=controls.get("jitter_noise"), generator=gen,
             )
-        n_s = z_vals.shape[-1]
+        n_s = S if prep else z_vals.shape[-1]
 
     # 6. NeRF forward (fused kernel on the inference path, the module
     # otherwise) + shared compositing.
     with span("nerf"):
         comp = None
+        offsets = refine_out[:, S: 4 * S] if statics.add_offsets else None
         if statics.use_kernels:
-            # PE + MLP chain inside the kernel; the view-dir ENCODING and its
-            # small product stay outside. Where the statics allow it (no
-            # noise, exploration or raw clamp; the density corrections on),
-            # alpha compositing streams inside the kernel; else the raw
-            # kernel's output goes to ops.composite. DoNeRF runs its own
-            # form of the kernel (its pack, the head's direction term).
+            # PE + MLP chain inside the kernel; its inputs (the query points,
+            # the view-dir encoding's product, the composite's rows) are
+            # built outside: by kernels/query_prep.py's op where the refine
+            # net ran in the MinMax kernel, else by the chain. Where the
+            # statics allow it (no noise, exploration or raw clamp; the
+            # density corrections on), alpha compositing streams inside the
+            # kernel; else the raw kernel's output goes to ops.composite.
+            # DoNeRF runs its own form of the kernel (its pack, the head's
+            # direction term).
             from pronerf_tpu_torch.kernels import fused_nerf as fn
 
             if statics.netarch == "donerf":
@@ -651,23 +681,26 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
                 nerf_packed = params.get("nerf_packed")
                 raw_t = fn.fused_nerf_raw_t
                 composite_t = fn.fused_nerf_composite_t
-            kdt = torch.bfloat16 if cdt is not None else torch.float32
-            d_pe = positional_encoding(rays["viewdirs"],
-                                       statics.multires_views)
-            # [128, N] (NeRF) or [4, N] (DoNeRF)
-            vcon_t = view_contribution(params["nerf"], d_pe, kdt)
-            # [S*3, N] transposed query points, row 3*s + c, the offsets taken
-            # from refine_out's [n, 3s + c] columns: the same points as
-            # ray_points + offsets below.
-            pts24_t = (
-                ndc_o.T[None, :, :]
-                + ndc_d.T[None, :, :] * z_vals.T[:, None, :]
-            ).reshape(3 * S, n_rays)
-            if statics.add_offsets:
-                pts24_t = pts24_t + statics.offset_scale * torch.tanh(
-                    refine_out[:, S: 4 * S].T
-                )
-            pts24_t = pts24_t.float().contiguous()
+            if prep:
+                (refine_rgb, pts24_t, vcon_t, z_t, mm_add_t, mm_mul_t,
+                 dnorm_t, depth0) = qp.query_inputs(
+                    refine_out, depth_values, mm_add, mm_mul, ndc_o, ndc_d,
+                    rays["viewdirs"],
+                    view_weight(params["nerf"],
+                                posenc_dim(3, statics.multires_views)),
+                    S, near, far, statics.offset_scale, statics.add_offsets,
+                    statics.multires_views)
+            else:
+                kdt = torch.bfloat16 if cdt is not None else torch.float32
+                d_pe = positional_encoding(rays["viewdirs"],
+                                           statics.multires_views)
+                # [128, N] (NeRF) or [4, N] (DoNeRF)
+                vcon_t = view_contribution(params["nerf"], d_pe, kdt)
+                # [S*3, N] transposed query points, row 3*s + c, the offsets
+                # taken from refine_out's [n, 3s + c] columns: the same
+                # points as ray_points + offsets below
+                pts24_t = qp.query_points_t(ndc_o, ndc_d, z_vals, offsets,
+                                            statics.offset_scale)
             fuse_comp = (
                 statics.noise_std == 0.0 and not statics.explore
                 and not statics.clamp_raw and statics.use_mm
@@ -683,22 +716,26 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
                     params["nerf_packed_q"], pts24_t, vcon_t.contiguous(),
                     n_samples=S)
             elif fuse_comp:
-                dnorm = torch.linalg.norm(ndc_d, dim=-1)[None, :]
+                if not prep:
+                    z_t, mm_add_t, mm_mul_t = (
+                        t.T.float().contiguous()
+                        for t in (z_vals, mm_add, mm_mul))
+                    dnorm_t = torch.linalg.norm(ndc_d, dim=-1)[None, :] \
+                        .float().contiguous()
                 comp = composite_t(
-                    nerf_packed, pts24_t, vcon_t,
-                    z_vals.T.float().contiguous(),
-                    mm_add.T.float().contiguous(),
-                    mm_mul.T.float().contiguous(),
-                    dnorm.float().contiguous(),
-                    n_samples=S, white_bkgd=statics.white_bkgd,
+                    nerf_packed, pts24_t, vcon_t, z_t, mm_add_t, mm_mul_t,
+                    dnorm_t, n_samples=S, white_bkgd=statics.white_bkgd,
                 )
                 sigma_out = comp["sigma"]
             else:
                 raw = raw_t(nerf_packed, pts24_t, vcon_t, n_samples=S)
+            if prep and comp is None:  # ops.composite takes [N, S] depths
+                z_vals = z_t.T.contiguous()
         else:
             query_pts = ray_points(ndc_o, ndc_d, z_vals)
-            if statics.add_offsets:
-                query_pts = query_pts + statics.offset_scale * points_offset
+            if offsets is not None:
+                query_pts = query_pts + statics.offset_scale * torch.tanh(
+                    offsets).reshape(n_rays, S, 3)
             x_pe = positional_encoding(query_pts, statics.multires)
             d_pe = positional_encoding(rays["viewdirs"],
                                        statics.multires_views)
@@ -739,6 +776,6 @@ def render_rays(params, rays, scene, controls, statics: RenderStatics):
         "acc": comp["acc"],
         "weights": comp["weights"],
         "mm_rgb": mm_rgb,
-        "depth0": torch.mean(z_vals.detach(), dim=-1),
+        "depth0": depth0 if prep else torch.mean(z_vals.detach(), dim=-1),
         "sigma": sigma_out,
     }

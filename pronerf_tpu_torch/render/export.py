@@ -12,8 +12,9 @@ exactly). Serving loads the program and runs it eagerly.
 The CUDA kernels are ``torch.library`` ops (``pronerf::fused_minmax``,
 ``pronerf::fused_nerf_raw``, ``pronerf::fused_nerf_composite``,
 ``pronerf::fused_nerf_raw_q``, ``pronerf::depth_sort``, the sampler
-depths' sort, and on the card ``pronerf::epipolar_gather``, the served
-frame's gather), so the traced program names them; on the card they launch
+depths' sort, ``pronerf::query_prep``, the NeRF kernel's inputs, and on the
+card ``pronerf::epipolar_gather``, the served frame's gather), so the
+traced program names them; on the card they launch
 the kernels (and count the launches), on the CPU they run the plain
 versions. The program's inputs are tensors only: the nets'
 parameters (bound to the nets with ``torch.func.functional_call`` inside the
@@ -39,6 +40,7 @@ from pronerf_tpu_torch.kernels import epipolar_gather  # noqa: F401
 from pronerf_tpu_torch.kernels import fused_minmax  # noqa: F401
 from pronerf_tpu_torch.kernels import fused_nerf  # noqa: F401
 from pronerf_tpu_torch.kernels import fused_nerf_q  # noqa: F401
+from pronerf_tpu_torch.kernels import query_prep  # noqa: F401
 from pronerf_tpu_torch.models.pronerf import (
     RenderStatics,
     init_pronerf_params,

@@ -93,16 +93,19 @@ VARIANTS = {
                      set()),
     "kernels": (RenderStatics.infer(compute_dtype="bfloat16",
                                     use_kernels=True), 0, dict(mmnetdepth=2),
-                {"fused_minmax", "depth_sort", "fused_nerf_composite"}),
+                {"fused_minmax", "depth_sort", "query_prep",
+                 "fused_nerf_composite"}),
     # the raw-kernel route (under the stage-1 raw clamp): the raw kernel
     # and ops.composite
     "kernels_eager_composite": (dataclasses.replace(RenderStatics.infer(
         compute_dtype="bfloat16", use_kernels=True), clamp_raw=True), 0,
-        dict(mmnetdepth=2), {"fused_minmax", "depth_sort", "fused_nerf_raw"}),
+        dict(mmnetdepth=2), {"fused_minmax", "depth_sort", "query_prep",
+                              "fused_nerf_raw"}),
     "kernels_int8": (RenderStatics.infer(compute_dtype="bfloat16",
                                          use_kernels=True, quant="int8"), 0,
                      dict(mmnetdepth=2),
-                     {"fused_minmax", "depth_sort", "fused_nerf_raw_q"}),
+                     {"fused_minmax", "depth_sort", "query_prep",
+                      "fused_nerf_raw_q"}),
     "kernels_transposed": (RenderStatics.infer(
         compute_dtype="bfloat16", use_kernels=True, transposed=True), 0,
         dict(mmnetdepth=2),

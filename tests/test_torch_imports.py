@@ -28,6 +28,7 @@ def test_port_has_the_expected_modules():
                  "kernels.fused_nerf", "kernels.fused_nerf_q",
                  "kernels.library",
                  "kernels.epipolar_gather", "kernels.depth_sort",
+                 "kernels.query_prep",
                  "render.raygen",
                  "render.renderer",
                  "render.infer", "utils.synthetic", "utils.profiling",

@@ -409,7 +409,8 @@ def test_modules_import_and_build_nothing_without_a_compiler():
 
     assert "triton" not in sys.modules
     assert build.sources() == ["depth_sort", "epipolar_gather",
-                               "fused_minmax", "fused_nerf", "fused_nerf_q"]
+                               "fused_minmax", "fused_nerf", "fused_nerf_q",
+                               "query_prep"]
     assert build.lib_path("fused_nerf").parent.name == "_build"
     if shutil.which("nvcc") is None and not (
             build.Path("/usr/local/cuda/bin/nvcc").exists()):

@@ -36,6 +36,7 @@ from pronerf_tpu_torch.kernels import epipolar_gather as eg
 from pronerf_tpu_torch.kernels import fused_minmax as fm
 from pronerf_tpu_torch.kernels import fused_nerf as fn
 from pronerf_tpu_torch.kernels import fused_nerf_q as fq
+from pronerf_tpu_torch.kernels import query_prep as qp
 from pronerf_tpu_torch.models.mlp import MinMaxMLP
 from pronerf_tpu_torch.models.pronerf import init_pronerf_params
 from pronerf_tpu_torch.ops.sampling import sort_sampler_depths
@@ -219,6 +220,12 @@ SCHEMAS = {
     "depth_sort": "pronerf::depth_sort(Tensor mm_out, SymInt n_samples, "
                   "float near, float far, float ndc_eps) -> (Tensor, Tensor, "
                   "Tensor, Tensor)",
+    "query_prep": "pronerf::query_prep(Tensor refine_out, Tensor "
+                  "depth_values, Tensor mm_add, Tensor mm_mul, Tensor ndc_o, "
+                  "Tensor ndc_d, Tensor viewdirs, Tensor view_w, SymInt "
+                  "n_samples, float near, float far, float offset_scale, "
+                  "bool add_offsets, SymInt multires_views) -> (Tensor, "
+                  "Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
 }
 
 OPS = {"fused_minmax": fm.fused_minmax_op,
@@ -228,7 +235,8 @@ OPS = {"fused_minmax": fm.fused_minmax_op,
        "fused_donerf_raw": fn.fused_donerf_raw_op,
        "fused_donerf_composite": fn.fused_donerf_composite_op,
        "epipolar_gather": eg.epipolar_gather_op,
-       "depth_sort": ds.depth_sort_op}
+       "depth_sort": ds.depth_sort_op,
+       "query_prep": qp.query_prep_op}
 
 
 @pytest.mark.parametrize("name", list(SCHEMAS))
@@ -271,6 +279,16 @@ def _grad_case(name):
         mm_out = torch.randn(N, 3 * S + 5, generator=g) * 3
         want = sort_sampler_depths(mm_out, S, 0.0, 1.0, 1e-5)
         return (mm_out.requires_grad_(), S, 0.0, 1.0, 1e-5), want
+    if name == "query_prep":
+        refine_out = torch.randn(N, 4 * S + 5, generator=g)[:, :4 * S + 3]
+        depth = torch.sort(torch.rand(N, S, generator=g), dim=-1).values
+        rays = [torch.randn(N, 3, generator=g) for _ in range(3)]
+        ins = (refine_out, depth, torch.randn(N, S, generator=g),
+               torch.rand(N, S, generator=g), *rays,
+               torch.randn(128, 283, generator=g)[:, 256:])
+        statics = (S, 0.0, 1.0, 1e-2, True, 4)
+        want = qp.query_inputs_chain(*ins, *statics)
+        return (refine_out.clone().requires_grad_(), *ins[1:], *statics), want
     if name == "epipolar_gather":
         from pronerf_tpu_torch.render.raygen import prepare_scene
         from pronerf_tpu_torch.utils.synthetic import make_scene
