@@ -16,6 +16,16 @@ steps as a chunk:
   counterpart of ``fold_in(base_key, step)``): a resumed run draws what the
   uninterrupted run drew. The draws are read once a chunk where
   ``explore_buckets`` needs the widths on the host;
+- the next chunk's draws are made while this chunk runs: once its steps are
+  queued, the executor draws the controls of the steps that follow into a
+  staging copy of its control buffers (on the card the host's launches
+  overlap the replays, and the draws run after them on the same stream). A
+  call that continues the previous one (no ``controls``, the same seed,
+  device and noise width, the step after the last) copies them in; any
+  other call draws at the call. The draws depend on (seed, step) alone, so
+  either way they are the same bits.
+  ``COUNTERS["fill_predrawn"]`` and ``["fill_drawn"]`` count the chunks of
+  each kind;
 - on the card, the steps are CUDA graphs: one of the sampler step, one of
   the stage-2 step, one of the NeRF step per width (one width unless
   ``explore_buckets``). They read their batch, controls, learning rate and
@@ -26,9 +36,11 @@ steps as a chunk:
   (NeRF step, sampler step) pairs, so a chunk starts at an even step;
 - on the CPU the same chunk body runs eagerly, step by step;
 - with ``utils/profiling.tracing()`` on, a chunk is the span ``pn/chunk``,
-  holding ``pn/fill`` (the chunk's draws and buffers), ``pn/capture`` (each
-  capture) and one ``pn/step.<kind>`` a step (a replay on the card, the
-  eager step on the CPU); ``device_reshuffle`` is ``pn/reshuffle``.
+  holding ``pn/fill`` (the host work the replays wait on: the copy of the
+  staged draws, or the draws at the call, and the learning rates and Adam
+  counts), ``pn/capture`` (each capture), one ``pn/step.<kind>`` a step (a
+  replay on the card, the eager step on the CPU) and last ``pn/predraw``
+  (the next chunk's draws); ``device_reshuffle`` is ``pn/reshuffle``.
 
 A capture that fails raises; nothing carries on eagerly on the card.
 """
@@ -45,7 +57,7 @@ from pronerf_tpu_torch.train.stage1 import (
 )
 from pronerf_tpu_torch.train.stage2 import make_stage2_step
 from pronerf_tpu_torch.train.state import stage1_lr, stage2_lr
-from pronerf_tpu_torch.utils.profiling import cuda_graph, span
+from pronerf_tpu_torch.utils.profiling import COUNTERS, cuda_graph, span
 
 # Warm-up runs of each step before its capture (on a side stream, as
 # PyTorch's CUDA-graph notes ask): they make the lazy allocations and the
@@ -160,6 +172,8 @@ class _ScanExecutor:
             self.widths = [None]
             self.noise_width = cfg.N_samples
         self.buf = None
+        # the next chunk's draws, and what they were drawn for
+        self.staged = self.staged_for = None
         self.graphs = {}
         self.graph_key = None
         self.mempool = None
@@ -192,21 +206,40 @@ class _ScanExecutor:
             return ["nerf", "sampler"] * (self.K // 2)
         return ["joint"] * self.K
 
-    def _fill(self, state, steps, seed, controls, device):
-        """Write the chunk's controls, learning rates and Adam counts into
-        the buffers; returns each NeRF step's width (host ints)."""
-        buf = self.buf
-        if controls is None:
-            controls = [draw_device_controls(
-                seed, i, self.n_train, self.cfg.num_neighbor, self.max_mult,
-                self.n_rand, self.noise_width, device) for i in steps]
+    def _draw(self, seed, steps, device):
+        return [draw_device_controls(
+            seed, i, self.n_train, self.cfg.num_neighbor, self.max_mult,
+            self.n_rand, self.noise_width, device) for i in steps]
+
+    def _write(self, dst, controls, device):
+        """Write per-step ``controls`` into the [K, ...] buffers ``dst``."""
         if len(controls) != self.K:
             raise ValueError(f"{len(controls)} controls for {self.K} steps")
         for key in _CONTROL_KEYS:
             rows = [torch.as_tensor(c[key], device=device) for c in controls]
             if key.endswith("noise"):
                 rows = [r[:, : self.noise_width] for r in rows]
-            buf[key].copy_(torch.stack(rows).to(buf[key].dtype))
+            dst[key].copy_(torch.stack(rows).to(dst[key].dtype))
+
+    def _drawn_for(self, seed, first, device):
+        return int(seed), int(first), device, self.noise_width
+
+    def _fill(self, state, steps, seed, controls, device):
+        """Write the chunk's controls, learning rates and Adam counts into
+        the buffers; returns each NeRF step's width (host ints). The
+        controls come from the staging buffers where the previous call drew
+        them for this call, else from ``controls`` or draws made here."""
+        buf = self.buf
+        if controls is None and self.staged_for == self._drawn_for(
+                seed, steps[0], device):
+            for key in _CONTROL_KEYS:
+                buf[key].copy_(self.staged[key])
+            COUNTERS["fill_predrawn"] += 1
+        else:
+            if controls is None:
+                controls = self._draw(seed, steps, device)
+            self._write(buf, controls, device)
+            COUNTERS["fill_drawn"] += 1
         # learning rates in float64 on the host, as the per-step loop takes
         # them, handed over in f32; Adam counts as each optimizer goes
         lr_fn = stage1_lr if self.stage == 1 else stage2_lr
@@ -229,6 +262,17 @@ class _ScanExecutor:
         n_mult = buf["n_mult"].tolist()
         return [step_width({"n_mult": m}, self.widths, self.cfg.N_samples)
                 for m in n_mult]
+
+    def _predraw(self, seed, first, device):
+        """Draw the controls of the chunk that starts at step ``first`` into
+        the staging buffers, once this chunk's steps are queued. On the card
+        the draws stay on the replays' stream: a second stream, beside the
+        replays or after them, put every replay's kernels about 0.35 us
+        further apart on an H100, more than the draws cost there."""
+        self.staged_for = None  # until the draws are written
+        self._write(self.staged, self._draw(
+            seed, range(first, first + self.K), device), device)
+        self.staged_for = self._drawn_for(seed, first, device)
 
     def _opts(self):
         return ("opt_nerf", "opt_s") if self.stage == 1 else ("opt",)
@@ -291,6 +335,9 @@ class _ScanExecutor:
         device = pool.device
         if self.buf is None or self.buf["k"].device != device:
             self.buf = self._buffers(device)
+            self.staged = {key: torch.empty_like(self.buf[key])
+                           for key in _CONTROL_KEYS}
+            self.staged_for = None
             self.graphs, self.graph_key = {}, None
         self.pool, self.ids = pool, pool_ids
         g0 = int(state["global_step"])
@@ -326,6 +373,8 @@ class _ScanExecutor:
             for kind, width in plan:
                 with span("step." + kind):
                     self._step(kind, width, state, scene)
+        with span("predraw"):
+            self._predraw(seed, g0 + self.K + 1, device)
         # the host's step counts advance by the chunk (the replays do not
         # touch them; the eager steps did the same)
         state["global_step"] = g0 + self.K
@@ -363,7 +412,9 @@ def make_scan_executor(cfg, H: int, W: int, focal: float, n_train: int,
     as 0-d device tensors. Steps draw their controls with
     ``draw_device_controls(seed, i, ...)`` for their 1-based step number i,
     unless ``controls`` gives them (a list of per-step dicts, as that
-    function returns; for tests). The caller reshuffles the pool between
+    function returns; for tests). Each call draws the next chunk's controls
+    once its steps are queued (on the card while they run), and the call
+    that continues it takes those. The caller reshuffles the pool between
     chunks (``device_reshuffle``, in place). A stage-1 chunk starts at an
     even ``global_step`` and ``scan_steps`` is even.
 

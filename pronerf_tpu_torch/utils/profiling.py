@@ -25,8 +25,10 @@ The counterpart of ``pronerf_tpu/utils/profiling.py``:
   (``frame_replays``, ``frame_eager``) and the NeRF kernel's launches from
   the host on the card by form (``nerf_composite_launches``,
   ``nerf_raw_launches``: eager frames and captures; a replay launches
-  nothing from the host), the DoNeRF kernel's (``donerf_launches``) and
-  the sampler depths' sort kernel's (``depth_sort_launches``);
+  nothing from the host), the DoNeRF kernel's (``donerf_launches``),
+  the sampler depths' sort kernel's (``depth_sort_launches``), and the
+  training chunks whose controls were drawn while the previous chunk ran
+  (``fill_predrawn``) or at the call (``fill_drawn``);
 - ``trace``: ``torch.profiler`` around a block, with spans on, written as a
   Chrome trace;
 - ``pipeline_macs``: analytic multiply-adds a frame.
@@ -118,7 +120,10 @@ _device_counts: dict = {}
 # host by form (``nerf_composite_launches``, ``nerf_raw_launches``: which
 # one composited a frame, in eager frames and captures only), the DoNeRF
 # kernel's, either form (``donerf_launches``), and the sampler depths' sort
-# kernel's (``depth_sort_launches``: 1 an eager served frame, 0 a replay).
+# kernel's (``depth_sort_launches``: 1 an eager served frame, 0 a replay);
+# and the training chunks (``train/fast_loop.py``) that took controls drawn
+# while the previous chunk ran (``fill_predrawn``) or drew them at the call
+# (``fill_drawn``), whose hit share is the first over both.
 COUNTERS = collections.Counter()
 
 

@@ -13,6 +13,10 @@ holds those against the eager steps).
   yields and the noise drawn from each step's key as
   ``torch_train_common.controls`` draws it;
 - the chunk equals the port's own per-step steps bit for bit;
+- the next chunk's controls, drawn while a chunk runs, are the draws of
+  its steps, and chunks that take them equal chunks drawn at the call bit
+  for bit; a call that does not continue the last one (another seed, an
+  earlier step, given controls) draws at the call; the fill counters;
 - twins of ``tests/test_train_smoke.py``'s scan tests: two chunks advance
   ``global_step`` by K each, ``device_reshuffle`` is an aligned
   permutation, the scan command line writes ``000010.ckpt``, a chunk wraps a
@@ -298,6 +302,116 @@ def test_scan_chunk_equals_per_step_steps_bit_for_bit(stage, buckets):
             for k, v in state[opt][part].items():
                 assert torch.equal(chunk[opt][part][k], v), (opt, part, k)
     assert chunk["global_step"] == state["global_step"] == K
+
+
+# ---------------------------------------- the next chunk's early draws --
+
+def run_chunks(fx, cfg, stage, state, calls, ex=None):
+    """``calls`` chunks, each ``(i_batch0, seed, controls)``, on ``ex`` (a
+    fresh executor for each chunk where None): (state, the last executor,
+    its metrics)."""
+    pool = torch.from_numpy(fx.pool.copy())
+    ids = torch.from_numpy(fx.ids.copy())
+    for i_batch0, seed, controls in calls:
+        run = ex or fast_loop.make_scan_executor(cfg, fx.H, fx.W, fx.focal,
+                                                 6, stage, K)
+        state, m = run(state, fx.tscene, pool, ids, i_batch0, seed,
+                       controls=controls)
+    return state, run, m
+
+
+def assert_same_chunks(a, ex_a, m_a, b, ex_b, m_b):
+    """Bit for bit: params, moments and step counts, the last chunk's
+    losses, metrics and controls."""
+    assert a["global_step"] == b["global_step"]
+    for x, y in zip(named_params(a["params"]).values(),
+                    named_params(b["params"]).values()):
+        assert torch.equal(x, y)
+    opts = [o for o in ("opt", "opt_nerf", "opt_s") if o in a]
+    for opt in opts:
+        assert a[opt]["count"] == b[opt]["count"]
+        for part in ("mu", "nu"):
+            for k, v in a[opt][part].items():
+                assert torch.equal(v, b[opt][part][k]), (opt, part, k)
+    assert torch.equal(ex_a.buf["losses"], ex_b.buf["losses"])
+    for k in m_a:
+        assert torch.equal(m_a[k], m_b[k]), k
+    for ca, cb in zip(ex_a.chunk_controls(), ex_b.chunk_controls()):
+        assert ca.keys() == cb.keys()
+        for k in ca:
+            assert torch.equal(torch.as_tensor(ca[k]),
+                               torch.as_tensor(cb[k])), k
+
+
+def fill_counts():
+    return (fast_loop.COUNTERS["fill_predrawn"],
+            fast_loop.COUNTERS["fill_drawn"])
+
+
+def init_for(stage, fx):
+    return (init_stage1_state if stage == 1 else init_stage2_state)(
+        fx.tparams())
+
+
+@pytest.mark.parametrize("stage", [1, 2])
+def test_predrawn_chunks_equal_chunks_drawn_at_the_call(stage):
+    """Two chunks on one executor (the second takes the controls drawn
+    while the first ran) against the same chunks each drawn at the call (a
+    fresh executor a chunk); the counters say which fill each took."""
+    fx, cfg = port_setup()
+    ex = fast_loop.make_scan_executor(cfg, fx.H, fx.W, fx.focal, 6, stage, K)
+    calls = [(0, SEED, None), (K * N_RAND, SEED, None)]
+    p0, d0 = fill_counts()
+    state, _, _ = run_chunks(fx, cfg, stage, init_for(stage, fx), calls[:1],
+                             ex)
+    assert fill_counts() == (p0, d0 + 1)
+    state, _, m = run_chunks(fx, cfg, stage, state, calls[1:], ex)
+    assert fill_counts() == (p0 + 1, d0 + 1)
+    want, ex_b, m_b = run_chunks(fx, cfg, stage, init_for(stage, fx), calls)
+    assert fill_counts() == (p0 + 1, d0 + 3)
+    assert_same_chunks(state, ex, m, want, ex_b, m_b)
+
+
+@pytest.mark.parametrize("stage", [1, 2])
+def test_staged_rows_are_the_next_chunks_draws(stage):
+    fx, cfg = port_setup()
+    ex = fast_loop.make_scan_executor(cfg, fx.H, fx.W, fx.focal, 6, stage, K)
+    run_chunks(fx, cfg, stage, init_for(stage, fx), [(0, SEED, None)], ex)
+    width = 64 if stage == 1 else cfg.N_samples
+    for j, step in enumerate(range(K + 1, 2 * K + 1)):
+        want = fast_loop.draw_device_controls(
+            SEED, step, 6, cfg.num_neighbor, max(1, 64 // cfg.N_samples),
+            N_RAND, width)
+        for key in fast_loop._CONTROL_KEYS:
+            assert torch.equal(ex.staged[key][j], want[key]), (step, key)
+
+
+@pytest.mark.parametrize("miss", ["seed", "earlier_step", "controls"])
+@pytest.mark.parametrize("stage", [1, 2])
+def test_a_call_that_does_not_continue_draws_at_the_call(stage, miss):
+    """After a chunk, a call with another seed, a state put back to an
+    earlier step, or given controls draws at the call: it equals the same
+    call on a fresh executor."""
+    fx, cfg = port_setup()
+    ex = fast_loop.make_scan_executor(cfg, fx.H, fx.W, fx.focal, 6, stage, K)
+    first = [(0, SEED, None)]
+    state, _, _ = run_chunks(fx, cfg, stage, init_for(stage, fx), first, ex)
+    twin, _, _ = run_chunks(fx, cfg, stage, init_for(stage, fx), first)
+    nxt = (K * N_RAND, SEED, None)
+    if miss == "seed":
+        nxt = (K * N_RAND, SEED + 1, None)
+    elif miss == "earlier_step":
+        state, twin = init_for(stage, fx), init_for(stage, fx)
+    else:
+        width = 64 if stage == 1 else cfg.N_samples
+        nxt = (K * N_RAND, SEED, [fast_loop.draw_device_controls(
+            SEED + 1, i, 6, cfg.num_neighbor, max(1, 64 // cfg.N_samples),
+            N_RAND, width) for i in range(K + 1, 2 * K + 1)])
+    p0, d0 = fill_counts()
+    state, _, m = run_chunks(fx, cfg, stage, state, [nxt], ex)
+    assert fill_counts() == (p0, d0 + 1)
+    want, ex_b, m_b = run_chunks(fx, cfg, stage, twin, [nxt])
+    assert_same_chunks(state, ex, m, want, ex_b, m_b)
 
 
 def test_scan_executor_runs_and_advances():
