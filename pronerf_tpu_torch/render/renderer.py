@@ -137,7 +137,10 @@ def make_frame_renderer(
     work to the frame and keep their sums outside any graph).
     ``COUNTERS["frame_replays"]`` counts the frames served by a replay,
     ``COUNTERS["frame_eager"]`` those run eagerly. Calling ``frame``
-    directly always runs eagerly: the way to see per-stage spans.
+    directly always runs eagerly: the way to see per-stage spans. Under
+    ``profiling.tracing()`` a frame served by a replay holds, inside
+    ``pn/frame``, ``pn/upload`` (the pose into the graph's tensor; not on
+    the capturing call), ``pn/replay`` and ``pn/outputs`` (the clones).
     """
     device = resolve_device(device)
     K = np.asarray(K)
@@ -204,10 +207,13 @@ def make_frame_renderer(
                 served["graph"], served["out"] = cuda_graph(
                     lambda: frame(packed, scene, pose))
             else:
-                served["pose"].copy_(as_f32(c2w)[:3, :4])
-            served["graph"].replay()
+                with span("upload"):
+                    served["pose"].copy_(as_f32(c2w)[:3, :4])
+            with span("replay"):
+                served["graph"].replay()
             COUNTERS["frame_replays"] += 1
-            return {k: v.clone() for k, v in served["out"].items()}
+            with span("outputs"):
+                return {k: v.clone() for k, v in served["out"].items()}
 
     render_frame.statics = statics
     render_frame.frame = frame

@@ -38,7 +38,9 @@ steps as a chunk:
 - with ``utils/profiling.tracing()`` on, a chunk is the span ``pn/chunk``,
   holding ``pn/fill`` (the host work the replays wait on: the copy of the
   staged draws, or the draws at the call, and the learning rates and Adam
-  counts), ``pn/capture`` (each capture), one ``pn/step.<kind>`` a step (a
+  counts), on the card ``pn/key`` (the graph key: every state tensor's,
+  the pool's and the scene's address, compared with the graphs'),
+  ``pn/capture`` (each capture), one ``pn/step.<kind>`` a step (a
   replay on the card, the eager step on the CPU) and last ``pn/predraw``
   (the next chunk's draws); ``device_reshuffle`` is ``pn/reshuffle``.
 
@@ -353,13 +355,14 @@ class _ScanExecutor:
         plan = [(kind, widths[j] if kind == "nerf" else None)
                 for j, kind in enumerate(kinds)]
         if device.type == "cuda":
-            key = (tuple(t.data_ptr() for t in self._mutables(state)),
-                   pool.data_ptr(), pool_ids.data_ptr(),
-                   tuple(v.data_ptr() for v in scene.values()
-                         if torch.is_tensor(v)))
-            if key != self.graph_key:  # other tensors: capture anew
-                self.graphs, self.graph_key = {}, key
-                self.mempool = torch.cuda.graph_pool_handle()
+            with span("key"):
+                key = (tuple(t.data_ptr() for t in self._mutables(state)),
+                       pool.data_ptr(), pool_ids.data_ptr(),
+                       tuple(v.data_ptr() for v in scene.values()
+                             if torch.is_tensor(v)))
+                if key != self.graph_key:  # other tensors: capture anew
+                    self.graphs, self.graph_key = {}, key
+                    self.mempool = torch.cuda.graph_pool_handle()
             for kw in dict.fromkeys(plan):
                 if kw not in self.graphs:
                     with span("capture"):

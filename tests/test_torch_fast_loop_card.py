@@ -10,7 +10,9 @@ copies them in.
   chunk): params, Adam moments, losses, metrics, the chunk's controls; the
   fill counters say which fill each chunk took;
 - the early draws (``pn/predraw``) make no host sync:
-  ``torch.cuda.set_sync_debug_mode("error")`` around them.
+  ``torch.cuda.set_sync_debug_mode("error")`` around them;
+- under ``profiling.tracing()`` each chunk (``pn/chunk``) holds one
+  ``pn/key``, the graph key's walk, before its first ``pn/step.joint``.
 
 The scene is synthetic (6 views of 128x96, 73,728 rays in the pool). These
 tests need a CUDA card and skip without one; the file imports no JAX. On the
@@ -157,3 +159,29 @@ def test_predrawn_chunks_equal_chunks_drawn_at_the_call(card):
 @pytest.mark.card
 def test_the_early_draws_make_no_host_sync(card):
     strict_predraw(card)
+
+
+@pytest.mark.card
+def test_each_chunk_holds_one_key_span(card):
+    from torch.profiler import ProfilerActivity, profile
+
+    from pronerf_tpu_torch.utils import profiling
+
+    s = Setup(card)
+    ex = s.executor()
+    with profile(activities=[ProfilerActivity.CPU]) as prof, \
+            profiling.tracing():
+        s.chunks(s.state(), 2, ex)
+        torch.cuda.synchronize(card)
+    spans = [(e.name[3:], e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.name.startswith("pn/")]
+    chunks = [r for r in spans if r[0] == "chunk"]
+    assert len(chunks) == 2
+    for c in chunks:
+        within = sorted((r for r in spans if r is not c
+                         and c[1] <= r[1] and r[2] <= c[2]),
+                        key=lambda r: r[1])
+        keys = [r for r in within if r[0] == "key"]
+        assert len(keys) == 1, within
+        first_step = next(r for r in within if r[0] == "step.joint")
+        assert keys[0][2] <= first_step[1]

@@ -15,7 +15,10 @@ and at 1008x756 (the windowed gather), the tiled form (1008x756 in tiles of
 - a new parameter set, and a scene with a tensor replaced, each cost one
   capture more and render what they hold;
 - with the device counters on (``profiling.tracing(counters=True)``) the
-  frame runs eagerly.
+  frame runs eagerly;
+- under ``profiling.tracing()`` a replayed frame holds ``pn/upload``,
+  ``pn/replay`` and ``pn/outputs``, in that order, inside ``pn/frame``,
+  and every kernel of the replay was launched inside ``pn/replay``.
 
 These tests need a CUDA card and skip without one; the file imports no JAX.
 On the card, from the root of the repo (``--noconftest``: the tests'
@@ -222,3 +225,62 @@ def test_device_counters_run_the_frame_eagerly(card, form):
     render(params, scene, c2w)
     assert moved(before) == {"graph_captures": 0, "frame_eager": 0,
                              "frame_replays": 1}
+
+
+def chrome_events(prof, tmp_path):
+    """The profile's Chrome trace: (the port's spans as name -> [(start,
+    end)], the kernels as (name, correlation), the CUDA launch calls as
+    correlation -> (name, start))."""
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    spans, kernels, launches = {}, [], {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("ph") != "X":
+            continue
+        cat, name, ts = e.get("cat", ""), e.get("name", ""), float(e["ts"])
+        corr = (e.get("args") or {}).get("correlation")
+        if cat == "user_annotation" and name.startswith("pn/"):
+            spans.setdefault(name[3:], []).append(
+                (ts, ts + float(e.get("dur", 0.0))))
+        elif cat == "kernel":
+            kernels.append((name, corr))
+        elif cat in ("cuda_runtime", "cuda_driver") and corr is not None:
+            launches[corr] = (name, ts)
+    return spans, kernels, launches
+
+
+@pytest.mark.card
+def test_a_replayed_frame_holds_its_spans(card, tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    from pronerf_tpu_torch.utils import profiling
+
+    render, sc, scene = renderer_of("served_504x378", card)
+    params = params_of(3, card)
+    c2w = poses_of(sc, 1)[0]
+    for _ in range(3):  # eager, capture, replay
+        render(params, scene, c2w)
+    torch.cuda.synchronize()
+    before = events()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            profiling.tracing():
+        render(params, scene, c2w)
+        torch.cuda.synchronize()
+    assert moved(before) == {"graph_captures": 0, "frame_eager": 0,
+                             "frame_replays": 1}
+    spans, kernels, launches = chrome_events(prof, tmp_path)
+    assert sorted(spans) == ["frame", "outputs", "replay", "upload"]
+    assert all(len(v) == 1 for v in spans.values()), spans
+    (frame,) = spans["frame"]
+    inner = [spans[n][0] for n in ("upload", "replay", "outputs")]
+    for a, b in inner:
+        assert frame[0] <= a <= b <= frame[1]
+    for (_, end), (start, _) in zip(inner, inner[1:]):
+        assert end <= start
+    replay = spans["replay"][0]
+    graph = [k for k in kernels if launches.get(k[1], ("",))[0]
+             .startswith("cudaGraphLaunch")]
+    assert len(graph) > 20  # the frame's kernels, one launch
+    for name, corr in graph:
+        assert replay[0] <= launches[corr][1] <= replay[1], name

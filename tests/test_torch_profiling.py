@@ -229,6 +229,7 @@ def test_chunk_spans(stage, kinds):
     top = [s for s in spans if not any(inside(s, o) for o in spans
                                        if o is not s)]
     assert [s[0] for s in top] == ["chunk", "reshuffle"]
+    assert "key" not in {s[0] for s in spans}  # the card's graph key only
     chunk = top[0]
     level = [s for s in spans if s[0] == "fill" or s[0].startswith("step.")]
     assert [s[0] for s in level] == ["fill"] + [f"step.{k}" for k in kinds]
